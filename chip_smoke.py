@@ -1,0 +1,372 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+holds each kernel against its plain PyTorch version on the card, drives
+the aligner's main path (``GenASMAligner.align``) on PBSIM2-like long
+reads, and checks the kernel path against the CPU plain path end to end.
+Every phase prints one JSON line; any failure raises and exits non-zero.
+The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
+no result, where CUDA is not available.  Imports nothing of JAX or of the
+JAX package ``repro``.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+from repro_torch.core.aligner import GenASMAligner             # noqa: E402
+from repro_torch.core.config import AlignerConfig              # noqa: E402
+from repro_torch.core.oracle import validate_cigar             # noqa: E402
+from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
+                                     synth_genome)
+from repro_torch.kernels import build, genasm_dc               # noqa: E402
+from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
+
+# H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
+# INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper whitepaper)
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# integer operations the DP needs per (column, level, word): three shifts,
+# three carry inserts, one PM OR, three ANDs; per traceback step: four bit
+# tests (shift, AND, compare) and the cursor bookkeeping
+OPS_PER_CELL_WORD = 10
+OPS_PER_WALK_STEP = 20
+
+KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
+    "tb_fused": (genasm_dc.genasm_tb_fused, genasm_dc.tb_fused_plain,
+                 "src/repro/kernels/genasm_dc.py:414 _kernel_fused"),
+    "tail_banded": (genasm_dc.genasm_tail_banded, genasm_dc.tail_banded_plain,
+                    "src/repro/kernels/genasm_dc.py:734 _kernel_tail_banded"),
+    "tail_full": (genasm_dc.genasm_tail_full, genasm_dc.tail_full_plain,
+                  "src/repro/kernels/genasm_dc.py:588 _kernel_tail_fused"),
+}
+SOURCE = "src/repro_torch/kernels/csrc/genasm_fused.cu"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _counts(device: torch.device):
+    """(counts of the path `device` should take, counts of the other):
+    kernel launches on the card, plain-version calls on the CPU (the CPU
+    only ever serves a rehearsal of this script at a small size)."""
+    if device.type == "cuda":
+        return genasm_dc.LAUNCHES, genasm_dc.PLAIN_CALLS
+    return genasm_dc.PLAIN_CALLS, genasm_dc.LAUNCHES
+
+
+def phase_device() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit("device", name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count(), nvidia_smi=smi,
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+    return smi
+
+
+def phase_build() -> None:
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load_library()
+    seconds = time.perf_counter() - t0
+    emit("build", seconds=seconds, library=lib.name,
+         ptxas=_ptxas_usage(build.ptxas_report(lib).read_text()))
+
+
+def _ptxas_usage(report: str) -> dict:
+    """{kernel<NW,KP>: "registers / spill stores / spill loads"} from
+    ptxas -v output."""
+    usage, name, spill = {}, None, ""
+    for line in report.splitlines():
+        if "Function properties for" in line:
+            mangled = line.split()[-1]
+            kind = next(k for k in KERNELS if f"{k}_kernel" in mangled)
+            nw, kp = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)[0]
+            name = f"{kind}<NW={nw},KP={kp}>"
+        elif "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes", line)
+            spill = f"spill stores {nums[1]} B, spill loads {nums[2]} B"
+        elif "Used" in line and "registers" in line and name:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            usage[name] = f"{regs} registers, {spill}"
+    return usage
+
+
+# ---- phase 3: every kernel against its plain version on the card ----
+
+def _mutated(rng, m_len, n: int, k: int):
+    """Random patterns of lengths m_len (sentinel-padded to max(m_len))
+    and texts (B, n) within ~k+2 edits of them, plus the texts' true
+    lengths (<= n)."""
+    n_pairs = len(m_len)
+    pats = rng.integers(0, 4, (n_pairs, int(m_len.max()))).astype(np.uint8)
+    txts = np.full((n_pairs, n), 9, np.uint8)
+    lens = np.zeros(n_pairs, np.int32)
+    for b in range(n_pairs):
+        pats[b, m_len[b]:] = 255
+        t = list(pats[b, :m_len[b]])
+        for _ in range(int(rng.integers(0, k + 3))):
+            pos = int(rng.integers(0, max(1, len(t))))
+            r = rng.random()
+            if r < 0.4 and t:
+                t[pos] = int(rng.integers(0, 4))
+            elif r < 0.7:
+                t.insert(pos, int(rng.integers(0, 4)))
+            elif len(t) > 1:
+                del t[pos]
+        t = t[:n]
+        txts[b, :len(t)] = t
+        lens[b] = len(t)
+    return pats, txts, lens
+
+
+def _case(name: str, cfg: AlignerConfig, n_pairs: int, rng, dev):
+    """Inputs (on `dev`) and keyword arguments of one kernel at the shapes
+    the main path gives it, and the columns each lane fills."""
+    if name == "tb_fused":
+        pats, txts, _ = _mutated(rng, np.full(n_pairs, cfg.W), cfg.W, cfg.k)
+        txts = np.where(txts == 9, rng.integers(0, 4, txts.shape), txts)
+        pm, text = _to_kernel_layout(torch.from_numpy(pats).to(dev),
+                                     torch.from_numpy(txts).to(dev), cfg)
+        kw = dict(cfg=cfg, commit_limit=cfg.stride, max_ops=cfg.tb_max_ops,
+                  max_steps=cfg.tb_max_steps)
+        return (pm, text), kw, np.full(n_pairs, cfg.W)
+    n_text = cfg.W + 4 * cfg.k
+    m_len = rng.integers(cfg.O + 1, cfg.W + 1, n_pairs).astype(np.int32)
+    pats, txts, n_len = _mutated(rng, m_len, n_text, cfg.k)
+    pm, text = _to_kernel_layout(torch.from_numpy(pats).to(dev),
+                                 torch.from_numpy(txts).to(dev), cfg)
+    lens = [torch.from_numpy(x)[None].to(dev).contiguous()
+            for x in (m_len, n_len)]
+    kw = dict(cfg=cfg, n_text=n_text, commit_limit=2 * (cfg.W + n_text),
+              max_ops=cfg.W + n_text, max_steps=cfg.W + n_text + 4)
+    return (pm, text, *lens), kw, np.minimum(n_len, n_text)
+
+
+def _bound(cfg, inputs, outputs, cols, meta):
+    """Least time on an H100 for this call's work, and what bounds it:
+    bytes (each input read once, each output written once) over HBM
+    bandwidth vs the integer operations these inputs need (the levels up
+    to each lane's dist in each column it fills, and the walk steps it
+    takes) over the INT32 rate."""
+    nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
+    dist = meta[genasm_dc.META_DIST].long().cpu()
+    levels = torch.clamp(dist, max=cfg.k) + 1
+    cols = torch.as_tensor(cols, dtype=torch.long)
+    fill_ops = int((cols * levels).sum()) * cfg.nw * OPS_PER_CELL_WORD
+    walk_ops = int(meta[genasm_dc.META_NOPS].long().sum()) * OPS_PER_WALK_STEP
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (fill_ops + walk_ops) / INT32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _time_ms(fn, reps: int, device: torch.device) -> float:
+    """Mean ms of `reps` calls: CUDA events on the card."""
+    if device.type != "cuda":
+        start = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - start) * 1e3 / reps
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / reps
+
+
+def phase_kernels(device: torch.device, n_pairs: int = 4096,
+                  reps: int = 20) -> list[dict]:
+    rng = np.random.default_rng(2022)
+    cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
+             ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48)]
+    rows = []
+    for name, k in cases:
+        cfg = AlignerConfig(k=k)
+        wrapper, plain, _ = KERNELS[name]
+        if name != "tb_fused" and (name == "tail_banded") != cfg.tail_banded:
+            raise AssertionError(f"k={k} does not select {name}")
+        inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
+        call = lambda: wrapper(*inputs, **kw)           # noqa: E731
+        got = call()
+        _sync(device)
+        start = time.perf_counter()
+        ref = plain(*inputs, **kw)
+        _sync(device)
+        plain_ms = (time.perf_counter() - start) * 1e3
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in
+                  zip(got, ref))
+        if err != 0:
+            raise AssertionError(f"{name} k={k}: kernel and plain version "
+                                 f"differ (max abs err {err})")
+        for _ in range(2):
+            call()
+        ms = _time_ms(call, reps, device)
+        bound_ms, bound_by = _bound(cfg, inputs, got, cols, got[1])
+        meta = got[1].cpu()
+        row = dict(name=name, k=k, lanes=n_pairs, max_abs_err=err, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   solved=int((meta[genasm_dc.META_DIST] <= k).sum()))
+        emit("kernel", **row)
+        rows.append(row)
+    return rows
+
+
+# ---- phase 4: the main path at a real size ----
+
+def phase_main_path(device: torch.device, n_pairs: int = 2048,
+                    read_len: int = 10_000, genome_len: int = 5_000_000,
+                    sample: int = 64) -> dict:
+    t0 = time.perf_counter()
+    genome = synth_genome(genome_len, seed=2022)
+    rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
+                                                       error_rate=0.10,
+                                                       seed=2022))
+    sim_s = time.perf_counter() - t0
+    aligner = GenASMAligner(AlignerConfig(), rescue_rounds=2, device=device)
+    genasm_dc.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    res = aligner.align(rs.reads, rs.ref_segments)
+    _sync(device)
+    align_s = time.perf_counter() - t0
+    taken, other = (dict(c) for c in _counts(device))
+    if min(taken.values()) == 0 or max(other.values()) != 0:
+        raise AssertionError(f"main path did not run on the {device} path "
+                             f"alone: {taken}, other path {other}")
+    if aligner.last_run["rounds_run"] < 2:
+        raise AssertionError(f"rescue ladder did not run: {aligner.last_run}")
+    checked = 0
+    for i in range(sample):
+        if not res.failed[i]:
+            validate_cigar(rs.reads[i], rs.ref_segments[i], res.ops[i],
+                           expected_dist=int(res.dist[i]))
+            checked += 1
+    if checked == 0:
+        raise AssertionError("no lane of the sample aligned")
+    out = dict(pairs=n_pairs, read_len=read_len, sim_s=sim_s,
+               align_s=align_s, pairs_per_s=n_pairs / align_s,
+               failed_share=float(res.failed.mean()),
+               cigars_validated=checked, **aligner.last_run,
+               summary=res.summary(base_k=aligner.cfg.k),
+               transfers=vars(aligner.transfers), launches=taken,
+               other_path_calls=other)
+    emit("main_path", **out)
+    if device.type == "cuda":
+        emit("main_path_profile", **_device_breakdown(
+            lambda: aligner.align(rs.reads, rs.ref_segments)))
+    return out
+
+
+def _device_breakdown(run) -> dict:
+    """Device time of one more main-path batch under torch.profiler, by
+    kernel (ours by name, the rest of PyTorch's together, copies), beside
+    the batch's host-clock time; the idle share is the part of the wall
+    time no kernel or copy ran."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
+    launches = dict.fromkeys(ms, 0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = next((k for k in KERNELS if f"{k}_kernel" in ev.key),
+                    "memcpy" if "memcpy" in ev.key.lower()
+                    else "torch_kernels")
+        ms[name] += ev.self_device_time_total / 1e3
+        launches[name] += ev.count
+    busy = sum(ms.values()) / 1e3
+    return dict(wall_s=wall, device_ms=ms, device_launches=launches,
+                device_busy_s=busy,
+                idle_share=1 - busy / wall if busy else None)
+
+
+# ---- phase 5: kernel path against plain path, end to end ----
+
+def phase_end_to_end(device: torch.device, n_pairs: int = 32,
+                     read_len: int = 2_000) -> None:
+    genome = synth_genome(1_000_000, seed=7)
+    rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
+                                                       seed=7))
+    results, seconds = {}, {}
+    for dev in (device, torch.device("cpu")):
+        genasm_dc.reset_counts()
+        t0 = time.perf_counter()
+        results[dev.type] = GenASMAligner(AlignerConfig(), rescue_rounds=2,
+                                          device=dev).align(rs.reads,
+                                                            rs.ref_segments)
+        seconds[dev.type] = time.perf_counter() - t0
+        if _counts(dev)[0]["tb_fused"] == 0:
+            raise AssertionError(f"{dev} run did not reach its path")
+    a, b = results[device.type], results["cpu"]
+    for field in ("dist", "failed", "k_used", "read_consumed",
+                  "ref_consumed"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"end to end: {field} differs")
+    if a.cigars != b.cigars or not all(
+            np.array_equal(x, y) for x, y in zip(a.ops, b.ops)):
+        raise AssertionError("end to end: CIGARs / ops differ")
+    emit("end_to_end", pairs=n_pairs, read_len=read_len, equal=True,
+         seconds=seconds, failed_share=float(a.failed.mean()))
+
+
+def main() -> None:
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_build()
+    cuda = torch.device("cuda")
+    rows = phase_kernels(cuda)
+    main_path = phase_main_path(cuda)
+    phase_end_to_end(cuda)
+    kernels = []
+    for name, (_, _, replaces) in KERNELS.items():
+        base = next(r for r in rows if r["name"] == name)
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=main_path["launches"][name],
+            max_abs_err=max(r["max_abs_err"] for r in rows
+                            if r["name"] == name),
+            ms=base["ms"], plain_ms=base["plain_ms"],
+            bound_ms=base["bound_ms"], bound_by=base["bound_by"],
+            library_ms=None, k=base["k"], lanes=base["lanes"],
+            by_k={r["k"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
+                               bound_ms=r["bound_ms"])
+                  for r in rows if r["name"] == name}))
+    emit("done", seconds=time.perf_counter() - t0)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,101 @@
+"""The plain versions of the fused kernels K1, K2 and K4 against the JAX
+kernels, run as the reference's own tests run them (Pallas interpret mode
+on the CPU).  Every field of the returned dict must be equal: the DP is
+integer bitvector arithmetic, so the tolerance is zero.  B = 37 is not a
+multiple of the lane tile, so the batch padding is on the path too."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ops import genasm_tail_fused_op as ref_tail_op
+from repro.kernels.ops import genasm_tb_fused_op as ref_tb_op
+from repro_torch.kernels import genasm_dc
+from repro_torch.kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
+from tests.conftest import mutate_seq
+from tests.test_torch_config import cfg_pair
+
+B = 37
+FIELDS = ("ops", "n_ops", "read_adv", "ref_adv", "cost", "ok", "d_final",
+          "dist", "solved", "levels")
+
+
+def _assert_equal(port, ref):
+    for key in FIELDS:
+        np.testing.assert_array_equal(port[key].numpy(), np.asarray(ref[key]),
+                                      err_msg=key)
+        assert port[key].numpy().dtype == np.asarray(ref[key]).dtype, key
+
+
+def _n_edits(rng, b, k):
+    """Mostly within k (solved lanes), every fifth lane far past it."""
+    return 2 * k + 4 if b % 5 == 4 else int(rng.integers(0, k + 3))
+
+
+def _square_batch(rng, W, k):
+    pats, txts = [], []
+    for b in range(B):
+        p = rng.integers(0, 4, W).astype(np.uint8)
+        pats.append(p)
+        txts.append(mutate_seq(p, _n_edits(rng, b, k), rng, extend_to=W))
+    return np.stack(pats), np.stack(txts)
+
+
+def _tail_batch(rng, W, k):
+    """Ragged tails: m_len in [0, W], texts a few edits away (or far past
+    k), a few cut short, sentinel-padded."""
+    n_text = W + 4 * k
+    pats = np.full((B, W), 255, np.uint8)
+    txts = np.full((B, n_text), 9, np.uint8)
+    m_len = np.zeros(B, np.int32)
+    n_len = np.zeros(B, np.int32)
+    for b in range(B):
+        m = int(rng.integers(0, W + 1))
+        p = rng.integers(0, 4, m).astype(np.uint8)
+        t = mutate_seq(p, _n_edits(rng, b, k), rng)[:n_text]
+        if rng.random() < 0.2:
+            t = t[:max(0, len(t) - int(rng.integers(1, 6)))]
+        pats[b, :m], txts[b, :len(t)] = p, t
+        m_len[b], n_len[b] = m, len(t)
+    return pats, txts, m_len, n_len
+
+
+@pytest.mark.parametrize("W,O,k", [(16, 6, 4), (64, 24, 12), (64, 24, 24)])
+def test_k1_tb_fused_equals_reference(W, O, k):
+    ref_cfg, cfg = cfg_pair(W=W, O=O, k=k)
+    pat, txt = _square_batch(np.random.default_rng(W + k), W, k)
+    kw = dict(commit_limit=cfg.stride, max_ops=cfg.tb_max_ops,
+              max_steps=cfg.tb_max_steps)
+    ref = ref_tb_op(jnp.asarray(pat), jnp.asarray(txt), cfg=ref_cfg, **kw)
+    before = dict(genasm_dc.PLAIN_CALLS)
+    port = genasm_tb_fused_op(torch.from_numpy(pat), torch.from_numpy(txt),
+                              cfg=cfg, **kw)
+    assert genasm_dc.PLAIN_CALLS["tb_fused"] == before["tb_fused"] + 1
+    _assert_equal(port, ref)
+    assert 0 < int(port["solved"].sum()) < B       # both outcomes covered
+
+
+@pytest.mark.parametrize("W,O,k,tail_store,kernel", [
+    (64, 24, 12, "auto", "tail_banded"),
+    (16, 6, 4, "auto", "tail_full"),
+    (64, 24, 24, "auto", "tail_full"),
+    (64, 24, 12, "full", "tail_full"),
+])
+def test_k2_k4_tail_equals_reference(W, O, k, tail_store, kernel):
+    ref_cfg, cfg = cfg_pair(W=W, O=O, k=k, tail_store=tail_store)
+    assert (kernel == "tail_banded") == cfg.tail_banded == ref_cfg.tail_banded
+    pat, txt, m_len, n_len = _tail_batch(np.random.default_rng(3 * k + W),
+                                         W, k)
+    n_text = W + 4 * k
+    kw = dict(n_text=n_text, commit_limit=2 * (W + n_text),
+              max_ops=W + n_text, max_steps=W + n_text + 4)
+    ref = ref_tail_op(jnp.asarray(pat), jnp.asarray(txt),
+                      jnp.asarray(m_len), jnp.asarray(n_len), cfg=ref_cfg,
+                      **kw)
+    before = dict(genasm_dc.PLAIN_CALLS)
+    port = genasm_tail_fused_op(torch.from_numpy(pat), torch.from_numpy(txt),
+                                torch.from_numpy(m_len),
+                                torch.from_numpy(n_len), cfg=cfg, **kw)
+    assert genasm_dc.PLAIN_CALLS[kernel] == before[kernel] + 1
+    _assert_equal(port, ref)
+    assert 0 < int(port["solved"].sum()) < B
