@@ -5,7 +5,9 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card, drives
 the aligner's main path (``GenASMAligner.align``) on PBSIM2-like long
-reads, and checks the kernel path against the CPU plain path end to end.
+reads through the fused backend (K1, K2, K4) and the split backend (K3 and
+the PyTorch traceback), holds the two results equal, and checks the kernel
+path against the CPU plain path end to end on both backends.
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -27,6 +29,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core.aligner import GenASMAligner             # noqa: E402
 from repro_torch.core.config import AlignerConfig              # noqa: E402
+from repro_torch.core.windowing import n_main_windows          # noqa: E402
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
                                      synth_genome)
@@ -50,7 +53,12 @@ KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
                     "src/repro/kernels/genasm_dc.py:734 _kernel_tail_banded"),
     "tail_full": (genasm_dc.genasm_tail_full, genasm_dc.tail_full_plain,
                   "src/repro/kernels/genasm_dc.py:588 _kernel_tail_fused"),
+    "dc_band": (genasm_dc.genasm_dc, genasm_dc.dc_band_plain,
+                "src/repro/kernels/genasm_dc.py:324 _kernel"),
 }
+#: the kernels each backend's main path launches, and no other
+PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full"),
+                "split": ("dc_band",)}
 SOURCE = "src/repro_torch/kernels/csrc/genasm_fused.cu"
 
 
@@ -102,9 +110,12 @@ def _ptxas_usage(report: str) -> dict:
     for line in report.splitlines():
         if "Function properties for" in line:
             mangled = line.split()[-1]
-            kind = next(k for k in KERNELS if f"{k}_kernel" in mangled)
-            nw, kp = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)[0]
-            name = f"{kind}<NW={nw},KP={kp}>"
+            kind = next((k for k in KERNELS if f"{k}_kernel" in mangled),
+                        None)
+            name = None
+            if kind is not None:
+                nw, kp = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)[0]
+                name = f"{kind}<NW={nw},KP={kp}>"
         elif "spill stores" in line:
             nums = re.findall(r"(\d+) bytes", line)
             spill = f"spill stores {nums[1]} B, spill loads {nums[2]} B"
@@ -145,13 +156,15 @@ def _mutated(rng, m_len, n: int, k: int):
 def _case(name: str, cfg: AlignerConfig, n_pairs: int, rng, dev):
     """Inputs (on `dev`) and keyword arguments of one kernel at the shapes
     the main path gives it, and the columns each lane fills."""
-    if name == "tb_fused":
+    if name in ("tb_fused", "dc_band"):
         pats, txts, _ = _mutated(rng, np.full(n_pairs, cfg.W), cfg.W, cfg.k)
         txts = np.where(txts == 9, rng.integers(0, 4, txts.shape), txts)
         pm, text = _to_kernel_layout(torch.from_numpy(pats).to(dev),
                                      torch.from_numpy(txts).to(dev), cfg)
-        kw = dict(cfg=cfg, commit_limit=cfg.stride, max_ops=cfg.tb_max_ops,
-                  max_steps=cfg.tb_max_steps)
+        kw = dict(cfg=cfg)
+        if name == "tb_fused":
+            kw.update(commit_limit=cfg.stride, max_ops=cfg.tb_max_ops,
+                      max_steps=cfg.tb_max_steps)
         return (pm, text), kw, np.full(n_pairs, cfg.W)
     n_text = cfg.W + 4 * cfg.k
     m_len = rng.integers(cfg.O + 1, cfg.W + 1, n_pairs).astype(np.int32)
@@ -165,18 +178,26 @@ def _case(name: str, cfg: AlignerConfig, n_pairs: int, rng, dev):
     return (pm, text, *lens), kw, np.minimum(n_len, n_text)
 
 
-def _bound(cfg, inputs, outputs, cols, meta):
+def _dist_and_steps(name: str, out):
+    """Per-lane dist and the walk steps taken, from a kernel's outputs (K3
+    walks no step)."""
+    if name == "dc_band":
+        return out[0].long().cpu(), 0
+    meta = out[1].long().cpu()
+    return meta[genasm_dc.META_DIST], int(meta[genasm_dc.META_NOPS].sum())
+
+
+def _bound(cfg, inputs, outputs, cols, dist, walk_steps: int):
     """Least time on an H100 for this call's work, and what bounds it:
     bytes (each input read once, each output written once) over HBM
     bandwidth vs the integer operations these inputs need (the levels up
     to each lane's dist in each column it fills, and the walk steps it
     takes) over the INT32 rate."""
     nbytes = sum(t.numel() * t.element_size() for t in (*inputs, *outputs))
-    dist = meta[genasm_dc.META_DIST].long().cpu()
     levels = torch.clamp(dist, max=cfg.k) + 1
     cols = torch.as_tensor(cols, dtype=torch.long)
     fill_ops = int((cols * levels).sum()) * cfg.nw * OPS_PER_CELL_WORD
-    walk_ops = int(meta[genasm_dc.META_NOPS].long().sum()) * OPS_PER_WALK_STEP
+    walk_ops = walk_steps * OPS_PER_WALK_STEP
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = (fill_ops + walk_ops) / INT32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -202,12 +223,13 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
                   reps: int = 20) -> list[dict]:
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
-             ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48)]
+             ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
+             ("dc_band", 12), ("dc_band", 24), ("dc_band", 48)]
     rows = []
     for name, k in cases:
         cfg = AlignerConfig(k=k)
         wrapper, plain, _ = KERNELS[name]
-        if name != "tb_fused" and (name == "tail_banded") != cfg.tail_banded:
+        if name.startswith("tail") and (name == "tail_banded") != cfg.tail_banded:
             raise AssertionError(f"k={k} does not select {name}")
         inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
         call = lambda: wrapper(*inputs, **kw)           # noqa: E731
@@ -225,50 +247,68 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
         for _ in range(2):
             call()
         ms = _time_ms(call, reps, device)
-        bound_ms, bound_by = _bound(cfg, inputs, got, cols, got[1])
-        meta = got[1].cpu()
+        dist, steps = _dist_and_steps(name, got)
+        bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
         row = dict(name=name, k=k, lanes=n_pairs, max_abs_err=err, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   solved=int((meta[genasm_dc.META_DIST] <= k).sum()))
+                   solved=int((dist <= k).sum()))
         emit("kernel", **row)
         rows.append(row)
     return rows
 
 
-# ---- phase 4: the main path at a real size ----
+# ---- phase 4: the main path at a real size, fused then split ----
 
-def phase_main_path(device: torch.device, n_pairs: int = 2048,
-                    read_len: int = 10_000, genome_len: int = 5_000_000,
-                    sample: int = 64) -> dict:
-    t0 = time.perf_counter()
+def long_reads(n_pairs: int = 2048, read_len: int = 10_000,
+               genome_len: int = 5_000_000):
+    """The main path's batch: PBSIM2-like CLR reads at 10 % error."""
     genome = synth_genome(genome_len, seed=2022)
-    rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
-                                                       error_rate=0.10,
-                                                       seed=2022))
-    sim_s = time.perf_counter() - t0
-    aligner = GenASMAligner(AlignerConfig(), rescue_rounds=2, device=device)
+    return simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
+                                                         error_rate=0.10,
+                                                         seed=2022))
+
+
+def _drive(device: torch.device, backend: str, rs):
+    """Align `rs` through ``GenASMAligner.align`` on `backend` at the
+    default geometry (W=64, O=24, k=12, ladder to 48), the launch counts
+    set to 0 just before and read just after.  Fails unless exactly the
+    backend's kernels ran on the card (or, on the CPU, exactly their plain
+    versions).  Returns the aligner, the result, the host seconds and the
+    counts."""
+    aligner = GenASMAligner(AlignerConfig(backend=backend), rescue_rounds=2,
+                            device=device)
     genasm_dc.reset_counts()
     _sync(device)
     t0 = time.perf_counter()
     res = aligner.align(rs.reads, rs.ref_segments)
     _sync(device)
-    align_s = time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     taken, other = (dict(c) for c in _counts(device))
-    if min(taken.values()) == 0 or max(other.values()) != 0:
-        raise AssertionError(f"main path did not run on the {device} path "
-                             f"alone: {taken}, other path {other}")
+    expected = PATH_KERNELS[backend]
+    if (min(taken[n] for n in expected) == 0 or max(other.values()) != 0
+            or any(taken[n] for n in KERNELS if n not in expected)):
+        raise AssertionError(f"{backend} path did not run on the {device} "
+                             f"path alone: {taken}, other path {other}")
+    return aligner, res, seconds, taken, other
+
+
+def phase_main_path(device: torch.device, rs, sample: int = 64):
+    """The fused backend on the main path's batch.  Returns the phase's
+    numbers and the AlignResult."""
+    aligner, res, align_s, taken, other = _drive(device, "fused", rs)
     if aligner.last_run["rounds_run"] < 2:
         raise AssertionError(f"rescue ladder did not run: {aligner.last_run}")
     checked = 0
-    for i in range(sample):
+    for i in range(min(sample, len(rs.reads))):
         if not res.failed[i]:
             validate_cigar(rs.reads[i], rs.ref_segments[i], res.ops[i],
                            expected_dist=int(res.dist[i]))
             checked += 1
     if checked == 0:
         raise AssertionError("no lane of the sample aligned")
-    out = dict(pairs=n_pairs, read_len=read_len, sim_s=sim_s,
-               align_s=align_s, pairs_per_s=n_pairs / align_s,
+    n_pairs = len(rs.reads)
+    out = dict(pairs=n_pairs, read_len=len(rs.reads[0]), align_s=align_s,
+               pairs_per_s=n_pairs / align_s,
                failed_share=float(res.failed.mean()),
                cigars_validated=checked, **aligner.last_run,
                summary=res.summary(base_k=aligner.cfg.k),
@@ -278,6 +318,54 @@ def phase_main_path(device: torch.device, n_pairs: int = 2048,
     if device.type == "cuda":
         emit("main_path_profile", **_device_breakdown(
             lambda: aligner.align(rs.reads, rs.ref_segments)))
+    return out, res
+
+
+def _assert_same_result(a, b, what: str) -> None:
+    for field in ("dist", "failed", "k_used", "read_consumed",
+                  "ref_consumed"):
+        if not np.array_equal(getattr(a, field), getattr(b, field)):
+            raise AssertionError(f"{what}: {field} differs")
+    if a.cigars != b.cigars or not all(
+            np.array_equal(x, y) for x, y in zip(a.ops, b.ops)):
+        raise AssertionError(f"{what}: CIGARs / ops differ")
+
+
+def phase_main_path_split(device: torch.device, rs, fused: dict,
+                          fused_res, profile_rs=None) -> dict:
+    """The split backend (K3 per main window, the PyTorch traceback, the
+    plain tail) on the same batch: K3 launched once per main window of
+    every rung run, no plain version called, and every AlignResult field
+    and the level count equal to the fused path's (``fused`` and
+    ``fused_res``, from ``phase_main_path``).  On the card it profiles one
+    more batch, ``profile_rs`` (the main batch when None; ``main()`` gives
+    it 500 bp reads, since the profiler takes minutes to sum the events of
+    the main batch's millions of launches)."""
+    aligner, res, align_s, taken, other = _drive(device, "split", rs)
+    cfg = aligner.cfg
+    rounds = aligner.last_run["rounds_run"]
+    windows = n_main_windows(max(len(r) for r in rs.reads), cfg)
+    if taken["dc_band"] != windows * rounds:
+        raise AssertionError(f"K3 launched {taken['dc_band']} times, not "
+                             f"{windows} windows x {rounds} rungs")
+    _assert_same_result(res, fused_res, "split vs fused")
+    for key in ("levels_run_total", "rounds_run"):
+        if aligner.last_run[key] != fused[key]:
+            raise AssertionError(f"split vs fused: {key} "
+                                 f"{aligner.last_run[key]} != {fused[key]}")
+    n_pairs = len(rs.reads)
+    out = dict(pairs=n_pairs, read_len=len(rs.reads[0]), align_s=align_s,
+               pairs_per_s=n_pairs / align_s,
+               failed_share=float(res.failed.mean()),
+               equal_to_fused=True, windows=windows, **aligner.last_run,
+               transfers=vars(aligner.transfers), launches=taken,
+               other_path_calls=other)
+    emit("main_path_split", **out)
+    if device.type == "cuda":
+        prof = profile_rs if profile_rs is not None else rs
+        emit("main_path_split_profile", pairs=len(prof.reads),
+             read_len=len(prof.reads[0]), **_device_breakdown(
+                 lambda: aligner.align(prof.reads, prof.ref_segments)))
     return out
 
 
@@ -285,14 +373,15 @@ def _device_breakdown(run) -> dict:
     """Device time of one more main-path batch under torch.profiler, by
     kernel (ours by name, the rest of PyTorch's together, copies), beside
     the batch's host-clock time; the idle share is the part of the wall
-    time no kernel or copy ran."""
+    time no kernel or copy ran.  ``profile_s`` is the host time the
+    profiler then takes to collect and sum the events."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        t1 = time.perf_counter()
     ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
     launches = dict.fromkeys(ms, 0)
     for ev in prof.key_averages():
@@ -304,38 +393,31 @@ def _device_breakdown(run) -> dict:
         ms[name] += ev.self_device_time_total / 1e3
         launches[name] += ev.count
     busy = sum(ms.values()) / 1e3
+    wall = t1 - t0
     return dict(wall_s=wall, device_ms=ms, device_launches=launches,
                 device_busy_s=busy,
-                idle_share=1 - busy / wall if busy else None)
+                idle_share=1 - busy / wall if busy else None,
+                profile_s=time.perf_counter() - t1)
 
 
 # ---- phase 5: kernel path against plain path, end to end ----
 
 def phase_end_to_end(device: torch.device, n_pairs: int = 32,
                      read_len: int = 2_000) -> None:
+    """Each backend on `device` against the same backend on the CPU."""
     genome = synth_genome(1_000_000, seed=7)
     rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                        seed=7))
-    results, seconds = {}, {}
-    for dev in (device, torch.device("cpu")):
-        genasm_dc.reset_counts()
-        t0 = time.perf_counter()
-        results[dev.type] = GenASMAligner(AlignerConfig(), rescue_rounds=2,
-                                          device=dev).align(rs.reads,
-                                                            rs.ref_segments)
-        seconds[dev.type] = time.perf_counter() - t0
-        if _counts(dev)[0]["tb_fused"] == 0:
-            raise AssertionError(f"{dev} run did not reach its path")
-    a, b = results[device.type], results["cpu"]
-    for field in ("dist", "failed", "k_used", "read_consumed",
-                  "ref_consumed"):
-        if not np.array_equal(getattr(a, field), getattr(b, field)):
-            raise AssertionError(f"end to end: {field} differs")
-    if a.cigars != b.cigars or not all(
-            np.array_equal(x, y) for x, y in zip(a.ops, b.ops)):
-        raise AssertionError("end to end: CIGARs / ops differ")
-    emit("end_to_end", pairs=n_pairs, read_len=read_len, equal=True,
-         seconds=seconds, failed_share=float(a.failed.mean()))
+    for backend in PATH_KERNELS:
+        results, seconds = {}, {}
+        for dev in (device, torch.device("cpu")):
+            _, results[dev.type], seconds[dev.type], _, _ = _drive(
+                dev, backend, rs)
+        a = results[device.type]
+        _assert_same_result(a, results["cpu"], f"end to end ({backend})")
+        emit("end_to_end", backend=backend, pairs=n_pairs,
+             read_len=read_len, equal=True, seconds=seconds,
+             failed_share=float(a.failed.mean()))
 
 
 def main() -> None:
@@ -344,14 +426,21 @@ def main() -> None:
     phase_build()
     cuda = torch.device("cuda")
     rows = phase_kernels(cuda)
-    main_path = phase_main_path(cuda)
+    t1 = time.perf_counter()
+    rs = long_reads()
+    emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
+         sim_s=time.perf_counter() - t1)
+    fused, fused_res = phase_main_path(cuda, rs)
+    split = phase_main_path_split(cuda, rs, fused, fused_res,
+                                  profile_rs=long_reads(read_len=500))
     phase_end_to_end(cuda)
+    launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():
         base = next(r for r in rows if r["name"] == name)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=main_path["launches"][name],
+            launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
             ms=base["ms"], plain_ms=base["plain_ms"],

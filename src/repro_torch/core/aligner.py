@@ -2,11 +2,12 @@
 of (read, candidate-ref) pairs with failure rescue, host-side padding and
 CIGAR decoding.
 
-``GenASMAligner(..., device="cuda")`` runs the hand-written CUDA kernels;
-``device="cpu"`` runs their plain PyTorch versions.  The default is the
-card, and it raises where there is none.  Rescue (pairs whose per-window
-edit distance exceeds cfg.k retried with doubled k) runs in one of two
-modes, equal per lane:
+``GenASMAligner(..., device="cuda")`` runs the hand-written CUDA kernels
+of its backend (``cfg.backend``, or the ``backend`` override: 'fused',
+'split' or 'plain', see ``core.config``); ``device="cpu"`` runs their plain
+PyTorch versions.  The default is the card, and it raises where there is
+none.  Rescue (pairs whose per-window edit distance exceeds cfg.k retried
+with doubled k) runs in one of two modes, equal per lane:
 
 * ``device`` (default) — one upload, the whole k-doubling ladder on the
   device under a per-lane mask (``align_pairs_rescued``), one download;
@@ -124,12 +125,12 @@ class GenASMAligner:
     the device) and the CIGAR decode (``decode_s``)."""
 
     def __init__(self, cfg: AlignerConfig = AlignerConfig(),
-                 rescue_rounds: int = 2, rescue_mode: str = "device",
-                 device="cuda"):
+                 rescue_rounds: int = 2, backend: str | None = None,
+                 rescue_mode: str = "device", device="cuda"):
         if rescue_mode not in RESCUE_MODES:
             raise ValueError(f"rescue_mode={rescue_mode!r} is not one of "
                              f"{RESCUE_MODES}")
-        self.cfg = resolve_config(cfg)
+        self.cfg = resolve_config(cfg, backend=backend)
         self.rescue_rounds = rescue_rounds
         self.rescue_mode = rescue_mode
         self.device = resolve_device(device)

@@ -50,6 +50,19 @@ def shift1(v: torch.Tensor, carry_in) -> torch.Tensor:
     return ((v << 1) & MASK32) | carry
 
 
+def get_bit(v: torch.Tensor, idx) -> torch.Tensor:
+    """Bit ``idx`` (int, broadcastable over v's batch dims) of a (..., NW)
+    word vector, as int64 in {0, 1}.  Indices index like the reference's
+    gather: a negative word index counts from the top word, and a word
+    index out of [0, NW) after that reads all ones."""
+    nw = v.shape[-1]
+    idx = torch.as_tensor(idx, dtype=torch.int64, device=v.device)
+    idx = idx.expand(v.shape[:-1])
+    oob = (idx < -WORD_BITS * nw) | (idx >= WORD_BITS * nw)
+    w = torch.gather(v, -1, ((idx // WORD_BITS) % nw)[..., None])[..., 0]
+    return torch.where(oob, 1, (w >> (idx % WORD_BITS)) & 1)
+
+
 def ones_below(d, nw: int, device=None) -> torch.Tensor:
     """Word vector whose ``d`` lowest bits are 0 and the rest 1 (~0 << d):
     the GenASM-DC init of error level d.  Result shape d.shape + (nw,)."""
@@ -101,3 +114,10 @@ def extract_window(v: torch.Tensor, base, nwb: int) -> torch.Tensor:
     # s == 0 must not shift by 32: select explicitly, as the reference does
     funnel = (lo >> s) | ((hi << (WORD_BITS - s)) & MASK32)
     return torch.where(s == 0, lo, funnel)
+
+
+def window_bit(win: torch.Tensor, base, idx) -> torch.Tensor:
+    """Absolute bit ``idx`` of a window stored by ``extract_window`` at bit
+    offset ``base``; the caller keeps base <= idx < base + 32*nwb."""
+    return get_bit(win, torch.as_tensor(idx, device=win.device)
+                   - torch.as_tensor(base, device=win.device))

@@ -1,12 +1,21 @@
 """Aligner configuration (PyTorch port of ``repro.core.config``).
 
-The port has one execution path, the fused DC+TB band path of the
-reference's ``backend='pallas_fused'``: the device of the tensors decides
-between the hand-written CUDA kernels and their plain PyTorch versions.  So
-the reference's ``backend`` and ``store`` knobs are gone (see
-``repro_torch.convert`` for how a reference config maps onto this one), and
-``lane_tile`` is the number of threads per CUDA block, which is also the
-batch pad unit.
+``backend`` picks one of three execution paths, each the counterpart of a
+reference backend (``repro_torch.convert`` maps a reference config):
+
+  * ``'fused'`` (reference ``'pallas_fused'`` / ``'pallas_gpu'``): DC+TB
+    fused in one kernel per window (K1) and per tail (K2 / K4);
+  * ``'split'`` (reference ``'pallas'``): the DC kernel K3 writes the DENT
+    band to device memory, a separate PyTorch traceback walks it; the tail
+    is the plain ``dc_jmajor`` + traceback;
+  * ``'plain'`` (reference ``'jnp'``): PyTorch fills (``core.genasm``)
+    and traceback, no kernel; the only backend for the unimproved stores
+    ``'edges4'`` and ``'and'``.
+
+All three give the same results.  On the kernel backends the device of the
+tensors decides between the hand-written CUDA kernels and their plain
+PyTorch versions.  ``lane_tile`` is the number of threads per CUDA block,
+which is also the batch pad unit.
 """
 from __future__ import annotations
 
@@ -15,6 +24,9 @@ import hashlib
 
 from .bitops import WORD_BITS, n_words
 
+#: valid knob choices, shared by validation, docs and tests
+BACKENDS = ("fused", "split", "plain")
+STORES = ("edges4", "and", "band")
 TAIL_STORES = ("auto", "band", "full")
 
 
@@ -25,15 +37,21 @@ class AlignerConfig:
     W, O follow GenASM (MICRO'20): align W-char windows, commit the first
     W-O traceback operations, advance.  ``k`` is the per-window edit budget.
     ``early_term`` is the paper's ET: only the level count reported in
-    ``levels`` depends on it.  ``tail_store`` picks the rectangular-tail
-    kernel: 'band' the per-lane diagonal band store, 'full' the whole
-    (k+1, n_text+1, NW) table, 'auto' the band whenever it is a strict win.
+    ``levels`` depends on it.  ``store`` is the traceback store of the
+    main windows: 'edges4' all four M/S/D/I bitvectors (unimproved
+    GenASM-TB), 'and' only R = M & S & D & I (SENE), 'band' the DENT band
+    of R (SENE + DENT).  ``backend`` is one of BACKENDS (module docstring).
+    ``tail_store`` picks the fused rectangular-tail kernel: 'band' the
+    per-lane diagonal band store, 'full' the whole (k+1, n_text+1, NW)
+    table, 'auto' the band whenever it is a strict win.
     """
     W: int = 64
     O: int = 24
     k: int = 12
+    store: str = "band"
     early_term: bool = True
     tb_margin: int = 3          # extra stored columns beyond the provable band
+    backend: str = "fused"
     lane_tile: int = 128        # threads per CUDA block; the batch pad unit
     tail_store: str = "auto"
 
@@ -49,9 +67,20 @@ class AlignerConfig:
         if self.lane_tile <= 0:
             raise ValueError(f"lane_tile={self.lane_tile} must be a "
                              f"positive lane count")
+        if self.store not in STORES:
+            raise ValueError(f"store={self.store!r} is not one of {STORES}")
         if self.tail_store not in TAIL_STORES:
             raise ValueError(f"tail_store={self.tail_store!r} is not one "
                              f"of {TAIL_STORES}")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"backend={self.backend!r} is not one of "
+                             f"{BACKENDS}")
+        # the kernels implement the fully-improved (banded) DP only
+        if self.backend != "plain" and self.store != "band":
+            raise ValueError(f"backend={self.backend!r} requires "
+                             f"store='band' (got store={self.store!r}): "
+                             f"the CUDA kernels implement the banded DP "
+                             f"only")
 
     @property
     def nw(self) -> int:
@@ -111,6 +140,12 @@ class AlignerConfig:
         blob = ";".join(f"{f.name}={getattr(self, f.name)!r}"
                         for f in dataclasses.fields(self))
         return hashlib.sha1(blob.encode()).hexdigest()[:16]
+
+    def band_base(self, j: int, m_pad: int | None = None) -> int:
+        """Lowest stored bit of column j's band window (static per column
+        for square W x W windows: band center = j-1)."""
+        m_pad = m_pad or self.m_pad
+        return max(0, min(j - 2 - self.k, m_pad - WORD_BITS * self.nwb))
 
 
 def resolve_config(cfg: AlignerConfig | None = None,

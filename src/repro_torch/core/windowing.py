@@ -1,5 +1,4 @@
-"""Windowed long-read alignment (port of ``repro/core/windowing.py``, the
-fused band path).
+"""Windowed long-read alignment (port of ``repro/core/windowing.py``).
 
 A (read, ref-segment) pair is aligned as a sequence of W x W windows: DC+TB
 inside the window on *reversed* contents (so the traceback emits
@@ -10,8 +9,9 @@ whose window edit distance exceeds k are flagged ``failed``.
 
 Two decisions of the port (see PERF.md):
 
-* the reference's ``lax.scan`` over the main windows is a Python loop that
-  launches K1 once per window; every intermediate stays on the device;
+* the reference's ``lax.scan`` over the main windows is a Python loop with
+  one DC launch per window (K1 on backend 'fused', K3 on 'split'); every
+  intermediate stays on the device;
 * the reference's on-device round gate ``lax.cond(any(failed))`` is a host
   check of ``failed.any()`` before each rescue round.  It is the one
   device-to-host sync of the ladder, counted in the returned
@@ -26,7 +26,9 @@ import torch
 from ..kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
 from .bitops import SENTINEL_PAT, SENTINEL_TEXT
 from .config import AlignerConfig
+from .genasm import dc, dc_jmajor
 from .oracle import OP_NONE
+from .traceback import traceback
 
 SENTINEL_READ = SENTINEL_PAT    # never matches (out of PM alphabet)
 SENTINEL_REF = SENTINEL_TEXT    # maps to the all-ones PM row
@@ -117,38 +119,59 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
     wfull = torch.full((B,), W, dtype=torch.int32, device=dev)
     for _ in range(nm):
         active = (read_len - read_pos > W) & ~failed
-        tb = genasm_tb_fused_op(_slice_rev(reads, read_pos, W, wfull),
-                                _slice_rev(refs, ref_pos, W, wfull), cfg=cfg,
-                                commit_limit=stride, max_ops=cfg.tb_max_ops,
-                                max_steps=cfg.tb_max_steps)
-        commit = active & tb["solved"]
+        pat = _slice_rev(reads, read_pos, W, wfull)
+        txt = _slice_rev(refs, ref_pos, W, wfull)
+        if cfg.backend == "fused":
+            tb = genasm_tb_fused_op(pat, txt, cfg=cfg, commit_limit=stride,
+                                    max_ops=cfg.tb_max_ops,
+                                    max_steps=cfg.tb_max_steps)
+            solved, levels_run = tb["solved"], tb["levels"]
+        else:
+            res = dc(pat, txt, wfull, wfull, cfg)
+            tb = traceback(res.store, pat, txt, wfull, wfull, res.dist,
+                           stride, cfg=cfg, mode=cfg.store,
+                           max_ops=cfg.tb_max_ops,
+                           max_steps=cfg.tb_max_steps)
+            solved, levels_run = res.solved, res.levels_run
+        commit = active & solved
         _append_ops(buf, off, tb["ops"], torch.where(commit, tb["n_ops"], 0),
                     commit)
         read_pos = torch.where(commit, read_pos + tb["read_adv"], read_pos)
         ref_pos = torch.where(commit, ref_pos + tb["ref_adv"], ref_pos)
         off = torch.where(commit, off + tb["n_ops"], off)
         dist = torch.where(commit, dist + tb["cost"], dist)
-        failed = failed | (active & ~tb["solved"])
-        levels = levels + tb["levels"]
+        failed = failed | (active & ~solved)
+        levels = levels + levels_run
 
     # ---- tail window: remaining read (in (O, W]) vs remaining ref ----
     m_tail = torch.clamp(read_len - read_pos, 0, W)
     n_rem = ref_len - ref_pos
     n_tail = torch.clamp(n_rem, 0, wt)
     tail_bad = (n_rem > wt) | (n_rem < torch.clamp(m_tail - 2 * k, min=0))
-    tb_t = genasm_tail_fused_op(_slice_rev(reads, read_pos, W, m_tail),
-                                _slice_rev(refs, ref_pos, wt, n_tail),
-                                m_tail, n_tail, cfg=cfg, n_text=wt,
-                                commit_limit=2 * (W + wt), max_ops=W + wt,
-                                max_steps=W + wt + 4)
-    t_ok = ~failed & ~tail_bad & tb_t["solved"]
+    pat_t = _slice_rev(reads, read_pos, W, m_tail)
+    txt_t = _slice_rev(refs, ref_pos, wt, n_tail)
+    if cfg.backend == "fused":
+        tb_t = genasm_tail_fused_op(pat_t, txt_t, m_tail, n_tail, cfg=cfg,
+                                    n_text=wt, commit_limit=2 * (W + wt),
+                                    max_ops=W + wt, max_steps=W + wt + 4)
+        solved_t = tb_t["solved"]
+    else:
+        # the tail has no kernel on these backends: the full SENE fill and
+        # the 'and' traceback, as in the reference
+        res_t = dc_jmajor(pat_t, txt_t, m_tail, n_tail, k=k, n=wt, nw=cfg.nw,
+                          store="and")
+        tb_t = traceback(res_t.store, pat_t, txt_t, m_tail, n_tail,
+                         res_t.dist, 2 * (W + wt), cfg=cfg, mode="and",
+                         max_ops=W + wt, max_steps=W + wt + 4)
+        solved_t = res_t.solved
+    t_ok = ~failed & ~tail_bad & solved_t
     _append_ops(buf, off, tb_t["ops"], torch.where(t_ok, tb_t["n_ops"], 0),
                 t_ok)
     return {
         "ops": buf[:, :op_budget],
         "n_ops": torch.where(t_ok, off + tb_t["n_ops"], off),
         "dist": torch.where(t_ok, dist + tb_t["cost"], dist),
-        "failed": failed | tail_bad | ~tb_t["solved"],
+        "failed": failed | tail_bad | ~solved_t,
         "read_consumed": torch.where(t_ok, read_pos + tb_t["read_adv"],
                                      read_pos),
         "ref_consumed": torch.where(t_ok, ref_pos + tb_t["ref_adv"], ref_pos),

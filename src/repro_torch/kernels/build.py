@@ -31,6 +31,7 @@ _SIGNATURES = {
     "genasm_tb_fused_launch": [_P] * 5 + [_I] * 10 + [_I, _P],
     "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
     "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
+    "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I, _P],
 }
 
 _library: ctypes.CDLL | None = None

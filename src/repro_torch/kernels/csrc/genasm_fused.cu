@@ -1,11 +1,12 @@
 // Fused GenASM-DC+TB kernels for Hopper (sm_90a), one CUDA thread per
 // alignment problem ("lane").
 //
-// Ports of the three Pallas TPU kernels of repro/kernels/genasm_dc.py that
-// the aligner's main path runs:
+// Ports of the four Pallas TPU kernels of repro/kernels/genasm_dc.py:
 //   K1 tb_fused     <- _kernel_fused        (square W x W window)
 //   K2 tail_banded  <- _kernel_tail_banded  (ragged tail, diagonal band store)
 //   K4 tail_full    <- _kernel_tail_fused   (ragged tail, full SENE store)
+//   K3 dc_band      <- _kernel              (square window, DC only: the
+//                                            band is the output)
 // Plain PyTorch versions of the same functions live in
 // repro_torch/kernels/genasm_dc.py; the outputs must be equal bit for bit.
 //
@@ -23,7 +24,9 @@
 // the store back one word per bit test.  The TPU kernels' one-hot masked
 // sums over the whole store become single indexed loads, clamped exactly
 // as the reference clips its indices.  The store is per-lane global
-// scratch that the wrapper allocates; only ops and meta are outputs.
+// scratch that the wrapper allocates; only ops and meta are outputs.  K3
+// runs the fill alone, and its band (k+1, ncb, nwb, B) is the output, with
+// dist (B) and the level count (B).
 //
 // The C entry points return cudaGetLastError() after the launch (or an
 // error code for a geometry without an instantiation); they never
@@ -305,6 +308,36 @@ __device__ __forceinline__ int level_count(int dist, int k, int early_term) {
   return early_term ? min(dist, k) + 1 : k + 1;
 }
 
+// The square window's DC fill, shared by K1 and K3: column-major SENE
+// over the W text columns with the live column in registers, storing the
+// DENT band windows of the last ncb columns at the static base
+// clip(j - 2 - k); returns dist (bit W-1 of the last column).
+template <int NW, int KP>
+__device__ __forceinline__ int square_dc(const PatternMasks<NW>& pm,
+                                         const int32_t* __restrict__ text,
+                                         uint32_t* __restrict__ band, int B,
+                                         int lane, int W, int k, int nwb,
+                                         int ncb) {
+  const int col0 = W + 1 - ncb;
+  const int band_hi = NW * WORD - WORD * nwb;
+  uint32_t col[KP][NW];
+  init_column<NW, KP>(col, k);
+  if (col0 == 0)
+    store_band<NW, KP>(col, clampi(-2 - k, 0, band_hi), k, nwb, band, 0, ncb,
+                       B, lane);
+  for (int j = 1; j <= W; ++j) {
+    const int c = text[at(j - 1, B, lane)];
+    uint32_t pmj[NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
+    next_column<NW, KP>(col, pmj, j - 1, k);
+    if (j >= col0)
+      store_band<NW, KP>(col, clampi(j - 2 - k, 0, band_hi), k, nwb, band,
+                         j - col0, ncb, B, lane);
+  }
+  return first_hit<NW, KP>(col, W - 1, true, k);
+}
+
 // ---- K1 ---------------------------------------------------------------
 // Replaces repro/kernels/genasm_dc.py:_kernel_fused (TPU).  Bound on the
 // H100: neither bytes nor operations.  Its inputs and outputs are a few
@@ -326,30 +359,39 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
                                 int commit_limit, int max_ops, int max_steps) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= B) return;
-  const int col0 = W + 1 - ncb;
-  const int band_hi = NW * WORD - WORD * nwb;
   PatternMasks<NW> pm;
   pm.load(pm_g, B, lane);
-  uint32_t col[KP][NW];
-  init_column<NW, KP>(col, k);
-  if (col0 == 0)
-    store_band<NW, KP>(col, clampi(-2 - k, 0, band_hi), k, nwb, band, 0, ncb,
-                       B, lane);
-  for (int j = 1; j <= W; ++j) {
-    const int c = text[at(j - 1, B, lane)];
-    uint32_t pmj[NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
-    next_column<NW, KP>(col, pmj, j - 1, k);
-    if (j >= col0)
-      store_band<NW, KP>(col, clampi(j - 2 - k, 0, band_hi), k, nwb, band,
-                         j - col0, ncb, B, lane);
-  }
-  const int dist = first_hit<NW, KP>(col, W - 1, true, k);
-  const SquareBand st{band, B, lane, k, nwb, ncb, col0, band_hi};
+  const int dist = square_dc<NW, KP>(pm, text, band, B, lane, W, k, nwb, ncb);
+  const SquareBand st{band, B, lane, k, nwb, ncb, W + 1 - ncb,
+                      NW * WORD - WORD * nwb};
   tb_walk<NW>(st, pm, text, W, B, lane, k, dist,
               level_count(dist, k, early_term), W - 1, W, commit_limit,
               max_ops, max_steps, ops, meta);
+}
+
+// ---- K3 ---------------------------------------------------------------
+// Replaces repro/kernels/genasm_dc.py:_kernel (TPU): K1's DC fill alone,
+// the band an output in (k+1, ncb, nwb, B) for a separate traceback, plus
+// dist and the level count per lane.  Bound on the H100: bytes.  Each
+// lane writes its whole band ((k+1) x ncb x nwb words: 2,860 B at k = 12,
+// W = 64) against ~300 B of input, and that write is what must leave the
+// chip; the fill's integer work is below it.  Design: as K1's fill, lane
+// innermost so each warp's band stores are 128 B and coalesced; no walk,
+// so no read-back of the band.
+template <int NW, int KP>
+__global__ void dc_band_kernel(const uint32_t* __restrict__ pm_g,
+                               const int32_t* __restrict__ text,
+                               uint32_t* __restrict__ band,
+                               int32_t* __restrict__ dist_g,
+                               int32_t* __restrict__ levels_g, int B, int W,
+                               int k, int nwb, int ncb, int early_term) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= B) return;
+  PatternMasks<NW> pm;
+  pm.load(pm_g, B, lane);
+  const int dist = square_dc<NW, KP>(pm, text, band, B, lane, W, k, nwb, ncb);
+  dist_g[lane] = dist;
+  levels_g[lane] = level_count(dist, k, early_term);
 }
 
 // ---- K2 ---------------------------------------------------------------
@@ -487,6 +529,18 @@ int genasm_tb_fused_launch(const void* pm, const void* text, void* ops,
                    static_cast<int32_t*>(ops), static_cast<int32_t*>(meta),
                    static_cast<uint32_t*>(band), B, W, k, nwb, ncb, early_term,
                    commit_limit, max_ops, max_steps));
+}
+
+int genasm_dc_band_launch(const void* pm, const void* text, void* band,
+                          void* dist, void* levels, int B, int W, int nw,
+                          int k, int nwb, int ncb, int early_term, int threads,
+                          void* stream) {
+  GENASM_DISPATCH(dc_band_kernel,
+                  (static_cast<const uint32_t*>(pm),
+                   static_cast<const int32_t*>(text),
+                   static_cast<uint32_t*>(band), static_cast<int32_t*>(dist),
+                   static_cast<int32_t*>(levels), B, W, k, nwb, ncb,
+                   early_term));
 }
 
 int genasm_tail_banded_launch(const void* pm, const void* text,

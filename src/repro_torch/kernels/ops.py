@@ -1,20 +1,23 @@
-"""Layout marshalling around the fused kernels (port of
-``repro/kernels/ops.py``): standard layout in, traceback dict out.
+"""Layout marshalling around the kernels (port of ``repro/kernels/ops.py``):
+standard layout in; out, the DC band (K3) or the traceback dict (K1, K2,
+K4).
 
 The batch pads to a ``cfg.lane_tile`` multiple (one CUDA block per tile),
 the pattern masks and texts go to the kernel layout (lanes innermost,
-words as int32 bits), and the kernel's meta rows unpack into the dict the
-windowed pipeline consumes.  Every tensor stays on the device of the
-inputs; ``levels`` is a 0-d tensor there (no host sync).
+words as int32 bits), and the kernels' outputs come back in the layout
+the windowed pipeline and ``core.traceback`` consume.  Every tensor stays
+on the device of the inputs; ``levels`` is a 0-d tensor there (no host
+sync).
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.bitops import build_pm_ext, to_bits32
+from ..core.bitops import build_pm_ext, from_bits32, to_bits32
 from ..core.config import AlignerConfig
 from .genasm_dc import (META_DFIN, META_DIST, META_LVL, META_NOPS, META_OK,
-                        META_RD, META_RF, genasm_tail_fused, genasm_tb_fused)
+                        META_RD, META_RF, genasm_dc, genasm_tail_fused,
+                        genasm_tb_fused)
 
 
 def _pad_to_tile(pat_codes, text_codes, tile: int):
@@ -52,6 +55,20 @@ def _unpack_meta(ops, meta, cfg: AlignerConfig) -> dict:
         "solved": ~skip,
         "levels": meta[META_LVL].max(),
     }
+
+
+def genasm_dc_op(pat_codes, text_codes, *, cfg: AlignerConfig):
+    """GenASM-DC (K3) of (B, W) reversed square windows.  Returns dist (B,)
+    int32, the band (k+1, ncols_band, B, nwb) as int64 words (the layout
+    ``core.traceback`` reads, as ``core.genasm.dc_dmajor`` stores it) and
+    levels, the 0-d max of the per-lane level counts."""
+    B = pat_codes.shape[0]
+    pat_codes, text_codes = _pad_to_tile(pat_codes, text_codes,
+                                         cfg.lane_tile)
+    pm_k, text_k = _to_kernel_layout(pat_codes, text_codes, cfg)
+    dist, band, levels = genasm_dc(pm_k, text_k, cfg=cfg)
+    band = from_bits32(band[..., :B]).permute(0, 1, 3, 2).contiguous()
+    return dist[:B], band, levels.max()
 
 
 def genasm_tb_fused_op(pat_codes, text_codes, *, cfg: AlignerConfig,

@@ -1,9 +1,12 @@
 """The port's aligner (plain PyTorch path, ``device="cpu"``) against the
-reference ``GenASMAligner(backend="pallas_fused")``, field for field, on
-the differential corpus (both rescue modes) and on the 300 bp readset
-whose read 0 needs the k = 24 rescue rung (K1 at nwb = 2 and K4 on the
-path).  Also the windowing helpers, the rescue ladder's level and round
-counts, the transfer contract, the read simulator and the oracle."""
+reference ``GenASMAligner``, field for field, each port backend against
+its counterpart: 'fused' against ``pallas_fused`` and 'split' against
+``pallas`` on the differential corpus (both rescue modes), 'fused' on the
+300 bp readset whose read 0 needs the k = 24 rescue rung (K1 at nwb = 2
+and K4 on the path), and 'plain' with each store against ``jnp`` on the
+same readset.  Also the windowing helpers, the rescue ladder's level and
+round counts, the transfer contract, the read simulator and the
+oracle."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -41,12 +44,13 @@ def _port_cfg(ref_cfg):
     return config_from_reference(dataclasses.asdict(ref_cfg))
 
 
-@pytest.mark.parametrize("rescue_mode", ["device", "host"])
-def test_differential_corpus_equals_reference(corpus, diff_aligned,
-                                              rescue_mode):
+def _corpus_equals_reference(corpus, diff_aligned, rescue_mode, backend):
     reads, refs, _ = corpus
-    ref = diff_aligned("pallas_fused", rescue_mode)
-    aligner = GenASMAligner(_port_cfg(CFG), rescue_rounds=ROUNDS,
+    ref = diff_aligned(backend, rescue_mode)
+    cfg = _port_cfg(dataclasses.replace(CFG, backend=backend))
+    assert cfg.backend == {"pallas_fused": "fused", "pallas": "split",
+                           "jnp": "plain"}[backend]
+    aligner = GenASMAligner(cfg, rescue_rounds=ROUNDS,
                             rescue_mode=rescue_mode, device="cpu")
     port = aligner.align(reads, refs)
     assert_results_equal(port, ref)
@@ -61,6 +65,29 @@ def test_differential_corpus_equals_reference(corpus, diff_aligned,
         assert t.gate_syncs == 0
 
 
+@pytest.mark.parametrize("rescue_mode", ["device", "host"])
+def test_differential_corpus_equals_reference(corpus, diff_aligned,
+                                              rescue_mode):
+    """backend='fused' against the reference's pallas_fused."""
+    _corpus_equals_reference(corpus, diff_aligned, rescue_mode,
+                             "pallas_fused")
+
+
+@pytest.mark.parametrize("rescue_mode", ["device", "host"])
+def test_differential_corpus_split_equals_reference(corpus, diff_aligned,
+                                                    rescue_mode):
+    """backend='split' (K3 + the PyTorch traceback) against the
+    reference's split backend 'pallas'."""
+    _corpus_equals_reference(corpus, diff_aligned, rescue_mode, "pallas")
+
+
+@pytest.mark.parametrize("rescue_mode", ["device", "host"])
+def test_differential_corpus_plain_equals_reference(corpus, diff_aligned,
+                                                    rescue_mode):
+    """backend='plain' (no kernel) against the reference's jnp."""
+    _corpus_equals_reference(corpus, diff_aligned, rescue_mode, "jnp")
+
+
 def test_readset_with_k24_rescue_equals_reference(readset, aligned):
     ref_cfg = RefConfig(backend="pallas_fused")
     ref = aligned(ref_cfg)
@@ -69,6 +96,37 @@ def test_readset_with_k24_rescue_equals_reference(readset, aligned):
                                              readset.ref_segments)
     assert_results_equal(port, ref)
     assert port.k_used[0] == 24 and not port.failed.any()
+
+
+@pytest.mark.parametrize("store,early_term", [
+    ("band", True), ("and", True), ("edges4", False)])
+def test_readset_plain_backend_equals_reference_jnp(readset, aligned, store,
+                                                    early_term):
+    """backend='plain' (the PyTorch fills and traceback) with each store
+    against the reference's jnp aligner, k = 24 rescue rung included."""
+    ref_cfg = RefConfig(W=64, O=24, k=12, store=store, early_term=early_term)
+    ref = aligned(ref_cfg)
+    cfg = _port_cfg(ref_cfg)
+    assert (cfg.backend, cfg.store) == ("plain", store)
+    port = GenASMAligner(cfg, rescue_rounds=1, device="cpu").align(
+        readset.reads, readset.ref_segments)
+    assert_results_equal(port, ref)
+    assert port.k_used[0] == 24 and not port.failed.any()
+
+
+def test_split_equals_fused_in_the_port(corpus):
+    """The port's own backends agree with each other, the level count of
+    the ladder included."""
+    reads, refs, _ = corpus
+    runs = {}
+    for backend in ("fused", "split"):
+        aligner = GenASMAligner(_port_cfg(CFG), rescue_rounds=ROUNDS,
+                                backend=backend, device="cpu")
+        runs[backend] = (aligner.align(reads, refs), aligner.last_run)
+    assert_results_equal(runs["split"][0], runs["fused"][0])
+    assert runs["split"][1]["levels_run_total"] == \
+        runs["fused"][1]["levels_run_total"]
+    assert runs["split"][1]["rounds_run"] == runs["fused"][1]["rounds_run"]
 
 
 def test_rescue_ladder_levels_and_rounds_equal_reference(corpus,

@@ -70,3 +70,27 @@ def test_bits32_round_trip():
     assert bits.dtype == torch.int32
     np.testing.assert_array_equal(bits.numpy().view(np.uint32), w)
     np.testing.assert_array_equal(port.from_bits32(bits).numpy(), w)
+
+
+@pytest.mark.parametrize("nw", [1, 2, 3])
+def test_get_bit(nw):
+    """Every in-range index, plus the reference gather's edges: negative
+    indices count from the top word, indices past it read ones."""
+    rng = np.random.default_rng(20 + nw)
+    idx = np.arange(-32 * nw - 40, 32 * nw + 40)
+    w = _words(rng, (len(idx), nw))
+    _eq(port.get_bit(torch.from_numpy(w.astype(np.int64)),
+                     torch.from_numpy(idx)),
+        ref.get_bit(jnp.asarray(w), jnp.asarray(idx, jnp.int32)))
+
+
+@pytest.mark.parametrize("nw,nwb", [(1, 1), (2, 1), (2, 2), (3, 2)])
+def test_window_bit(nw, nwb):
+    rng = np.random.default_rng(30 + 10 * nw + nwb)
+    w = _words(rng, (50, nw))
+    base = rng.integers(0, 32 * (nw - nwb) + 1, 50)
+    idx = base + rng.integers(0, 32 * nwb, 50)
+    win = ref.extract_window(jnp.asarray(w), jnp.asarray(base), nwb)
+    _eq(port.window_bit(torch.from_numpy(np.asarray(win).astype(np.int64)),
+                        torch.from_numpy(base), torch.from_numpy(idx)),
+        ref.window_bit(win, jnp.asarray(base), jnp.asarray(idx)))

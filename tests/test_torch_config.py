@@ -1,23 +1,24 @@
 """The port's AlignerConfig against the reference's: every derived
-property equal over a grid, the same ValueErrors, and the reference
-configs the port does not run refused by name.  Also holds the helper the
+property equal over a grid, the same ValueErrors, each reference backend
+mapped to its counterpart, and the one reference knob the port does not
+run (an alphabet other than DNA) refused.  Also holds the helper the
 other port tests share: ``cfg_pair``."""
 import dataclasses
 
 import pytest
 
 from repro.core.config import AlignerConfig as RefConfig
-from repro_torch.convert import config_from_reference
-from repro_torch.core.config import AlignerConfig, resolve_config
+from repro_torch.convert import BACKEND_MAP, config_from_reference
+from repro_torch.core.config import BACKENDS, AlignerConfig, resolve_config
 
 DERIVED = ("nw", "m_pad", "nwb", "stride", "tb_max_ops", "tb_max_steps",
            "ncols_band", "tail_band_supported", "tail_banded")
 
 
-def cfg_pair(**fields):
-    """(reference config on the fused Pallas path, the port's config made
-    from it) for the same knobs."""
-    ref = RefConfig(backend="pallas_fused", **fields)
+def cfg_pair(backend="pallas_fused", **fields):
+    """(reference config on `backend` (the fused Pallas path by default),
+    the port's config made from it) for the same knobs."""
+    ref = RefConfig(backend=backend, **fields)
     return ref, config_from_reference(dataclasses.asdict(ref))
 
 
@@ -36,11 +37,16 @@ def test_derived_properties_equal(fields):
         assert getattr(port, name) == getattr(ref, name), name
     assert port.early_term == ref.early_term
     assert port.lane_tile == ref.lane_tile
+    for j in range(port.W + 1):
+        assert port.band_base(j) == ref.band_base(j), j
+        assert port.band_base(j, 2 * port.m_pad) == \
+            ref.band_base(j, 2 * ref.m_pad), j
 
 
 @pytest.mark.parametrize("bad", [dict(O=0), dict(O=64), dict(k=0),
                                  dict(k=64), dict(lane_tile=0),
-                                 dict(tail_store="diag")])
+                                 dict(tail_store="diag"),
+                                 dict(store="sene")])
 def test_same_value_errors(bad):
     with pytest.raises(ValueError) as ref_err:
         RefConfig(**bad)
@@ -49,21 +55,50 @@ def test_same_value_errors(bad):
     assert str(port_err.value) == str(ref_err.value)
 
 
-@pytest.mark.parametrize("fields,item", [
-    (dict(backend="pallas"), "K3"),
-    (dict(store="edges4"), "item 3"),
-    (dict(store="and"), "item 3"),
-])
-def test_unported_reference_configs_raise(fields, item):
-    with pytest.raises(NotImplementedError, match=item):
-        config_from_reference(dataclasses.asdict(RefConfig(**fields)))
+@pytest.mark.parametrize("n_symbols", [2, 5, 20])
+def test_unported_reference_configs_raise(n_symbols):
+    """The kernels are written for the DNA alphabet only."""
+    with pytest.raises(NotImplementedError, match="n_symbols"):
+        config_from_reference(dataclasses.asdict(
+            RefConfig(n_symbols=n_symbols)))
 
 
-@pytest.mark.parametrize("backend", ["jnp", "pallas_fused", "pallas_gpu"])
-def test_fused_band_backends_map_to_one_config(backend):
+@pytest.mark.parametrize("backend,port_backend", [
+    ("jnp", "plain"), ("pallas", "split"), ("pallas_fused", "fused"),
+    ("pallas_gpu", "fused")])
+def test_reference_backends_map(backend, port_backend):
+    assert BACKEND_MAP[backend] == port_backend
     ref = RefConfig(W=32, O=10, k=8, backend=backend, lane_tile=64)
     assert config_from_reference(dataclasses.asdict(ref)) == AlignerConfig(
-        W=32, O=10, k=8, lane_tile=64)
+        W=32, O=10, k=8, backend=port_backend, lane_tile=64)
+
+
+@pytest.mark.parametrize("store", ["edges4", "and", "band"])
+def test_store_passes_through_on_plain(store):
+    ref, port = cfg_pair(backend="jnp", W=32, O=10, k=8, store=store)
+    assert (port.backend, port.store) == ("plain", store)
+
+
+@pytest.mark.parametrize("backend,store", [
+    ("split", "and"), ("split", "edges4"), ("fused", "and"),
+    ("fused", "edges4")])
+def test_kernel_backends_require_band_store(backend, store):
+    """As the reference: a kernel backend with an unimproved store raises,
+    naming both knobs."""
+    ref_backend = {"split": "pallas", "fused": "pallas_fused"}[backend]
+    with pytest.raises(ValueError) as ref_err:
+        RefConfig(backend=ref_backend, store=store)
+    with pytest.raises(ValueError) as port_err:
+        AlignerConfig(backend=backend, store=store)
+    want = str(ref_err.value).replace(ref_backend, backend).replace(
+        "Pallas kernels", "CUDA kernels")
+    assert str(port_err.value) == want
+
+
+def test_unknown_backend_raises():
+    with pytest.raises(ValueError, match=r"backend='pallas' is not one of"):
+        AlignerConfig(backend="pallas")
+    assert set(BACKENDS) == set(BACKEND_MAP.values())
 
 
 def test_resolve_config_and_fingerprint():
@@ -72,5 +107,10 @@ def test_resolve_config_and_fingerprint():
     assert cfg.fingerprint() == AlignerConfig(k=20).fingerprint()
     assert cfg.fingerprint() != AlignerConfig().fingerprint()
     assert cfg.replace(k=12) == AlignerConfig()
-    with pytest.raises(TypeError, match="backend"):
-        resolve_config(None, backend=None)
+    split = resolve_config(cfg, backend="split", store=None)
+    assert split == AlignerConfig(k=20, backend="split")
+    assert split.fingerprint() != cfg.fingerprint()
+    assert resolve_config(None, store="and", backend="plain").fingerprint() \
+        != resolve_config(None, backend="plain").fingerprint()
+    with pytest.raises(TypeError, match="n_symbols"):
+        resolve_config(None, n_symbols=None)

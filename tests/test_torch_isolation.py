@@ -73,6 +73,8 @@ def test_wrapper_raises_on_unsupported_device():
     before = (dict(genasm_dc.LAUNCHES), dict(genasm_dc.PLAIN_CALLS))
     with pytest.raises(ValueError, match="device meta"):
         genasm_dc.genasm_tb_fused(pm, text, **kw)
+    with pytest.raises(ValueError, match="device meta"):
+        genasm_dc.genasm_dc(pm, text, cfg=cfg)
     lens = torch.ones((1, 4), dtype=torch.int32, device="meta")
     for wrapper in (genasm_dc.genasm_tail_banded, genasm_dc.genasm_tail_full):
         with pytest.raises(ValueError, match="device meta"):
@@ -107,7 +109,7 @@ def test_cpu_tensors_take_the_plain_version_only():
                                           max_ops=cfg.tb_max_ops,
                                           max_steps=cfg.tb_max_steps)
     assert genasm_dc.PLAIN_CALLS == {"tb_fused": 1, "tail_banded": 0,
-                                     "tail_full": 0}
+                                     "tail_full": 0, "dc_band": 0}
     assert set(genasm_dc.LAUNCHES.values()) == {0}
     assert meta[genasm_dc.META_DIST].tolist() == [0, 0, 0, 0]
     assert ops.dtype == meta.dtype == torch.int32

@@ -1,17 +1,21 @@
-"""The plain versions of the fused kernels K1, K2 and K4 against the JAX
+"""The plain versions of the kernels K1, K2, K4 and K3 against the JAX
 kernels, run as the reference's own tests run them (Pallas interpret mode
-on the CPU).  Every field of the returned dict must be equal: the DP is
-integer bitvector arithmetic, so the tolerance is zero.  B = 37 is not a
-multiple of the lane tile, so the batch padding is on the path too."""
+on the CPU).  Every output must be equal: the DP is integer bitvector
+arithmetic, so the tolerance is zero.  B = 37 is not a multiple of the
+lane tile, so the batch padding is on the path too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.ops import genasm_dc_op as ref_dc_op
 from repro.kernels.ops import genasm_tail_fused_op as ref_tail_op
 from repro.kernels.ops import genasm_tb_fused_op as ref_tb_op
+from repro.kernels.ref import genasm_dc_ref as ref_dc_ref
 from repro_torch.kernels import genasm_dc
-from repro_torch.kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
+from repro_torch.kernels.ops import (genasm_dc_op, genasm_tail_fused_op,
+                                     genasm_tb_fused_op)
+from repro_torch.kernels.ref import genasm_dc_ref
 from tests.conftest import mutate_seq
 from tests.test_torch_config import cfg_pair
 
@@ -99,3 +103,45 @@ def test_k2_k4_tail_equals_reference(W, O, k, tail_store, kernel):
     assert genasm_dc.PLAIN_CALLS[kernel] == before[kernel] + 1
     _assert_equal(port, ref)
     assert 0 < int(port["solved"].sum()) < B
+
+
+@pytest.mark.parametrize("W,k,tile,n_pairs", [
+    (16, 3, 4, 4), (32, 7, 8, 8), (32, 15, 8, 8), (64, 12, 8, 8),
+    (96, 9, 4, 4), (32, 7, 4, 5)])
+def test_k3_dc_op_equals_reference(W, k, tile, n_pairs):
+    """The grid of tests/test_kernels.py plus a batch that is not a lane
+    tile multiple.  K3 and the reference's Pallas kernel fill every level,
+    so the whole band is equal; dc_dmajor (``genasm_dc_ref``) leaves the
+    levels from the level count up at zero, so it is held on the band
+    below it."""
+    ref_cfg, cfg = cfg_pair(backend="pallas", W=W, O=max(1, W // 3), k=k,
+                            lane_tile=tile)
+    rng = np.random.default_rng(W * k + n_pairs)
+    pat = rng.integers(0, 4, (n_pairs, W)).astype(np.uint8)
+    txt = np.stack([mutate_seq(p, int(rng.integers(0, k + 2)), rng,
+                               extend_to=W) for p in pat])
+    d_ref, band_ref, lvl_ref = ref_dc_op(jnp.asarray(pat), jnp.asarray(txt),
+                                         cfg=ref_cfg, tile=tile,
+                                         interpret=True)
+    before = dict(genasm_dc.PLAIN_CALLS)
+    dist, band, levels = genasm_dc_op(torch.from_numpy(pat),
+                                      torch.from_numpy(txt), cfg=cfg)
+    assert genasm_dc.PLAIN_CALLS["dc_band"] == before["dc_band"] + 1
+    np.testing.assert_array_equal(dist.numpy(), np.asarray(d_ref))
+    assert dist.dtype == torch.int32
+    assert band.shape == (k + 1, cfg.ncols_band, n_pairs, cfg.nwb)
+    np.testing.assert_array_equal(band.numpy(),
+                                  np.asarray(band_ref).astype(np.int64))
+    assert int(levels) == int(lvl_ref)
+    d_o, band_o, lvl_o = ref_dc_ref(jnp.asarray(pat), jnp.asarray(txt),
+                                    cfg=ref_cfg)
+    p_d, p_band, p_lvl = genasm_dc_ref(torch.from_numpy(pat),
+                                       torch.from_numpy(txt), cfg=cfg)
+    L = int(lvl_o)
+    assert int(p_lvl) == int(levels) == L
+    np.testing.assert_array_equal(p_d.numpy(), np.asarray(d_o))
+    np.testing.assert_array_equal(p_band.numpy(),
+                                  np.asarray(band_o).astype(np.int64))
+    np.testing.assert_array_equal(band.permute(0, 1, 3, 2)[:L].numpy(),
+                                  p_band[:L].numpy())
+
