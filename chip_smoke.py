@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card, drives
+holds each kernel against its plain PyTorch version on the card (and K1
+over a grid of its block geometries, with its occupancy), drives
 the aligner's main path (``GenASMAligner.align``) on PBSIM2-like long
 reads through the fused backend (K1, K2, K4) and the split backend (K3 and
 the PyTorch traceback), holds the two results equal, and checks the kernel
@@ -60,6 +61,10 @@ KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
 PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full"),
                 "split": ("dc_band",)}
 SOURCE = "src/repro_torch/kernels/csrc/genasm_fused.cu"
+#: K1's ms per launch at 4,096 lanes in its first design (one thread per
+#: lane, band in global scratch), by k: PERF.md section 6, measured by this
+#: script on an NVIDIA H100 80GB HBM3 at 700.00 W
+K1_ONE_THREAD_MS = {12: 0.1435, 24: 0.4426, 48: 1.805}
 
 
 def emit(phase: str, **fields) -> None:
@@ -94,18 +99,26 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
+    """Build and load the library; returns ptxas's usage per kernel."""
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
     seconds = time.perf_counter() - t0
-    emit("build", seconds=seconds, library=lib.name,
-         ptxas=_ptxas_usage(build.ptxas_report(lib).read_text()))
+    usage = _ptxas_usage(build.ptxas_report(lib).read_text())
+    emit("build", seconds=seconds, library=lib.name, ptxas=usage)
+    return usage
+
+
+def _kernel_name(kind: str, args) -> str:
+    """kind<NW=..,KP=..> (K1: also NWB=..) of an instantiation."""
+    return f"{kind}<" + ",".join(f"{p}={a}" for p, a in zip(
+        ("NW", "KP", "NWB"), args)) + ">"
 
 
 def _ptxas_usage(report: str) -> dict:
-    """{kernel<NW,KP>: "registers / spill stores / spill loads"} from
-    ptxas -v output."""
+    """{kernel<NW,KP[,NWB]>: "registers / spill stores / spill loads"}
+    from ptxas -v output."""
     usage, name, spill = {}, None, ""
     for line in report.splitlines():
         if "Function properties for" in line:
@@ -114,8 +127,8 @@ def _ptxas_usage(report: str) -> dict:
                         None)
             name = None
             if kind is not None:
-                nw, kp = re.findall(r"ILi(\d+)ELi(\d+)E", mangled)[0]
-                name = f"{kind}<NW={nw},KP={kp}>"
+                args = re.search(r"_kernelI((?:Li\d+E)+)E", mangled).group(1)
+                name = _kernel_name(kind, re.findall(r"Li(\d+)E", args))
         elif "spill stores" in line:
             nums = re.findall(r"(\d+) bytes", line)
             spill = f"spill stores {nums[1]} B, spill loads {nums[2]} B"
@@ -219,8 +232,58 @@ def _time_ms(fn, reps: int, device: torch.device) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _device_ms(fn, reps: int, device: torch.device):
+    """Mean device ms per call of `fn`: `reps` calls captured in one CUDA
+    graph and replayed between two CUDA events, so no host time falls
+    between the launches; None off the card."""
+    if device.type != "cuda":
+        return None
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return _time_ms(graph.replay, 1, device) / reps
+
+
+def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
+                reps: int, what: str) -> dict:
+    """One kernel call against its plain version on the same inputs (max
+    abs err 0 or raise); with reps > 0 also its times and bound."""
+    wrapper, plain, _ = KERNELS[name]
+    inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
+    call = lambda: wrapper(*inputs, **kw)               # noqa: E731
+    got = call()
+    _sync(device)
+    start = time.perf_counter()
+    ref = plain(*inputs, **kw)
+    _sync(device)
+    plain_ms = (time.perf_counter() - start) * 1e3
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in
+              zip(got, ref))
+    if err != 0:
+        raise AssertionError(f"{name} {what}: kernel and plain version "
+                             f"differ (max abs err {err})")
+    dist, steps = _dist_and_steps(name, got)
+    row = dict(name=name, k=cfg.k, lanes=n_pairs, max_abs_err=err,
+               plain_ms=plain_ms, solved=int((dist <= cfg.k).sum()))
+    if reps:
+        for _ in range(2):
+            call()
+        event_ms = _time_ms(call, reps, device)
+        device_ms = _device_ms(call, reps, device)
+        bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
+        row.update(ms=event_ms if device_ms is None else device_ms,
+                   event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return row
+
+
 def phase_kernels(device: torch.device, n_pairs: int = 4096,
                   reps: int = 20) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes.
+    On the card ``ms`` is the device time per launch (``_device_ms``);
+    ``event_ms`` the CUDA-event time per call of back-to-back wrapper
+    calls, the host's time between launches included."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
              ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
@@ -228,33 +291,79 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
     rows = []
     for name, k in cases:
         cfg = AlignerConfig(k=k)
-        wrapper, plain, _ = KERNELS[name]
         if name.startswith("tail") and (name == "tail_banded") != cfg.tail_banded:
             raise AssertionError(f"k={k} does not select {name}")
-        inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
-        call = lambda: wrapper(*inputs, **kw)           # noqa: E731
-        got = call()
-        _sync(device)
-        start = time.perf_counter()
-        ref = plain(*inputs, **kw)
-        _sync(device)
-        plain_ms = (time.perf_counter() - start) * 1e3
-        err = max(int((a.long() - b.long()).abs().max()) for a, b in
-                  zip(got, ref))
-        if err != 0:
-            raise AssertionError(f"{name} k={k}: kernel and plain version "
-                                 f"differ (max abs err {err})")
-        for _ in range(2):
-            call()
-        ms = _time_ms(call, reps, device)
-        dist, steps = _dist_and_steps(name, got)
-        bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
-        row = dict(name=name, k=k, lanes=n_pairs, max_abs_err=err, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   solved=int((dist <= k).sum()))
+        row = _check_case(name, cfg, n_pairs, rng, device, reps, f"k={k}")
+        if name == "tb_fused":
+            row["one_thread_ms"] = K1_ONE_THREAD_MS[k]
         emit("kernel", **row)
         rows.append(row)
     return rows
+
+
+#: K1's geometry grid: (W, O, k, early_term, lanes); every (NW, KP, NWB)
+#: instantiation, idle levels above k (k=40), no early termination, lane
+#: counts that are no multiple of a block's lanes, and the main path's
+#: own batch width (2,048, timed)
+K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
+           (32, 12, 20, True, 37), (64, 24, 12, True, 37),
+           (64, 24, 15, True, 37), (64, 24, 24, True, 37),
+           (64, 24, 40, True, 37),
+           (64, 24, 48, True, 37), (64, 24, 12, False, 37),
+           (64, 24, 48, False, 37), (64, 24, 12, True, 1),
+           (64, 24, 24, True, 1), (64, 24, 48, True, 1),
+           (64, 24, 12, True, 2048), (64, 24, 24, True, 2048),
+           (64, 24, 48, True, 2048)]
+
+
+def _k1_geometry(cfg: AlignerConfig) -> dict:
+    geo = genasm_dc.tb_fused_geometry(cfg)
+    return dict(W=cfg.W, k=cfg.k, NW=cfg.nw,
+                KP=genasm_dc.levels_bucket(cfg.k), NWB=cfg.nwb,
+                G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
+                threads=geo.threads, shared_bytes=geo.shared_bytes)
+
+
+def phase_k1_grid(device: torch.device, reps: int = 20) -> list[dict]:
+    """K1 over its geometry grid, each case held against tb_fused_plain
+    with max abs err 0; the 2,048-lane cases timed."""
+    rng = np.random.default_rng(15)
+    rows = []
+    for W, O, k, early_term, lanes in K1_GRID:
+        cfg = AlignerConfig(W=W, O=O, k=k, early_term=early_term)
+        row = _check_case("tb_fused", cfg, lanes, rng, device,
+                          reps if lanes >= 2048 else 0,
+                          f"W={W} k={k} early_term={early_term} "
+                          f"lanes={lanes}")
+        row.update(_k1_geometry(cfg), early_term=early_term)
+        emit("k1_grid", **row)
+        rows.append(row)
+    return rows
+
+
+def phase_k1_occupancy(usage: dict) -> dict:
+    """Per K1 instantiation: its block, the dynamic shared bytes a block
+    asks for and the instantiation's limit as the card reports it, active
+    blocks per SM on this card, and ptxas's registers and spills.  Returns
+    the rows of the default ladder's k (12, 24, 48)."""
+    out = {}
+    for W, O, k in ((32, 12, 5), (32, 12, 20), (64, 24, 12), (64, 24, 15),
+                    (64, 24, 24), (64, 24, 48)):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        row = _k1_geometry(cfg)
+        blocks, limit = genasm_dc.tb_fused_occupancy(
+            cfg, genasm_dc.tb_fused_geometry(cfg))
+        if limit < row["shared_bytes"]:
+            raise AssertionError(f"K1 k={k}: the card allows {limit} B of "
+                                 f"dynamic shared memory, a block asks for "
+                                 f"{row['shared_bytes']}")
+        row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
+                   ptxas=usage.get(_kernel_name(
+                       "tb_fused", (row["NW"], row["KP"], row["NWB"]))))
+        emit("k1_occupancy", **row)
+        if k in K1_ONE_THREAD_MS:
+            out[k] = row
+    return out
 
 
 # ---- phase 4: the main path at a real size, fused then split ----
@@ -423,9 +532,11 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 32,
 def main() -> None:
     t0 = time.perf_counter()
     smi = phase_device()
-    phase_build()
+    usage = phase_build()
     cuda = torch.device("cuda")
     rows = phase_kernels(cuda)
+    phase_k1_grid(cuda)
+    occupancy = phase_k1_occupancy(usage)
     t1 = time.perf_counter()
     rs = long_reads()
     emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
@@ -438,6 +549,15 @@ def main() -> None:
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():
         base = next(r for r in rows if r["name"] == name)
+        by_k = {r["k"]: dict(ms=r["ms"], event_ms=r["event_ms"],
+                             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
+                for r in rows if r["name"] == name}
+        if name == "tb_fused":
+            for k, row in by_k.items():
+                occ = occupancy[k]
+                row.update(ptxas=occ["ptxas"],
+                           shared_bytes=occ["card_shared_bytes"],
+                           blocks_per_sm=occ["blocks_per_sm"])
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=launches[name],
@@ -445,10 +565,7 @@ def main() -> None:
                             if r["name"] == name),
             ms=base["ms"], plain_ms=base["plain_ms"],
             bound_ms=base["bound_ms"], bound_by=base["bound_by"],
-            library_ms=None, k=base["k"], lanes=base["lanes"],
-            by_k={r["k"]: dict(ms=r["ms"], plain_ms=r["plain_ms"],
-                               bound_ms=r["bound_ms"])
-                  for r in rows if r["name"] == name}))
+            library_ms=None, k=base["k"], lanes=base["lanes"], by_k=by_k))
     emit("done", seconds=time.perf_counter() - t0)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -25,10 +25,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: argument types of each C entry point: pointers, then ints, then threads
-#: per block and the stream
+#: argument types of each C entry point: pointers, then ints, then the
+#: block geometry (threads per block; K1: lanes, threads, shared bytes) and
+#: the stream; K1's occupancy query: ints, then the results' pointers
 _SIGNATURES = {
-    "genasm_tb_fused_launch": [_P] * 5 + [_I] * 10 + [_I, _P],
+    "genasm_tb_fused_launch": [_P] * 4 + [_I] * 10 + [_I] * 3 + [_P],
+    "genasm_tb_fused_occupancy": [_I] * 5 + [_P] * 2,
     "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
     "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
     "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I, _P],

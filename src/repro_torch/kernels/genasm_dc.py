@@ -29,6 +29,10 @@ and ``k + 1`` without; the TPU kernel wrote the same statistic per lane
 tile.  Only its maximum over the batch is ever read (``kernels.ops``),
 and both give ``min(max dist, k) + 1`` there, so the results agree.
 
+K1 runs a group of threads per lane and keeps the DENT band in shared
+memory; ``tb_fused_geometry`` derives its block from the configuration.
+K2, K3 and K4 run one thread per lane, ``cfg.lane_tile`` lanes a block.
+
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
 it runs the kernel's plain PyTorch version (vectorised over lanes, the
 reference's arithmetic, words as int64 in [0, 2**32)); for a CUDA tensor it
@@ -38,6 +42,9 @@ the plain versions, one per wrapper call, so a run can show which path did
 the work.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -264,15 +271,29 @@ def _outputs(max_ops, B, device):
             torch.empty((META_ROWS, B), dtype=torch.int32, device=device))
 
 
-def _launch(name, cfg, *tensors, ints):
-    """Launch kernel `name` of the CUDA library on the current stream of
-    the tensors' device; raise if the launch is refused."""
+def _library():
     from .build import load_library
-    lib = load_library()
+    return load_library()
+
+
+def _check_rc(lib, what: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {rc} "
+                           f"({lib.genasm_error_string(rc).decode()})")
+
+
+def _launch(name, cfg, *tensors, ints, block=None):
+    """Launch kernel `name` of the CUDA library on the current stream of
+    the tensors' device; raise if the launch is refused.  `block` is the
+    block geometry the entry point takes (default: ``cfg.lane_tile``
+    threads, one lane each)."""
+    lib = _library()
     fn = getattr(lib, f"genasm_{name}_launch")
-    if not 0 < cfg.lane_tile <= 1024:
-        raise ValueError(f"lane_tile={cfg.lane_tile}: a CUDA block holds "
-                         f"1..1024 threads")
+    if block is None:
+        if not 0 < cfg.lane_tile <= 1024:
+            raise ValueError(f"lane_tile={cfg.lane_tile}: a CUDA block "
+                             f"holds 1..1024 threads")
+        block = (cfg.lane_tile,)
     if cfg.nw > 2:
         raise ValueError(f"W={cfg.W}: the CUDA kernels are instantiated for "
                          f"W <= 64 (two words per bitvector)")
@@ -280,10 +301,80 @@ def _launch(name, cfg, *tensors, ints):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         LAUNCHES[name] += 1
-        rc = fn(*[t.data_ptr() for t in tensors], *ints, cfg.lane_tile, stream)
-    if rc != 0:
-        raise RuntimeError(f"genasm_{name} kernel launch failed: CUDA error "
-                           f"{rc} ({lib.genasm_error_string(rc).decode()})")
+        rc = fn(*[t.data_ptr() for t in tensors], *ints, *block, stream)
+    _check_rc(lib, f"genasm_{name} kernel launch", rc)
+
+
+# --------------------------------------------------------------------------
+# K1's block geometry (csrc/genasm_fused.cu, tb_fused_kernel)
+# --------------------------------------------------------------------------
+
+K1_THREADS = 128                #: threads per K1 block
+MAX_SHARED_BYTES = 232_448      #: dynamic shared memory of one H100 block
+
+
+@dataclasses.dataclass(frozen=True)
+class TbFusedGeometry:
+    group: int                  #: G, threads per lane
+    levels_per_thread: int      #: L = KP / G
+    lanes: int                  #: lanes per block
+    threads: int                #: threads per block
+    shared_bytes: int           #: dynamic shared memory per block
+
+
+def levels_bucket(k: int) -> int:
+    """KP: the smallest instantiated level capacity (16, 32, 64) >= k+1."""
+    for kp in (16, 32, 64):
+        if k + 1 <= kp:
+            return kp
+    raise ValueError(f"k={k}: the CUDA kernels are instantiated for "
+                     f"k + 1 <= 64")
+
+
+def _half_bank_pad(words: int) -> int:
+    """The smallest count >= words that is 16 mod 32."""
+    return words + (16 - words % 32) % 32
+
+
+def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
+                      threads: int = K1_THREADS) -> TbFusedGeometry:
+    """K1's block for `cfg` and an op budget (default ``cfg.tb_max_ops``):
+    G = min(KP, 32) threads per lane with L = KP / G levels each,
+    ``threads / G`` lanes per block (whole warps, at most 1,024 threads;
+    the wrapper launches K1_THREADS), and the dynamic shared memory of the
+    kernel's layout: per lane the band, k+1 rows of ``ncb * nwb`` words
+    (plus one where that makes the row stride minus nwb even) padded to 16
+    mod 32 words, the text padded the same way, the staged ops and the
+    lane's dist."""
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f"threads={threads}: K1's block is whole warps, "
+                         f"32..1024 threads")
+    max_ops = cfg.tb_max_ops if max_ops is None else max_ops
+    kp = levels_bucket(cfg.k)
+    group = min(kp, 32)
+    lanes = threads // group
+    ncb, nwb = cfg.ncols_band, cfg.nwb
+    row_words = ncb * nwb + (1 if nwb * (ncb - 1) % 2 == 0 else 0)
+    lane_words = (_half_bank_pad((cfg.k + 1) * row_words)
+                  + _half_bank_pad(cfg.W) + max_ops + 1)
+    return TbFusedGeometry(group=group, levels_per_thread=kp // group,
+                           lanes=lanes, threads=lanes * group,
+                           shared_bytes=4 * lanes * lane_words)
+
+
+def tb_fused_occupancy(cfg: AlignerConfig,
+                       geo: TbFusedGeometry) -> tuple[int, int]:
+    """For K1's instantiation of `cfg` at block `geo` on the current card:
+    the blocks one SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the
+    instantiation's dynamic shared-memory limit as the card reports it once
+    ``geo.shared_bytes`` is allowed (``cudaFuncGetAttributes``)."""
+    lib = _library()
+    blocks, limit = ctypes.c_int(0), ctypes.c_int(0)
+    _check_rc(lib, "genasm_tb_fused_occupancy", lib.genasm_tb_fused_occupancy(
+        cfg.nw, cfg.k, cfg.nwb, geo.threads, geo.shared_bytes,
+        ctypes.byref(blocks), ctypes.byref(limit)))
+    return blocks.value, limit.value
 
 
 def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
@@ -297,11 +388,11 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
     B = pm.shape[-1]
     ops, meta = _outputs(max_ops, B, pm.device)
     if B:
-        band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, B),
-                           dtype=torch.int32, device=pm.device)
-        _launch("tb_fused", cfg, pm, text, ops, meta, band,
+        geo = tb_fused_geometry(cfg, max_ops)
+        _launch("tb_fused", cfg, pm, text, ops, meta,
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
-                      int(cfg.early_term), commit_limit, max_ops, max_steps))
+                      int(cfg.early_term), commit_limit, max_ops, max_steps),
+                block=(geo.lanes, geo.threads, geo.shared_bytes))
     return ops, meta
 
 

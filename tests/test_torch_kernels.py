@@ -12,6 +12,7 @@ from repro.kernels.ops import genasm_dc_op as ref_dc_op
 from repro.kernels.ops import genasm_tail_fused_op as ref_tail_op
 from repro.kernels.ops import genasm_tb_fused_op as ref_tb_op
 from repro.kernels.ref import genasm_dc_ref as ref_dc_ref
+from repro_torch.core.bitops import SENTINEL_TEXT
 from repro_torch.kernels import genasm_dc
 from repro_torch.kernels.ops import (genasm_dc_op, genasm_tail_fused_op,
                                      genasm_tb_fused_op)
@@ -37,11 +38,16 @@ def _n_edits(rng, b, k):
 
 
 def _square_batch(rng, W, k):
+    """Mutated windows; where k >= W/2 even random windows lie within k,
+    so the far lanes get an all-sentinel text (W substitutions > k)."""
     pats, txts = [], []
     for b in range(B):
         p = rng.integers(0, 4, W).astype(np.uint8)
         pats.append(p)
-        txts.append(mutate_seq(p, _n_edits(rng, b, k), rng, extend_to=W))
+        t = mutate_seq(p, _n_edits(rng, b, k), rng, extend_to=W)
+        if b % 5 == 4 and 2 * k >= W:
+            t = np.full(W, SENTINEL_TEXT, np.uint8)
+        txts.append(t)
     return np.stack(pats), np.stack(txts)
 
 
@@ -64,7 +70,8 @@ def _tail_batch(rng, W, k):
     return pats, txts, m_len, n_len
 
 
-@pytest.mark.parametrize("W,O,k", [(16, 6, 4), (64, 24, 12), (64, 24, 24)])
+@pytest.mark.parametrize("W,O,k", [(16, 6, 4), (32, 12, 20), (64, 24, 12),
+                                   (64, 24, 24), (64, 24, 48)])
 def test_k1_tb_fused_equals_reference(W, O, k):
     ref_cfg, cfg = cfg_pair(W=W, O=O, k=k)
     pat, txt = _square_batch(np.random.default_rng(W + k), W, k)

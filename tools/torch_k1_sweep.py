@@ -1,0 +1,97 @@
+"""K1 (``genasm_tb_fused``) of the PyTorch/CUDA port over block sizes.
+
+    python3 tools/torch_k1_sweep.py [--threads 64,128,256,512] [--reps 20]
+
+For each number of threads per block and each k of the default ladder
+(12, 24, 48; W=64, O=24), at 2,048 and 4,096 lanes of the inputs
+``chip_smoke.py`` gives K1: the kernel launched at that block
+(``genasm_dc.tb_fused_geometry(cfg, threads=...)``, through the C entry
+point; the wrapper itself always launches ``K1_THREADS``) against
+``tb_fused_plain`` (max abs err 0 or it raises), its device ms per launch
+(``chip_smoke``'s CUDA graph timing), and the geometry, shared bytes and
+blocks per SM of that block.  One JSON line per case; needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+import chip_smoke as cs                                          # noqa: E402
+from repro_torch.core.config import AlignerConfig               # noqa: E402
+from repro_torch.kernels import build, genasm_dc                # noqa: E402
+
+
+def launcher(cfg: AlignerConfig, geo, inputs, kw):
+    """A call of K1 at block `geo` on `inputs`, and its (ops, meta)."""
+    pm, text = inputs
+    lanes = pm.shape[-1]
+    ops = torch.empty((kw["max_ops"], lanes), dtype=torch.int32,
+                      device=pm.device)
+    meta = torch.empty((genasm_dc.META_ROWS, lanes), dtype=torch.int32,
+                       device=pm.device)
+    lib = build.load_library()
+
+    def call():
+        rc = lib.genasm_tb_fused_launch(
+            pm.data_ptr(), text.data_ptr(), ops.data_ptr(), meta.data_ptr(),
+            lanes, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
+            int(cfg.early_term), kw["commit_limit"], kw["max_ops"],
+            kw["max_steps"], geo.lanes, geo.threads, geo.shared_bytes,
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"K1 at {geo}: CUDA error {rc}")
+        return ops, meta
+    return call
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--threads", default="64,128,256,512")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_k1_sweep: no CUDA card")
+    cs.phase_device()
+    cs.phase_build()
+    dev = torch.device("cuda")
+    for threads in (int(t) for t in args.threads.split(",")):
+        for k in (12, 24, 48):
+            cfg = AlignerConfig(k=k)
+            geo = genasm_dc.tb_fused_geometry(cfg, threads=threads)
+            if geo.shared_bytes > genasm_dc.MAX_SHARED_BYTES:
+                print(json.dumps(dict(threads=threads, k=k,
+                                      shared_bytes=geo.shared_bytes,
+                                      skipped="shared memory")), flush=True)
+                continue
+            blocks, _ = genasm_dc.tb_fused_occupancy(cfg, geo)
+            for lanes in (2048, 4096):
+                inputs, kw, _ = cs._case("tb_fused", cfg, lanes,
+                                         np.random.default_rng(k), dev)
+                call = launcher(cfg, geo, inputs, kw)
+                got = call()
+                ref = genasm_dc.tb_fused_plain(*inputs, **kw)
+                err = max(int((a.long() - b.long()).abs().max())
+                          for a, b in zip(got, ref))
+                if err != 0:
+                    raise AssertionError(f"threads={threads} k={k}: K1 and "
+                                         f"tb_fused_plain differ ({err})")
+                for _ in range(2):
+                    call()
+                print(json.dumps(dict(
+                    threads=threads, k=k, lanes=lanes,
+                    ms=cs._device_ms(call, args.reps, dev), max_abs_err=err,
+                    G=geo.group, lanes_per_block=geo.lanes,
+                    shared_bytes=geo.shared_bytes, blocks_per_sm=blocks)),
+                      flush=True)
+
+
+if __name__ == "__main__":
+    main()
