@@ -3,12 +3,15 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version on the card (and K1
-over a grid of its block geometries, with its occupancy), drives
-the aligner's main path (``GenASMAligner.align``) on PBSIM2-like long
-reads through the fused backend (K1, K2, K4) and the split backend (K3 and
-the PyTorch traceback), holds the two results equal, and checks the kernel
-path against the CPU plain path end to end on both backends.
+holds each kernel against its plain PyTorch version on the card (K1 also
+over a grid of its instantiations and block geometries, with its
+occupancy; K2 and K4 over every tail instantiation in both store
+placements), drives the aligner's main path (``GenASMAligner.align``) on
+PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
+split backend (K3 and the PyTorch traceback), holds the two results
+equal, and checks the kernel path against the CPU plain path end to end:
+on both backends, through all three rungs of the rescue ladder, and with
+the reference's ``lane_tile='auto'`` of 2,816.
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -22,6 +25,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -35,6 +39,7 @@ from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
                                      synth_genome)
 from repro_torch.kernels import build, genasm_dc               # noqa: E402
+from repro_torch.kernels.genasm_dc import PLACEMENTS           # noqa: E402
 from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
@@ -60,7 +65,15 @@ KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
 #: the kernels each backend's main path launches, and no other
 PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full"),
                 "split": ("dc_band",)}
-SOURCE = "src/repro_torch/kernels/csrc/genasm_fused.cu"
+_CSRC = "src/repro_torch/kernels/csrc/"
+SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
+           "tail_banded": _CSRC + "tail_fused.cu",
+           "tail_full": _CSRC + "tail_fused.cu",
+           "dc_band": _CSRC + "dc_band.cu"}
+#: each kernel template's display name and template parameters
+TEMPLATES = {"tb_fused_kernel": ("tb_fused", ("NW", "KP", "NWB")),
+             "tail_fused_kernel": ("tail_fused", ("NW", "KP", "NWB", "PLACE")),
+             "dc_band_kernel": ("dc_band", ("NW", "KP"))}
 #: K1's ms per launch at 4,096 lanes in its first design (one thread per
 #: lane, band in global scratch), by k: PERF.md section 6, measured by this
 #: script on an NVIDIA H100 80GB HBM3 at 700.00 W
@@ -100,38 +113,59 @@ def phase_device() -> str:
 
 
 def phase_build() -> dict:
-    """Build and load the library; returns ptxas's usage per kernel."""
+    """Build and load the library (one nvcc per source, all started
+    together); returns ptxas's usage per kernel instantiation."""
     t0 = time.perf_counter()
     lib = build.build()
     build.load_library()
     seconds = time.perf_counter() - t0
-    usage = _ptxas_usage(build.ptxas_report(lib).read_text())
-    emit("build", seconds=seconds, library=lib.name, ptxas=usage)
+    report = build.ptxas_report(lib).read_text()
+    usage = _ptxas_usage(report)
+    per_source = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^== (\S+): ([\d.]+) s$", report, re.M)}
+    emit("build", seconds=seconds, nvcc_seconds=per_source,
+         library=lib.name, instantiations=len(usage), ptxas=usage)
     return usage
 
 
-def _kernel_name(kind: str, args) -> str:
-    """kind<NW=..,KP=..> (K1: also NWB=..) of an instantiation."""
-    return f"{kind}<" + ",".join(f"{p}={a}" for p, a in zip(
-        ("NW", "KP", "NWB"), args)) + ">"
+def _kernel_name(template: str, args) -> str:
+    """name<NW=..,KP=..[,NWB=..][,PLACE=..]> of an instantiation."""
+    name, params = TEMPLATES[template]
+    args = [PLACEMENTS[int(a)] if p == "PLACE" else a
+            for p, a in zip(params, args)]
+    return f"{name}<" + ",".join(f"{p}={a}" for p, a in zip(params, args)) \
+        + ">"
+
+
+def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
+    """The usage key of the instantiation kernel `name` runs for `cfg`."""
+    kp = genasm_dc.levels_bucket(cfg.k)
+    if name == "tb_fused":
+        return _kernel_name("tb_fused_kernel", (cfg.nw, kp, cfg.nwb))
+    if name == "dc_band":
+        return _kernel_name("dc_band_kernel", (cfg.nw, kp))
+    nwb = cfg.nwb if name == "tail_banded" else cfg.nw
+    return _kernel_name("tail_fused_kernel", (cfg.nw, kp, nwb,
+                                              PLACEMENTS.index(placement)))
 
 
 def _ptxas_usage(report: str) -> dict:
-    """{kernel<NW,KP[,NWB]>: "registers / spill stores / spill loads"}
-    from ptxas -v output."""
+    """{kernel<NW,KP[,NWB][,PLACE]>: "registers, spill stores, spill
+    loads, stack frame"} from ptxas -v output (a thread-local array that
+    does not fit registers lives in the stack frame, in local memory)."""
     usage, name, spill = {}, None, ""
     for line in report.splitlines():
         if "Function properties for" in line:
             mangled = line.split()[-1]
-            kind = next((k for k in KERNELS if f"{k}_kernel" in mangled),
-                        None)
+            template = next((t for t in TEMPLATES if t in mangled), None)
             name = None
-            if kind is not None:
+            if template is not None:
                 args = re.search(r"_kernelI((?:Li\d+E)+)E", mangled).group(1)
-                name = _kernel_name(kind, re.findall(r"Li(\d+)E", args))
+                name = _kernel_name(template, re.findall(r"Li(\d+)E", args))
         elif "spill stores" in line:
             nums = re.findall(r"(\d+) bytes", line)
-            spill = f"spill stores {nums[1]} B, spill loads {nums[2]} B"
+            spill = (f"spill stores {nums[1]} B, spill loads {nums[2]} B, "
+                     f"stack frame {nums[0]} B")
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             usage[name] = f"{regs} registers, {spill}"
@@ -246,72 +280,179 @@ def _device_ms(fn, reps: int, device: torch.device):
     return _time_ms(graph.replay, 1, device) / reps
 
 
-def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
-                reps: int, what: str) -> dict:
-    """One kernel call against its plain version on the same inputs (max
-    abs err 0 or raise); with reps > 0 also its times and bound."""
-    wrapper, plain, _ = KERNELS[name]
-    inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
-    call = lambda: wrapper(*inputs, **kw)               # noqa: E731
-    got = call()
-    _sync(device)
-    start = time.perf_counter()
-    ref = plain(*inputs, **kw)
-    _sync(device)
-    plain_ms = (time.perf_counter() - start) * 1e3
+def _max_abs_err(name: str, got, ref, what: str) -> int:
+    """Max abs difference of a kernel's outputs and its plain version's;
+    raises unless it is 0."""
     err = max(int((a.long() - b.long()).abs().max()) for a, b in
               zip(got, ref))
     if err != 0:
         raise AssertionError(f"{name} {what}: kernel and plain version "
                              f"differ (max abs err {err})")
+    return err
+
+
+def _plain(name: str, inputs, kw, device):
+    """The plain version's outputs and its ms on the same inputs."""
+    _sync(device)
+    start = time.perf_counter()
+    ref = KERNELS[name][1](*inputs, **kw)
+    _sync(device)
+    return ref, (time.perf_counter() - start) * 1e3
+
+
+def _timing(name: str, cfg, call, inputs, got, cols, reps: int,
+            device) -> dict:
+    """Times of `call` (device ms from a CUDA graph, event ms of
+    back-to-back calls) and the bound of its work."""
+    for _ in range(2):
+        call()
+    event_ms = _time_ms(call, reps, device)
+    device_ms = _device_ms(call, reps, device)
     dist, steps = _dist_and_steps(name, got)
-    row = dict(name=name, k=cfg.k, lanes=n_pairs, max_abs_err=err,
+    bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
+    return dict(ms=event_ms if device_ms is None else device_ms,
+                event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
+                reps: int, what: str) -> dict:
+    """One kernel call against its plain version on the same inputs (max
+    abs err 0 or raise); with reps > 0 also its times and bound."""
+    wrapper = KERNELS[name][0]
+    inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
+    call = lambda: wrapper(*inputs, **kw)               # noqa: E731
+    got = call()
+    ref, plain_ms = _plain(name, inputs, kw, device)
+    err = _max_abs_err(name, got, ref, what)
+    dist, _ = _dist_and_steps(name, got)
+    row = dict(name=name, W=cfg.W, k=cfg.k, lanes=n_pairs, max_abs_err=err,
                plain_ms=plain_ms, solved=int((dist <= cfg.k).sum()))
     if reps:
-        for _ in range(2):
-            call()
-        event_ms = _time_ms(call, reps, device)
-        device_ms = _device_ms(call, reps, device)
-        bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
-        row.update(ms=event_ms if device_ms is None else device_ms,
-                   event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by)
+        row.update(_timing(name, cfg, call, inputs, got, cols, reps, device))
     return row
 
 
+def tail_launcher(name: str, cfg: AlignerConfig, geo, inputs, kw):
+    """A call of the tail kernel `name` (K2 ``tail_banded`` or K4
+    ``tail_full``) at block `geo` (any ``genasm_dc.tail_geometry``, in
+    either placement) on CUDA `inputs`, through its C entry point, and its
+    (ops, meta); the wrapper launches only the geometry's default.  On
+    CPU inputs: the plain version."""
+    pm, text, m_len, n_len = inputs
+    if pm.device.type != "cuda":
+        return lambda: KERNELS[name][1](*inputs, **kw)
+    lanes, dev = pm.shape[-1], pm.device
+    ops = torch.empty((kw["max_ops"], lanes), dtype=torch.int32, device=dev)
+    meta = torch.empty((genasm_dc.META_ROWS, lanes), dtype=torch.int32,
+                       device=dev)
+    store = torch.empty((lanes, geo.store_words) if geo.store_words else 0,
+                        dtype=torch.int32, device=dev)
+    fn = getattr(build.load_library(), f"genasm_{name}_launch")
+    nwb = cfg.nwb if name == "tail_banded" else cfg.nw
+
+    def call():
+        rc = fn(pm.data_ptr(), text.data_ptr(), m_len.data_ptr(),
+                n_len.data_ptr(), ops.data_ptr(), meta.data_ptr(),
+                store.data_ptr(), lanes, kw["n_text"], cfg.W, cfg.nw, cfg.k,
+                nwb, int(cfg.early_term), kw["commit_limit"], kw["max_ops"],
+                kw["max_steps"], geo.lanes, geo.threads,
+                PLACEMENTS.index(geo.placement), geo.shared_bytes,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} at {geo}: CUDA error {rc}")
+        return ops, meta
+    return call
+
+
+def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
+                   usage=None):
+    """The geometry of the tail kernel `name` for `cfg` at its main-path
+    shapes, in `placement` (default: the geometry's own choice), and a row
+    of its block, store and (with ``usage``, on the card) occupancy and
+    ptxas report."""
+    n_text = cfg.W + 4 * cfg.k
+    banded = name == "tail_banded"
+    geo = genasm_dc.tail_geometry(cfg, n_text, cfg.W + n_text, banded=banded,
+                                  placement=placement)
+    nwb = cfg.nwb if banded else cfg.nw
+    row = dict(NW=cfg.nw, KP=genasm_dc.levels_bucket(cfg.k), NWB=nwb,
+               G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
+               threads=geo.threads, placement=geo.placement,
+               shared_bytes=geo.shared_bytes,
+               store_bytes_per_lane=4 * ((cfg.k + 1) * n_text * nwb
+                                         if geo.placement == "shared"
+                                         else geo.store_words))
+    if usage is not None:
+        blocks, limit = genasm_dc.tail_occupancy(cfg, geo, banded)
+        if limit < geo.shared_bytes:
+            raise AssertionError(f"{name} W={cfg.W} k={cfg.k}: the card "
+                                 f"allows {limit} B of dynamic shared "
+                                 f"memory, a block asks for "
+                                 f"{geo.shared_bytes}")
+        row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
+                   ptxas=usage.get(_instantiation(name, cfg,
+                                                  geo.placement)))
+    return geo, row
+
+
+#: K3 on the card at W > 64 (NW = 3, 4) and where m_pad > W (40, 48):
+#: (W, O, k), each at the phase's lanes, timed
+K3_WIDE = [(40, 16, 12), (48, 16, 12), (96, 36, 24), (96, 36, 48),
+           (128, 48, 24), (128, 48, 48)]
+
+
 def phase_kernels(device: torch.device, n_pairs: int = 4096,
-                  reps: int = 20) -> list[dict]:
-    """Each kernel against its plain version at the main path's shapes.
-    On the card ``ms`` is the device time per launch (``_device_ms``);
-    ``event_ms`` the CUDA-event time per call of back-to-back wrapper
-    calls, the host's time between launches included."""
+                  reps: int = 20, usage: dict | None = None) -> list[dict]:
+    """Each kernel against its plain version at the main path's shapes
+    (W=64), then K3 at the widths of ``K3_WIDE``.  On the card ``ms`` is
+    the device time per launch (``_device_ms``); ``event_ms`` the
+    CUDA-event time per call of back-to-back wrapper calls, the host's time
+    between launches included.  The tail rows carry their block, store
+    placement and (with ``usage``, ptxas's) registers, spills and blocks
+    per SM."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
              ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
              ("dc_band", 12), ("dc_band", 24), ("dc_band", 48)]
+    cases = [(name, AlignerConfig(k=k)) for name, k in cases] + [
+        ("dc_band", AlignerConfig(W=W, O=O, k=k)) for W, O, k in K3_WIDE]
     rows = []
-    for name, k in cases:
-        cfg = AlignerConfig(k=k)
+    for name, cfg in cases:
         if name.startswith("tail") and (name == "tail_banded") != cfg.tail_banded:
-            raise AssertionError(f"k={k} does not select {name}")
-        row = _check_case(name, cfg, n_pairs, rng, device, reps, f"k={k}")
+            raise AssertionError(f"k={cfg.k} does not select {name}")
+        row = _check_case(name, cfg, n_pairs, rng, device, reps,
+                          f"W={cfg.W} k={cfg.k}")
         if name == "tb_fused":
-            row["one_thread_ms"] = K1_ONE_THREAD_MS[k]
+            row["one_thread_ms"] = K1_ONE_THREAD_MS[cfg.k]
+        if name.startswith("tail"):
+            row.update(_tail_geometry(name, cfg, usage=usage)[1])
+        if name == "dc_band" and usage is not None:
+            row["ptxas"] = usage.get(_instantiation(name, cfg))
         emit("kernel", **row)
         rows.append(row)
     return rows
 
 
 #: K1's geometry grid: (W, O, k, early_term, lanes); every (NW, KP, NWB)
-#: instantiation, idle levels above k (k=40), no early termination, lane
-#: counts that are no multiple of a block's lanes, and the main path's
-#: own batch width (2,048, timed)
+#: instantiation, W = 40 and 48 (m_pad > W), idle levels above k (k=40),
+#: no early termination, lane counts that are no multiple of a block's
+#: lanes, blocks of fewer lanes (W = 96 and 128 at k = 48), and the main
+#: path's own batch width (2,048, timed)
 K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
-           (32, 12, 20, True, 37), (64, 24, 12, True, 37),
+           (32, 12, 20, True, 37), (40, 16, 12, True, 37),
+           (48, 16, 12, True, 37), (64, 24, 12, True, 37),
            (64, 24, 15, True, 37), (64, 24, 24, True, 37),
            (64, 24, 40, True, 37),
            (64, 24, 48, True, 37), (64, 24, 12, False, 37),
            (64, 24, 48, False, 37), (64, 24, 12, True, 1),
            (64, 24, 24, True, 1), (64, 24, 48, True, 1),
+           (96, 36, 12, True, 37), (96, 36, 15, True, 37),
+           (96, 36, 24, True, 37), (96, 36, 31, True, 37),
+           (96, 36, 48, True, 37), (96, 36, 48, True, 1),
+           (128, 48, 12, True, 37), (128, 48, 15, True, 37),
+           (128, 48, 24, True, 37), (128, 48, 31, True, 37),
+           (128, 48, 40, True, 37), (128, 48, 48, True, 37),
+           (128, 48, 48, True, 1),
            (64, 24, 12, True, 2048), (64, 24, 24, True, 2048),
            (64, 24, 48, True, 2048)]
 
@@ -342,28 +483,105 @@ def phase_k1_grid(device: torch.device, reps: int = 20) -> list[dict]:
 
 
 def phase_k1_occupancy(usage: dict) -> dict:
-    """Per K1 instantiation: its block, the dynamic shared bytes a block
-    asks for and the instantiation's limit as the card reports it, active
-    blocks per SM on this card, and ptxas's registers and spills.  Returns
-    the rows of the default ladder's k (12, 24, 48)."""
+    """Per K1 instantiation of the default ladder and of W = 96 and 128 at
+    k = 48 (fewer lanes a block): its block, the dynamic shared bytes a
+    block asks for and the instantiation's limit as the card reports it,
+    active blocks per SM on this card, and ptxas's registers and spills.
+    Returns the rows of the default ladder's k (12, 24, 48)."""
     out = {}
     for W, O, k in ((32, 12, 5), (32, 12, 20), (64, 24, 12), (64, 24, 15),
-                    (64, 24, 24), (64, 24, 48)):
+                    (64, 24, 24), (64, 24, 48), (96, 36, 48),
+                    (128, 48, 48)):
         cfg = AlignerConfig(W=W, O=O, k=k)
         row = _k1_geometry(cfg)
         blocks, limit = genasm_dc.tb_fused_occupancy(
             cfg, genasm_dc.tb_fused_geometry(cfg))
         if limit < row["shared_bytes"]:
-            raise AssertionError(f"K1 k={k}: the card allows {limit} B of "
-                                 f"dynamic shared memory, a block asks for "
-                                 f"{row['shared_bytes']}")
+            raise AssertionError(f"K1 W={W} k={k}: the card allows {limit} "
+                                 f"B of dynamic shared memory, a block asks "
+                                 f"for {row['shared_bytes']}")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
-                   ptxas=usage.get(_kernel_name(
-                       "tb_fused", (row["NW"], row["KP"], row["NWB"]))))
+                   ptxas=usage.get(_instantiation("tb_fused", cfg)))
         emit("k1_occupancy", **row)
-        if k in K1_ONE_THREAD_MS:
+        if W == 64 and k in K1_ONE_THREAD_MS:
             out[k] = row
     return out
+
+
+#: the tails' grid: (W, O, k, tail_store, kernel), every (NW, KP, NWB)
+#: instantiation of tail_fused_kernel: K4 at W <= 32 (nwb == nw at the
+#: base k), K2 where the band is the whole vector (tail_store='band'),
+#: W = 40 and 48 (m_pad > W), W = 96 and 128; and W=128, k=48, whose lane
+#: fits no block's shared memory (global only)
+TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
+             (32, 12, 5, "band", "tail_banded"),
+             (40, 16, 12, "auto", "tail_banded"),
+             (48, 16, 12, "auto", "tail_banded"),
+             (64, 24, 12, "auto", "tail_banded"),
+             (64, 24, 12, "full", "tail_full"),
+             (64, 24, 24, "auto", "tail_full"),
+             (64, 24, 48, "auto", "tail_full"),
+             (96, 36, 12, "auto", "tail_banded"),
+             (96, 36, 15, "auto", "tail_banded"),
+             (96, 36, 12, "full", "tail_full"),
+             (96, 36, 24, "auto", "tail_banded"),
+             (96, 36, 31, "auto", "tail_full"),
+             (96, 36, 48, "auto", "tail_full"),
+             (128, 48, 12, "auto", "tail_banded"),
+             (128, 48, 15, "auto", "tail_banded"),
+             (128, 48, 12, "full", "tail_full"),
+             (128, 48, 24, "auto", "tail_banded"),
+             (128, 48, 31, "auto", "tail_banded"),
+             (128, 48, 24, "full", "tail_full"),
+             (128, 48, 40, "auto", "tail_banded"),
+             (128, 48, 32, "full", "tail_full"),
+             (128, 48, 48, "auto", "tail_full")]
+#: the main path's tails, timed at 2,048 lanes in both placements
+TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
+              (64, 24, 24, "auto", "tail_full"),
+              (64, 24, 48, "auto", "tail_full")]
+
+
+def phase_tail_grid(device: torch.device, reps: int = 20,
+                    usage: dict | None = None,
+                    lane_counts=(37, 1, 2048)) -> list[dict]:
+    """K2 and K4 over ``TAIL_GRID`` at 37 and 1 lanes and ``TAIL_TIMED``
+    at 2,048 (timed), each case in both store placements wherever one
+    lane's store fits a block's shared memory (else global only), launched
+    through the C entry point at that placement's geometry
+    (``tail_launcher``) and held against the plain version with max abs
+    err 0."""
+    rng = np.random.default_rng(16)
+    rows = []
+    for lanes in lane_counts:
+        for W, O, k, tail_store, name in (TAIL_TIMED if lanes >= 2048
+                                          else TAIL_GRID):
+            cfg = AlignerConfig(W=W, O=O, k=k, tail_store=tail_store)
+            if (name == "tail_banded") != cfg.tail_banded:
+                raise AssertionError(f"W={W} k={k} tail_store={tail_store} "
+                                     f"does not select {name}")
+            inputs, kw, cols = _case(name, cfg, lanes, rng, device)
+            ref, plain_ms = _plain(name, inputs, kw, device)
+            for placement in PLACEMENTS:
+                try:
+                    geo, geo_row = _tail_geometry(name, cfg, placement, usage)
+                except ValueError as exc:       # the lane fits no block
+                    emit("tail_grid", name=name, W=W, k=k, lanes=lanes,
+                         placement=placement, skipped=str(exc))
+                    continue
+                call = tail_launcher(name, cfg, geo, inputs, kw)
+                got = call()
+                row = dict(name=name, W=W, k=k, tail_store=tail_store,
+                           lanes=lanes, max_abs_err=_max_abs_err(
+                               name, got, ref, f"W={W} k={k} lanes={lanes} "
+                               f"{placement}"),
+                           plain_ms=plain_ms, **geo_row)
+                if lanes >= 2048:
+                    row.update(_timing(name, cfg, call, inputs, got, cols,
+                                       reps, device))
+                emit("tail_grid", **row)
+                rows.append(row)
+    return rows
 
 
 # ---- phase 4: the main path at a real size, fused then split ----
@@ -377,15 +595,16 @@ def long_reads(n_pairs: int = 2048, read_len: int = 10_000,
                                                          seed=2022))
 
 
-def _drive(device: torch.device, backend: str, rs):
-    """Align `rs` through ``GenASMAligner.align`` on `backend` at the
-    default geometry (W=64, O=24, k=12, ladder to 48), the launch counts
-    set to 0 just before and read just after.  Fails unless exactly the
-    backend's kernels ran on the card (or, on the CPU, exactly their plain
-    versions).  Returns the aligner, the result, the host seconds and the
-    counts."""
-    aligner = GenASMAligner(AlignerConfig(backend=backend), rescue_rounds=2,
-                            device=device)
+def _drive(device: torch.device, backend: str, rs,
+           cfg: AlignerConfig | None = None):
+    """Align `rs` through ``GenASMAligner.align`` on `backend` at `cfg`
+    (default: the default geometry, W=64, O=24, k=12, ladder to 48), the
+    launch counts set to 0 just before and read just after.  Fails unless
+    exactly the backend's kernels ran on the card (or, on the CPU, exactly
+    their plain versions).  Returns the aligner, the result, the host
+    seconds and the counts."""
+    cfg = (cfg or AlignerConfig()).replace(backend=backend)
+    aligner = GenASMAligner(cfg, rescue_rounds=2, device=device)
     genasm_dc.reset_counts()
     _sync(device)
     t0 = time.perf_counter()
@@ -448,8 +667,8 @@ def phase_main_path_split(device: torch.device, rs, fused: dict,
     and the level count equal to the fused path's (``fused`` and
     ``fused_res``, from ``phase_main_path``).  On the card it profiles one
     more batch, ``profile_rs`` (the main batch when None; ``main()`` gives
-    it 500 bp reads, since the profiler takes minutes to sum the events of
-    the main batch's millions of launches)."""
+    it 1,024 reads of 500 bp, since the profiler takes minutes to sum the
+    events of the main batch's millions of launches)."""
     aligner, res, align_s, taken, other = _drive(device, "split", rs)
     cfg = aligner.cfg
     rounds = aligner.last_run["rounds_run"]
@@ -478,6 +697,18 @@ def phase_main_path_split(device: torch.device, rs, fused: dict,
     return out
 
 
+def _profiled_kernel(key: str) -> str:
+    """Which row of the breakdown a profiler key falls in: one of KERNELS
+    (K2 and K4 are both tail_fused_kernel<NW, KP, NWB, PLACE>; NWB < NW is
+    K2, as on the main path), copies, or PyTorch's own kernels."""
+    tail = re.search(r"tail_fused_kernel<(\d+), (\d+), (\d+), (\d+)>", key)
+    if tail:
+        return ("tail_banded" if int(tail.group(3)) < int(tail.group(1))
+                else "tail_full")
+    return next((k for k in KERNELS if f"{k}_kernel" in key),
+                "memcpy" if "memcpy" in key.lower() else "torch_kernels")
+
+
 def _device_breakdown(run) -> dict:
     """Device time of one more main-path batch under torch.profiler, by
     kernel (ours by name, the rest of PyTorch's together, copies), beside
@@ -496,11 +727,9 @@ def _device_breakdown(run) -> dict:
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        name = next((k for k in KERNELS if f"{k}_kernel" in ev.key),
-                    "memcpy" if "memcpy" in ev.key.lower()
-                    else "torch_kernels")
-        ms[name] += ev.self_device_time_total / 1e3
-        launches[name] += ev.count
+        name = _profiled_kernel(ev.key)
+        ms[name] = ms.get(name, 0.0) + ev.self_device_time_total / 1e3
+        launches[name] = launches.get(name, 0) + ev.count
     busy = sum(ms.values()) / 1e3
     wall = t1 - t0
     return dict(wall_s=wall, device_ms=ms, device_launches=launches,
@@ -511,62 +740,135 @@ def _device_breakdown(run) -> dict:
 
 # ---- phase 5: kernel path against plain path, end to end ----
 
+def _with_burst(rs, lane: int, n: int, seed: int):
+    """`rs` with `n` random bases inserted in the middle of read `lane`:
+    at n = 16 its window needs more than k = 24 edits, so only the third
+    rung (k = 48) aligns it."""
+    reads = list(rs.reads)
+    burst = np.random.default_rng(seed).integers(0, 4, n).astype(np.uint8)
+    mid = len(reads[lane]) // 2
+    reads[lane] = np.concatenate([reads[lane][:mid], burst,
+                                  reads[lane][mid:]])
+    return reads, list(rs.ref_segments)
+
+
+def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
+    """Align on `device` and on the CPU; raise unless every field is
+    equal.  Returns (result, aligner's last_run, seconds per device)."""
+    results, runs, seconds = {}, {}, {}
+    batch = SimpleNamespace(reads=reads, ref_segments=refs)
+    for dev in (device, torch.device("cpu")):
+        aligner, results[dev.type], seconds[dev.type], _, _ = _drive(
+            dev, backend, batch, cfg)
+        runs[dev.type] = aligner.last_run
+    _assert_same_result(results[device.type], results["cpu"],
+                        f"end to end ({backend}{what})")
+    if any(runs[device.type][key] != runs["cpu"][key]
+           for key in ("rounds_run", "levels_run_total")):
+        raise AssertionError(f"end to end ({backend}{what}): ladder counts "
+                             f"differ: {runs}")
+    return results[device.type], runs[device.type], seconds
+
+
 def phase_end_to_end(device: torch.device, n_pairs: int = 32,
-                     read_len: int = 2_000) -> None:
-    """Each backend on `device` against the same backend on the CPU."""
+                     read_len: int = 2_000, tile_pairs: int = 8,
+                     tile_read_len: int = 600) -> None:
+    """Each backend on `device` against the same backend on the CPU; then
+    the fused backend on the same batch with one read that only the third
+    rung aligns (``rounds_run == 3``); then the fused backend at
+    ``lane_tile=2816`` (what the reference's ``lane_tile='auto'`` gives at
+    the default geometry: a pad unit, no block size) on `tile_pairs`
+    reads."""
     genome = synth_genome(1_000_000, seed=7)
     rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                        seed=7))
     for backend in PATH_KERNELS:
-        results, seconds = {}, {}
-        for dev in (device, torch.device("cpu")):
-            _, results[dev.type], seconds[dev.type], _, _ = _drive(
-                dev, backend, rs)
-        a = results[device.type]
-        _assert_same_result(a, results["cpu"], f"end to end ({backend})")
+        res, _, seconds = _cuda_equals_cpu(device, backend, rs.reads,
+                                           rs.ref_segments)
         emit("end_to_end", backend=backend, pairs=n_pairs,
              read_len=read_len, equal=True, seconds=seconds,
-             failed_share=float(a.failed.mean()))
+             failed_share=float(res.failed.mean()))
+    lane = min(5, n_pairs - 1)
+    res, run, seconds = _cuda_equals_cpu(
+        device, "fused", *_with_burst(rs, lane, 16, seed=3),
+        what=", three rungs")
+    if run["rounds_run"] != 3 or res.k_used[lane] != 48 or res.failed[lane]:
+        raise AssertionError(f"the burst read did not take the k=48 rung: "
+                             f"{run}, k_used {res.k_used[lane]}")
+    emit("end_to_end", backend="fused", case="three_rungs", pairs=n_pairs,
+         read_len=read_len, equal=True, seconds=seconds, **run)
+    tile = AlignerConfig(lane_tile=2816)
+    rs = simulate_reads(genome, tile_pairs, ReadSimConfig(
+        read_len=tile_read_len, seed=8))
+    res, run, seconds = _cuda_equals_cpu(device, "fused", rs.reads,
+                                         rs.ref_segments, tile,
+                                         ", lane_tile=2816")
+    emit("end_to_end", backend="fused", case="lane_tile_2816",
+         pairs=tile_pairs, read_len=tile_read_len, equal=True,
+         seconds=seconds, rounds_run=run["rounds_run"],
+         failed_share=float(res.failed.mean()))
 
 
 def main() -> None:
     t0 = time.perf_counter()
+    phase_s = {}
+
+    def timed(phase, fn, *args, **kw):
+        start = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[phase] = time.perf_counter() - start
+        return out
+
     smi = phase_device()
-    usage = phase_build()
+    usage = timed("build", phase_build)
     cuda = torch.device("cuda")
-    rows = phase_kernels(cuda)
-    phase_k1_grid(cuda)
-    occupancy = phase_k1_occupancy(usage)
-    t1 = time.perf_counter()
-    rs = long_reads()
+    rows = timed("kernel", phase_kernels, cuda, usage=usage)
+    timed("k1_grid", phase_k1_grid, cuda)
+    occupancy = timed("k1_occupancy", phase_k1_occupancy, usage)
+    timed("tail_grid", phase_tail_grid, cuda, usage=usage)
+    rs = timed("batch", long_reads)
     emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
-         sim_s=time.perf_counter() - t1)
-    fused, fused_res = phase_main_path(cuda, rs)
-    split = phase_main_path_split(cuda, rs, fused, fused_res,
-                                  profile_rs=long_reads(read_len=500))
-    phase_end_to_end(cuda)
+         sim_s=phase_s["batch"])
+    fused, fused_res = timed("main_path", phase_main_path, cuda, rs)
+    split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
+                  fused_res, profile_rs=long_reads(1024, read_len=500))
+    timed("end_to_end", phase_end_to_end, cuda)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():
-        base = next(r for r in rows if r["name"] == name)
+        own = [r for r in rows if r["name"] == name]
+        main_rows = [r for r in own if r["W"] == 64]
+        base = main_rows[0]
         by_k = {r["k"]: dict(ms=r["ms"], event_ms=r["event_ms"],
                              plain_ms=r["plain_ms"], bound_ms=r["bound_ms"])
-                for r in rows if r["name"] == name}
-        if name == "tb_fused":
-            for k, row in by_k.items():
-                occ = occupancy[k]
-                row.update(ptxas=occ["ptxas"],
-                           shared_bytes=occ["card_shared_bytes"],
-                           blocks_per_sm=occ["blocks_per_sm"])
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
+                for r in main_rows}
+        for r in main_rows:
+            if name == "tb_fused":
+                occ = occupancy[r["k"]]
+                by_k[r["k"]].update(ptxas=occ["ptxas"],
+                                    shared_bytes=occ["card_shared_bytes"],
+                                    blocks_per_sm=occ["blocks_per_sm"])
+            elif name.startswith("tail"):
+                by_k[r["k"]].update({key: r[key] for key in (
+                    "ptxas", "placement", "shared_bytes", "blocks_per_sm",
+                    "lanes_per_block", "store_bytes_per_lane")})
+            else:
+                by_k[r["k"]]["ptxas"] = r["ptxas"]
+        entry = dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=replaces,
             launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in rows
-                            if r["name"] == name),
+            max_abs_err=max(r["max_abs_err"] for r in own),
             ms=base["ms"], plain_ms=base["plain_ms"],
             bound_ms=base["bound_ms"], bound_by=base["bound_by"],
-            library_ms=None, k=base["k"], lanes=base["lanes"], by_k=by_k))
-    emit("done", seconds=time.perf_counter() - t0)
+            library_ms=None, W=base["W"], k=base["k"], lanes=base["lanes"],
+            by_k=by_k)
+        wide = [r for r in own if r["W"] != 64]
+        if wide:
+            entry["by_width"] = [dict(W=r["W"], k=r["k"], ms=r["ms"],
+                                      bound_ms=r["bound_ms"],
+                                      ptxas=r.get("ptxas")) for r in wide]
+        kernels.append(entry)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

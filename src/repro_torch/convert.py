@@ -23,16 +23,13 @@ def config_from_reference(fields: dict) -> AlignerConfig:
     """Port config from ``dataclasses.asdict`` of a reference AlignerConfig.
 
     The backend maps through BACKEND_MAP and every other knob passes
-    through.  Raises NotImplementedError for an alphabet other than DNA,
-    which the kernels are not written for."""
+    through, except ``n_symbols``, which is dropped: the reference declares
+    it and never reads it (its DP takes the DNA alphabet from a constant),
+    so every value aligns as 4 does."""
     fields = dict(fields)
     backend = fields.pop("backend", "jnp")
-    n_symbols = fields.pop("n_symbols", 4)
+    fields.pop("n_symbols", None)
     if backend not in BACKEND_MAP:
         raise ValueError(f"backend={backend!r} is not a reference backend "
                          f"the port maps ({tuple(BACKEND_MAP)})")
-    if n_symbols != 4:
-        raise NotImplementedError(
-            f"n_symbols={n_symbols}: the kernels are written for the DNA "
-            f"alphabet (4 symbols) only")
     return AlignerConfig(backend=BACKEND_MAP[backend], **fields)

@@ -14,9 +14,9 @@ reference backend (``repro_torch.convert`` maps a reference config):
 
 All three give the same results.  On the kernel backends the device of the
 tensors decides between the hand-written CUDA kernels and their plain
-PyTorch versions.  ``lane_tile`` is the batch pad unit and the number of
-threads per CUDA block of K2, K3 and K4 (one lane each); K1 derives its
-own block (``kernels.genasm_dc.tb_fused_geometry``).
+PyTorch versions.  ``lane_tile`` is the batch pad unit only; the kernels
+derive their own blocks (``kernels.genasm_dc``: ``tb_fused_geometry``,
+``tail_geometry``; K3 128 threads).
 """
 from __future__ import annotations
 
@@ -53,7 +53,7 @@ class AlignerConfig:
     early_term: bool = True
     tb_margin: int = 3          # extra stored columns beyond the provable band
     backend: str = "fused"
-    lane_tile: int = 128        # the batch pad unit; K2-K4's threads a block
+    lane_tile: int = 128        # the batch pad unit
     tail_store: str = "auto"
 
     def __post_init__(self):

@@ -1,12 +1,16 @@
-"""Build and load the CUDA kernels (``csrc/genasm_fused.cu``).
+"""Build and load the CUDA kernels (``csrc/*.cu``).
 
-At first use the source is compiled by ``nvcc`` into a shared library with
-a plain C interface (no PyTorch headers, so the build takes seconds) under
-``build/repro_torch_kernels/`` at the root of the checkout, named by a hash
-of the source and the flags, so an edited source rebuilds.  The library is
-loaded with ``ctypes``; pointers and the stream pass as ``c_void_p``,
-integers as ``c_int``.  ``ptxas``'s report (registers, spills per kernel)
-is kept beside the library.
+At first use each source (``tb_fused.cu``: K1, ``tail_fused.cu``: K2 and
+K4, ``dc_band.cu``: K3, once per words a bitvector, NW = 1..4; all
+include ``genasm_common.cuh``) is compiled by its own ``nvcc``, all
+started together, and the objects are linked into one
+shared library with a plain C interface (no PyTorch headers, so the build
+takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
+of the checkout, named by a hash of the sources and the flags, so an edited
+source rebuilds.  The library is loaded with ``ctypes``; pointers and the
+stream pass as ``c_void_p``, integers as ``c_int``.  ``ptxas``'s report
+(registers, spills per kernel) is kept beside the library, with the
+seconds each source took.
 
 Nothing here runs at import: the CPU tests import every module.
 """
@@ -17,23 +21,33 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "genasm_fused.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = tuple(CSRC / f"{name}.cu"
+                for name in ("tb_fused", "tail_fused", "dc_band"))
+HEADERS = (CSRC / "genasm_common.cuh",)
+#: the compilations: (source, extra nvcc flags); K3's one-thread fill is
+#: slow to compile at NW = 3 and 4, so each NW of it is its own process
+UNITS = ((SOURCES[0], ()), (SOURCES[1], ()),
+         *((SOURCES[2], (f"-DK3_NW={nw}",)) for nw in (1, 2, 3, 4)))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each C entry point: pointers, then ints, then the
-#: block geometry (threads per block; K1: lanes, threads, shared bytes) and
-#: the stream; K1's occupancy query: ints, then the results' pointers
+#: block geometry (K1: lanes, threads, shared bytes; K2/K4: lanes,
+#: threads, placement, shared bytes) and the stream; the occupancy
+#: queries: ints, then the results' pointers
 _SIGNATURES = {
     "genasm_tb_fused_launch": [_P] * 4 + [_I] * 10 + [_I] * 3 + [_P],
     "genasm_tb_fused_occupancy": [_I] * 5 + [_P] * 2,
-    "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
-    "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I, _P],
-    "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I, _P],
+    "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
+    "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
+    "genasm_tail_occupancy": [_I] * 6 + [_P] * 2,
+    "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _library: ctypes.CDLL | None = None
@@ -49,9 +63,51 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS)
-                            .encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libgenasm_fused_{digest}.so"
+    blob = b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:16]
+    return BUILD_DIR / f"libgenasm_{digest}.so"
+
+
+def _unit_name(src, extra) -> str:
+    return Path(src).name + "".join(f"[{f.removeprefix('-D')}]"
+                                    for f in extra)
+
+
+def compile_units(units, out_dir: Path, flags=NVCC_FLAGS) -> dict:
+    """Compile each (source, extra flags) unit into an object in
+    `out_dir`, one ``nvcc`` each, all started together.  Returns {unit
+    name: (object, nvcc's output, seconds)}; raises if any fails."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (src, extra) in enumerate(units):
+        obj = out_dir / f"{Path(src).stem}.{i}.{os.getpid()}.o"
+        procs[_unit_name(src, extra)] = (obj, time.perf_counter(),
+                                         subprocess.Popen(
+            [_nvcc(), *flags, *extra, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    done, failed = {}, []
+    for name, (obj, start, proc) in procs.items():
+        log = proc.communicate()[0]
+        done[name] = (obj, log, time.perf_counter() - start)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
+                          f"{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return done
+
+
+def link(objects, lib: Path) -> None:
+    """Link `objects` into the shared library `lib` (atomically: a
+    concurrent build sees all of it or none)."""
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                           *map(str, objects)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
 
 
 def build() -> Path:
@@ -59,20 +115,19 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    ptxas_report(lib).write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)        # atomic: a concurrent build sees all or none
+    built = compile_units(UNITS, BUILD_DIR)
+    report = "".join(f"== {name}: {sec:.2f} s\n{log}"
+                     for name, (_, log, sec) in built.items())
+    ptxas_report(lib).write_text(report)
+    link([obj for obj, _, _ in built.values()], lib)
+    for obj, _, _ in built.values():
+        obj.unlink()
     return lib
 
 
 def ptxas_report(lib: Path | None = None) -> Path:
-    """Where ``-Xptxas -v``'s output of the build of ``lib`` is kept."""
+    """Where ``-Xptxas -v``'s output of the build of ``lib`` is kept, each
+    unit's part headed ``== name: seconds``."""
     return (lib or library_path()).with_suffix(".ptxas.txt")
 
 

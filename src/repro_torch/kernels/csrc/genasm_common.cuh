@@ -1,0 +1,274 @@
+// Device helpers shared by the GenASM kernels for Hopper (sm_90a):
+// tb_fused.cu (K1), tail_fused.cuh (K2, K4) and dc_band.cu (K3).
+//
+// Layout: every global array is lane-innermost, element (r, lane) at
+// r * B + lane, so the threads of a warp touch neighbouring addresses.
+// Bitvector words are uint32_t (the wrapper hands int32 tensors over; the
+// bits are the same).  pm is (5, NW, B) (rows 0..3 are the 0-active pattern
+// masks), text (n, B), m_len / n_len (1, B); ops (max_ops, B) front-first
+// padded with OP_NONE; meta (8, B) rows DIST/LVL/NOPS/RD/RF/DFIN/OK/0.
+//
+// Each translation unit gets its own copy of these helpers (anonymous
+// namespace); the library links the units' C entry points.
+
+#pragma once
+
+#include <cstdint>
+#include <map>
+#include <mutex>
+#include <utility>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int WORD = 32;
+constexpr uint32_t ONES = 0xFFFFFFFFu;
+constexpr int32_t OP_MATCH = 0, OP_SUBST = 1, OP_INS = 2, OP_DEL = 3;
+constexpr int32_t OP_NONE = 255;
+constexpr int META_DIST = 0, META_LVL = 1, META_NOPS = 2, META_RD = 3,
+              META_RF = 4, META_DFIN = 5, META_OK = 6, META_ZERO = 7;
+constexpr int MAX_SHARED_BYTES = 232448;   // per block on an H100
+
+__device__ __forceinline__ int clampi(int x, int lo, int hi) {
+  return min(max(x, lo), hi);
+}
+
+__device__ __forceinline__ size_t at(long long row, int B, int lane) {
+  return static_cast<size_t>(row) * B + lane;
+}
+
+// One lane's rows of a row-major array: row r at p[r * stride] (global
+// arrays pass p = base + lane and stride B; shared staging its own).
+template <class T>
+struct Rows {
+  T* p;
+  int stride;
+  __device__ __forceinline__ T& operator[](int r) const {
+    return p[static_cast<size_t>(r) * stride];
+  }
+};
+
+// The lane's four pattern masks, held in registers for the whole kernel.
+template <int NW>
+struct PatternMasks {
+  uint32_t w[4][NW];
+
+  __device__ void load(const uint32_t* __restrict__ pm, int B, int lane) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_) w[c][w_] = pm[at(c * NW + w_, B, lane)];
+  }
+
+  // _pm_lookup: mask word `w_` of text char c; any code outside the
+  // alphabet (the ref sentinel) selects all ones.
+  __device__ __forceinline__ uint32_t word(int c, int w_) const {
+    uint32_t v = ONES;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) v = (c == s) ? w[s][w_] : v;
+    return v;
+  }
+
+  // P[ii] == text char c (ii clipped into the padded pattern); selects
+  // only, no branch
+  __device__ __forceinline__ bool peq(int c, int ii) const {
+    const int iic = clampi(ii, 0, NW * WORD - 1), wi = iic >> 5;
+    uint32_t v = ONES;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      uint32_t m = w[s][0];
+#pragma unroll
+      for (int w_ = 1; w_ < NW; ++w_) m = wi == w_ ? w[s][w_] : m;
+      v = c == s ? m : v;
+    }
+    return ((v >> (iic & 31)) & 1u) == 0;
+  }
+};
+
+// _ones_below_words: word w_ of ~0 << d.  lo == 32 must not shift by 32.
+__device__ __forceinline__ uint32_t ones_below_word(int d, int w_) {
+  const int lo = clampi(d - w_ * WORD, 0, WORD);
+  return lo >= WORD ? 0u : (ONES << lo);
+}
+
+// _shift1_words: shift left by one bit, carry_in entering at bit 0.
+template <int NW>
+__device__ __forceinline__ void shift1(const uint32_t (&in)[NW],
+                                       uint32_t carry, uint32_t (&out)[NW]) {
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) {
+    const uint32_t v = in[w_];
+    out[w_] = (v << 1) | carry;
+    carry = v >> (WORD - 1);
+  }
+}
+
+// Funnel-shift extract of the 32-bit word starting at bit 32*w0b + s of a
+// column vector; words past the top read as ones.  s == 0 must not shift
+// by 32, so it selects explicitly.
+template <int NW>
+__device__ __forceinline__ uint32_t funnel_word(const uint32_t (&v)[NW],
+                                                int w0b, int s) {
+  uint32_t lo = v[0], hi = ONES;
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) {
+    if (w_ == w0b) lo = v[w_];
+    if (w_ == w0b + 1) hi = v[w_];
+  }
+  return s == 0 ? lo : ((lo >> s) | (hi << (WORD - s)));
+}
+
+// One thread's levels d0 .. d0+L-1 of column j (t = j-1) from column j-1,
+// in place: GenASM-DC's SENE recurrence R_j[d] = M & S & D & I for a slice
+// of the levels.  below_old and below_new are R_{j-1}[d0-1] and R_j[d0-1]
+// (all ones below level 0, which turns the general cell into level 0's
+// shift | pm).
+template <int NW, int L>
+__device__ __forceinline__ void level_steps(uint32_t (&col)[L][NW],
+                                            const uint32_t (&old_in)[NW],
+                                            const uint32_t (&new_in)[NW],
+                                            const uint32_t (&pmj)[NW], int t,
+                                            int d0) {
+  uint32_t below_old[NW], below_new[NW];
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) {
+    below_old[w_] = old_in[w_];
+    below_new[w_] = new_in[w_];
+  }
+#pragma unroll
+  for (int c = 0; c < L; ++c) {
+    const int d = d0 + c;
+    uint32_t prev[NW], M[NW], S[NW], I[NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) prev[w_] = col[c][w_];
+    shift1<NW>(prev, t > d ? 1u : 0u, M);
+    shift1<NW>(below_old, t >= d ? 1u : 0u, S);
+    shift1<NW>(below_new, t >= d - 1 ? 1u : 0u, I);
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) {
+      col[c][w_] = (M[w_] | pmj[w_]) & S[w_] & below_old[w_] & I[w_];
+      below_old[w_] = prev[w_];
+      below_new[w_] = col[c][w_];
+    }
+  }
+}
+
+// _tb_walk for one lane, then the meta rows.  The TPU's whole-tile early
+// exit is a per-thread exit here: a done lane's state never changes again.
+// `ops` must hold OP_NONE in rows 0..max_ops-1 already; the walk writes
+// the ops it emits over them.  The store reader's tests(d, j, i, z) gives
+// the four bit tests at cursor (d, j, i): R_{j-1}[d] at i-1 (match),
+// R_{j-1}[d-1] at i-1 (substitution) and at i (deletion), R_j[d-1] at i-1
+// (insertion), each with the reference's clamps and analytic edges.
+template <int NW, class Store>
+__device__ void tb_walk(const Store& st, const PatternMasks<NW>& pm,
+                        Rows<const int32_t> text, int n_text, int k, int dist,
+                        int d_end, int init_i, int init_j, int commit_limit,
+                        int max_ops, int max_steps, Rows<int32_t> ops,
+                        Rows<int32_t> meta) {
+  int i = init_i, j = init_j, d = dist, nops = 0, rd = 0, rf = 0;
+  bool done = dist > k, ok = true;
+  for (int step = 0; step < max_steps && !done; ++step) {
+    if (rd >= commit_limit) break;      // stopped: nothing changes any more
+    const bool tail = i < 0;
+    // Every test is evaluated (each store reader clamps its indices) and
+    // combined with non-short-circuit &, so a step has no branch between
+    // its loads; in the tail drain the tests are masked off.
+    const int cj = text[clampi(j - 1, 0, n_text - 1)];
+    bool z[4];
+    st.tests(d, j, i, z);
+    const bool edge = !tail, left = edge & (j > 0), lvl = d > 0;
+    const bool mA = left & pm.peq(cj, i) & z[0];
+    const bool sA = left & lvl & z[1];
+    const bool dA = left & lvl & z[2];
+    const bool iA = edge & lvl & z[3];
+    const bool tail_emit = tail && j > 0;
+    const bool any_edge = mA || sA || dA || iA || tail_emit;
+    const bool cM = mA, cS = !mA && sA, cD = !mA && !sA && dA,
+               cI = !mA && !sA && !dA && iA;
+    const int32_t op = cM ? OP_MATCH : cS ? OP_SUBST : cD ? OP_DEL
+                     : cI ? OP_INS : OP_DEL;
+    const int takes_read = (cM || cS || cI) ? 1 : 0;
+    const int takes_ref = (cM || cS || cD || tail_emit) ? 1 : 0;
+    const int costs = (cS || cD || cI || tail_emit) ? 1 : 0;
+    if (any_edge) {
+      if (nops < max_ops) ops[nops] = op;
+      ++nops;                           // counts past max_ops, as on the TPU
+    }
+    const int ni = i - takes_read, nj = j - takes_ref;
+    const bool finished = ni < 0 && nj <= 0;
+    if (!finished) ok = ok && (any_edge || (i < 0 && j <= 0));
+    i = ni;
+    j = nj;
+    d -= costs;
+    rd += takes_read;
+    rf += takes_ref;
+    done = finished;
+  }
+  meta[META_DIST] = dist;
+  meta[META_LVL] = d_end;
+  meta[META_NOPS] = nops;
+  meta[META_RD] = rd;
+  meta[META_RF] = rf;
+  meta[META_DFIN] = d;
+  meta[META_OK] = ok ? 1 : 0;
+  meta[META_ZERO] = 0;
+}
+
+// The level count of the reference's whole-tile early termination, per
+// lane: only its maximum over the batch is read.
+__device__ __forceinline__ int level_count(int dist, int k, int early_term) {
+  return early_term ? min(dist, k) + 1 : k + 1;
+}
+
+// Live-column capacity: the smallest instantiated KP >= k + 1.
+int levels_bucket(int k) {
+  return k + 1 <= 16 ? 16 : k + 1 <= 32 ? 32 : k + 1 <= 64 ? 64 : 0;
+}
+
+// The smallest count >= words that is 16 mod 32: a lane stride of 16 mod
+// 32 words puts the two lanes of a warp at G = 16 in opposite halves of
+// the banks.
+int half_bank_pad(int words) { return words + ((16 - words % 32) + 32) % 32; }
+
+// Raise the dynamic shared-memory limit of `kernel` on the current device
+// to at least `smem`.  The limit only grows, so cudaFuncSetAttribute runs
+// once per (instantiation, device) and new maximum, not before every
+// launch.
+template <class Kernel>
+cudaError_t allow_shared(Kernel kernel, int smem) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, int> allowed;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> hold(mu);
+  int& set = allowed[{reinterpret_cast<const void*>(kernel), dev}];
+  if (smem <= set) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) set = smem;
+  return err;
+}
+
+// Blocks of `kernel` that one SM holds at once with `threads` threads and
+// `smem` dynamic shared bytes a block, and the kernel's dynamic
+// shared-memory limit on this device as the card reports it once `smem`
+// is allowed (cudaFuncGetAttributes).
+template <class Kernel>
+cudaError_t occupancy(Kernel kernel, int threads, int smem, int* blocks,
+                      int* smem_limit) {
+  if (kernel == nullptr || smem > MAX_SHARED_BYTES)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_shared(kernel, smem);
+  cudaFuncAttributes attr{};
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) {
+    *smem_limit = attr.maxDynamicSharedSizeBytes;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                        threads, smem);
+  }
+  return err;
+}
+
+}  // namespace

@@ -1,0 +1,419 @@
+// K2 and K4: the fused GenASM-DC+TB kernels of the ragged rectangular tail
+// (m_len <= W pattern chars against n_len <= n_text text chars, n_text =
+// W + 4k), for Hopper (sm_90a).  One template, tail_fused_kernel<NW, KP,
+// NWB, PLACE>, replaces two Pallas TPU kernels of
+// repro/kernels/genasm_dc.py:
+//   K2 tail_banded <- _kernel_tail_banded: NWB < NW words a column, the
+//      lane's diagonal window based at clamp(j + diag - (k+1), 0, band_hi),
+//      diag = m_len - 1 - n_len;
+//   K4 tail_full   <- _kernel_tail_fused: NWB == NW, the full vector.
+// Their plain PyTorch versions are tail_banded_plain and tail_full_plain in
+// repro_torch/kernels/genasm_dc.py; the outputs must be equal bit for bit.
+//
+// Bound on the H100: as K1's, the latency of two serial chains per lane
+// (the fill's level-below dependence and the walk's cursor), not bytes or
+// operations; plus, where the store lives in device memory, its write
+// traffic ((k+1) x n_len x NWB words a lane, 25 KB at k = 48, n_len = 64).
+//
+// Design, K1's (tb_fused.cu) with ragged ends.  The first port ran one
+// thread per lane: a serial fill of n_text x (k+1) level updates, all KP
+// levels' live words in one thread (255 registers and 14 KB of spill at
+// KP = 64), and a walk whose every step was a chain of dependent global
+// loads, in 16 blocks for a 2,048-lane batch.  Here a group of G =
+// min(KP, 32) threads holds one lane, thread g its L = KP / G levels g*L ..
+// g*L+L-1, and the fill is a wavefront over (column, level) with one
+// __shfl_up_sync of NW words a step (level_steps).  A lane's columns past
+// last = min(n_len, n_text) are not computed, and the block runs as many
+// steps as its longest lane needs: max(last) + ceil((k+1)/L) - 1.  dist is
+// the lowest level whose bit m_len-1 of the lane's last column is 0 (m_len
+// >= 1), by ballot over the group.  Column 0 and the drain (i < 0) are
+// analytic, so the store holds columns 1..n_text.  Then one thread per
+// lane (the block's first threads) walks the store with tb_walk, over
+// TailStore::tests: four loads at clamped indices, no branch between them.
+// The ops are staged in shared memory and the whole block writes them out.
+//
+// Where the store lives is the template's PLACE, chosen per (NW, KP) by
+// tail_geometry in kernels/genasm_dc.py from tools/torch_tail_sweep.py's
+// measurements (PERF.md), and global wherever one lane's store does not fit
+// a block:
+//   PLACE_SHARED: per lane, k+1 rows of row_words words in dynamic shared
+//     memory, row (d % L) * rows0 + d / L for level d, column j at
+//     (j - 1) * NWB; row_words - NWB is odd, so a step's threads (which
+//     write rows g, columns s - g + 1) fall in distinct banks, and the lane
+//     stride is 16 mod 32 words.  The walk is cheap; the bytes cap the
+//     lanes an SM holds.
+//   PLACE_GLOBAL: per lane, store_words words of device memory that the
+//     wrapper allocates, skewed so that a wavefront step is one contiguous
+//     row: level d = g*L + c of column j at ((s*L + c)*NWB + b)*rows0 + g,
+//     s = j - 1 + g, word b.  A step's stores are coalesced, and a walk
+//     step's four words lie in one or two rows.
+//
+// Shared layout of a block (32-bit words; tail_geometry computes the same
+// sizes: change both together): per lane the store (PLACE_SHARED), then
+// per lane text_stride text codes, then ops (max_ops, lanes), dist
+// (lanes) and one word for the block's longest lane.
+//
+// The C entry points return cudaGetLastError() after the launch (or an
+// error code for a geometry without an instantiation); they never
+// synchronise and allocate nothing.
+
+#include "genasm_common.cuh"
+
+namespace {
+
+constexpr int PLACE_SHARED = 0, PLACE_GLOBAL = 1;
+
+struct TailLayout {
+  int rows0, row_words, lane_words, text_stride, store_words;
+  long long smem_bytes;
+};
+
+TailLayout tail_layout(int n_text, int k, int kp, int nwb, int max_ops,
+                       int lanes, int place) {
+  const int G = kp < WORD ? kp : WORD, L = kp / G;
+  TailLayout t;
+  t.rows0 = (k + L) / L;
+  t.text_stride = half_bank_pad(n_text);
+  t.row_words = t.lane_words = t.store_words = 0;
+  if (place == PLACE_SHARED) {
+    t.row_words = n_text * nwb + ((nwb * (n_text - 1)) % 2 == 0 ? 1 : 0);
+    t.lane_words = half_bank_pad((k + 1) * t.row_words);
+  } else {
+    t.store_words = (n_text + t.rows0 - 1) * L * nwb * t.rows0;
+  }
+  t.smem_bytes = 4LL * (static_cast<long long>(lanes) *
+                            (t.lane_words + t.text_stride + max_ops + 1) + 1);
+  return t;
+}
+
+// The lane's store as the walk reads it: tests() is tb_walk's four bit
+// tests of one step, with the reference's clamps (level to 0..k, column
+// to 1..n_text) and analytic edges (column 0: R_0[d] = ones below d; row
+// -1: ED(0, jj) = jj).  K2 reads a bit outside the lane's window as 1, as
+// _kernel_tail_banded does; K4 clamps the bit index into the vector, as
+// _kernel_tail_fused does (`banded`; the two differ only at bit indices
+// >= m_pad, which no walk reaches).
+template <int G, int L, int NWB, int PLACE>
+struct TailStore {
+  const uint32_t* store;
+  int k, n_text, diag, band_hi, rows0, row_words;
+  bool banded;
+
+  // word 0 of level d (0..k), column jc + 1 (jc 0..n_text-1); word b lies
+  // b * stride() further
+  __device__ __forceinline__ int word_at(int d, int jc) const {
+    if constexpr (PLACE == PLACE_SHARED)
+      return ((d % L) * rows0 + d / L) * row_words + jc * NWB;
+    else
+      return ((jc + d / L) * L + d % L) * NWB * rows0 + d / L;
+  }
+
+  __device__ __forceinline__ int stride() const {
+    if constexpr (PLACE == PLACE_SHARED) return 1;
+    else return rows0;
+  }
+
+  __device__ __forceinline__ bool bit(int at, int off, int ii, int jj,
+                                      int dd) const {
+    const int offc = clampi(off, 0, NWB * WORD - 1);
+    const bool zero =
+        ((store[at + (offc >> 5) * stride()] >> (offc & 31)) & 1u) == 0;
+    const bool in_window = !banded | (off == offc);
+    return ((ii < 0) & (jj <= dd)) | ((ii >= 0) & (jj <= 0) & (ii < dd)) |
+           ((ii >= 0) & (jj > 0) & in_window & zero);
+  }
+
+  __device__ __forceinline__ void tests(int d, int j, int i,
+                                        bool (&z)[4]) const {
+    const int dc = clampi(d, 0, k), dm = clampi(d - 1, 0, k);
+    const int jl = clampi(j - 2, 0, n_text - 1);     // column j-1
+    const int jr = clampi(j - 1, 0, n_text - 1);     // column j
+    const int at_dl = word_at(dc, jl), at_ml = word_at(dm, jl),
+              at_mj = word_at(dm, jr);
+    const int base_l = clampi(j - 1 + diag - (k + 1), 0, band_hi);
+    const int base_j = clampi(j + diag - (k + 1), 0, band_hi);
+    z[0] = bit(at_dl, i - 1 - base_l, i - 1, j - 1, d);
+    z[1] = bit(at_ml, i - 1 - base_l, i - 1, j - 1, d - 1);
+    z[2] = bit(at_ml, i - base_l, i, j - 1, d - 1);
+    z[3] = bit(at_mj, i - 1 - base_j, i - 1, j, d - 1);
+  }
+};
+
+template <int NW, int KP, int NWB, int PLACE>
+__global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
+                                  const int32_t* __restrict__ text_g,
+                                  const int32_t* __restrict__ m_len_g,
+                                  const int32_t* __restrict__ n_len_g,
+                                  int32_t* __restrict__ ops,
+                                  int32_t* __restrict__ meta,
+                                  uint32_t* store_g, int B, int n_text, int k,
+                                  int banded, int early_term,
+                                  int commit_limit, int max_ops,
+                                  int max_steps, int row_words,
+                                  int lane_words, int text_stride,
+                                  int store_words) {
+  constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
+  constexpr int L = KP / G;                  // levels per thread
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  constexpr int band_hi = NW * WORD - WORD * NWB;
+  extern __shared__ uint32_t smem[];
+  const int lanes = blockDim.x / G;
+  const int l = threadIdx.x / G, g = threadIdx.x % G;
+  const int lane0 = blockIdx.x * lanes, lane = lane0 + l;
+  const bool live = lane < B;      // a masked lane still takes part in the
+                                   // shuffles, ballots and barriers
+  int32_t* text_s = reinterpret_cast<int32_t*>(smem + lanes * lane_words);
+  int32_t* ops_s = text_s + lanes * text_stride;
+  int32_t* dist_s = ops_s + max_ops * lanes;
+  int32_t* last_s = dist_s + lanes;
+  auto lane_store = [&](int ll) {  // lane lane0 + ll's store
+    if constexpr (PLACE == PLACE_SHARED) return smem + ll * lane_words;
+    else return store_g + static_cast<size_t>(lane0 + ll) * store_words;
+  };
+  // thread w < lanes walks lane lane0 + w after the fill
+  const int wlane = lane0 + static_cast<int>(threadIdx.x);
+  const bool walker = static_cast<int>(threadIdx.x) < lanes && wlane < B;
+  PatternMasks<NW> wpm{};
+  int wm_len = 0, wn_len = 0;
+  if (walker) {
+    wpm.load(pm_g, B, wlane);
+    wm_len = m_len_g[wlane];
+    wn_len = n_len_g[wlane];
+  }
+
+  if (threadIdx.x == 0) *last_s = 0;
+  for (int x = threadIdx.x; x < n_text * lanes; x += blockDim.x) {
+    const int j = x / lanes, ll = x % lanes;
+    text_s[ll * text_stride + j] =
+        lane0 + ll < B ? text_g[at(j, B, lane0 + ll)] : 0;
+  }
+  for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x)
+    ops_s[x] = OP_NONE;
+  PatternMasks<NW> pm{};
+  int m_len = 0, n_len = 0;
+  if (live) {
+    pm.load(pm_g, B, lane);
+    m_len = m_len_g[lane];
+    n_len = n_len_g[lane];
+  }
+  const int last = min(n_len, n_text);   // the lane's last column
+  __syncthreads();
+  if (g == 0 && last > 0) atomicMax(last_s, last);
+  __syncthreads();
+
+  // ---- fill: the wavefront over the lane's columns 1..last ----
+  const int rows0 = (k + L) / L;   // threads holding a level <= k
+  const int d0 = g * L;
+  const int diag = m_len - 1 - n_len;
+  const int32_t* text_l = text_s + l * text_stride;
+  uint32_t* st_l = lane_store(l);
+  uint32_t col[L][NW], below_old[NW];
+#pragma unroll
+  for (int c = 0; c < L; ++c)
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) col[c][w_] = ones_below_word(d0 + c, w_);
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = ONES;
+  auto store = [&](int j) {      // the windows of column j, levels d0..
+    const int base = clampi(j + diag - (k + 1), 0, band_hi);
+    const int w0 = base >> 5, sh = base & 31;
+#pragma unroll
+    for (int c = 0; c < L; ++c) {
+      if (c > 0 && d0 + c > k) break;
+      uint32_t* dst;
+      int bstride;
+      if constexpr (PLACE == PLACE_SHARED) {
+        dst = st_l + (c * rows0 + g) * row_words + (j - 1) * NWB;
+        bstride = 1;
+      } else {
+        dst = st_l + ((j - 1 + g) * L + c) * NWB * rows0 + g;
+        bstride = rows0;
+      }
+#pragma unroll
+      for (int b = 0; b < NWB; ++b) {
+        if constexpr (NWB == NW)         // the window is the whole vector
+          dst[b * bstride] = col[c][b];
+        else
+          dst[b * bstride] = funnel_word<NW>(col[c], w0 + b, sh);
+      }
+    }
+  };
+  const int steps = *last_s + rows0 - 1;
+  for (int s = 0; s < steps; ++s) {
+    uint32_t below_new[NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) {
+      below_new[w_] = __shfl_up_sync(FULL, col[L - 1][w_], 1, G);
+      if (g == 0) below_new[w_] = ONES;
+    }
+    const int j = s - g + 1;
+    const bool on = j >= 1 && j <= last && d0 <= k;  // j is a column of mine
+    const int c = text_l[clampi(j - 1, 0, n_text - 1)];
+    uint32_t pmj[NW], next[L][NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_) next[cc][w_] = col[cc][w_];
+    level_steps<NW, L>(next, below_old, below_new, pmj, j - 1, d0);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_)
+        col[cc][w_] = on ? next[cc][w_] : col[cc][w_];
+    if (on) store(j);
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = below_new[w_];
+  }
+
+  // ---- dist: the lowest level whose bit m_len-1 of column last is 0 ----
+  const int tgt = clampi(m_len - 1, 0, NW * WORD - 1);
+  const int shift = (threadIdx.x % WORD) / G * G;
+  int dist = k + 1;
+#pragma unroll
+  for (int c = 0; c < L; ++c) {
+    uint32_t v = col[c][0];
+#pragma unroll
+    for (int w_ = 1; w_ < NW; ++w_)
+      if ((tgt >> 5) == w_) v = col[c][w_];
+    const bool hit = m_len >= 1 && d0 + c <= k &&
+                     ((v >> (tgt & 31)) & 1u) == 0;
+    unsigned hits = __ballot_sync(FULL, hit) >> shift;
+    if constexpr (G < WORD) hits &= (1u << G) - 1;
+    if (hits) dist = min(dist, (__ffs(hits) - 1) * L + c);
+  }
+  if (g == 0) dist_s[l] = dist;
+  __syncthreads();
+
+  // ---- walk: one thread per lane, from (m_len - 1, n_len) ----
+  if (walker) {
+    const int w = threadIdx.x, wdist = dist_s[w];
+    const TailStore<G, L, NWB, PLACE> st{
+        lane_store(w), k, n_text, wm_len - 1 - wn_len, band_hi, rows0,
+        row_words, banded != 0};
+    tb_walk<NW>(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1},
+                n_text, k, wdist, level_count(wdist, k, early_term),
+                wm_len - 1, wn_len, commit_limit, max_ops, max_steps,
+                Rows<int32_t>{ops_s + w, lanes}, Rows<int32_t>{meta + wlane, B});
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x) {
+    const int r = x / lanes, ll = x % lanes;
+    if (lane0 + ll < B) ops[at(r, B, lane0 + ll)] = ops_s[x];
+  }
+}
+
+using TailKernel = void (*)(const uint32_t*, const int32_t*, const int32_t*,
+                            const int32_t*, int32_t*, int32_t*, uint32_t*,
+                            int, int, int, int, int, int, int, int, int, int,
+                            int, int);
+
+// The instantiation for (nw, k, nwb, place), or null: K4 at every (NW, KP)
+// with NWB = NW, K2 at every (NW, KP, NWB < NW) that some k <= 63 reaches
+// with nwb = min(NW, ceil((2k+3)/32)); each in both placements.
+TailKernel tail_kernel(int nw, int k, int nwb, int place) {
+  const int kp = levels_bucket(k);
+#define TAIL_CASE(NW_, KP_, NWB_)                                   \
+  if (nw == NW_ && kp == KP_ && nwb == NWB_) {                      \
+    if (place == PLACE_SHARED)                                      \
+      return tail_fused_kernel<NW_, KP_, NWB_, PLACE_SHARED>;       \
+    return tail_fused_kernel<NW_, KP_, NWB_, PLACE_GLOBAL>;         \
+  }
+  TAIL_CASE(1, 16, 1) TAIL_CASE(1, 32, 1)
+  TAIL_CASE(2, 16, 1) TAIL_CASE(2, 16, 2) TAIL_CASE(2, 32, 2)
+  TAIL_CASE(2, 64, 2)
+  TAIL_CASE(3, 16, 1) TAIL_CASE(3, 16, 2) TAIL_CASE(3, 16, 3)
+  TAIL_CASE(3, 32, 2) TAIL_CASE(3, 32, 3) TAIL_CASE(3, 64, 3)
+  TAIL_CASE(4, 16, 1) TAIL_CASE(4, 16, 2) TAIL_CASE(4, 16, 4)
+  TAIL_CASE(4, 32, 2) TAIL_CASE(4, 32, 3) TAIL_CASE(4, 32, 4)
+  TAIL_CASE(4, 64, 3) TAIL_CASE(4, 64, 4)
+#undef TAIL_CASE
+  return nullptr;
+}
+
+// The block tail_geometry derives, and nothing else: G threads per lane,
+// whole warps, the shared bytes of tail_layout within the card's limit,
+// a store in device memory for PLACE_GLOBAL.
+bool tail_geometry_ok(int n_text, int W, int nw, int k, int nwb,
+                      int max_ops, int lanes, int threads, int place,
+                      int smem, const void* store) {
+  const int kp = levels_bucket(k);
+  const int G = kp < WORD ? kp : WORD;
+  return kp > 0 && n_text >= 1 && W >= 1 && W <= nw * WORD && nwb >= 1 &&
+         nwb <= nw && max_ops >= 0 && lanes >= 1 && threads == lanes * G &&
+         threads % WORD == 0 && threads <= 1024 &&
+         (place == PLACE_SHARED || (place == PLACE_GLOBAL && store)) &&
+         smem <= MAX_SHARED_BYTES &&
+         smem == tail_layout(n_text, k, kp, nwb, max_ops, lanes, place)
+                     .smem_bytes;
+}
+
+int tail_launch(int banded, const void* pm, const void* text,
+                const void* m_len, const void* n_len, void* ops, void* meta,
+                void* store, int B, int n_text, int W, int nw, int k, int nwb,
+                int early_term, int commit_limit, int max_ops, int max_steps,
+                int lanes, int threads, int place, int smem, void* stream) {
+  const TailKernel kernel = tail_kernel(nw, k, nwb, place);
+  if (kernel == nullptr || B < 1 ||
+      !tail_geometry_ok(n_text, W, nw, k, nwb, max_ops, lanes, threads,
+                        place, smem, store))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const TailLayout lay = tail_layout(n_text, k, levels_bucket(k), nwb,
+                                     max_ops, lanes, place);
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + lanes - 1) / lanes, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
+      static_cast<const int32_t*>(m_len), static_cast<const int32_t*>(n_len),
+      static_cast<int32_t*>(ops), static_cast<int32_t*>(meta),
+      static_cast<uint32_t*>(store), B, n_text, k, banded, early_term,
+      commit_limit, max_ops, max_steps, lay.row_words, lay.lane_words,
+      lay.text_stride, lay.store_words);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// K2: nwb = the config's band words (< nw unless tail_store='band' asks
+// for the band where it is as wide as the vector).
+int genasm_tail_banded_launch(const void* pm, const void* text,
+                              const void* m_len, const void* n_len, void* ops,
+                              void* meta, void* store, int B, int n_text,
+                              int W, int nw, int k, int nwb, int early_term,
+                              int commit_limit, int max_ops, int max_steps,
+                              int lanes, int threads, int place, int smem,
+                              void* stream) {
+  return tail_launch(1, pm, text, m_len, n_len, ops, meta, store, B, n_text,
+                     W, nw, k, nwb, early_term, commit_limit, max_ops,
+                     max_steps, lanes, threads, place, smem, stream);
+}
+
+// K4: nwb must be nw (the full vector).
+int genasm_tail_full_launch(const void* pm, const void* text,
+                            const void* m_len, const void* n_len, void* ops,
+                            void* meta, void* store, int B, int n_text, int W,
+                            int nw, int k, int nwb, int early_term,
+                            int commit_limit, int max_ops, int max_steps,
+                            int lanes, int threads, int place, int smem,
+                            void* stream) {
+  if (nwb != nw) return static_cast<int>(cudaErrorInvalidValue);
+  return tail_launch(0, pm, text, m_len, n_len, ops, meta, store, B, n_text,
+                     W, nw, k, nwb, early_term, commit_limit, max_ops,
+                     max_steps, lanes, threads, place, smem, stream);
+}
+
+// Blocks of the tail instantiation for (nw, k, nwb, place) that one SM
+// holds at once with `threads` threads and `smem` dynamic shared bytes a
+// block, and its dynamic shared-memory limit as the card reports it once
+// `smem` is allowed.
+int genasm_tail_occupancy(int nw, int k, int nwb, int place, int threads,
+                          int smem, int* blocks, int* smem_limit) {
+  return static_cast<int>(occupancy(tail_kernel(nw, k, nwb, place), threads,
+                                    smem, blocks, smem_limit));
+}
+
+}  // extern "C"

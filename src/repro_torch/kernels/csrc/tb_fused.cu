@@ -1,0 +1,318 @@
+// K1: the fused GenASM-DC+TB kernel of the square W x W window, for
+// Hopper (sm_90a).  Replaces the Pallas TPU kernel _kernel_fused of
+// repro/kernels/genasm_dc.py; its plain PyTorch version is
+// tb_fused_plain in repro_torch/kernels/genasm_dc.py, and the outputs must
+// be equal bit for bit.  The C entry points return cudaGetLastError()
+// after the launch (or an error code for a geometry without an
+// instantiation); they never synchronise and allocate nothing.
+
+#include "genasm_common.cuh"
+
+namespace {
+
+// K1: the lane's band in shared memory, column jj at the static base
+// clip(jj - 2 - k); level dd in row (dd % L) * rows0 + dd / L, L levels a
+// fill thread (tb_fused_kernel).  tests() is tb_walk's four bit tests of
+// one step with their clamps shared, branch-free: each word is loaded at
+// clamped indices whatever the edge cases say, so the four loads issue
+// together.
+template <int L, int NWB>
+struct SharedBand {
+  const uint32_t* band;
+  int k, ncb, col0, band_hi, row_words, rows0;
+
+  // zbit of the window word at `at` + offset `off` (ii >= 0), else of the
+  // first column, `first` = ED(0, jj) <= dd; outside the window: 1
+  __device__ __forceinline__ bool bit(int at, int off, int ii,
+                                      bool first) const {
+    const int offc = clampi(off, 0, NWB * WORD - 1);
+    const bool zero = ((band[at + (offc >> 5)] >> (offc & 31)) & 1u) == 0;
+    return ((ii < 0) & first) | ((ii >= 0) & (off == offc) & zero);
+  }
+
+  __device__ __forceinline__ void tests(int d, int j, int i,
+                                        bool (&z)[4]) const {
+    const int dc = clampi(d, 0, k), dm = clampi(d - 1, 0, k);
+    const int row_d = ((dc % L) * rows0 + dc / L) * row_words;
+    const int row_m = ((dm % L) * rows0 + dm / L) * row_words;
+    const int col_l = clampi(j - 1 - col0, 0, ncb - 1) * NWB;   // column j-1
+    const int col_j = clampi(j - col0, 0, ncb - 1) * NWB;       // column j
+    const int base_l = clampi(j - 3 - k, 0, band_hi);
+    const int base_j = clampi(j - 2 - k, 0, band_hi);
+    z[0] = bit(row_d + col_l, i - 1 - base_l, i - 1, j - 1 <= d);
+    z[1] = bit(row_m + col_l, i - 1 - base_l, i - 1, j - 1 <= d - 1);
+    z[2] = bit(row_m + col_l, i - base_l, i, j - 1 <= d - 1);
+    z[3] = bit(row_m + col_j, i - 1 - base_j, i - 1, j <= d - 1);
+  }
+};
+
+// ---- K1 ---------------------------------------------------------------
+// Replaces repro/kernels/genasm_dc.py:_kernel_fused (TPU).
+//
+// Bound on the H100: neither bytes nor operations but the latency of two
+// serial chains per lane.  A lane reads and writes a few hundred bytes and
+// its DP is a few ten thousand integer operations; what it cannot shorten
+// is the fill's dependence (level d of column j needs level d-1 of column
+// j) and the walk's (each step's bit tests need the cursor of the step
+// before).
+//
+// The first port ran one thread per lane, and was latency-bound for three
+// reasons: a thread's fill was W x (k+1) dependent level updates (832 at
+// k = 12, 1,600 at k = 24); each walk step was a chain of global loads from
+// a band in per-lane scratch; and at 128 lanes a block, a 2,048-lane batch
+// filled 16 of 132 SMs with 4 warps each, so nothing hid that latency.
+//
+// This design is GenASM-DC's own systolic array.  A group of G = min(KP,
+// 32) threads holds one lane, thread g its L = KP / G levels g*L .. g*L+L-1.
+// The fill is a wavefront over (column, level): at step s thread g
+// computes column j = s - g + 1 of its levels, taking R_j[g*L-1] from
+// thread g-1 with one __shfl_up_sync of NW words and keeping it one step
+// as R_{j-1}[g*L-1]; so the fill takes W + ceil((k+1)/L) - 1 steps, not
+// W x (k+1) level updates, and a thread holds L x NW live words (no spill
+// at KP = 64).  A step has no branch: every thread computes a column and
+// keeps it only where j is one of its columns.  The text of the block's
+// lanes is staged in shared memory once.  The DENT band lives in dynamic
+// shared memory: each thread writes its levels' windows of its column
+// (the whole vector where the window is as wide).  Then one thread per
+// lane walks it with the walk K2 and K4 share (tb_walk); a step loads its
+// four band words together (SharedBand::tests) and combines the tests
+// without branches.  The walkers of a block are its first threads, so the walk
+// issues from one warp.  The ops are staged in shared memory and the
+// whole block writes them, with the OP_NONE padding, lane-innermost.
+// Several lanes fill a 128-thread block (8 at KP = 16, 4 at KP = 32 and
+// 64), so a 2,048-lane batch gives 256 or 512 blocks; the band's shared
+// bytes, not the block size, cap the lanes an SM holds (56 at k = 12, 16
+// at k = 24, 8 at k = 48, W = 64).  At W > 64 tb_fused_geometry halves
+// the lanes of a block while its shared bytes exceed the card's 232,448,
+// down to one warp (one lane at KP >= 32, two at KP = 16).  What is left is the two chains: the walk, one
+// thread per lane, is about 40 % of a launch at 2,048 lanes (PERF.md).
+//
+// Shared layout of a block (32-bit words; tb_fused_geometry in
+// kernels/genasm_dc.py computes the same sizes and the lanes a block:
+// change both together): per lane, the band of k+1 rows of row_words
+// words, row (d % L) * ceil((k+1)/L) + d / L for level d, column jj at
+// (jj - col0) * nwb; then per lane text_stride text codes; then ops
+// (max_ops, lanes); then dist (lanes).  row_words is
+// ncb * nwb, plus one where that makes row_words - nwb even: a step's
+// threads write words (row_words - nwb) apart, an odd stride, so they fall
+// in distinct banks.  The lane and text strides are 16 mod 32 words, so
+// the two lanes of a warp at G = 16 fall in opposite halves of the banks.
+struct K1Layout {
+  int row_words, lane_words, text_stride, smem_bytes;
+};
+
+K1Layout k1_layout(int W, int k, int nwb, int ncb, int max_ops, int lanes) {
+  K1Layout g;
+  g.row_words = ncb * nwb + ((nwb * (ncb - 1)) % 2 == 0 ? 1 : 0);
+  g.lane_words = half_bank_pad((k + 1) * g.row_words);
+  g.text_stride = half_bank_pad(W);
+  g.smem_bytes = 4 * lanes * (g.lane_words + g.text_stride + max_ops + 1);
+  return g;
+}
+
+template <int NW, int KP, int NWB>
+__global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
+                                const int32_t* __restrict__ text_g,
+                                int32_t* __restrict__ ops,
+                                int32_t* __restrict__ meta, int B, int W,
+                                int k, int ncb, int early_term,
+                                int commit_limit, int max_ops, int max_steps,
+                                int row_words, int lane_words,
+                                int text_stride) {
+  constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
+  constexpr int L = KP / G;                  // levels per thread
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  extern __shared__ uint32_t smem[];
+  const int lanes = blockDim.x / G;
+  const int l = threadIdx.x / G, g = threadIdx.x % G;
+  const int lane0 = blockIdx.x * lanes, lane = lane0 + l;
+  const bool live = lane < B;      // a masked lane still takes part in the
+                                   // shuffles, ballots and barriers
+  uint32_t* band = smem + l * lane_words;
+  int32_t* text_s = reinterpret_cast<int32_t*>(smem + lanes * lane_words);
+  int32_t* ops_s = text_s + lanes * text_stride;
+  int32_t* dist_s = ops_s + max_ops * lanes;
+  // thread w < lanes walks lane lane0 + w after the fill
+  const int wlane = lane0 + static_cast<int>(threadIdx.x);
+  const bool walker = static_cast<int>(threadIdx.x) < lanes && wlane < B;
+  PatternMasks<NW> wpm{};
+  if (walker) wpm.load(pm_g, B, wlane);
+
+  for (int x = threadIdx.x; x < W * lanes; x += blockDim.x) {
+    const int j = x / lanes, ll = x % lanes;
+    text_s[ll * text_stride + j] =
+        lane0 + ll < B ? text_g[at(j, B, lane0 + ll)] : 0;
+  }
+  for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x)
+    ops_s[x] = OP_NONE;
+  PatternMasks<NW> pm{};
+  if (live) pm.load(pm_g, B, lane);
+  __syncthreads();
+
+  // ---- fill: the wavefront ----
+  constexpr int band_hi = NW * WORD - WORD * NWB;
+  const int col0 = W + 1 - ncb;
+  const int rows0 = (k + L) / L;   // threads holding a level <= k
+  const int d0 = g * L;
+  const int32_t* text_l = text_s + l * text_stride;
+  uint32_t col[L][NW], below_old[NW];
+#pragma unroll
+  for (int c = 0; c < L; ++c)
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) col[c][w_] = ones_below_word(d0 + c, w_);
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = ONES;
+  auto store = [&](int j) {      // the band windows of column j
+    const int base = clampi(j - 2 - k, 0, band_hi);
+    const int w0 = base >> 5, sh = base & 31;
+#pragma unroll
+    for (int c = 0; c < L; ++c) {
+      if (c > 0 && d0 + c > k) break;
+      uint32_t* dst = band + (c * rows0 + g) * row_words + (j - col0) * NWB;
+#pragma unroll
+      for (int b = 0; b < NWB; ++b) {
+        if constexpr (NWB == NW)         // the window is the whole vector
+          dst[b] = col[c][b];
+        else                             // NWB < NW: the band window
+          dst[b] = funnel_word<NW>(col[c], w0 + b, sh);
+      }
+    }
+  };
+  if (col0 == 0 && d0 <= k) store(0);
+  for (int s = 0; s < W + rows0 - 1; ++s) {
+    uint32_t below_new[NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) {
+      below_new[w_] = __shfl_up_sync(FULL, col[L - 1][w_], 1, G);
+      if (g == 0) below_new[w_] = ONES;
+    }
+    const int j = s - g + 1;
+    const bool on = j >= 1 && j <= W && d0 <= k;   // j is a column of mine
+    const int c = text_l[clampi(j - 1, 0, W - 1)];
+    uint32_t pmj[NW], next[L][NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_) next[cc][w_] = col[cc][w_];
+    level_steps<NW, L>(next, below_old, below_new, pmj, j - 1, d0);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_)
+        col[cc][w_] = on ? next[cc][w_] : col[cc][w_];
+    if (on && j >= col0) store(j);
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = below_new[w_];
+  }
+
+  // ---- dist: the lowest level of the group whose bit W-1 is 0 ----
+  const int tgt = W - 1;
+  const int shift = (threadIdx.x % WORD) / G * G;
+  int dist = k + 1;
+#pragma unroll
+  for (int c = 0; c < L; ++c) {
+    uint32_t v = col[c][0];
+#pragma unroll
+    for (int w_ = 1; w_ < NW; ++w_)
+      if ((tgt >> 5) == w_) v = col[c][w_];
+    const bool hit = d0 + c <= k && ((v >> (tgt & 31)) & 1u) == 0;
+    unsigned hits = __ballot_sync(FULL, hit) >> shift;
+    if constexpr (G < WORD) hits &= (1u << G) - 1;
+    if (hits) dist = min(dist, (__ffs(hits) - 1) * L + c);
+  }
+  if (g == 0) dist_s[l] = dist;
+  __syncthreads();
+
+  // ---- walk: one thread per lane over the band in shared memory ----
+  if (walker) {
+    const int w = threadIdx.x, wdist = dist_s[w];
+    const SharedBand<L, NWB> st{smem + w * lane_words, k, ncb, col0,
+                                band_hi, row_words, rows0};
+    tb_walk<NW>(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1}, W,
+                k, wdist, level_count(wdist, k, early_term), W - 1, W,
+                commit_limit, max_ops, max_steps,
+                Rows<int32_t>{ops_s + w, lanes}, Rows<int32_t>{meta + wlane, B});
+  }
+  __syncthreads();
+  for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x) {
+    const int r = x / lanes, ll = x % lanes;
+    if (lane0 + ll < B) ops[at(r, B, lane0 + ll)] = ops_s[x];
+  }
+}
+
+using K1Kernel = void (*)(const uint32_t*, const int32_t*, int32_t*,
+                          int32_t*, int, int, int, int, int, int, int, int,
+                          int, int, int);
+
+// K1's instantiation for (nw, k, nwb), or null: every (NW, KP, NWB) that
+// some W <= 128 and k <= 63 reach, with nwb = min(NW, ceil((2k+3)/32)).
+K1Kernel k1_kernel(int nw, int k, int nwb) {
+  const int kp = levels_bucket(k);
+#define K1_CASE(NW_, KP_, NWB_) \
+  if (nw == NW_ && kp == KP_ && nwb == NWB_) return tb_fused_kernel<NW_, KP_, NWB_>;
+  K1_CASE(1, 16, 1) K1_CASE(1, 32, 1)
+  K1_CASE(2, 16, 1) K1_CASE(2, 16, 2) K1_CASE(2, 32, 2) K1_CASE(2, 64, 2)
+  K1_CASE(3, 16, 1) K1_CASE(3, 16, 2) K1_CASE(3, 32, 2) K1_CASE(3, 32, 3)
+  K1_CASE(3, 64, 3)
+  K1_CASE(4, 16, 1) K1_CASE(4, 16, 2) K1_CASE(4, 32, 2) K1_CASE(4, 32, 3)
+  K1_CASE(4, 64, 3) K1_CASE(4, 64, 4)
+#undef K1_CASE
+  return nullptr;
+}
+
+// The block geometry tb_fused_geometry derives, and nothing else: G
+// threads per lane, whole warps, the shared bytes of k1_layout within the
+// card's limit.
+bool k1_geometry_ok(int W, int nw, int k, int nwb, int ncb, int max_ops,
+                    int lanes, int threads, int smem) {
+  const int kp = levels_bucket(k);
+  const int G = kp < WORD ? kp : WORD;
+  return kp > 0 && W >= 1 && W <= nw * WORD && nwb >= 1 && nwb <= nw &&
+         ncb >= 1 && ncb <= W + 1 && max_ops >= 0 && lanes >= 1 &&
+         threads == lanes * G && threads % WORD == 0 && threads <= 1024 &&
+         smem <= MAX_SHARED_BYTES &&
+         smem == k1_layout(W, k, nwb, ncb, max_ops, lanes).smem_bytes;
+}
+
+}  // namespace
+
+extern "C" {
+
+int genasm_tb_fused_launch(const void* pm, const void* text, void* ops,
+                           void* meta, int B, int W, int nw, int k, int nwb,
+                           int ncb, int early_term, int commit_limit,
+                           int max_ops, int max_steps, int lanes, int threads,
+                           int smem, void* stream) {
+  const K1Kernel kernel = k1_kernel(nw, k, nwb);
+  if (kernel == nullptr || B < 1 ||
+      !k1_geometry_ok(W, nw, k, nwb, ncb, max_ops, lanes, threads, smem))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K1Layout lay = k1_layout(W, k, nwb, ncb, max_ops, lanes);
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + lanes - 1) / lanes, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
+      static_cast<int32_t*>(ops), static_cast<int32_t*>(meta), B, W, k, ncb,
+      early_term, commit_limit, max_ops, max_steps, lay.row_words,
+      lay.lane_words, lay.text_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K1's instantiation for (nw, k, nwb) that one SM holds at once
+// with `threads` threads and `smem` dynamic shared bytes a block, and the
+// instantiation's dynamic shared-memory limit on this device as the card
+// reports it once `smem` is allowed.
+int genasm_tb_fused_occupancy(int nw, int k, int nwb, int threads, int smem,
+                              int* blocks, int* smem_limit) {
+  return static_cast<int>(occupancy(k1_kernel(nw, k, nwb), threads, smem,
+                                    blocks, smem_limit));
+}
+
+const char* genasm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -2,7 +2,7 @@
 
 Four kernels, each a port of a Pallas TPU kernel of
 ``repro/kernels/genasm_dc.py`` and written by hand in CUDA C++ in
-``csrc/genasm_fused.cu``:
+``csrc/`` (``tb_fused.cu``, ``tail_fused.cu``, ``dc_band.cu``):
 
   * K1 ``genasm_tb_fused``    <- ``_kernel_fused``: improved GenASM-DC
     (SENE + DENT + ET) of a square W x W window, then the traceback walked
@@ -29,9 +29,13 @@ and ``k + 1`` without; the TPU kernel wrote the same statistic per lane
 tile.  Only its maximum over the batch is ever read (``kernels.ops``),
 and both give ``min(max dist, k) + 1`` there, so the results agree.
 
-K1 runs a group of threads per lane and keeps the DENT band in shared
-memory; ``tb_fused_geometry`` derives its block from the configuration.
-K2, K3 and K4 run one thread per lane, ``cfg.lane_tile`` lanes a block.
+K1, K2 and K4 run a group of threads per lane; ``tb_fused_geometry`` and
+``tail_geometry`` derive their blocks from the configuration (K1 keeps
+the DENT band in shared memory; the tails keep their store in shared or
+device memory, whichever ``TAIL_PLACEMENT`` names).  K3 runs one thread per
+lane, 128 a block.  ``cfg.lane_tile`` sets no block: it is only the batch
+pad unit (``kernels.ops``).  The kernels are instantiated for W <= 128 and
+k + 1 <= 64; any other configuration raises ValueError on the card.
 
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
 it runs the kernel's plain PyTorch version (vectorised over lanes, the
@@ -282,21 +286,12 @@ def _check_rc(lib, what: str, rc: int) -> None:
                            f"({lib.genasm_error_string(rc).decode()})")
 
 
-def _launch(name, cfg, *tensors, ints, block=None):
+def _launch(name, *tensors, ints, block=()):
     """Launch kernel `name` of the CUDA library on the current stream of
-    the tensors' device; raise if the launch is refused.  `block` is the
-    block geometry the entry point takes (default: ``cfg.lane_tile``
-    threads, one lane each)."""
+    the tensors' device, with the block geometry ``block`` its entry point
+    takes; raise if the launch is refused."""
     lib = _library()
     fn = getattr(lib, f"genasm_{name}_launch")
-    if block is None:
-        if not 0 < cfg.lane_tile <= 1024:
-            raise ValueError(f"lane_tile={cfg.lane_tile}: a CUDA block "
-                             f"holds 1..1024 threads")
-        block = (cfg.lane_tile,)
-    if cfg.nw > 2:
-        raise ValueError(f"W={cfg.W}: the CUDA kernels are instantiated for "
-                         f"W <= 64 (two words per bitvector)")
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -306,11 +301,27 @@ def _launch(name, cfg, *tensors, ints, block=None):
 
 
 # --------------------------------------------------------------------------
-# K1's block geometry (csrc/genasm_fused.cu, tb_fused_kernel)
+# the blocks of K1 (csrc/tb_fused.cu) and of K2/K4 (csrc/tail_fused.cu):
+# the same sizes are computed again in C (k1_layout, tail_layout), which
+# refuses any other; change both together
 # --------------------------------------------------------------------------
 
-K1_THREADS = 128                #: threads per K1 block
+K1_THREADS = 128                #: threads per K1 block (fewer where its
+                                #: shared memory does not fit)
+TAIL_THREADS = 128              #: threads per K2/K4 block (the same)
 MAX_SHARED_BYTES = 232_448      #: dynamic shared memory of one H100 block
+PLACEMENTS = ("shared", "global")   #: the tails' store, in C's numbering
+#: where the tails keep a lane's store, by (NW, KP): the placement that
+#: tools/torch_tail_sweep.py measured faster (the sum of its device ms at
+#: 2,048 and 4,096 lanes, 128 threads a block, W = 32 / 64 / 96 / 128 at
+#: k = 12, 24, 48; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6).  K2
+#: and K4 share it.  Shared memory wins only where a lane's store is small
+#: (KP = 16 at NW <= 2, and NW = 1); global wherever one lane's store does
+#: not fit a block.
+TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
+                  (2, 16): "shared", (2, 32): "global", (2, 64): "global",
+                  (3, 16): "global", (3, 32): "global", (3, 64): "global",
+                  (4, 16): "global", (4, 32): "global", (4, 64): "global"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -320,6 +331,26 @@ class TbFusedGeometry:
     lanes: int                  #: lanes per block
     threads: int                #: threads per block
     shared_bytes: int           #: dynamic shared memory per block
+
+
+@dataclasses.dataclass(frozen=True)
+class TailGeometry:
+    group: int                  #: G, threads per lane
+    levels_per_thread: int      #: L = KP / G
+    lanes: int                  #: lanes per block
+    threads: int                #: threads per block
+    placement: str              #: where a lane's store lives (PLACEMENTS)
+    shared_bytes: int           #: dynamic shared memory per block
+    store_words: int            #: int32 words of a lane's store in device
+                                #: memory ("global"), else 0
+
+
+def check_instantiated(cfg: AlignerConfig) -> None:
+    """Raise ValueError unless the CUDA kernels are instantiated for
+    `cfg`: W <= 128 (four words a bitvector) and k + 1 <= 64 levels."""
+    if cfg.nw > 4 or cfg.k + 1 > 64:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: the CUDA kernels are "
+                         f"instantiated for W <= 128 and k + 1 <= 64")
 
 
 def levels_bucket(k: int) -> int:
@@ -336,30 +367,121 @@ def _half_bank_pad(words: int) -> int:
     return words + (16 - words % 32) % 32
 
 
+def _group(k: int) -> tuple[int, int]:
+    """(G, L): min(KP, 32) threads per lane, KP / G levels each."""
+    kp = levels_bucket(k)
+    return min(kp, 32), kp // min(kp, 32)
+
+
+def _lanes(threads: int | None, default: int, group: int, block_bytes,
+           what: str) -> int:
+    """Lanes per block: ``threads / G`` for the given whole-warp block,
+    else ``default / G`` halved while ``block_bytes(lanes)`` (the block's
+    shared bytes) exceeds the card's limit, down to one warp."""
+    if threads is not None:
+        if threads % 32 or not 32 <= threads <= 1024:
+            raise ValueError(f"threads={threads}: {what}'s block is whole "
+                             f"warps, 32..1024 threads")
+        return threads // group
+    lanes = default // group
+    while block_bytes(lanes) > MAX_SHARED_BYTES and lanes * group > 32:
+        lanes //= 2
+    return lanes
+
+
 def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
-                      threads: int = K1_THREADS) -> TbFusedGeometry:
+                      threads: int | None = None) -> TbFusedGeometry:
     """K1's block for `cfg` and an op budget (default ``cfg.tb_max_ops``):
     G = min(KP, 32) threads per lane with L = KP / G levels each,
-    ``threads / G`` lanes per block (whole warps, at most 1,024 threads;
-    the wrapper launches K1_THREADS), and the dynamic shared memory of the
+    ``K1_THREADS / G`` lanes per block, halved while the block's shared
+    bytes exceed the card's 232,448 (W > 64), down to one warp; or
+    ``threads / G`` for a given whole-warp block (the sweep tool; not
+    checked against the limit).  The dynamic shared memory is the
     kernel's layout: per lane the band, k+1 rows of ``ncb * nwb`` words
     (plus one where that makes the row stride minus nwb even) padded to 16
     mod 32 words, the text padded the same way, the staged ops and the
-    lane's dist."""
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError(f"threads={threads}: K1's block is whole warps, "
-                         f"32..1024 threads")
+    lane's dist.  Raises ValueError where one warp's lanes do not fit."""
+    check_instantiated(cfg)
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
-    kp = levels_bucket(cfg.k)
-    group = min(kp, 32)
-    lanes = threads // group
+    group, levels = _group(cfg.k)
     ncb, nwb = cfg.ncols_band, cfg.nwb
     row_words = ncb * nwb + (1 if nwb * (ncb - 1) % 2 == 0 else 0)
     lane_words = (_half_bank_pad((cfg.k + 1) * row_words)
                   + _half_bank_pad(cfg.W) + max_ops + 1)
-    return TbFusedGeometry(group=group, levels_per_thread=kp // group,
+    lanes = _lanes(threads, K1_THREADS, group,
+                   lambda n: 4 * n * lane_words, "K1")
+    if threads is None and 4 * lanes * lane_words > MAX_SHARED_BYTES:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: K1's {lanes} lane(s) of "
+                         f"{4 * lane_words} B exceed a block's "
+                         f"{MAX_SHARED_BYTES} B of shared memory")
+    return TbFusedGeometry(group=group, levels_per_thread=levels,
                            lanes=lanes, threads=lanes * group,
                            shared_bytes=4 * lanes * lane_words)
+
+
+def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
+                  banded: bool | None = None, placement: str | None = None,
+                  threads: int | None = None) -> TailGeometry:
+    """The block of the tail kernel (K2 where `banded`, default
+    ``cfg.tail_banded``, else K4) for `cfg`, ``n_text`` text columns and
+    an op budget: G = min(KP, 32) threads per lane with L = KP / G levels
+    each, and the lane's store of k+1 levels x n_text columns x nwb words
+    (K4: nw) where `placement` (default ``TAIL_PLACEMENT[(nw, KP)]``) puts
+    it.  "shared": per lane k+1 rows of ``n_text * nwb`` words (plus one
+    where that makes the row stride minus nwb even) padded to 16 mod 32;
+    ``TAIL_THREADS / G`` lanes a block, halved while the block exceeds the
+    card's shared memory, down to one warp; where even that does not fit,
+    the store goes to "global" (a ValueError if "shared" was asked for).
+    "global": ``(n_text + rows0 - 1) * L * nwb * rows0`` words of device
+    memory a lane, rows0 = ceil((k+1)/L) (the skewed layout of
+    ``tail_fused.cu``).  Either way the block's shared memory also holds
+    per lane the text (padded to 16 mod 32 words), the staged ops and
+    dist, and one word for the block.  `threads` (whole warps) is for the
+    sweep tool."""
+    check_instantiated(cfg)
+    if placement not in (None, *PLACEMENTS):
+        raise ValueError(f"placement={placement!r} is not one of "
+                         f"{PLACEMENTS}")
+    banded = cfg.tail_banded if banded is None else banded
+    k, nwb = cfg.k, cfg.nwb if banded else cfg.nw
+    group, levels = _group(k)
+    rows0 = -(-(k + 1) // levels)
+    common = _half_bank_pad(n_text) + max_ops + 1
+
+    def block_bytes(lanes, store_lane_words):
+        return 4 * (lanes * (store_lane_words + common) + 1)
+
+    want = placement or TAIL_PLACEMENT[(cfg.nw, levels_bucket(k))]
+    if want == "shared":
+        row_words = n_text * nwb + (1 if nwb * (n_text - 1) % 2 == 0 else 0)
+        store_lane = _half_bank_pad((k + 1) * row_words)
+        lanes = _lanes(threads, TAIL_THREADS, group,
+                       lambda n: block_bytes(n, store_lane), "the tail")
+        if block_bytes(lanes, store_lane) <= MAX_SHARED_BYTES:
+            return TailGeometry(group, levels, lanes, lanes * group,
+                                "shared", block_bytes(lanes, store_lane), 0)
+        if placement == "shared":
+            raise ValueError(f"W={cfg.W} k={cfg.k}: a tail lane's store "
+                             f"of {4 * store_lane} B exceeds a block's "
+                             f"{MAX_SHARED_BYTES} B of shared memory")
+    lanes = _lanes(threads, TAIL_THREADS, group,
+                   lambda n: block_bytes(n, 0), "the tail")
+    if block_bytes(lanes, 0) > MAX_SHARED_BYTES:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: the tail's {lanes} lane(s) "
+                         f"need {block_bytes(lanes, 0)} B of shared memory, "
+                         f"more than a block's {MAX_SHARED_BYTES} B")
+    return TailGeometry(group, levels, lanes, lanes * group, "global",
+                        block_bytes(lanes, 0),
+                        (n_text + rows0 - 1) * levels * nwb * rows0)
+
+
+def _occupancy(query, *args) -> tuple[int, int]:
+    lib = _library()
+    blocks, limit = ctypes.c_int(0), ctypes.c_int(0)
+    name = f"genasm_{query}_occupancy"
+    _check_rc(lib, name, getattr(lib, name)(*args, ctypes.byref(blocks),
+                                            ctypes.byref(limit)))
+    return blocks.value, limit.value
 
 
 def tb_fused_occupancy(cfg: AlignerConfig,
@@ -369,12 +491,18 @@ def tb_fused_occupancy(cfg: AlignerConfig,
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the
     instantiation's dynamic shared-memory limit as the card reports it once
     ``geo.shared_bytes`` is allowed (``cudaFuncGetAttributes``)."""
-    lib = _library()
-    blocks, limit = ctypes.c_int(0), ctypes.c_int(0)
-    _check_rc(lib, "genasm_tb_fused_occupancy", lib.genasm_tb_fused_occupancy(
-        cfg.nw, cfg.k, cfg.nwb, geo.threads, geo.shared_bytes,
-        ctypes.byref(blocks), ctypes.byref(limit)))
-    return blocks.value, limit.value
+    return _occupancy("tb_fused", cfg.nw, cfg.k, cfg.nwb, geo.threads,
+                      geo.shared_bytes)
+
+
+def tail_occupancy(cfg: AlignerConfig, geo: TailGeometry,
+                   banded: bool | None = None) -> tuple[int, int]:
+    """``tb_fused_occupancy`` for the tail kernel's instantiation of `cfg`
+    (K2 where `banded`, default ``cfg.tail_banded``, else K4) at `geo`."""
+    banded = cfg.tail_banded if banded is None else banded
+    return _occupancy("tail", cfg.nw, cfg.k, cfg.nwb if banded else cfg.nw,
+                      PLACEMENTS.index(geo.placement), geo.threads,
+                      geo.shared_bytes)
 
 
 def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
@@ -389,7 +517,7 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
     ops, meta = _outputs(max_ops, B, pm.device)
     if B:
         geo = tb_fused_geometry(cfg, max_ops)
-        _launch("tb_fused", cfg, pm, text, ops, meta,
+        _launch("tb_fused", pm, text, ops, meta,
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
                       int(cfg.early_term), commit_limit, max_ops, max_steps),
                 block=(geo.lanes, geo.threads, geo.shared_bytes))
@@ -409,13 +537,14 @@ def genasm_dc(pm, text, *, cfg: AlignerConfig):
     band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, B),
                        dtype=torch.int32, device=pm.device)
     if B:
-        _launch("dc_band", cfg, pm, text, band, dist, levels,
+        check_instantiated(cfg)
+        _launch("dc_band", pm, text, band, dist, levels,
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
                       int(cfg.early_term)))
     return dist, band, levels
 
 
-def _tail(name, plain, store_shape, pm, text, m_len, n_len, *, cfg, n_text,
+def _tail(name, plain, banded, pm, text, m_len, n_len, *, cfg, n_text,
           commit_limit, max_ops, max_steps):
     cuda = _check_inputs(cfg, pm, text, n_text, (m_len, n_len))
     if not cuda:
@@ -426,11 +555,15 @@ def _tail(name, plain, store_shape, pm, text, m_len, n_len, *, cfg, n_text,
     B = pm.shape[-1]
     ops, meta = _outputs(max_ops, B, pm.device)
     if B:
-        store = torch.empty(store_shape + (B,), dtype=torch.int32,
-                            device=pm.device)
-        _launch(name, cfg, pm, text, m_len, n_len, ops, meta, store,
-                ints=(B, n_text, cfg.W, cfg.nw, cfg.k, cfg.nwb,
-                      int(cfg.early_term), commit_limit, max_ops, max_steps))
+        geo = tail_geometry(cfg, n_text, max_ops, banded=banded)
+        store = torch.empty((B, geo.store_words) if geo.store_words else 0,
+                            dtype=torch.int32, device=pm.device)
+        _launch(name, pm, text, m_len, n_len, ops, meta, store,
+                ints=(B, n_text, cfg.W, cfg.nw, cfg.k,
+                      cfg.nwb if banded else cfg.nw, int(cfg.early_term),
+                      commit_limit, max_ops, max_steps),
+                block=(geo.lanes, geo.threads,
+                       PLACEMENTS.index(geo.placement), geo.shared_bytes))
     return ops, meta
 
 
@@ -438,9 +571,8 @@ def genasm_tail_banded(pm, text, m_len, n_len, *, cfg: AlignerConfig,
                        n_text: int, commit_limit: int, max_ops: int,
                        max_steps: int):
     """K2: rectangular tail with the per-lane diagonal band store."""
-    return _tail("tail_banded", tail_banded_plain,
-                 (cfg.k + 1, n_text, cfg.nwb), pm, text, m_len, n_len,
-                 cfg=cfg, n_text=n_text, commit_limit=commit_limit,
+    return _tail("tail_banded", tail_banded_plain, True, pm, text, m_len,
+                 n_len, cfg=cfg, n_text=n_text, commit_limit=commit_limit,
                  max_ops=max_ops, max_steps=max_steps)
 
 
@@ -448,8 +580,7 @@ def genasm_tail_full(pm, text, m_len, n_len, *, cfg: AlignerConfig,
                      n_text: int, commit_limit: int, max_ops: int,
                      max_steps: int):
     """K4: rectangular tail with the full SENE store."""
-    return _tail("tail_full", tail_full_plain,
-                 (cfg.k + 1, n_text + 1, cfg.nw), pm, text, m_len, n_len,
+    return _tail("tail_full", tail_full_plain, False, pm, text, m_len, n_len,
                  cfg=cfg, n_text=n_text, commit_limit=commit_limit,
                  max_ops=max_ops, max_steps=max_steps)
 

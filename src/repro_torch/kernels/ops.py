@@ -2,8 +2,9 @@
 standard layout in; out, the DC band (K3) or the traceback dict (K1, K2,
 K4).
 
-The batch pads to a ``cfg.lane_tile`` multiple (K2-K4: one CUDA block per
-tile), the pattern masks and texts go to the kernel layout (lanes
+The batch pads to a ``cfg.lane_tile`` multiple (the pad unit only: the
+kernels derive their own blocks), the pattern masks and texts go to the
+kernel layout (lanes
 innermost, words as int32 bits), and the kernels' outputs come back in the
 layout the windowed pipeline and ``core.traceback`` consume.  Every tensor
 stays on the device of the inputs; ``levels`` is a 0-d tensor there (no

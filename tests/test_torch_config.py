@@ -1,15 +1,19 @@
 """The port's AlignerConfig against the reference's: every derived
 property equal over a grid, the same ValueErrors, each reference backend
-mapped to its counterpart, and the one reference knob the port does not
-run (an alphabet other than DNA) refused.  Also holds the helper the
+mapped to its counterpart, and ``n_symbols`` ignored as the reference
+ignores it.  Also holds the helper the
 other port tests share: ``cfg_pair``."""
 import dataclasses
 
+import numpy as np
 import pytest
 
+from repro.core.aligner import GenASMAligner as RefAligner
 from repro.core.config import AlignerConfig as RefConfig
 from repro_torch.convert import BACKEND_MAP, config_from_reference
+from repro_torch.core.aligner import GenASMAligner
 from repro_torch.core.config import BACKENDS, AlignerConfig, resolve_config
+from repro_torch.data import genome
 
 DERIVED = ("nw", "m_pad", "nwb", "stride", "tb_max_ops", "tb_max_steps",
            "ncols_band", "tail_band_supported", "tail_banded")
@@ -57,10 +61,58 @@ def test_same_value_errors(bad):
 
 @pytest.mark.parametrize("n_symbols", [2, 5, 20])
 def test_unported_reference_configs_raise(n_symbols):
-    """The kernels are written for the DNA alphabet only."""
-    with pytest.raises(NotImplementedError, match="n_symbols"):
-        config_from_reference(dataclasses.asdict(
-            RefConfig(n_symbols=n_symbols)))
+    """``n_symbols`` no longer raises: the reference declares the field and
+    never reads it, so the converted config is the one for 4 symbols and a
+    small batch aligns as the reference aligns it."""
+    ref = RefConfig(W=32, O=12, k=6, backend="pallas_fused",
+                    n_symbols=n_symbols)
+    cfg = config_from_reference(dataclasses.asdict(ref))
+    assert cfg == config_from_reference(dataclasses.asdict(
+        dataclasses.replace(ref, n_symbols=4)))
+    rng = np.random.default_rng(n_symbols)
+    reads = [rng.integers(0, 4, 90).astype(np.uint8) for _ in range(2)]
+    refs = [np.concatenate([r[:40], r[43:], [1, 2]]).astype(np.uint8)
+            for r in reads]
+    want = RefAligner(ref, rescue_rounds=0).align(reads, refs)
+    got = GenASMAligner(cfg, rescue_rounds=0, device="cpu").align(reads,
+                                                                  refs)
+    _assert_same(got, want)
+
+
+def _reads(n_reads, read_len):
+    """Simulated reads at 8 % error and their true reference segments."""
+    g = genome.synth_genome(40_000, seed=7)
+    rs = genome.simulate_reads(g, n_reads, genome.ReadSimConfig(
+        read_len=read_len, error_rate=0.08, seed=13))
+    return rs.reads, rs.ref_segments
+
+
+def _assert_same(got, want):
+    for field in ("dist", "failed", "k_used", "read_consumed",
+                  "ref_consumed"):
+        np.testing.assert_array_equal(getattr(got, field),
+                                      getattr(want, field), err_msg=field)
+    assert got.cigars == want.cigars and not got.failed.any()
+
+
+@pytest.mark.parametrize("fields,n_reads,read_len", [
+    (dict(W=32, O=12, k=8, lane_tile=2816), 2, 150),
+    (dict(W=96, O=36, k=24), 2, 300)])
+def test_configs_the_card_refused_align_as_the_reference(fields, n_reads,
+                                                         read_len):
+    """lane_tile=2816 (what the reference's lane_tile='auto' gives; the
+    CUDA blocks once came from it) and W=96 (NW=3) convert and align, on
+    the fused backend's plain path, as the reference's fused backend
+    aligns them."""
+    ref = RefConfig(backend="pallas_fused", **fields)
+    cfg = config_from_reference(dataclasses.asdict(ref))
+    assert (cfg.lane_tile, cfg.W, cfg.backend) == (ref.lane_tile, ref.W,
+                                                   "fused")
+    reads, refs = _reads(n_reads, read_len)
+    want = RefAligner(ref, rescue_rounds=1).align(reads, refs)
+    got = GenASMAligner(cfg, rescue_rounds=1, device="cpu").align(reads,
+                                                                  refs)
+    _assert_same(got, want)
 
 
 @pytest.mark.parametrize("backend,port_backend", [

@@ -71,7 +71,7 @@ def _tail_batch(rng, W, k):
 
 
 @pytest.mark.parametrize("W,O,k", [(16, 6, 4), (32, 12, 20), (64, 24, 12),
-                                   (64, 24, 24), (64, 24, 48)])
+                                   (64, 24, 24), (64, 24, 48), (96, 36, 24)])
 def test_k1_tb_fused_equals_reference(W, O, k):
     ref_cfg, cfg = cfg_pair(W=W, O=O, k=k)
     pat, txt = _square_batch(np.random.default_rng(W + k), W, k)
@@ -91,6 +91,10 @@ def test_k1_tb_fused_equals_reference(W, O, k):
     (16, 6, 4, "auto", "tail_full"),
     (64, 24, 24, "auto", "tail_full"),
     (64, 24, 12, "full", "tail_full"),
+    (64, 24, 48, "auto", "tail_full"),
+    (40, 16, 12, "auto", "tail_banded"),      # m_pad > W
+    (48, 16, 12, "auto", "tail_banded"),
+    (96, 36, 24, "auto", "tail_banded"),      # NW = 3
 ])
 def test_k2_k4_tail_equals_reference(W, O, k, tail_store, kernel):
     ref_cfg, cfg = cfg_pair(W=W, O=O, k=k, tail_store=tail_store)

@@ -1,0 +1,137 @@
+"""The blocks of the warp-cooperative kernels, computed on the host: the
+tails' ``genasm_dc.tail_geometry`` against bytes worked out by hand for
+the rescue ladder's configurations, K1's ``tb_fused_geometry`` lowering
+its lanes per block where W > 64 makes a lane's band large, the tails'
+store going to device memory wherever one lane's does not fit a block,
+and ``lane_tile`` setting no block.  The CUDA side recomputes the same
+sizes and refuses any other (``chip_smoke.py`` phases ``k1_grid`` and
+``tail_grid`` launch them)."""
+import pytest
+
+from repro_torch.core.config import AlignerConfig
+from repro_torch.kernels import genasm_dc
+
+MAX = genasm_dc.MAX_SHARED_BYTES
+
+
+def _tail(cfg, banded, placement=None):
+    n_text = cfg.W + 4 * cfg.k
+    return genasm_dc.tail_geometry(cfg, n_text, cfg.W + n_text,
+                                   banded=banded, placement=placement)
+
+
+# (k, kernel, placement) -> (G, L, lanes, shared bytes, store words a lane)
+# at W=64, O=24, n_text = W + 4k, max_ops = W + n_text:
+#   shared: 4 * (lanes * (store + text + max_ops + 1) + 1) with the store
+#   k+1 rows of n_text*nwb words (+1 where that makes the stride minus nwb
+#   even) padded to 16 mod 32, the text n_text padded the same way
+#   global: store (n_text + rows0 - 1) * L * nwb * rows0 words in device
+#   memory, rows0 = ceil((k+1)/L); shared: 4 * (lanes * (text + max_ops
+#   + 1) + 1)
+LADDER = {
+    # k=12, K2: 13 x 112 = 1,456 words (16 mod 32); text 112; ops 176
+    (12, "tail_banded", "shared"): (16, 1, 8, 4 * (8 * 1745 + 1), 0),
+    (12, "tail_banded", "global"): (16, 1, 8, 4 * (8 * 289 + 1), 124 * 13),
+    # k=24, K4: 25 x 321 = 8,025 -> 8,048 words; text 160 -> 176; ops 224;
+    # four lanes (135,188 B) fit one block
+    (24, "tail_full", "shared"): (32, 1, 4, 4 * (4 * 8449 + 1), 0),
+    (24, "tail_full", "global"): (32, 1, 4, 4 * (4 * 401 + 1),
+                                  184 * 2 * 25),
+    # k=48, K4: 49 x 513 = 25,137 -> 25,168 words; text 256 -> 272; ops
+    # 320; four lanes need 412,180 B, so two (206,092 B)
+    (48, "tail_full", "shared"): (32, 2, 2, 4 * (2 * 25761 + 1), 0),
+    (48, "tail_full", "global"): (32, 2, 4, 4 * (4 * 593 + 1),
+                                  280 * 2 * 2 * 25),
+}
+
+
+@pytest.mark.parametrize("key", sorted(LADDER), ids=str)
+def test_tail_geometry_of_the_ladder(key):
+    k, kernel, placement = key
+    cfg = AlignerConfig(k=k)
+    assert cfg.tail_banded == (kernel == "tail_banded")
+    geo = _tail(cfg, kernel == "tail_banded", placement)
+    group, levels, lanes, shared, store = LADDER[key]
+    assert (geo.group, geo.levels_per_thread, geo.lanes, geo.shared_bytes,
+            geo.store_words) == (group, levels, lanes, shared, store)
+    assert geo.placement == placement and geo.threads == lanes * group
+    assert geo.shared_bytes <= MAX
+
+
+@pytest.mark.parametrize("W,O", [(16, 6), (32, 12), (40, 16), (64, 24),
+                                 (96, 36), (128, 48)])
+@pytest.mark.parametrize("banded", [True, False])
+def test_tail_store_goes_global_where_a_lane_does_not_fit(W, O, banded):
+    """Every k of the width: the default geometry always launches (whole
+    warps, within the shared limit); asked for shared memory it either
+    fits or raises naming W, k and the bytes, and then the default puts
+    the store in device memory."""
+    for k in range(1, min(W, 64)):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        geo = _tail(cfg, banded)
+        assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
+        assert geo.lanes * geo.group == geo.threads
+        assert geo.shared_bytes <= MAX
+        assert (geo.store_words > 0) == (geo.placement == "global")
+        try:
+            shared = _tail(cfg, banded, "shared")
+        except ValueError as exc:
+            assert f"W={W} k={k}" in str(exc) and " B " in str(exc)
+            assert geo.placement == "global"
+            continue
+        assert shared.placement == "shared" and shared.shared_bytes <= MAX
+        if genasm_dc.TAIL_PLACEMENT[(cfg.nw, genasm_dc.levels_bucket(k))] \
+                == "shared":
+            assert geo == shared
+
+
+@pytest.mark.parametrize("W,O,k,lanes", [
+    (64, 24, 48, 4), (96, 36, 24, 4), (96, 36, 48, 2), (128, 48, 24, 4),
+    (128, 48, 48, 2), (128, 48, 63, 1)])
+def test_tb_fused_geometry_lowers_lanes_per_block(W, O, k, lanes):
+    """K1 at NW = 3 and 4: the lanes per block halve while the block's
+    shared bytes exceed the card's, down to one lane (one warp)."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.tb_fused_geometry(cfg)
+    assert geo.lanes == lanes and geo.threads == lanes * geo.group
+    assert geo.shared_bytes <= MAX
+    if lanes < genasm_dc.K1_THREADS // geo.group:
+        wider = genasm_dc.tb_fused_geometry(cfg, threads=2 * geo.threads)
+        assert wider.shared_bytes > MAX
+
+
+@pytest.mark.parametrize("W", [96, 128])
+def test_tb_fused_geometry_fits_every_k_at_nw_3_and_4(W):
+    for k in range(1, 64):
+        geo = genasm_dc.tb_fused_geometry(AlignerConfig(W=W, O=W // 3, k=k))
+        assert geo.threads % 32 == 0 and geo.shared_bytes <= MAX
+
+
+@pytest.mark.parametrize("fields", [dict(W=96, O=32, k=64),
+                                    dict(W=160, O=48, k=12)])
+def test_uninstantiated_configs_raise_naming_w_and_k(fields):
+    cfg = AlignerConfig(**fields)
+    want = f"W={cfg.W} k={cfg.k}"
+    with pytest.raises(ValueError, match=want):
+        genasm_dc.tb_fused_geometry(cfg)
+    with pytest.raises(ValueError, match=want):
+        _tail(cfg, True)
+    with pytest.raises(ValueError, match=want):
+        genasm_dc.check_instantiated(cfg)
+
+
+@pytest.mark.parametrize("k", [12, 24, 48])
+def test_no_block_comes_from_lane_tile(k):
+    """The reference's lane_tile='auto' (2,816) is the batch pad unit
+    only: every kernel's block is the same as at lane_tile=128."""
+    cfg, tiled = AlignerConfig(k=k), AlignerConfig(k=k, lane_tile=2816)
+    assert genasm_dc.tb_fused_geometry(tiled) == \
+        genasm_dc.tb_fused_geometry(cfg)
+    for banded in (True, False):
+        for placement in genasm_dc.PLACEMENTS:
+            try:
+                want = _tail(cfg, banded, placement)
+            except ValueError:
+                continue
+            got = _tail(tiled, banded, placement)
+            assert got == want and got.threads <= 1024

@@ -1,5 +1,5 @@
-"""K1 and the fused main path of the port in one checkout, for an A/B of
-two commits inside one chip call.
+"""The four kernels and the fused main path of the port in one checkout,
+for an A/B of two commits inside one chip call.
 
     python3 tools/torch_ab.py TREE [--label NAME] [--reps 20]
 
@@ -7,7 +7,9 @@ TREE is the root of a checkout of the repository: this one, or another
 commit unpacked with ``git archive``.  The script imports that tree's
 ``chip_smoke`` and ``repro_torch`` (so it measures that tree's kernels,
 built from its own sources), then prints one JSON line per measurement:
-K1 (``genasm_tb_fused``) at 4,096 lanes for k = 12, 24 and 48, its device
+each kernel at 4,096 lanes on the inputs that tree's ``chip_smoke`` gives
+it (K1 ``tb_fused`` and K3 ``dc_band`` at k = 12, 24 and 48, K2
+``tail_banded`` at k = 12, K4 ``tail_full`` at k = 24 and 48), its device
 ms per launch from a CUDA graph of ``--reps`` calls replayed between two
 CUDA events; then ``chip_smoke.phase_main_path`` on the 2,048 x 10 kbp
 batch (its ``main_path`` and ``main_path_profile`` lines); then a summary.
@@ -27,6 +29,13 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+
+#: (kernel, k) timed at 4,096 lanes: each kernel at the k the main path
+#: gives it (K2 at the base k, K4 on the rescue rungs)
+KERNEL_CASES = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
+                ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
+                ("dc_band", 12), ("dc_band", 24), ("dc_band", 48)]
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -63,17 +72,18 @@ def main() -> None:
     dev = torch.device("cuda")
     cs.phase_device()
     cs.phase_build()
-    wrapper = cs.KERNELS["tb_fused"][0]
-    k1 = {}
-    for k in (12, 24, 48):
-        cfg = AlignerConfig(k=k)
-        inputs, kw, _ = cs._case("tb_fused", cfg, 4096,
+    kernel_ms = {}
+    for name, k in KERNEL_CASES:
+        wrapper = cs.KERNELS[name][0]
+        inputs, kw, _ = cs._case(name, AlignerConfig(k=k), 4096,
                                  np.random.default_rng(2022 + k), dev)
         for _ in range(3):
             wrapper(*inputs, **kw)
-        k1[k] = graph_ms(lambda: wrapper(*inputs, **kw), args.reps)
-        print(json.dumps(dict(phase="ab_k1", label=label, k=k, lanes=4096,
-                              ms=k1[k])), flush=True)
+        ms = graph_ms(lambda: wrapper(*inputs, **kw), args.reps)
+        kernel_ms[f"{name}@{k}"] = ms
+        print(json.dumps(dict(phase="ab_kernel", label=label, name=name, k=k,
+                              lanes=4096, ms=ms)), flush=True)
+    wrapper = cs.KERNELS["tb_fused"][0]
     inputs, kw, _ = cs._case("tb_fused", AlignerConfig(k=12), 2048,
                              np.random.default_rng(2034), dev)
     issue_us = []
@@ -87,7 +97,8 @@ def main() -> None:
     print(json.dumps(dict(phase="ab_issue", label=label, k=12, lanes=2048,
                           calls=args.issue, issue_us=issue_us)), flush=True)
     fused, _ = cs.phase_main_path(dev, cs.long_reads())
-    print(json.dumps(dict(phase="ab_summary", label=label, k1_ms=k1,
+    print(json.dumps(dict(phase="ab_summary", label=label,
+                          kernel_ms=kernel_ms,
                           issue_us=min(issue_us),
                           pairs_per_s=fused["pairs_per_s"],
                           ladder_s=fused["ladder_s"],

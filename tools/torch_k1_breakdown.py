@@ -2,11 +2,12 @@
 
     python3 tools/torch_k1_breakdown.py [--reps 50]
 
-Builds ``csrc/genasm_fused.cu`` three times into ``build/k1_breakdown/``
-(one ``nvcc`` each, all started together): as it is (``full``); with the
-walk switched off (``no_walk``); and with the walk and the fill's band
-stores switched off (``no_walk_no_store``).  The switches are two
-preprocessor macros that this script writes into a copy of the source.
+Builds K1's source ``csrc/tb_fused.cu`` three times into
+``build/k1_breakdown/`` (one ``nvcc`` each, all started together): as it
+is (``full``); with the walk switched off (``no_walk``); and with the walk
+and the fill's band stores switched off (``no_walk_no_store``).  The
+switches are two preprocessor macros that this script writes into a copy
+of the source.
 Then it times each build's K1 on the inputs ``chip_smoke.py`` gives it,
 at 2,048 and 4,096 lanes for k = 12, 24, 48 (device ms per launch,
 ``chip_smoke._device_ms``).  ``full - no_walk`` is the walk's share, and
@@ -42,7 +43,7 @@ VARIANTS = {"full": (1, 1), "no_walk": (0, 1), "no_walk_no_store": (0, 0)}
 
 def build_variants(out_dir: Path) -> dict:
     """{variant: its genasm_tb_fused_launch}, built in parallel."""
-    src = build.SOURCE.read_text()
+    src = (build.CSRC / "tb_fused.cu").read_text()
     for line, switched in SWITCHES:
         if src.count(line) != 1:
             raise RuntimeError(f"source line not found once: {line!r}")
@@ -50,7 +51,7 @@ def build_variants(out_dir: Path) -> dict:
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "k1.cu").write_text(src)
     procs = {name: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, f"-DK1_WALK={walk}",
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", f"-DK1_WALK={walk}",
          f"-DK1_STORE={store}", "-o", str(out_dir / f"lib_{name}.so"),
          str(out_dir / "k1.cu")], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
