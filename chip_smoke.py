@@ -6,7 +6,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card (K1 also
 over a grid of its instantiations and block geometries, with its
 occupancy; K2 and K4 over every tail instantiation in both store
-placements), drives the aligner's main path (``GenASMAligner.align``) on
+placements; K3 over every instantiation in both band placements, with
+its occupancy), drives the aligner's main path (``GenASMAligner.align``) on
 PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
 split backend (K3 and the PyTorch traceback), holds the two results
 equal, and checks the kernel path against the CPU plain path end to end:
@@ -39,7 +40,8 @@ from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
                                      synth_genome)
 from repro_torch.kernels import build, genasm_dc               # noqa: E402
-from repro_torch.kernels.genasm_dc import PLACEMENTS           # noqa: E402
+from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
+                                           PLACEMENTS)
 from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
@@ -73,7 +75,7 @@ SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
 #: each kernel template's display name and template parameters
 TEMPLATES = {"tb_fused_kernel": ("tb_fused", ("NW", "KP", "NWB")),
              "tail_fused_kernel": ("tail_fused", ("NW", "KP", "NWB", "PLACE")),
-             "dc_band_kernel": ("dc_band", ("NW", "KP"))}
+             "dc_band_kernel": ("dc_band", ("NW", "KP", "NWB", "PLACE"))}
 #: K1's ms per launch at 4,096 lanes in its first design (one thread per
 #: lane, band in global scratch), by k: PERF.md section 6, measured by this
 #: script on an NVIDIA H100 80GB HBM3 at 700.00 W
@@ -129,9 +131,10 @@ def phase_build() -> dict:
 
 
 def _kernel_name(template: str, args) -> str:
-    """name<NW=..,KP=..[,NWB=..][,PLACE=..]> of an instantiation."""
+    """name<NW=..,KP=..,NWB=..[,PLACE=..]> of an instantiation."""
     name, params = TEMPLATES[template]
-    args = [PLACEMENTS[int(a)] if p == "PLACE" else a
+    places = K3_PLACEMENTS if template == "dc_band_kernel" else PLACEMENTS
+    args = [places[int(a)] if p == "PLACE" else a
             for p, a in zip(params, args)]
     return f"{name}<" + ",".join(f"{p}={a}" for p, a in zip(params, args)) \
         + ">"
@@ -143,14 +146,15 @@ def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
     if name == "tb_fused":
         return _kernel_name("tb_fused_kernel", (cfg.nw, kp, cfg.nwb))
     if name == "dc_band":
-        return _kernel_name("dc_band_kernel", (cfg.nw, kp))
+        return _kernel_name("dc_band_kernel", (cfg.nw, kp, cfg.nwb,
+                                               K3_PLACEMENTS.index(placement)))
     nwb = cfg.nwb if name == "tail_banded" else cfg.nw
     return _kernel_name("tail_fused_kernel", (cfg.nw, kp, nwb,
                                               PLACEMENTS.index(placement)))
 
 
 def _ptxas_usage(report: str) -> dict:
-    """{kernel<NW,KP[,NWB][,PLACE]>: "registers, spill stores, spill
+    """{kernel<NW,KP,NWB[,PLACE]>: "registers, spill stores, spill
     loads, stack frame"} from ptxas -v output (a thread-local array that
     does not fit registers lives in the stack frame, in local memory)."""
     usage, name, spill = {}, None, ""
@@ -395,6 +399,56 @@ def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
     return geo, row
 
 
+def k3_launcher(cfg: AlignerConfig, geo, inputs):
+    """A call of K3 at block `geo` (any ``genasm_dc.dc_band_geometry``, in
+    either placement) on CUDA `inputs`, through its C entry point, and its
+    (dist, band, levels); the wrapper launches only the geometry's
+    default.  On CPU inputs: the plain version."""
+    pm, text = inputs
+    if pm.device.type != "cuda":
+        return lambda: genasm_dc.dc_band_plain(pm, text, cfg=cfg)
+    lanes, dev = pm.shape[-1], pm.device
+    dist, levels = (torch.empty(lanes, dtype=torch.int32, device=dev)
+                    for _ in range(2))
+    band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, lanes),
+                       dtype=torch.int32, device=dev)
+    fn = build.load_library().genasm_dc_band_launch
+
+    def call():
+        rc = fn(pm.data_ptr(), text.data_ptr(), band.data_ptr(),
+                dist.data_ptr(), levels.data_ptr(), lanes, cfg.W, cfg.nw,
+                cfg.k, cfg.nwb, cfg.ncols_band, int(cfg.early_term),
+                geo.lanes, geo.threads, K3_PLACEMENTS.index(geo.placement),
+                geo.chunk, geo.shared_bytes,
+                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"dc_band at {geo}: CUDA error {rc}")
+        return dist, band, levels
+    return call
+
+
+def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
+                 threads=None):
+    """K3's geometry for `cfg` in `placement` (default: the geometry's
+    own), and a row of its block and (with ``usage``, on the card) the
+    shared bytes the card allows, blocks per SM and ptxas's report."""
+    geo = genasm_dc.dc_band_geometry(cfg, threads, placement=placement)
+    row = dict(NW=cfg.nw, KP=genasm_dc.levels_bucket(cfg.k), NWB=cfg.nwb,
+               G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
+               threads=geo.threads, placement=geo.placement, chunk=geo.chunk,
+               shared_bytes=geo.shared_bytes)
+    if usage is not None:
+        blocks, limit = genasm_dc.dc_band_occupancy(cfg, geo)
+        if limit < geo.shared_bytes:
+            raise AssertionError(f"K3 W={cfg.W} k={cfg.k}: the card allows "
+                                 f"{limit} B of dynamic shared memory, a "
+                                 f"block asks for {geo.shared_bytes}")
+        row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
+                   ptxas=usage.get(_instantiation("dc_band", cfg,
+                                                  geo.placement)))
+    return geo, row
+
+
 #: K3 on the card at W > 64 (NW = 3, 4) and where m_pad > W (40, 48):
 #: (W, O, k), each at the phase's lanes, timed
 K3_WIDE = [(40, 16, 12), (48, 16, 12), (96, 36, 24), (96, 36, 48),
@@ -409,7 +463,7 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
     CUDA-event time per call of back-to-back wrapper calls, the host's time
     between launches included.  The tail rows carry their block, store
     placement and (with ``usage``, ptxas's) registers, spills and blocks
-    per SM."""
+    per SM; the K3 rows their block, band placement and occupancy."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
              ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
@@ -426,8 +480,8 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
             row["one_thread_ms"] = K1_ONE_THREAD_MS[cfg.k]
         if name.startswith("tail"):
             row.update(_tail_geometry(name, cfg, usage=usage)[1])
-        if name == "dc_band" and usage is not None:
-            row["ptxas"] = usage.get(_instantiation(name, cfg))
+        if name == "dc_band":
+            row.update(_k3_geometry(cfg, usage=usage)[1])
         emit("kernel", **row)
         rows.append(row)
     return rows
@@ -506,6 +560,46 @@ def phase_k1_occupancy(usage: dict) -> dict:
         if W == 64 and k in K1_ONE_THREAD_MS:
             out[k] = row
     return out
+
+
+#: K3's grid: K1's (K3 has K1's (NW, KP, NWB) instantiations), each in
+#: both band placements, at 37 and 1 lanes
+K3_GRID = [case for case in K1_GRID if case[4] < 2048]
+
+
+def phase_k3_grid(device: torch.device, reps: int = 20,
+                  usage: dict | None = None,
+                  timed_lanes=(2048, 4096)) -> list[dict]:
+    """K3 over ``K3_GRID``, then the main path's shapes (W=64, k = 12, 24,
+    48) at each of `timed_lanes`, timed; each case in both band
+    placements, launched through the C entry point at that placement's
+    geometry (``k3_launcher``) and held against ``dc_band_plain`` with max
+    abs err 0; each row with its block, shared bytes asked and allowed,
+    blocks per SM and ptxas's report (with ``usage``), the timed rows with
+    their device ms and bound."""
+    rng = np.random.default_rng(17)
+    rows = []
+    timed = [(64, 24, k, True, lanes) for lanes in timed_lanes
+             for k in (12, 24, 48)]
+    for W, O, k, early_term, lanes in K3_GRID + timed:
+        cfg = AlignerConfig(W=W, O=O, k=k, early_term=early_term)
+        inputs, kw, cols = _case("dc_band", cfg, lanes, rng, device)
+        ref, plain_ms = _plain("dc_band", inputs, kw, device)
+        for placement in K3_PLACEMENTS:
+            geo, geo_row = _k3_geometry(cfg, placement, usage)
+            call = k3_launcher(cfg, geo, inputs)
+            got = call()
+            row = dict(name="dc_band", W=W, k=k, early_term=early_term,
+                       lanes=lanes, max_abs_err=_max_abs_err(
+                           "dc_band", got, ref, f"W={W} k={k} early_term="
+                           f"{early_term} lanes={lanes} {placement}"),
+                       plain_ms=plain_ms, **geo_row)
+            if lanes >= 2048:
+                row.update(_timing("dc_band", cfg, call, inputs, got, cols,
+                                   reps, device))
+            emit("k3_grid", **row)
+            rows.append(row)
+    return rows
 
 
 #: the tails' grid: (W, O, k, tail_store, kernel), every (NW, KP, NWB)
@@ -826,6 +920,7 @@ def main() -> None:
     timed("k1_grid", phase_k1_grid, cuda)
     occupancy = timed("k1_occupancy", phase_k1_occupancy, usage)
     timed("tail_grid", phase_tail_grid, cuda, usage=usage)
+    timed("k3_grid", phase_k3_grid, cuda, usage=usage)
     rs = timed("batch", long_reads)
     emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
          sim_s=phase_s["batch"])
@@ -853,7 +948,9 @@ def main() -> None:
                     "ptxas", "placement", "shared_bytes", "blocks_per_sm",
                     "lanes_per_block", "store_bytes_per_lane")})
             else:
-                by_k[r["k"]]["ptxas"] = r["ptxas"]
+                by_k[r["k"]].update({key: r[key] for key in (
+                    "ptxas", "placement", "chunk", "shared_bytes",
+                    "blocks_per_sm", "lanes_per_block")})
         entry = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=replaces,
             launches=launches[name],
@@ -866,6 +963,7 @@ def main() -> None:
         if wide:
             entry["by_width"] = [dict(W=r["W"], k=r["k"], ms=r["ms"],
                                       bound_ms=r["bound_ms"],
+                                      placement=r.get("placement"),
                                       ptxas=r.get("ptxas")) for r in wide]
         kernels.append(entry)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s)

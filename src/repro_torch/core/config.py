@@ -16,7 +16,7 @@ All three give the same results.  On the kernel backends the device of the
 tensors decides between the hand-written CUDA kernels and their plain
 PyTorch versions.  ``lane_tile`` is the batch pad unit only; the kernels
 derive their own blocks (``kernels.genasm_dc``: ``tb_fused_geometry``,
-``tail_geometry``; K3 128 threads).
+``tail_geometry``, ``dc_band_geometry``).
 """
 from __future__ import annotations
 

@@ -1,9 +1,8 @@
 """Build and load the CUDA kernels (``csrc/*.cu``).
 
 At first use each source (``tb_fused.cu``: K1, ``tail_fused.cu``: K2 and
-K4, ``dc_band.cu``: K3, once per words a bitvector, NW = 1..4; all
-include ``genasm_common.cuh``) is compiled by its own ``nvcc``, all
-started together, and the objects are linked into one
+K4, ``dc_band.cu``: K3; all include ``genasm_common.cuh``) is compiled by
+its own ``nvcc``, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a hash of the sources and the flags, so an edited
@@ -28,10 +27,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
                 for name in ("tb_fused", "tail_fused", "dc_band"))
 HEADERS = (CSRC / "genasm_common.cuh",)
-#: the compilations: (source, extra nvcc flags); K3's one-thread fill is
-#: slow to compile at NW = 3 and 4, so each NW of it is its own process
-UNITS = ((SOURCES[0], ()), (SOURCES[1], ()),
-         *((SOURCES[2], (f"-DK3_NW={nw}",)) for nw in (1, 2, 3, 4)))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
@@ -39,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: argument types of each C entry point: pointers, then ints, then the
 #: block geometry (K1: lanes, threads, shared bytes; K2/K4: lanes,
-#: threads, placement, shared bytes) and the stream; the occupancy
+#: threads, placement, shared bytes; K3: lanes, threads, placement, chunk,
+#: shared bytes) and the stream; the occupancy
 #: queries: ints, then the results' pointers
 _SIGNATURES = {
     "genasm_tb_fused_launch": [_P] * 4 + [_I] * 10 + [_I] * 3 + [_P],
@@ -47,7 +43,8 @@ _SIGNATURES = {
     "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
     "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
     "genasm_tail_occupancy": [_I] * 6 + [_P] * 2,
-    "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_P],
+    "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I] * 5 + [_P],
+    "genasm_dc_band_occupancy": [_I] * 6 + [_P] * 2,
 }
 
 _library: ctypes.CDLL | None = None
@@ -69,22 +66,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgenasm_{digest}.so"
 
 
-def _unit_name(src, extra) -> str:
-    return Path(src).name + "".join(f"[{f.removeprefix('-D')}]"
-                                    for f in extra)
-
-
-def compile_units(units, out_dir: Path, flags=NVCC_FLAGS) -> dict:
-    """Compile each (source, extra flags) unit into an object in
-    `out_dir`, one ``nvcc`` each, all started together.  Returns {unit
-    name: (object, nvcc's output, seconds)}; raises if any fails."""
+def compile_sources(sources, out_dir: Path, flags=NVCC_FLAGS) -> dict:
+    """Compile each source into an object in `out_dir`, one ``nvcc`` each,
+    all started together.  Returns {source name: (object, nvcc's output,
+    seconds)}; raises if any fails."""
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (src, extra) in enumerate(units):
-        obj = out_dir / f"{Path(src).stem}.{i}.{os.getpid()}.o"
-        procs[_unit_name(src, extra)] = (obj, time.perf_counter(),
-                                         subprocess.Popen(
-            [_nvcc(), *flags, *extra, "-c", "-o", str(obj), str(src)],
+    for src in sources:
+        obj = out_dir / f"{Path(src).stem}.{os.getpid()}.o"
+        procs[Path(src).name] = (obj, time.perf_counter(), subprocess.Popen(
+            [_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     done, failed = {}, []
     for name, (obj, start, proc) in procs.items():
@@ -115,7 +106,7 @@ def build() -> Path:
     lib = library_path()
     if lib.exists():
         return lib
-    built = compile_units(UNITS, BUILD_DIR)
+    built = compile_sources(SOURCES, BUILD_DIR)
     report = "".join(f"== {name}: {sec:.2f} s\n{log}"
                      for name, (_, log, sec) in built.items())
     ptxas_report(lib).write_text(report)

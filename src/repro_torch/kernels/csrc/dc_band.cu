@@ -3,226 +3,261 @@
 // Replaces the Pallas TPU kernel _kernel of repro/kernels/genasm_dc.py; its
 // plain PyTorch version is dc_band_plain in
 // repro_torch/kernels/genasm_dc.py, and the outputs must be equal bit for
-// bit.  One thread per lane runs a column-major SENE fill (R_j[d] = M & S &
-// D & I over levels d = 0..k) with the live column of all k+1 levels in a
-// thread-local array, updated in place.  The band (k+1, ncb, nwb, B) is
-// its output, with dist (B) and the level count (B).  The C entry point
-// returns cudaGetLastError() after the launch (or an error code for a
-// geometry without an instantiation); it never synchronises and allocates
-// nothing.
+// bit: dist (B), the band (k+1, ncb, nwb, B) of the last ncb columns, each
+// level's window of nwb words at the static base clip(j - 2 - k), lane
+// innermost, and the level count (B).
+//
+// Bound on the H100: bytes.  A lane writes its whole band ((k+1) x ncb x
+// nwb words: 2,860 B at k = 12, 25,480 B at k = 48, W = 64) against ~300 B
+// of input; the fill's integer work is below that.
+//
+// Design.  The fill is K1's (wavefront_fill in genasm_common.cuh, the same
+// code): a group of G = min(KP, 32) threads holds one lane, thread g its
+// L = KP / G levels, a wavefront over (column, level) with one
+// __shfl_up_sync of NW words a step; the text of the block's lanes is
+// staged in shared memory; dist by ballot over the group (group_dist).  So
+// a thread holds L x NW live words, not KP x NW, and a block holds several
+// lanes.  What is left is the band's way out.  A thread holds levels of
+// one lane, and the output is lane-innermost, so the G threads of a lane
+// write G different rows.  Two placements (PLACE), chosen by KP in
+// dc_band_geometry (kernels/genasm_dc.py) from tools/torch_k3_sweep.py's
+// measurements (PERF.md): direct at KP = 16, staged above.
+//   K3_STAGED: each step's windows go to a ring of 2 x chunk step slots in
+//     shared memory; every chunk steps the block syncs once and writes the
+//     chunk out lane-innermost: thread (q, ll), ll = tid % lanes, stores
+//     what fill thread g = q of lane ll made, so a warp stores
+//     min(lanes, 32) neighbouring lanes of each of 32 / min(lanes, 32) rows
+//     (8 lanes: one full 32 B sector a row).  The fill runs on into the
+//     other half of the ring while the block writes, so one barrier a
+//     chunk suffices.  Slot layout: lane l at l * lane_stride, word (c *
+//     NWB + b) * G + g; lane_stride = KP * NWB rounded up to an odd
+//     multiple of 32 / min(lanes, 32) words, so that the write-out's reads
+//     (min(lanes, 32) lanes x 32 / min(lanes, 32) neighbouring words a
+//     warp) fall in distinct banks.
+//   K3_DIRECT: each thread stores its windows straight from registers
+//     (4 B a row, the block's lanes side by side), and L2 merges the
+//     partial sectors of neighbouring lanes.
+// Column 0 (stored only when ncb = W + 1) is written directly in both.
+//
+// Shared layout of a block (32-bit words; dc_band_geometry computes the
+// same sizes: change both together): per lane text_stride text codes,
+// then (K3_STAGED) the ring, 2 x chunk slots of lanes x lane_stride words.
+//
+// The C entry points return cudaGetLastError() after the launch (or an
+// error code for a geometry without an instantiation); they never
+// synchronise and allocate nothing.
 
 #include "genasm_common.cuh"
 
 namespace {
 
-constexpr int K3_THREADS = 128;   // threads (lanes) a block
+constexpr int K3_STAGED = 0, K3_DIRECT = 1;
 
-template <int NW, int KP>
-__device__ __forceinline__ void init_column(uint32_t (&col)[KP][NW], int k) {
-#pragma unroll
-  for (int d = 0; d < KP; ++d) {
-    if (d > k) break;
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) col[d][w_] = ones_below_word(d, w_);
-  }
-}
+// The smallest odd multiple of r that is >= words.
+int odd_multiple(int words, int r) { return (((words + r - 1) / r) | 1) * r; }
 
-// _next_column: all levels of column j from column j-1, in place (t = j-1
-// is the text index).  Level d reads R_{j-1}[d], R_{j-1}[d-1] (kept in
-// `below_old` before it is overwritten) and the new R_j[d-1].
-template <int NW, int KP>
-__device__ __forceinline__ void next_column(uint32_t (&col)[KP][NW],
-                                            const uint32_t (&pmj)[NW], int t,
-                                            int k) {
-  uint32_t below_old[NW], tmp[NW];
-#pragma unroll
-  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = col[0][w_];
-  shift1<NW>(col[0], t > 0 ? 1u : 0u, tmp);
-#pragma unroll
-  for (int w_ = 0; w_ < NW; ++w_) col[0][w_] = tmp[w_] | pmj[w_];
-#pragma unroll
-  for (int d = 1; d < KP; ++d) {
-    if (d > k) break;
-    uint32_t prev[NW], M[NW], S[NW], I[NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) prev[w_] = col[d][w_];
-    shift1<NW>(prev, t > d ? 1u : 0u, M);
-    shift1<NW>(below_old, t >= d ? 1u : 0u, S);
-    shift1<NW>(col[d - 1], t >= d - 1 ? 1u : 0u, I);
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) {
-      col[d][w_] = (M[w_] | pmj[w_]) & S[w_] & below_old[w_] & I[w_];
-      below_old[w_] = prev[w_];
-    }
-  }
-}
+struct K3Layout {
+  int text_stride, lane_stride, smem_bytes;
+};
 
-// Store the band windows (nwb words from bit `base`) of levels 0..k.
-template <int NW, int KP>
-__device__ __forceinline__ void store_band(const uint32_t (&col)[KP][NW],
-                                           int base, int k, int nwb,
-                                           uint32_t* __restrict__ band,
-                                           long long col_row, int ncols, int B,
-                                           int lane) {
-  const int w0 = base >> 5, s = base & 31;
-#pragma unroll
-  for (int d = 0; d < KP; ++d) {
-    if (d > k) break;
-#pragma unroll
-    for (int b = 0; b < NW; ++b)
-      if (b < nwb)
-        band[at((d * static_cast<long long>(ncols) + col_row) * nwb + b, B,
-                lane)] = funnel_word<NW>(col[d], w0 + b, s);
-  }
-}
-
-// dist = lowest level whose bit `tgt` is 0 (when `guard`), else k+1.
-template <int NW, int KP>
-__device__ __forceinline__ int first_hit(const uint32_t (&col)[KP][NW],
-                                         int tgt, bool guard, int k) {
-  int dist = k + 1;
-#pragma unroll
-  for (int d = KP - 1; d >= 0; --d) {
-    if (d > k) continue;
-    uint32_t v = col[d][0];
-#pragma unroll
-    for (int w_ = 1; w_ < NW; ++w_)
-      if ((tgt >> 5) == w_) v = col[d][w_];
-    if (guard && ((v >> (tgt & 31)) & 1u) == 0) dist = d;
-  }
-  return dist;
-}
-
-// K3's fill of the square window: column-major SENE over the W text
-// columns with the live column in registers, storing the DENT band windows
-// of the last ncb columns at the static base clip(j - 2 - k); returns dist
-// (bit W-1 of the last column).
-template <int NW, int KP>
-__device__ __forceinline__ int square_dc(const PatternMasks<NW>& pm,
-                                         const int32_t* __restrict__ text,
-                                         uint32_t* __restrict__ band, int B,
-                                         int lane, int W, int k, int nwb,
-                                         int ncb) {
-  const int col0 = W + 1 - ncb;
-  const int band_hi = NW * WORD - WORD * nwb;
-  uint32_t col[KP][NW];
-  init_column<NW, KP>(col, k);
-  if (col0 == 0)
-    store_band<NW, KP>(col, clampi(-2 - k, 0, band_hi), k, nwb, band, 0, ncb,
-                       B, lane);
-  for (int j = 1; j <= W; ++j) {
-    const int c = text[at(j - 1, B, lane)];
-    uint32_t pmj[NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
-    next_column<NW, KP>(col, pmj, j - 1, k);
-    if (j >= col0)
-      store_band<NW, KP>(col, clampi(j - 2 - k, 0, band_hi), k, nwb, band,
-                         j - col0, ncb, B, lane);
-  }
-  return first_hit<NW, KP>(col, W - 1, true, k);
+K3Layout k3_layout(int W, int kp, int nwb, int lanes, int chunk, int place) {
+  K3Layout t;
+  t.text_stride = half_bank_pad(W);
+  const int r = WORD / (lanes < WORD ? lanes : WORD);
+  t.lane_stride = place == K3_STAGED ? odd_multiple(kp * nwb, r) : 0;
+  t.smem_bytes =
+      4 * (lanes * t.text_stride + 2 * chunk * lanes * t.lane_stride);
+  return t;
 }
 
 // ---- K3 ---------------------------------------------------------------
-// Replaces repro/kernels/genasm_dc.py:_kernel (TPU): the DC fill alone,
-// the band an output in (k+1, ncb, nwb, B) for a separate traceback, plus
-// dist and the level count per lane.  Bound on the H100: bytes.  Each
-// lane writes its whole band ((k+1) x ncb x nwb words: 2,860 B at k = 12,
-// W = 64) against ~300 B of input, and that write is what must leave the
-// chip; the fill's integer work is below it.  Design: one thread per lane
-// runs square_dc, lane innermost so each warp's band stores are 128 B and
-// coalesced; no walk, so no read-back of the band.  At NW = 3 and 4 (W up
-// to 128) it keeps this one-thread design; at KP = 64 the live column is
-// more than a thread's registers hold (PERF.md: registers and spill).
-template <int NW, int KP>
+template <int NW, int KP, int NWB, int PLACE>
 __global__ void dc_band_kernel(const uint32_t* __restrict__ pm_g,
-                               const int32_t* __restrict__ text,
+                               const int32_t* __restrict__ text_g,
                                uint32_t* __restrict__ band,
                                int32_t* __restrict__ dist_g,
                                int32_t* __restrict__ levels_g, int B, int W,
-                               int k, int nwb, int ncb, int early_term) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= B) return;
-  PatternMasks<NW> pm;
-  pm.load(pm_g, B, lane);
-  const int dist = square_dc<NW, KP>(pm, text, band, B, lane, W, k, nwb, ncb);
-  dist_g[lane] = dist;
-  levels_g[lane] = level_count(dist, k, early_term);
+                               int k, int ncb, int early_term,
+                               int text_stride, int lane_stride, int chunk) {
+  constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
+  constexpr int L = KP / G;                  // levels per thread
+  constexpr int band_hi = NW * WORD - WORD * NWB;
+  extern __shared__ uint32_t smem[];
+  const int lanes = blockDim.x / G;
+  const int l = threadIdx.x / G, g = threadIdx.x % G;
+  const int lane0 = blockIdx.x * lanes, lane = lane0 + l;
+  const bool live = lane < B;      // a masked lane still takes part in the
+                                   // shuffles, ballots and barriers
+  int32_t* text_s = reinterpret_cast<int32_t*>(smem);
+  uint32_t* ring = smem + lanes * text_stride;
+
+  stage_text(text_g, text_s, W, text_stride, lanes, lane0, B);
+  PatternMasks<NW> pm{};
+  if (live) pm.load(pm_g, B, lane);
+  __syncthreads();
+
+  const int col0 = W + 1 - ncb;
+  const int rows0 = (k + L) / L;   // threads holding a level <= k
+  const int steps = W + rows0 - 1;
+  const int d0 = g * L;
+  // band row of level d, column j (word 0)
+  auto row = [&](int d, int j) {
+    return (static_cast<long long>(d) * ncb + (j - col0)) * NWB;
+  };
+  uint32_t col[L][NW];
+  init_levels<NW, L>(col, d0);
+  auto put = [&](int j) {        // column j's windows to device memory
+    const int base = clampi(j - 2 - k, 0, band_hi);
+    const int w0 = base >> 5, sh = base & 31;
+#pragma unroll
+    for (int c = 0; c < L; ++c) {
+      if (c > 0 && d0 + c > k) break;
+      const long long r = row(d0 + c, j);
+#pragma unroll
+      for (int b = 0; b < NWB; ++b)
+        if (live)
+          band[at(r + b, B, lane)] = band_word<NW, L, NWB>(col, c, b, w0, sh);
+    }
+  };
+  if (col0 == 0 && d0 <= k) put(0);
+  const int32_t* text_l = text_s + l * text_stride;
+
+  if constexpr (PLACE == K3_DIRECT) {
+    wavefront_fill<NW, L, G>(pm, text_l, W, W, steps, k, g, col,
+                             [&](int, int j, bool on) {
+      if (on && j >= col0) put(j);
+    });
+  } else {
+    const int slot_words = lanes * lane_stride, mask = 2 * chunk - 1;
+    // the write-out's role: lane lane0 + ll, the levels fill thread g = q
+    // of that lane held
+    const int q = threadIdx.x / lanes, ll = threadIdx.x % lanes;
+    const int jlo = col0 > 1 ? col0 : 1;
+    auto flush = [&](int s_first, int n) {
+      if (lane0 + ll >= B) return;
+      for (int i = 0; i < n; ++i) {
+        const int s = s_first + i, j = s - q + 1;
+        if (j < jlo || j > W) continue;
+        const uint32_t* src = ring + (s & mask) * slot_words +
+                              ll * lane_stride + q;
+#pragma unroll
+        for (int c = 0; c < L; ++c) {
+          if (q * L + c > k) break;
+          const long long r = row(q * L + c, j);
+#pragma unroll
+          for (int b = 0; b < NWB; ++b)
+            band[at(r + b, B, lane0 + ll)] = src[(c * NWB + b) * G];
+        }
+      }
+    };
+    wavefront_fill<NW, L, G>(pm, text_l, W, W, steps, k, g, col,
+                             [&](int s, int j, bool on) {
+      if (on && j >= col0) {
+        const int base = clampi(j - 2 - k, 0, band_hi);
+        const int w0 = base >> 5, sh = base & 31;
+        uint32_t* dst = ring + (s & mask) * slot_words + l * lane_stride + g;
+#pragma unroll
+        for (int c = 0; c < L; ++c) {
+          if (c > 0 && d0 + c > k) break;
+#pragma unroll
+          for (int b = 0; b < NWB; ++b)
+            dst[(c * NWB + b) * G] = band_word<NW, L, NWB>(col, c, b, w0, sh);
+        }
+      }
+      if (((s + 1) & (chunk - 1)) == 0) {   // a chunk is done: write it out
+        __syncthreads();
+        flush(s + 1 - chunk, chunk);
+      }
+    });
+    const int rest = steps & (chunk - 1);
+    if (rest) {
+      __syncthreads();
+      flush(steps - rest, rest);
+    }
+  }
+
+  // ---- dist: the lowest level of the group whose bit W-1 is 0 ----
+  const int dist = group_dist<NW, L, G>(col, W - 1, true, k, d0);
+  if (g == 0 && live) {
+    dist_g[lane] = dist;
+    levels_g[lane] = level_count(dist, k, early_term);
+  }
 }
 
-// K3's instantiations of one NW (K3_NW, set by the build: dc_band.cu is
-// compiled once per NW, the four at once, since the one-thread fill's
-// unrolled KP x NW arrays make each instantiation slow to compile).
-template <int NW>
-int k3_launch(const void* pm, const void* text, void* band, void* dist,
-              void* levels, int B, int W, int k, int nwb, int ncb,
-              int early_term, void* stream) {
+using K3Kernel = void (*)(const uint32_t*, const int32_t*, uint32_t*,
+                          int32_t*, int32_t*, int, int, int, int, int, int,
+                          int, int);
+
+// K3's instantiation for (nw, k, nwb, place), or null: every (NW, KP, NWB)
+// that some W <= 128 and k <= 63 reach (K1's), in both placements.
+K3Kernel k3_kernel(int nw, int k, int nwb, int place) {
   const int kp = levels_bucket(k);
-  const dim3 grid((B + K3_THREADS - 1) / K3_THREADS), block(K3_THREADS);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define K3_CASE(KP_)                                                       \
-  if (kp == KP_) {                                                         \
-    dc_band_kernel<NW, KP_><<<grid, block, 0, s>>>(                        \
-        static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text), \
-        static_cast<uint32_t*>(band), static_cast<int32_t*>(dist),         \
-        static_cast<int32_t*>(levels), B, W, k, nwb, ncb, early_term);      \
-    return static_cast<int>(cudaGetLastError());                           \
+#define K3_CASE(NW_, KP_, NWB_)                                 \
+  if (nw == NW_ && kp == KP_ && nwb == NWB_) {                  \
+    if (place == K3_STAGED)                                     \
+      return dc_band_kernel<NW_, KP_, NWB_, K3_STAGED>;         \
+    return dc_band_kernel<NW_, KP_, NWB_, K3_DIRECT>;           \
   }
-  K3_CASE(16) K3_CASE(32)
-  if constexpr (NW > 1) K3_CASE(64)     // k < W <= 32 at NW = 1
+  K3_CASE(1, 16, 1) K3_CASE(1, 32, 1)
+  K3_CASE(2, 16, 1) K3_CASE(2, 16, 2) K3_CASE(2, 32, 2) K3_CASE(2, 64, 2)
+  K3_CASE(3, 16, 1) K3_CASE(3, 16, 2) K3_CASE(3, 32, 2) K3_CASE(3, 32, 3)
+  K3_CASE(3, 64, 3)
+  K3_CASE(4, 16, 1) K3_CASE(4, 16, 2) K3_CASE(4, 32, 2) K3_CASE(4, 32, 3)
+  K3_CASE(4, 64, 3) K3_CASE(4, 64, 4)
 #undef K3_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return nullptr;
+}
+
+// The block dc_band_geometry derives, and nothing else: G threads per
+// lane, whole warps, a chunk that is a power of two, the shared bytes of
+// k3_layout within the card's limit.
+bool k3_geometry_ok(int W, int nw, int k, int nwb, int ncb, int lanes,
+                    int threads, int place, int chunk, int smem) {
+  const int kp = levels_bucket(k);
+  const int G = kp < WORD ? kp : WORD;
+  return kp > 0 && W >= 1 && W <= nw * WORD && nwb >= 1 && nwb <= nw &&
+         ncb >= 1 && ncb <= W + 1 && lanes >= 1 && threads == lanes * G &&
+         threads % WORD == 0 && threads <= 1024 &&
+         (place == K3_STAGED || place == K3_DIRECT) && chunk >= 1 &&
+         chunk <= 64 && (chunk & (chunk - 1)) == 0 &&
+         smem <= MAX_SHARED_BYTES &&
+         smem == k3_layout(W, kp, nwb, lanes, chunk, place).smem_bytes;
 }
 
 }  // namespace
 
-#define K3_PART(NW_) k3_launch_nw##NW_
-#define K3_DECLARE(NW_)                                                     \
-  int K3_PART(NW_)(const void* pm, const void* text, void* band,            \
-                   void* dist, void* levels, int B, int W, int k, int nwb,  \
-                   int ncb, int early_term, void* stream)
-
-#ifndef K3_NW
-#define K3_NW 1
-#endif
-
-// this part's instantiations
-#if K3_NW == 1
-K3_DECLARE(1) { return k3_launch<1>(pm, text, band, dist, levels, B, W, k,
-                                    nwb, ncb, early_term, stream); }
-#elif K3_NW == 2
-K3_DECLARE(2) { return k3_launch<2>(pm, text, band, dist, levels, B, W, k,
-                                    nwb, ncb, early_term, stream); }
-#elif K3_NW == 3
-K3_DECLARE(3) { return k3_launch<3>(pm, text, band, dist, levels, B, W, k,
-                                    nwb, ncb, early_term, stream); }
-#elif K3_NW == 4
-K3_DECLARE(4) { return k3_launch<4>(pm, text, band, dist, levels, B, W, k,
-                                    nwb, ncb, early_term, stream); }
-#endif
-
-#if K3_NW == 1
-K3_DECLARE(2);
-K3_DECLARE(3);
-K3_DECLARE(4);
-
 extern "C" {
 
-// The entry point lives in the NW = 1 part and calls each NW's part.
 int genasm_dc_band_launch(const void* pm, const void* text, void* band,
                           void* dist, void* levels, int B, int W, int nw,
-                          int k, int nwb, int ncb, int early_term,
+                          int k, int nwb, int ncb, int early_term, int lanes,
+                          int threads, int place, int chunk, int smem,
                           void* stream) {
-  if (B < 1 || W < 1 || W > nw * WORD || nwb < 1 || nwb > nw || ncb < 1 ||
-      ncb > W + 1)
+  const K3Kernel kernel = k3_kernel(nw, k, nwb, place);
+  if (kernel == nullptr || B < 1 ||
+      !k3_geometry_ok(W, nw, k, nwb, ncb, lanes, threads, place, chunk, smem))
     return static_cast<int>(cudaErrorInvalidValue);
-  using Part = int (*)(const void*, const void*, void*, void*, void*, int,
-                       int, int, int, int, int, void*);
-  const Part parts[] = {K3_PART(1), K3_PART(2), K3_PART(3), K3_PART(4)};
-  if (nw < 1 || nw > 4) return static_cast<int>(cudaErrorInvalidValue);
-  return parts[nw - 1](pm, text, band, dist, levels, B, W, k, nwb, ncb,
-                       early_term, stream);
+  const K3Layout lay =
+      k3_layout(W, levels_bucket(k), nwb, lanes, chunk, place);
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + lanes - 1) / lanes, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
+      static_cast<uint32_t*>(band), static_cast<int32_t*>(dist),
+      static_cast<int32_t*>(levels), B, W, k, ncb, early_term,
+      lay.text_stride, lay.lane_stride, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of K3's instantiation for (nw, k, nwb, place) that one SM holds at
+// once with `threads` threads and `smem` dynamic shared bytes a block, and
+// its dynamic shared-memory limit as the card reports it once `smem` is
+// allowed.
+int genasm_dc_band_occupancy(int nw, int k, int nwb, int place, int threads,
+                             int smem, int* blocks, int* smem_limit) {
+  return static_cast<int>(occupancy(k3_kernel(nw, k, nwb, place), threads,
+                                    smem, blocks, smem_limit));
 }
 
 }  // extern "C"
-#endif

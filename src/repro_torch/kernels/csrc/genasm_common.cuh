@@ -1,5 +1,6 @@
 // Device helpers shared by the GenASM kernels for Hopper (sm_90a):
-// tb_fused.cu (K1), tail_fused.cuh (K2, K4) and dc_band.cu (K3).
+// tb_fused.cu (K1), tail_fused.cu (K2, K4) and dc_band.cu (K3), among
+// them the wavefront fill all four run (wavefront_fill).
 //
 // Layout: every global array is lane-innermost, element (r, lane) at
 // r * B + lane, so the threads of a warp touch neighbouring addresses.
@@ -150,6 +151,113 @@ __device__ __forceinline__ void level_steps(uint32_t (&col)[L][NW],
       below_old[w_] = prev[w_];
       below_new[w_] = col[c][w_];
     }
+  }
+}
+
+// Column 0 of a thread's levels d0 .. d0+L-1: R_0[d] = ones below bit d.
+template <int NW, int L>
+__device__ __forceinline__ void init_levels(uint32_t (&col)[L][NW], int d0) {
+#pragma unroll
+  for (int c = 0; c < L; ++c)
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) col[c][w_] = ones_below_word(d0 + c, w_);
+}
+
+// GenASM-DC's systolic array, the fill K1, K2/K4 and K3 share.  A group
+// of G threads holds one lane, thread g its L levels d0 = g*L .. d0+L-1 in
+// `col` (column 0 on entry, init_levels; the lane's last column on exit).
+// The fill is a wavefront over (column, level): at step s thread g
+// computes column j = s - g + 1 of its levels, taking R_j[d0-1] from
+// thread g-1 with one __shfl_up_sync of NW words and keeping it one step
+// as R_{j-1}[d0-1].  A step has no branch: every thread computes a column
+// and keeps it only where j is one of its columns (`on`: 1 <= j <= last
+// and a level <= k).  text_l is the lane's text, n_text codes; `steps`
+// must be uniform over the block (every thread of it shuffles each step).
+// After each step every thread calls step(s, j, on); a store reads `col`.
+template <int NW, int L, int G, class Step>
+__device__ __forceinline__ void wavefront_fill(const PatternMasks<NW>& pm,
+                                               const int32_t* text_l,
+                                               int n_text, int last, int steps,
+                                               int k, int g,
+                                               uint32_t (&col)[L][NW],
+                                               Step&& step) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int d0 = g * L;
+  uint32_t below_old[NW];
+#pragma unroll
+  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = ONES;
+  for (int s = 0; s < steps; ++s) {
+    uint32_t below_new[NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) {
+      below_new[w_] = __shfl_up_sync(FULL, col[L - 1][w_], 1, G);
+      if (g == 0) below_new[w_] = ONES;
+    }
+    const int j = s - g + 1;
+    const bool on = j >= 1 && j <= last && d0 <= k;   // j is a column of mine
+    const int c = text_l[clampi(j - 1, 0, n_text - 1)];
+    uint32_t pmj[NW], next[L][NW];
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_) next[cc][w_] = col[cc][w_];
+    level_steps<NW, L>(next, below_old, below_new, pmj, j - 1, d0);
+#pragma unroll
+    for (int cc = 0; cc < L; ++cc)
+#pragma unroll
+      for (int w_ = 0; w_ < NW; ++w_)
+        col[cc][w_] = on ? next[cc][w_] : col[cc][w_];
+    step(s, j, on);
+#pragma unroll
+    for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = below_new[w_];
+  }
+}
+
+// The lowest level of the lane whose bit `tgt` of `col` is 0 (where
+// `guard`), else k+1, by ballot over the lane's group of G threads (a
+// group lies in one warp, G-aligned); every thread of the group gets it.
+template <int NW, int L, int G>
+__device__ __forceinline__ int group_dist(const uint32_t (&col)[L][NW],
+                                          int tgt, bool guard, int k,
+                                          int d0) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int shift = (threadIdx.x % WORD) / G * G;
+  int dist = k + 1;
+#pragma unroll
+  for (int c = 0; c < L; ++c) {
+    uint32_t v = col[c][0];
+#pragma unroll
+    for (int w_ = 1; w_ < NW; ++w_)
+      if ((tgt >> 5) == w_) v = col[c][w_];
+    const bool hit = guard && d0 + c <= k && ((v >> (tgt & 31)) & 1u) == 0;
+    unsigned hits = __ballot_sync(FULL, hit) >> shift;
+    if constexpr (G < WORD) hits &= (1u << G) - 1;
+    if (hits) dist = min(dist, (__ffs(hits) - 1) * L + c);
+  }
+  return dist;
+}
+
+// The band windows (NWB words from bit base = clip(j - 2 - k)) of column
+// j, the static base of the square window: word b of level c's window.
+template <int NW, int L, int NWB>
+__device__ __forceinline__ uint32_t band_word(const uint32_t (&col)[L][NW],
+                                              int c, int b, int w0, int sh) {
+  if constexpr (NWB == NW)         // the window is the whole vector
+    return col[c][b];
+  else                             // NWB < NW: the band window
+    return funnel_word<NW>(col[c], w0 + b, sh);
+}
+
+// Text staging of a block: lane lane0 + ll's text (n codes, (n, B) in
+// device memory) to text_s[ll * stride ..]; lanes past B read 0.
+__device__ __forceinline__ void stage_text(const int32_t* __restrict__ text_g,
+                                           int32_t* text_s, int n, int stride,
+                                           int lanes, int lane0, int B) {
+  for (int x = threadIdx.x; x < n * lanes; x += blockDim.x) {
+    const int j = x / lanes, ll = x % lanes;
+    text_s[ll * stride + j] = lane0 + ll < B ? text_g[at(j, B, lane0 + ll)] : 0;
   }
 }
 

@@ -22,7 +22,7 @@
 // loads, in 16 blocks for a 2,048-lane batch.  Here a group of G =
 // min(KP, 32) threads holds one lane, thread g its L = KP / G levels g*L ..
 // g*L+L-1, and the fill is a wavefront over (column, level) with one
-// __shfl_up_sync of NW words a step (level_steps).  A lane's columns past
+// __shfl_up_sync of NW words a step (wavefront_fill, K1's and K3's fill).  A lane's columns past
 // last = min(n_len, n_text) are not computed, and the block runs as many
 // steps as its longest lane needs: max(last) + ceil((k+1)/L) - 1.  dist is
 // the lowest level whose bit m_len-1 of the lane's last column is 0 (m_len
@@ -154,7 +154,6 @@ __global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
                                   int store_words) {
   constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
   constexpr int L = KP / G;                  // levels per thread
-  constexpr unsigned FULL = 0xFFFFFFFFu;
   constexpr int band_hi = NW * WORD - WORD * NWB;
   extern __shared__ uint32_t smem[];
   const int lanes = blockDim.x / G;
@@ -182,11 +181,7 @@ __global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
   }
 
   if (threadIdx.x == 0) *last_s = 0;
-  for (int x = threadIdx.x; x < n_text * lanes; x += blockDim.x) {
-    const int j = x / lanes, ll = x % lanes;
-    text_s[ll * text_stride + j] =
-        lane0 + ll < B ? text_g[at(j, B, lane0 + ll)] : 0;
-  }
+  stage_text(text_g, text_s, n_text, text_stride, lanes, lane0, B);
   for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x)
     ops_s[x] = OP_NONE;
   PatternMasks<NW> pm{};
@@ -201,19 +196,14 @@ __global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
   if (g == 0 && last > 0) atomicMax(last_s, last);
   __syncthreads();
 
-  // ---- fill: the wavefront over the lane's columns 1..last ----
+  // ---- fill: the wavefront (wavefront_fill) over the lane's columns
+  // 1..last, the block's steps set by its longest lane ----
   const int rows0 = (k + L) / L;   // threads holding a level <= k
   const int d0 = g * L;
   const int diag = m_len - 1 - n_len;
-  const int32_t* text_l = text_s + l * text_stride;
   uint32_t* st_l = lane_store(l);
-  uint32_t col[L][NW], below_old[NW];
-#pragma unroll
-  for (int c = 0; c < L; ++c)
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) col[c][w_] = ones_below_word(d0 + c, w_);
-#pragma unroll
-  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = ONES;
+  uint32_t col[L][NW];
+  init_levels<NW, L>(col, d0);
   auto store = [&](int j) {      // the windows of column j, levels d0..
     const int base = clampi(j + diag - (k + 1), 0, band_hi);
     const int w0 = base >> 5, sh = base & 31;
@@ -230,59 +220,19 @@ __global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
         bstride = rows0;
       }
 #pragma unroll
-      for (int b = 0; b < NWB; ++b) {
-        if constexpr (NWB == NW)         // the window is the whole vector
-          dst[b * bstride] = col[c][b];
-        else
-          dst[b * bstride] = funnel_word<NW>(col[c], w0 + b, sh);
-      }
+      for (int b = 0; b < NWB; ++b)
+        dst[b * bstride] = band_word<NW, L, NWB>(col, c, b, w0, sh);
     }
   };
-  const int steps = *last_s + rows0 - 1;
-  for (int s = 0; s < steps; ++s) {
-    uint32_t below_new[NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) {
-      below_new[w_] = __shfl_up_sync(FULL, col[L - 1][w_], 1, G);
-      if (g == 0) below_new[w_] = ONES;
-    }
-    const int j = s - g + 1;
-    const bool on = j >= 1 && j <= last && d0 <= k;  // j is a column of mine
-    const int c = text_l[clampi(j - 1, 0, n_text - 1)];
-    uint32_t pmj[NW], next[L][NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
-#pragma unroll
-    for (int cc = 0; cc < L; ++cc)
-#pragma unroll
-      for (int w_ = 0; w_ < NW; ++w_) next[cc][w_] = col[cc][w_];
-    level_steps<NW, L>(next, below_old, below_new, pmj, j - 1, d0);
-#pragma unroll
-    for (int cc = 0; cc < L; ++cc)
-#pragma unroll
-      for (int w_ = 0; w_ < NW; ++w_)
-        col[cc][w_] = on ? next[cc][w_] : col[cc][w_];
+  wavefront_fill<NW, L, G>(pm, text_s + l * text_stride, n_text, last,
+                           *last_s + rows0 - 1, k, g, col,
+                           [&](int, int j, bool on) {
     if (on) store(j);
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = below_new[w_];
-  }
+  });
 
   // ---- dist: the lowest level whose bit m_len-1 of column last is 0 ----
-  const int tgt = clampi(m_len - 1, 0, NW * WORD - 1);
-  const int shift = (threadIdx.x % WORD) / G * G;
-  int dist = k + 1;
-#pragma unroll
-  for (int c = 0; c < L; ++c) {
-    uint32_t v = col[c][0];
-#pragma unroll
-    for (int w_ = 1; w_ < NW; ++w_)
-      if ((tgt >> 5) == w_) v = col[c][w_];
-    const bool hit = m_len >= 1 && d0 + c <= k &&
-                     ((v >> (tgt & 31)) & 1u) == 0;
-    unsigned hits = __ballot_sync(FULL, hit) >> shift;
-    if constexpr (G < WORD) hits &= (1u << G) - 1;
-    if (hits) dist = min(dist, (__ffs(hits) - 1) * L + c);
-  }
+  const int dist = group_dist<NW, L, G>(
+      col, clampi(m_len - 1, 0, NW * WORD - 1), m_len >= 1, k, d0);
   if (g == 0) dist_s[l] = dist;
   __syncthreads();
 

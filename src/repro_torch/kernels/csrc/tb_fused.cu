@@ -62,10 +62,11 @@ struct SharedBand {
 // a band in per-lane scratch; and at 128 lanes a block, a 2,048-lane batch
 // filled 16 of 132 SMs with 4 warps each, so nothing hid that latency.
 //
-// This design is GenASM-DC's own systolic array.  A group of G = min(KP,
-// 32) threads holds one lane, thread g its L = KP / G levels g*L .. g*L+L-1.
-// The fill is a wavefront over (column, level): at step s thread g
-// computes column j = s - g + 1 of its levels, taking R_j[g*L-1] from
+// This design is GenASM-DC's own systolic array (wavefront_fill in
+// genasm_common.cuh, the fill K2, K4 and K3 run too).  A group of G =
+// min(KP, 32) threads holds one lane, thread g its L = KP / G levels g*L ..
+// g*L+L-1.  The fill is a wavefront over (column, level): at step s thread
+// g computes column j = s - g + 1 of its levels, taking R_j[g*L-1] from
 // thread g-1 with one __shfl_up_sync of NW words and keeping it one step
 // as R_{j-1}[g*L-1]; so the fill takes W + ceil((k+1)/L) - 1 steps, not
 // W x (k+1) level updates, and a thread holds L x NW live words (no spill
@@ -121,7 +122,6 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
                                 int text_stride) {
   constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
   constexpr int L = KP / G;                  // levels per thread
-  constexpr unsigned FULL = 0xFFFFFFFFu;
   extern __shared__ uint32_t smem[];
   const int lanes = blockDim.x / G;
   const int l = threadIdx.x / G, g = threadIdx.x % G;
@@ -138,30 +138,20 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
   PatternMasks<NW> wpm{};
   if (walker) wpm.load(pm_g, B, wlane);
 
-  for (int x = threadIdx.x; x < W * lanes; x += blockDim.x) {
-    const int j = x / lanes, ll = x % lanes;
-    text_s[ll * text_stride + j] =
-        lane0 + ll < B ? text_g[at(j, B, lane0 + ll)] : 0;
-  }
+  stage_text(text_g, text_s, W, text_stride, lanes, lane0, B);
   for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x)
     ops_s[x] = OP_NONE;
   PatternMasks<NW> pm{};
   if (live) pm.load(pm_g, B, lane);
   __syncthreads();
 
-  // ---- fill: the wavefront ----
+  // ---- fill: the wavefront (wavefront_fill), the band to shared memory ----
   constexpr int band_hi = NW * WORD - WORD * NWB;
   const int col0 = W + 1 - ncb;
   const int rows0 = (k + L) / L;   // threads holding a level <= k
   const int d0 = g * L;
-  const int32_t* text_l = text_s + l * text_stride;
-  uint32_t col[L][NW], below_old[NW];
-#pragma unroll
-  for (int c = 0; c < L; ++c)
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) col[c][w_] = ones_below_word(d0 + c, w_);
-#pragma unroll
-  for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = ONES;
+  uint32_t col[L][NW];
+  init_levels<NW, L>(col, d0);
   auto store = [&](int j) {      // the band windows of column j
     const int base = clampi(j - 2 - k, 0, band_hi);
     const int w0 = base >> 5, sh = base & 31;
@@ -170,58 +160,18 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
       if (c > 0 && d0 + c > k) break;
       uint32_t* dst = band + (c * rows0 + g) * row_words + (j - col0) * NWB;
 #pragma unroll
-      for (int b = 0; b < NWB; ++b) {
-        if constexpr (NWB == NW)         // the window is the whole vector
-          dst[b] = col[c][b];
-        else                             // NWB < NW: the band window
-          dst[b] = funnel_word<NW>(col[c], w0 + b, sh);
-      }
+      for (int b = 0; b < NWB; ++b)
+        dst[b] = band_word<NW, L, NWB>(col, c, b, w0, sh);
     }
   };
   if (col0 == 0 && d0 <= k) store(0);
-  for (int s = 0; s < W + rows0 - 1; ++s) {
-    uint32_t below_new[NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) {
-      below_new[w_] = __shfl_up_sync(FULL, col[L - 1][w_], 1, G);
-      if (g == 0) below_new[w_] = ONES;
-    }
-    const int j = s - g + 1;
-    const bool on = j >= 1 && j <= W && d0 <= k;   // j is a column of mine
-    const int c = text_l[clampi(j - 1, 0, W - 1)];
-    uint32_t pmj[NW], next[L][NW];
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) pmj[w_] = pm.word(c, w_);
-#pragma unroll
-    for (int cc = 0; cc < L; ++cc)
-#pragma unroll
-      for (int w_ = 0; w_ < NW; ++w_) next[cc][w_] = col[cc][w_];
-    level_steps<NW, L>(next, below_old, below_new, pmj, j - 1, d0);
-#pragma unroll
-    for (int cc = 0; cc < L; ++cc)
-#pragma unroll
-      for (int w_ = 0; w_ < NW; ++w_)
-        col[cc][w_] = on ? next[cc][w_] : col[cc][w_];
+  wavefront_fill<NW, L, G>(pm, text_s + l * text_stride, W, W, W + rows0 - 1,
+                           k, g, col, [&](int, int j, bool on) {
     if (on && j >= col0) store(j);
-#pragma unroll
-    for (int w_ = 0; w_ < NW; ++w_) below_old[w_] = below_new[w_];
-  }
+  });
 
   // ---- dist: the lowest level of the group whose bit W-1 is 0 ----
-  const int tgt = W - 1;
-  const int shift = (threadIdx.x % WORD) / G * G;
-  int dist = k + 1;
-#pragma unroll
-  for (int c = 0; c < L; ++c) {
-    uint32_t v = col[c][0];
-#pragma unroll
-    for (int w_ = 1; w_ < NW; ++w_)
-      if ((tgt >> 5) == w_) v = col[c][w_];
-    const bool hit = d0 + c <= k && ((v >> (tgt & 31)) & 1u) == 0;
-    unsigned hits = __ballot_sync(FULL, hit) >> shift;
-    if constexpr (G < WORD) hits &= (1u << G) - 1;
-    if (hits) dist = min(dist, (__ffs(hits) - 1) * L + c);
-  }
+  const int dist = group_dist<NW, L, G>(col, W - 1, true, k, d0);
   if (g == 0) dist_s[l] = dist;
   __syncthreads();
 

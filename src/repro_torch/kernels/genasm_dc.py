@@ -29,12 +29,14 @@ and ``k + 1`` without; the TPU kernel wrote the same statistic per lane
 tile.  Only its maximum over the batch is ever read (``kernels.ops``),
 and both give ``min(max dist, k) + 1`` there, so the results agree.
 
-K1, K2 and K4 run a group of threads per lane; ``tb_fused_geometry`` and
-``tail_geometry`` derive their blocks from the configuration (K1 keeps
-the DENT band in shared memory; the tails keep their store in shared or
-device memory, whichever ``TAIL_PLACEMENT`` names).  K3 runs one thread per
-lane, 128 a block.  ``cfg.lane_tile`` sets no block: it is only the batch
-pad unit (``kernels.ops``).  The kernels are instantiated for W <= 128 and
+All four run a group of threads per lane over one wavefront fill;
+``tb_fused_geometry``, ``tail_geometry`` and ``dc_band_geometry`` derive
+their blocks from the configuration (K1 keeps the DENT band in shared
+memory; the tails keep their store in shared or device memory, whichever
+``TAIL_PLACEMENT`` names; K3 writes its band out through a ring in shared
+memory or straight from registers, whichever ``K3_PLACEMENT`` names).
+``cfg.lane_tile`` sets no block: it is only the batch pad unit
+(``kernels.ops``).  The kernels are instantiated for W <= 128 and
 k + 1 <= 64; any other configuration raises ValueError on the card.
 
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
@@ -301,9 +303,9 @@ def _launch(name, *tensors, ints, block=()):
 
 
 # --------------------------------------------------------------------------
-# the blocks of K1 (csrc/tb_fused.cu) and of K2/K4 (csrc/tail_fused.cu):
-# the same sizes are computed again in C (k1_layout, tail_layout), which
-# refuses any other; change both together
+# the blocks of K1 (csrc/tb_fused.cu), K2/K4 (csrc/tail_fused.cu) and K3
+# (csrc/dc_band.cu): the same sizes are computed again in C (k1_layout,
+# tail_layout, k3_layout), which refuses any other; change both together
 # --------------------------------------------------------------------------
 
 K1_THREADS = 128                #: threads per K1 block (fewer where its
@@ -322,6 +324,24 @@ TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
                   (2, 16): "shared", (2, 32): "global", (2, 64): "global",
                   (3, 16): "global", (3, 32): "global", (3, 64): "global",
                   (4, 16): "global", (4, 32): "global", (4, 64): "global"}
+
+
+#: K3's band placements, in C's numbering: "staged" through a ring of
+#: wavefront steps in shared memory, written out lane-innermost by the whole
+#: block; "direct" from each fill thread's registers
+K3_PLACEMENTS = ("staged", "direct")
+#: K3's block, and its band placement and ring chunk by KP: what
+#: tools/torch_k3_sweep.py measured fastest (device ms summed over 2,048
+#: and 4,096 lanes, W = 32 / 64 / 96 / 128 at k = 12, 24, 48; NVIDIA H100
+#: 80GB HBM3, 700 W; PERF.md section 6), the same at every NW.  16 lanes a
+#: block (256 or 512 threads; a staged band row leaves it as 64 B) was
+#: best or within 3 % of it everywhere; direct wins at KP = 16 (staged is
+#: 18-53 % slower there: the band fits L2), staged at KP = 32 and 64
+#: (2.0x to 10x).  The chunk is the number of wavefront steps between two
+#: write-outs of the ring (a power of two).
+K3_LANES = 16
+K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged"}
+K3_CHUNK = {16: 8, 32: 8, 64: 4}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -345,6 +365,18 @@ class TailGeometry:
                                 #: memory ("global"), else 0
 
 
+@dataclasses.dataclass(frozen=True)
+class DcBandGeometry:
+    group: int                  #: G, threads per lane
+    levels_per_thread: int      #: L = KP / G
+    lanes: int                  #: lanes per block
+    threads: int                #: threads per block
+    placement: str              #: how the band leaves (K3_PLACEMENTS)
+    chunk: int                  #: steps between the ring's write-outs
+    lane_stride: int            #: words of a lane in a ring slot ("staged")
+    shared_bytes: int           #: dynamic shared memory per block
+
+
 def check_instantiated(cfg: AlignerConfig) -> None:
     """Raise ValueError unless the CUDA kernels are instantiated for
     `cfg`: W <= 128 (four words a bitvector) and k + 1 <= 64 levels."""
@@ -365,6 +397,11 @@ def levels_bucket(k: int) -> int:
 def _half_bank_pad(words: int) -> int:
     """The smallest count >= words that is 16 mod 32."""
     return words + (16 - words % 32) % 32
+
+
+def _odd_multiple(words: int, r: int) -> int:
+    """The smallest odd multiple of r that is >= words."""
+    return (-(-words // r) | 1) * r
 
 
 def _group(k: int) -> tuple[int, int]:
@@ -417,6 +454,49 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     return TbFusedGeometry(group=group, levels_per_thread=levels,
                            lanes=lanes, threads=lanes * group,
                            shared_bytes=4 * lanes * lane_words)
+
+
+def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
+                     placement: str | None = None,
+                     chunk: int | None = None) -> DcBandGeometry:
+    """K3's block for `cfg`: G = min(KP, 32) threads per lane with L = KP /
+    G levels each, ``K3_LANES`` lanes per block, or ``threads / G`` for a
+    given whole-warp block (the sweep tool), and the band's way out,
+    `placement` (default ``K3_PLACEMENT[KP]``).  The block's shared
+    memory holds per lane the text (W codes padded to 16 mod 32 words) and,
+    "staged", a ring of 2 x `chunk` (default ``K3_CHUNK[KP]``, a power of
+    two) wavefront steps, each lanes x lane_stride words, lane_stride =
+    KP * nwb rounded up to an odd multiple of 32 / min(lanes, 32) (the
+    write-out's reads then fall in distinct banks).  "staged" needs 8 lanes a block
+    or more, so that a band row leaves the block as a 32 B sector at
+    least.  Raises ValueError for a block that does not fit."""
+    check_instantiated(cfg)
+    if placement not in (None, *K3_PLACEMENTS):
+        raise ValueError(f"placement={placement!r} is not one of "
+                         f"{K3_PLACEMENTS}")
+    group, levels = _group(cfg.k)
+    kp = levels_bucket(cfg.k)
+    lanes = _lanes(threads, K3_LANES * group, group, lambda n: 0, "K3")
+    placement = placement or K3_PLACEMENT[kp]
+    chunk = K3_CHUNK[kp] if chunk is None else chunk
+    if not 1 <= chunk <= 64 or chunk & (chunk - 1):
+        raise ValueError(f"chunk={chunk}: K3's ring takes a power of two "
+                         f"steps, 1..64")
+    lane_stride = 0
+    if placement == "staged":
+        if lanes < 8:
+            raise ValueError(f"W={cfg.W} k={cfg.k}: K3's staged band needs "
+                             f"8 lanes a block or more (a row of 32 B), not "
+                             f"{lanes}")
+        lane_stride = _odd_multiple(kp * cfg.nwb, 32 // min(lanes, 32))
+    shared = 4 * (lanes * _half_bank_pad(cfg.W)
+                  + 2 * chunk * lanes * lane_stride)
+    if shared > MAX_SHARED_BYTES:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: K3's block of {lanes} "
+                         f"lanes needs {shared} B of shared memory, more "
+                         f"than a block's {MAX_SHARED_BYTES} B")
+    return DcBandGeometry(group, levels, lanes, lanes * group, placement,
+                          chunk, lane_stride, shared)
 
 
 def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
@@ -505,6 +585,14 @@ def tail_occupancy(cfg: AlignerConfig, geo: TailGeometry,
                       geo.shared_bytes)
 
 
+def dc_band_occupancy(cfg: AlignerConfig,
+                      geo: DcBandGeometry) -> tuple[int, int]:
+    """``tb_fused_occupancy`` for K3's instantiation of `cfg` at `geo`."""
+    return _occupancy("dc_band", cfg.nw, cfg.k, cfg.nwb,
+                      K3_PLACEMENTS.index(geo.placement), geo.threads,
+                      geo.shared_bytes)
+
+
 def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
                     max_ops: int, max_steps: int):
     """K1: fused DC+TB of square W x W windows.  Returns (ops, meta)."""
@@ -537,10 +625,13 @@ def genasm_dc(pm, text, *, cfg: AlignerConfig):
     band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, B),
                        dtype=torch.int32, device=pm.device)
     if B:
-        check_instantiated(cfg)
+        geo = dc_band_geometry(cfg)
         _launch("dc_band", pm, text, band, dist, levels,
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
-                      int(cfg.early_term)))
+                      int(cfg.early_term)),
+                block=(geo.lanes, geo.threads,
+                       K3_PLACEMENTS.index(geo.placement), geo.chunk,
+                       geo.shared_bytes))
     return dist, band, levels
 
 

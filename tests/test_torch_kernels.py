@@ -118,10 +118,11 @@ def test_k2_k4_tail_equals_reference(W, O, k, tail_store, kernel):
 
 @pytest.mark.parametrize("W,k,tile,n_pairs", [
     (16, 3, 4, 4), (32, 7, 8, 8), (32, 15, 8, 8), (64, 12, 8, 8),
-    (96, 9, 4, 4), (32, 7, 4, 5)])
+    (96, 9, 4, 4), (32, 7, 4, 5), (64, 40, 4, 4), (128, 12, 4, 4)])
 def test_k3_dc_op_equals_reference(W, k, tile, n_pairs):
     """The grid of tests/test_kernels.py plus a batch that is not a lane
-    tile multiple.  K3 and the reference's Pallas kernel fill every level,
+    tile multiple, KP = 64 with its top levels idle (k = 40) and NW = 4
+    (W = 128).  K3 and the reference's Pallas kernel fill every level,
     so the whole band is equal; dc_dmajor (``genasm_dc_ref``) leaves the
     levels from the level count up at zero, so it is held on the band
     below it."""
