@@ -33,9 +33,12 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.api import CompileCache, plan                 # noqa: E402
+from repro_torch.core import transfer                          # noqa: E402
 from repro_torch.core.aligner import GenASMAligner             # noqa: E402
 from repro_torch.core.config import AlignerConfig              # noqa: E402
-from repro_torch.core.windowing import n_main_windows          # noqa: E402
+from repro_torch.core.windowing import (H100_SMS,              # noqa: E402
+                                        n_main_windows, plan_lane_tile)
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
                                      synth_genome)
@@ -43,6 +46,7 @@ from repro_torch.kernels import build, genasm_dc               # noqa: E402
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
 from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
+from repro_torch.serve.align_step import launch_plan           # noqa: E402
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
 # INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper whitepaper)
@@ -705,13 +709,21 @@ def _drive(device: torch.device, backend: str, rs,
     res = aligner.align(rs.reads, rs.ref_segments)
     _sync(device)
     seconds = time.perf_counter() - t0
+    return (aligner, res, seconds,
+            *_path_counts(device, backend, f"{backend} path"))
+
+
+def _path_counts(device: torch.device, backend: str, what: str):
+    """The counts since the last reset: (this device's path, the other
+    path).  Raises unless exactly the backend's kernels ran (on the CPU:
+    exactly their plain versions)."""
     taken, other = (dict(c) for c in _counts(device))
     expected = PATH_KERNELS[backend]
     if (min(taken[n] for n in expected) == 0 or max(other.values()) != 0
             or any(taken[n] for n in KERNELS if n not in expected)):
-        raise AssertionError(f"{backend} path did not run on the {device} "
-                             f"path alone: {taken}, other path {other}")
-    return aligner, res, seconds, taken, other
+        raise AssertionError(f"{what} did not run on the {device} path "
+                             f"alone: {taken}, other path {other}")
+    return taken, other
 
 
 def phase_main_path(device: torch.device, rs, sample: int = 64):
@@ -804,27 +816,40 @@ def _profiled_kernel(key: str) -> str:
 
 
 def _device_breakdown(run) -> dict:
-    """Device time of one more main-path batch under torch.profiler, by
-    kernel (ours by name, the rest of PyTorch's together, copies), beside
-    the batch's host-clock time; the idle share is the part of the wall
-    time no kernel or copy ran.  ``profile_s`` is the host time the
-    profiler then takes to collect and sum the events."""
+    """Device time of one more run of `run` under torch.profiler (CUDA
+    activity), by kernel (ours by name, the rest of PyTorch's together,
+    copies), beside the run's host-clock time.  Device busy time is the
+    union of the intervals in which some kernel or copy ran (a session's
+    retire stream may overlap the dispatch stream), the idle share the
+    rest of the wall time.  It reads the profiler's raw events rather
+    than ``key_averages()``, whose event tree takes minutes to build for
+    a few hundred thousand launches; ``profile_s`` is the host time the
+    profiler takes to stop and hand them over, and this sum."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
     launches = dict.fromkeys(ms, 0)
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+    spans = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        name = _profiled_kernel(ev.key)
-        ms[name] = ms.get(name, 0.0) + ev.self_device_time_total / 1e3
-        launches[name] = launches.get(name, 0) + ev.count
-    busy = sum(ms.values()) / 1e3
+        name = _profiled_kernel(ev.name())
+        ms[name] += ev.duration_ns() / 1e6
+        launches[name] += 1
+        spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
+    busy_ns, reach = 0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_ns += end - start
+            reach = end
+        elif end > reach:
+            busy_ns += end - reach
+            reach = end
+    busy = busy_ns / 1e9
     wall = t1 - t0
     return dict(wall_s=wall, device_ms=ms, device_launches=launches,
                 device_busy_s=busy,
@@ -903,6 +928,209 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 32,
          failed_share=float(res.failed.mean()))
 
 
+# ---- phase 6: the session front door at full width ----
+
+def ragged_pairs(genome, n_pairs: int, lo: int, hi: int, seed: int,
+                 n_burst: int = 0):
+    """`n_pairs` PBSIM2-like CLR pairs at 10 % error from `genome`, read
+    lengths log-uniform over [lo, hi]; `n_burst` of them, chosen by the
+    seed, carry a 16-base insertion (``_with_burst``), so no rung below
+    k=48 aligns them.  Returns (reads, refs, burst lanes)."""
+    rng = np.random.default_rng(seed)
+    lengths = np.round(lo * (hi / lo) ** rng.random(n_pairs)).astype(int)
+    reads, refs = [], []
+    for i, n in enumerate(lengths):
+        rs = simulate_reads(genome, 1, ReadSimConfig(
+            read_len=int(n), error_rate=0.10, seed=seed + i))
+        reads.append(rs.reads[0])
+        refs.append(rs.ref_segments[0])
+    burst = sorted(int(b) for b in rng.choice(n_pairs, n_burst,
+                                              replace=False))
+    for lane in burst:
+        reads, refs = _with_burst(SimpleNamespace(reads=reads,
+                                                  ref_segments=refs),
+                                  lane, 16, seed + lane)
+    return reads, refs, burst
+
+
+def _spy_shapes(session) -> set:
+    """Record every distinct (k, lanes, read bucket, ref bucket, ladder)
+    `session` asks an executable for: the keys its stream needs, counted
+    apart from the cache's own counters."""
+    asked = set()
+    inner = session._executable
+
+    def spy(cfg, lanes, read_bucket, ref_bucket, rescue_rounds):
+        asked.add((cfg.k, lanes, read_bucket, ref_bucket, rescue_rounds))
+        return inner(cfg, lanes, read_bucket, ref_bucket,
+                     rescue_rounds=rescue_rounds)
+    session._executable = spy
+    return asked
+
+
+def _session_pass(label: str, session, reads, refs, want, device,
+                  profile: bool = False) -> dict:
+    """Align (reads, refs) through `session` (submit each pair, flush,
+    collect every future), the launch and transfer counts set to 0 just
+    before and read just after.  Raises unless every record equals
+    `want` (``GenASMAligner.align`` on the same pairs), exactly the
+    backend's kernels launched (no plain version), and each dispatch and
+    each rescue-rung dispatch made one upload and one download.  With
+    `profile`, the pass runs under torch.profiler (``_device_breakdown``),
+    and `seconds` is its host time under the profiler, without the
+    profiler's start and stop."""
+    backend = session.cfg.backend
+    asked = _spy_shapes(session)
+    genasm_dc.reset_counts()
+    transfer.reset()
+    got = {}
+    _sync(device)
+    t0 = time.perf_counter()
+    if profile:
+        prof = _device_breakdown(
+            lambda: got.update(res=session.align(reads, refs)))
+    else:
+        got["res"] = session.align(reads, refs)
+    _sync(device)
+    seconds = prof["wall_s"] if profile else time.perf_counter() - t0
+    session.close()
+    launches, other = _path_counts(device, backend,
+                                   f"session pass {label}")
+    _assert_same_result(got["res"], want, f"session pass {label}")
+    st = session.stats
+    cache = session.cache.stats()
+    moved = transfer.stats()
+    n = st["dispatches"] + st["rescue_dispatches"]
+    if (moved.h2d_calls, moved.d2h_calls) != (n, n):
+        raise AssertionError(f"session pass {label}: {moved} for {n} "
+                             f"dispatches (with rescue rungs)")
+    if cache["hits"] + cache["misses"] != n:
+        raise AssertionError(f"session pass {label}: {cache} for {n} "
+                             f"dispatches")
+    out = {"pass": label, "backend": backend,
+           "executor": session.spec.executor,
+           "rescue_mode": session.spec.rescue_mode, "pairs": len(reads),
+           "seconds": seconds, "pairs_per_s": len(reads) / seconds,
+           **{k: st[k] for k in ("dispatches", "lanes", "pad_lanes",
+                                 "rescue_dispatches", "rescue_lanes",
+                                 "wall_s", "retire_wall_s")},
+           "builds": cache["lowerings"], "shapes_asked": len(asked),
+           "cache_hits": cache["hits"],
+           "process_executables": cache["process"]["executables"],
+           "uploads": moved.h2d_calls, "downloads": moved.d2h_calls,
+           "upload_bytes": moved.h2d_bytes, "download_bytes":
+           moved.d2h_bytes, "launches": launches, "other_path_calls": other,
+           "failed_share": float(got["res"].failed.mean()),
+           "max_k_used": int(got["res"].k_used.max())}
+    if profile:
+        out["profile"] = prof
+    emit("session", **out)
+    return out
+
+
+def phase_session(device: torch.device, n_pairs: int = 2048,
+                  lengths=(1_000, 16_000), n_burst: int = 16,
+                  n_short: int = 256, short_lengths=(300, 1_000),
+                  n_cpu: int = 32) -> dict:
+    """``repro_torch.api`` sessions at full width: the default
+    ``AlignerConfig()`` (W=64, O=24, k=12, fused), ``rescue_rounds=2``,
+    ``batch_lanes=1024``, ``max_inflight=2``, one executable store.  The
+    stream: `n_pairs` CLR pairs at 10 % error, reads over `lengths`
+    (1-16 kbp), `n_burst` of them with an insertion burst (the k=48
+    rung).  Passes over it: (a) sync, bucket rescue, cold; (b) the same
+    spec warm, under the profiler, building nothing; (c) the threaded
+    executor; (d) device rescue; then (e) the split backend on `n_short`
+    pairs over `short_lengths` (300-1,000 bp).  Every record equals
+    ``GenASMAligner`` (fused, 2 rescue rounds) on the card, and `n_cpu`
+    of the short pairs through the session on the card equal the same
+    session on the CPU.  Also holds ``plan_lane_tile``'s blocks per SM
+    against the card's occupancy query for K1."""
+    genome = synth_genome(5_000_000, seed=2022)
+    t0 = time.perf_counter()
+    reads, refs, burst = ragged_pairs(genome, n_pairs, *lengths, seed=2026,
+                                      n_burst=n_burst)
+    short, short_refs, _ = ragged_pairs(genome, n_short, *short_lengths,
+                                        seed=4052)
+    sim_s = time.perf_counter() - t0
+    cfg = AlignerConfig()
+    t0 = time.perf_counter()
+    want = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        reads, refs)
+    aligner_s = time.perf_counter() - t0
+    burst_k = [int(want.k_used[b]) for b in burst]
+    if any(k not in (0, 48) for k in burst_k) or 48 not in burst_k:
+        raise AssertionError(f"the burst reads did not need the k=48 rung: "
+                             f"k_used {burst_k}")
+    for b in burst:
+        if not want.failed[b]:
+            validate_cigar(reads[b], refs[b], want.ops[b],
+                           expected_dist=int(want.dist[b]))
+    want_short = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        short, short_refs)
+    buckets = {}
+    for r in reads:
+        rb = 1 << (len(r) - 1).bit_length()
+        buckets[rb] = buckets.get(rb, 0) + 1
+    emit("session_stream", pairs=n_pairs, read_bp=sum(map(len, reads)),
+         read_buckets=buckets, burst_lanes=burst, sim_s=sim_s,
+         burst_k_used=burst_k, aligner_s=aligner_s,
+         aligner_pairs_per_s=n_pairs / aligner_s, short_pairs=n_short,
+         failed_share=float(want.failed.mean()))
+    if len(buckets) < 4:
+        raise AssertionError(f"the stream fills {buckets}: fewer than four "
+                             f"read buckets")
+    store = CompileCache()
+    kw = dict(rescue_rounds=2, batch_lanes=1024, max_inflight=2,
+              cache=store, device=device)
+    passes = {}
+    passes["a"] = _session_pass("a", plan(cfg, **kw), reads, refs, want,
+                                device)
+    if passes["a"]["builds"] != passes["a"]["shapes_asked"]:
+        raise AssertionError(f"pass a built {passes['a']['builds']} "
+                             f"executables for "
+                             f"{passes['a']['shapes_asked']} shapes")
+    passes["b"] = _session_pass("b", plan(cfg, **kw), reads, refs, want,
+                                device, profile=device.type == "cuda")
+    passes["c"] = _session_pass("c", plan(cfg, executor="thread", **kw),
+                                reads, refs, want, device)
+    for label in ("b", "c"):
+        if passes[label]["builds"] != 0:
+            raise AssertionError(f"warm pass {label} built "
+                                 f"{passes[label]['builds']} executables")
+    passes["d"] = _session_pass("d", plan(cfg, rescue_mode="device", **kw),
+                                reads, refs, want, device)
+    if passes["d"]["builds"] != passes["d"]["shapes_asked"]:
+        raise AssertionError("pass d built an executable twice")
+    passes["e"] = _session_pass("e", plan(cfg, backend="split", **kw),
+                                short, short_refs, want_short, device)
+    # the card against the CPU, through the same session spec
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        session = plan(cfg, rescue_rounds=2, batch_lanes=1024,
+                       cache="private", device=dev)
+        results[dev.type] = session.align(short[:n_cpu], short_refs[:n_cpu])
+        session.close()
+    _assert_same_result(results[device.type], results["cpu"],
+                        "session on the card vs on the CPU")
+    # the Hopper lane-tile model against the card's occupancy query
+    occupancy = {e["k"]: e["blocks_per_sm"]
+                 for e in launch_plan(cfg, 16_384, 2, device)
+                 if e["kernel"] == "tb_fused"}
+    model = {k: plan_lane_tile(cfg.replace(k=k)) // (
+        H100_SMS * genasm_dc.tb_fused_geometry(cfg.replace(k=k)).lanes)
+        for k in occupancy}
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else None)
+    if device.type == "cuda" and (model != occupancy or sms != H100_SMS):
+        raise AssertionError(f"plan_lane_tile's K1 blocks per SM {model} "
+                             f"vs the card's {occupancy}, {sms} SMs")
+    emit("session_checks", cpu_pairs=n_cpu, cuda_equals_cpu=True,
+         k1_blocks_per_sm_model=model, k1_blocks_per_sm_card=occupancy,
+         sms=sms, lane_tile_auto=plan_lane_tile(cfg),
+         store=store.stats()["executables"])
+    return passes
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_s = {}
@@ -928,6 +1156,7 @@ def main() -> None:
     split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
                   fused_res, profile_rs=long_reads(1024, read_len=500))
     timed("end_to_end", phase_end_to_end, cuda)
+    timed("session", phase_session, cuda)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():

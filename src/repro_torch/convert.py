@@ -4,7 +4,7 @@ There are no learned weights: the state shared by both packages is the
 aligner configuration and the encoded inputs.  The inputs (``uint8`` read
 and ref codes, see ``core.aligner.encode`` / ``encode_ref``) are numpy
 arrays both packages take as they are.  The configuration maps with
-``config_from_reference``.
+``config_from_reference``, a session's spec with ``spec_from_reference``.
 """
 from __future__ import annotations
 
@@ -33,3 +33,17 @@ def config_from_reference(fields: dict) -> AlignerConfig:
         raise ValueError(f"backend={backend!r} is not a reference backend "
                          f"the port maps ({tuple(BACKEND_MAP)})")
     return AlignerConfig(backend=BACKEND_MAP[backend], **fields)
+
+
+def spec_from_reference(fields: dict):
+    """Port AlignSpec from ``dataclasses.asdict`` of a reference AlignSpec:
+    ``cfg`` (a dict of the reference config's fields) through
+    ``config_from_reference``, every session knob as it is.  Only
+    ``mesh=None`` maps: the port runs on one device."""
+    from .api.session import AlignSpec
+    fields = dict(fields)
+    if fields.get("mesh") is not None:
+        raise NotImplementedError(
+            f"mesh={fields['mesh']!r}: the port runs on one device "
+            f"(mesh=None); sharding is ROADMAP Queue 1 item 8")
+    return AlignSpec(**{**fields, "cfg": config_from_reference(fields["cfg"])})

@@ -105,9 +105,9 @@ def resolve_device(device) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            "GenASMAligner runs on a CUDA device by default and "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the kernels' plain PyTorch versions")
+            "the port runs on a CUDA device by default (GenASMAligner, "
+            "plan) and torch.cuda.is_available() is False; pass "
+            "device='cpu' to run the kernels' plain PyTorch versions")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"device={device}: the port runs on 'cuda' "
                          f"(the kernels) or 'cpu' (their plain versions)")
@@ -178,7 +178,7 @@ class GenASMAligner:
             "ref_consumed", "levels_run_total")})
         t1 = time.perf_counter()
         res = AlignResult.from_records(
-            records_from_state(*decode_batch(host, len(reads))))
+            records_from_state(*decode_batch(host, len(reads), self.cfg.k)))
         self.last_run = {"rounds_run": out["rounds_run"],
                          "n_rounds": out["n_rounds"],
                          "levels_run_total": int(host["levels_run_total"]),

@@ -27,6 +27,8 @@ from .bitops import WORD_BITS, n_words
 
 #: valid knob choices, shared by validation, docs and tests
 BACKENDS = ("fused", "split", "plain")
+#: the backends that launch kernels (the reference's PALLAS_BACKENDS)
+KERNEL_BACKENDS = ("fused", "split")
 STORES = ("edges4", "and", "band")
 TAIL_STORES = ("auto", "band", "full")
 
@@ -153,11 +155,22 @@ def resolve_config(cfg: AlignerConfig | None = None,
                    **overrides) -> AlignerConfig:
     """One validated AlignerConfig from a config (None = defaults) plus
     keyword overrides; None-valued overrides are ignored, unknown knob
-    names raise TypeError even when None."""
+    names raise TypeError even when None.
+
+    ``lane_tile='auto'`` resolves to ``core.windowing.plan_lane_tile`` (the
+    lanes one wave of K1 holds) against the *final* geometry, after every
+    other override has been applied."""
     cfg = cfg if cfg is not None else AlignerConfig()
     unknown = set(overrides) - {f.name
                                 for f in dataclasses.fields(AlignerConfig)}
     if unknown:
         raise TypeError(f"unknown AlignerConfig knobs: {sorted(unknown)}")
     real = {k: v for k, v in overrides.items() if v is not None}
-    return dataclasses.replace(cfg, **real) if real else cfg
+    auto_tile = real.get("lane_tile") == "auto"
+    if auto_tile:
+        del real["lane_tile"]
+    cfg = dataclasses.replace(cfg, **real) if real else cfg
+    if auto_tile:
+        from .windowing import plan_lane_tile   # runtime: avoids the cycle
+        cfg = dataclasses.replace(cfg, lane_tile=plan_lane_tile(cfg))
+    return cfg

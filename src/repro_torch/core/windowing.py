@@ -23,6 +23,7 @@ import dataclasses
 
 import torch
 
+from ..kernels.genasm_dc import tb_fused_geometry
 from ..kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
 from .bitops import SENTINEL_PAT, SENTINEL_TEXT
 from .config import AlignerConfig
@@ -66,6 +67,70 @@ def pad_geometry(cfg: AlignerConfig, max_read_len: int, max_ref_len: int,
     read_len, refs enough for the final rescue round's tail width."""
     wt = self_tail_width(rescue_schedule(cfg, rescue_rounds)[-1])
     return max_read_len + cfg.W + 1, max_ref_len + cfg.W + wt + 1
+
+
+# ---- bucket-shaped geometry (the session front door's shape classes) ----
+#
+# ``repro_torch.api.AlignSession`` never derives pad widths from a batch's
+# ragged max_read_len: it quantises lengths to power-of-two BUCKETS and
+# prepares one executable per bucket.  These helpers are the single source
+# of truth for that geometry; the aligner's exact-shape path uses the same
+# pad_geometry.
+
+def pow2_bucket(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor): the static length class a
+    ragged length is padded into."""
+    assert n >= 0 and floor >= 1
+    b = 1 << max(n - 1, floor - 1, 0).bit_length()
+    return max(b, floor)
+
+
+def bucket_avals(cfg: AlignerConfig, lanes: int, read_bucket: int,
+                 ref_bucket: int, rescue_rounds: int = 0):
+    """The (shape, dtype) of each of one bucket's four inputs (reads,
+    read_len, refs, ref_len): what a session's executable accepts and
+    nothing else (see repro_torch.api.session)."""
+    Lr, Lf = pad_geometry(cfg, read_bucket, ref_bucket, rescue_rounds)
+    return (((lanes, Lr), torch.uint8), ((lanes,), torch.int32),
+            ((lanes, Lf), torch.uint8), ((lanes,), torch.int32))
+
+
+#: Hopper lane-tile planning constants (NVIDIA H100 SXM): SMs, the shared
+#: memory and threads one SM holds, the shared memory the card reserves
+#: for each resident block, and the resident blocks an SM allows
+H100_SMS = 132
+SM_SHARED_BYTES = 233_472
+SM_THREADS = 2048
+BLOCK_RESERVED_SHARED_BYTES = 1024
+SM_MAX_BLOCKS = 32
+
+
+def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
+                   sm_shared_bytes: int = SM_SHARED_BYTES,
+                   sm_threads: int = SM_THREADS) -> int:
+    """The lanes one wave of K1 holds at `cfg`'s geometry: ``sms`` SMs x
+    K1 blocks per SM x lanes per block, with the block from
+    ``kernels.genasm_dc.tb_fused_geometry``.  Blocks per SM: as many as
+    the SM's shared memory holds at the block's dynamic shared bytes plus
+    the 1 KB the card reserves per block, and its threads, at most 32.
+    Registers are not modelled: at the default geometry (W=64, k=12)
+    shared memory binds first, 7 blocks of 8 lanes, 7,392 lanes.  Plain
+    arithmetic, the same on the CPU and the card.
+
+    ``plan(..., lane_tile='auto')`` resolves to this (``resolve_config``);
+    in the port ``lane_tile`` is only the batch pad unit.  Raises
+    ValueError, naming W, k and the bytes, where K1 fits no block (and
+    where the kernels are not instantiated for `cfg`)."""
+    geo = tb_fused_geometry(cfg)
+    per_block = geo.shared_bytes + BLOCK_RESERVED_SHARED_BYTES
+    blocks = min(sm_shared_bytes // per_block, sm_threads // geo.threads,
+                 SM_MAX_BLOCKS)
+    if blocks == 0:
+        raise ValueError(
+            f"W={cfg.W} k={cfg.k}: one K1 block of {geo.lanes} lane(s) "
+            f"needs {per_block:,} bytes of shared memory (reserve "
+            f"included) but an SM has sm_shared_bytes={sm_shared_bytes:,}")
+    return sms * blocks * geo.lanes
 
 
 def _slice_rev(seq, pos, width: int, length):

@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -48,6 +49,8 @@ _SIGNATURES = {
 }
 
 _library: ctypes.CDLL | None = None
+#: one build and load per process, however many threads ask at once
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -122,16 +125,24 @@ def ptxas_report(lib: Path | None = None) -> Path:
     return (lib or library_path()).with_suffix(".ptxas.txt")
 
 
+def _open(path: Path) -> ctypes.CDLL:
+    """Load the library at `path` and declare its entry points' types."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.genasm_error_string.argtypes = [ctypes.c_int]
+    lib.genasm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed.  Thread-safe: the
+    first caller builds and loads under a lock, the others wait for it (a
+    session's dispatch and retire threads may both get here first)."""
     global _library
-    if _library is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.genasm_error_string.argtypes = [ctypes.c_int]
-        lib.genasm_error_string.restype = ctypes.c_char_p
-        _library = lib
+    with _LOAD_LOCK:
+        if _library is None:
+            _library = _open(build())
     return _library

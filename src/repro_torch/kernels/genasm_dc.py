@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import threading
 
 import torch
 
@@ -68,12 +69,21 @@ KERNELS = ("tb_fused", "tail_banded", "tail_full", "dc_band")
 #: kernel launches per wrapper; plain-version calls per wrapper
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+#: the counts are bumped from a session's dispatch and retire threads
+#: alike; ``d[k] += 1`` is not atomic, so every update takes this lock
+_COUNTS_LOCK = threading.Lock()
+
+
+def _bump(counts: dict, name: str) -> None:
+    with _COUNTS_LOCK:
+        counts[name] += 1
 
 
 def reset_counts() -> None:
-    for counts in (LAUNCHES, PLAIN_CALLS):
-        for name in counts:
-            counts[name] = 0
+    with _COUNTS_LOCK:
+        for counts in (LAUNCHES, PLAIN_CALLS):
+            for name in counts:
+                counts[name] = 0
 
 
 # --------------------------------------------------------------------------
@@ -297,7 +307,7 @@ def _launch(name, *tensors, ints, block=()):
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        LAUNCHES[name] += 1
+        _bump(LAUNCHES, name)
         rc = fn(*[t.data_ptr() for t in tensors], *ints, *block, stream)
     _check_rc(lib, f"genasm_{name} kernel launch", rc)
 
@@ -598,7 +608,7 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
     """K1: fused DC+TB of square W x W windows.  Returns (ops, meta)."""
     cuda = _check_inputs(cfg, pm, text, cfg.W)
     if not cuda:
-        PLAIN_CALLS["tb_fused"] += 1
+        _bump(PLAIN_CALLS, "tb_fused")
         return tb_fused_plain(pm, text, cfg=cfg, commit_limit=commit_limit,
                               max_ops=max_ops, max_steps=max_steps)
     B = pm.shape[-1]
@@ -617,7 +627,7 @@ def genasm_dc(pm, text, *, cfg: AlignerConfig):
     (dist (B,), band (k+1, ncols_band, nwb, B), levels (B,)), int32."""
     cuda = _check_inputs(cfg, pm, text, cfg.W)
     if not cuda:
-        PLAIN_CALLS["dc_band"] += 1
+        _bump(PLAIN_CALLS, "dc_band")
         return dc_band_plain(pm, text, cfg=cfg)
     B = pm.shape[-1]
     dist, levels = (torch.empty(B, dtype=torch.int32, device=pm.device)
@@ -639,7 +649,7 @@ def _tail(name, plain, banded, pm, text, m_len, n_len, *, cfg, n_text,
           commit_limit, max_ops, max_steps):
     cuda = _check_inputs(cfg, pm, text, n_text, (m_len, n_len))
     if not cuda:
-        PLAIN_CALLS[name] += 1
+        _bump(PLAIN_CALLS, name)
         return plain(pm, text, m_len, n_len, cfg=cfg, n_text=n_text,
                      commit_limit=commit_limit, max_ops=max_ops,
                      max_steps=max_steps)

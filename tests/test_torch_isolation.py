@@ -11,6 +11,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.api import plan
 from repro_torch.core.aligner import GenASMAligner
 from repro_torch.core.config import AlignerConfig
 from repro_torch.kernels import genasm_dc
@@ -43,6 +44,9 @@ def _foreign_modules(modules, cwd):
 
 def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.kernels.genasm_dc" in MODULES and len(MODULES) >= 14
+    assert {"repro_torch.api.session", "repro_torch.obs.metrics",
+            "repro_torch.serve.align_step",
+            "repro_torch.distributed.sharding"} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
 
 
@@ -57,6 +61,17 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError):
         GenASMAligner(AlignerConfig(), device="cuda")
     assert GenASMAligner(device="cpu").device == torch.device("cpu")
+
+
+def test_plan_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    """The session front door runs on the card unless asked: plan() with
+    no device raises where there is no CUDA, before building anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        plan(W=16, O=6, k=4, backend="split", device="cuda")
+    assert plan(device="cpu").device == torch.device("cpu")
 
 
 def _inputs(device="cpu"):
