@@ -12,7 +12,11 @@ PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
 split backend (K3 and the PyTorch traceback), holds the two results
 equal, and checks the kernel path against the CPU plain path end to end:
 on both backends, through all three rungs of the rescue ladder, and with
-the reference's ``lane_tile='auto'`` of 2,816.
+the reference's ``lane_tile='auto'`` of 2,816.  Then the front doors a
+user calls, each record held against ``GenASMAligner`` on the card: the
+session (``repro_torch.api.plan``), the multi-tenant gateway and the
+serving engine (phase ``gateway``), and the read mapper with its X-drop
+pre-filter (phase ``mapper``).
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -20,10 +24,13 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
+import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -33,19 +40,26 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.api import CompileCache, plan                 # noqa: E402
+from repro_torch.api import (CompileCache, Gateway,             # noqa: E402
+                             GatewayPolicy, ShedError, plan)
 from repro_torch.core import transfer                          # noqa: E402
-from repro_torch.core.aligner import GenASMAligner             # noqa: E402
+from repro_torch.core.aligner import (AlignResult,            # noqa: E402
+                                      GenASMAligner)
 from repro_torch.core.config import AlignerConfig              # noqa: E402
 from repro_torch.core.windowing import (H100_SMS,              # noqa: E402
                                         n_main_windows, plan_lane_tile)
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
-from repro_torch.data.genome import (ReadSimConfig, simulate_reads,  # noqa: E402
+from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
+                                     plant_decoys, simulate_reads,
                                      synth_genome)
 from repro_torch.kernels import build, genasm_dc               # noqa: E402
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
 from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
+from repro_torch.mapper import (MapperConfig, ReadMapper,      # noqa: E402
+                                pipeline, xdrop_extend)
+from repro_torch.serve.engine import (AlignmentEngine,         # noqa: E402
+                                      AlignRequest)
 from repro_torch.serve.align_step import launch_plan           # noqa: E402
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
@@ -1131,6 +1145,396 @@ def phase_session(device: torch.device, n_pairs: int = 2048,
     return passes
 
 
+# ---- phase 7: the gateway and the serving engine at full width ----
+
+def _assert_records(recs, want, what: str) -> None:
+    """Raise unless the session records `recs` equal `want` (an
+    AlignResult of the same pairs) field for field."""
+    _assert_same_result(AlignResult.from_records(recs), want, what)
+
+
+def _gateway_pass(device, session, tenants, n_threads: int, linger_s: float,
+                  sweep_s: float, timeout_s: float):
+    """Push every tenant's pairs through one Gateway on `session`
+    (``GatewayPolicy(linger_s=linger_s)``) from `n_threads` client threads
+    (split evenly over the tenants), with the sweeper running.
+    `tenants`: {name: (priority, deadline_s, reads, refs)}.  Returns (gateway, {name: futures in input order}, seconds,
+    launch counts); the counts are set to 0 just before the first submit
+    and read after the last result."""
+    gw = Gateway(session, GatewayPolicy(linger_s=linger_s))
+    gw.start_sweeper(sweep_s)
+    futs = {name: [None] * len(t[2]) for name, t in tenants.items()}
+    errors = []
+    per_tenant = n_threads // len(tenants)
+
+    def client(name, shard):
+        try:
+            priority, deadline, reads, refs = tenants[name]
+            ten = gw.tenant(name, priority=priority, deadline_s=deadline)
+            for j in shard:
+                futs[name][j] = ten.submit(reads[j], refs[j])
+            for j in shard:
+                futs[name][j].result(timeout=timeout_s)
+        except BaseException as e:               # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(
+        name, range(i, len(t[2]), per_tenant)))
+        for name, t in tenants.items() for i in range(per_tenant)]
+    genasm_dc.reset_counts()
+    transfer.reset()
+    _sync(device)
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    _sync(device)
+    seconds = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or errors:
+        raise AssertionError(f"gateway clients failed or hung: {errors}")
+    counts = _path_counts(device, "fused", "gateway pass")
+    gw.close()
+    return gw, futs, seconds, counts
+
+
+def phase_gateway(device: torch.device, n_short: int = 512,
+                  short_lengths=(1_000, 2_000), n_bulk: int = 512,
+                  bulk_lengths=(8_000, 16_000), n_burst: int = 8,
+                  short_deadline_s: float = 60.0, batch_lanes: int = 512,
+                  n_threads: int = 8, linger_s: float = 1.0,
+                  shed_capacity: int = 256, n_shed_bulk: int = 300,
+                  n_shed_short: int = 64, n_engine: int = 600,
+                  engine_lengths=(1_000, 4_000), engine_batch: int = 256,
+                  n_engine_gateway: int = 8,
+                  timeout_s: float = 600.0) -> None:
+    """``repro_torch.api.Gateway`` and ``serve.engine.AlignmentEngine`` at
+    full width: the default ``AlignerConfig()`` (W=64, O=24, k=12, fused,
+    ``rescue_rounds=2``).  (a) Two tenants on one threaded session
+    (``batch_lanes``), each fed by half of `n_threads` client threads,
+    the sweeper at 5 ms, ``GatewayPolicy(linger_s=linger_s)`` (capacity
+    from the session).  The default linger of 50 ms sends every bucket
+    out in slivers of a few pairs once the first dispatch holds the
+    gateway for longer than that (PERF.md section 6), and each dispatch
+    runs its bucket's whole window loop; 1 s lets the clients queue their
+    pairs first: ``short`` (priority 0, `short_deadline_s`, `n_short`
+    pairs over `short_lengths`) and ``bulk`` (priority 1, no deadline,
+    `n_bulk` pairs over `bulk_lengths`, `n_burst` with an insertion burst
+    so the k=24 and k=48 rungs run); every record equals
+    ``GenASMAligner`` on the card, the stats reconcile and K1, K2, K4
+    (and no plain version) ran.  (b) A deterministic shed pass: a gateway
+    of ``capacity=shed_capacity`` without pumping takes `n_shed_bulk`
+    bulk then `n_shed_short` short pairs; exactly the bulk beyond 0.75 x
+    capacity shed, none dispatched, and the admitted records equal.
+    (c) ``AlignmentEngine(batch_size=engine_batch)`` on `n_engine` pairs
+    over `engine_lengths` (device left at its default on the card): its
+    results equal, its last batch padded; then `n_engine_gateway` pairs
+    through ``engine.gateway()``."""
+    genome = synth_genome(5_000_000, seed=2022)
+    t0 = time.perf_counter()
+    short, short_refs, _ = ragged_pairs(genome, n_short, *short_lengths,
+                                        seed=5051)
+    bulk, bulk_refs, burst = ragged_pairs(genome, n_bulk, *bulk_lengths,
+                                          seed=6062, n_burst=n_burst)
+    sim_s = time.perf_counter() - t0
+    cfg = AlignerConfig()
+    t0 = time.perf_counter()
+    want = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        short + bulk, short_refs + bulk_refs)
+    aligner_s = time.perf_counter() - t0
+    want_short = _take(want, range(n_short))
+    want_bulk = _take(want, range(n_short, n_short + n_bulk))
+    if int(want_bulk.k_used.max()) != 48:
+        raise AssertionError("no bulk pair took the k=48 rung")
+    session = plan(cfg, rescue_rounds=2, batch_lanes=batch_lanes,
+                   executor="thread", cache=CompileCache(), device=device)
+    tenants = {"short": (0, short_deadline_s, short, short_refs),
+               "bulk": (1, None, bulk, bulk_refs)}
+    gw, futs, seconds, (launches, other) = _gateway_pass(
+        device, session, tenants, n_threads, linger_s, 0.005, timeout_s)
+    for name, w in (("short", want_short), ("bulk", want_bulk)):
+        _assert_records([f.result() for f in futs[name]], w,
+                        f"gateway tenant {name}")
+    n = n_short + n_bulk
+    st = gw.gateway_stats()
+    if (st["submitted"], st["completed"], st["dispatched"]) != (n, n, n) \
+            or any(st[k] for k in ("shed", "expired", "cancelled", "failed",
+                                   "deadline_misses", "queued",
+                                   "outstanding")) \
+            or st["deadline_hits"] != n \
+            or st["tenants"]["short"]["deadline_hits"] != n_short:
+        raise AssertionError(f"gateway stats do not reconcile: {st}")
+    latency = {}
+    for name, fs in futs.items():
+        p50, p99 = np.percentile([f.latency for f in fs], (50, 99))
+        latency[name] = dict(p50_s=float(p50), p99_s=float(p99),
+                             max_s=max(f.latency for f in fs))
+    moved = transfer.stats()
+    emit("gateway", pass_="main", pairs=n, short=n_short, bulk=n_bulk,
+         linger_s=linger_s,
+         read_bp=sum(map(len, short + bulk)), burst_lanes=burst,
+         sim_s=sim_s, aligner_s=aligner_s,
+         aligner_pairs_per_s=n / aligner_s, seconds=seconds,
+         pairs_per_s=n / seconds, equal_to_aligner=True, latency=latency,
+         dispatches=len(gw.dispatch_log),
+         partial_dispatches=st["partial_dispatches"], pumps=st["pumps"],
+         capacity=st["capacity"], shed=st["shed"],
+         session={k: session.stats[k] for k in (
+             "dispatches", "lanes", "pad_lanes", "rescue_dispatches",
+             "rescue_lanes", "wall_s", "retire_wall_s")},
+         builds=session.cache.stats()["lowerings"],
+         uploads=moved.h2d_calls, downloads=moved.d2h_calls,
+         launches=launches, other_path_calls=other,
+         max_k_used=int(want.k_used.max()),
+         failed_share=float(want.failed.mean()))
+
+    # (b) deterministic shedding: no pump, so nothing leaves the system
+    gw = Gateway(session, GatewayPolicy(capacity=shed_capacity),
+                 auto_pump=False)
+    before = gw.stats              # the session's registry: cumulative
+    sheds = {0: 0, 1: 0}
+    admitted = {"short": [], "bulk": []}
+    requests_before = session.stats["requests"]
+    for name, priority, reads, refs, count in (
+            ("bulk", 1, bulk, bulk_refs, n_shed_bulk),
+            ("short", 0, short, short_refs, n_shed_short)):
+        ten = gw.tenant(name, priority=priority)
+        for j in range(count):
+            try:
+                admitted[name].append((j, ten.submit(reads[j], refs[j])))
+            except ShedError:
+                sheds[priority] += 1
+    bulk_room = math.ceil(0.75 * shed_capacity)    # GatewayPolicy()
+    want_shed = {1: max(0, n_shed_bulk - bulk_room),
+                 0: max(0, n_shed_short - (shed_capacity
+                                           - min(n_shed_bulk, bulk_room)))}
+    if sheds != want_shed or session.stats["requests"] != requests_before:
+        raise AssertionError(f"shed pass: shed {sheds} (expected "
+                             f"{want_shed}), session saw "
+                             f"{session.stats['requests'] - requests_before}"
+                             f" requests before the flush")
+    gw.flush_all()
+    for name, w in (("short", want_short), ("bulk", want_bulk)):
+        rows = [j for j, _ in admitted[name]]
+        _assert_records([f.result(timeout=timeout_s)
+                         for _, f in admitted[name]], _take(w, rows),
+                        f"shed pass, admitted {name}")
+    n_admitted = sum(map(len, admitted.values()))
+    st = {k: v - before[k] for k, v in gw.stats.items()}
+    gw.close()
+    session.close()
+    if (session.stats["requests"] - requests_before != n_admitted
+            or st["dispatched"] != n_admitted
+            or st["shed"] != sum(sheds.values())):
+        raise AssertionError(f"shed pass: a shed request was dispatched: "
+                             f"{st}")
+    emit("gateway", pass_="shed", capacity=shed_capacity,
+         submitted_bulk=n_shed_bulk, submitted_short=n_shed_short,
+         shed_by_priority=sheds, admitted=n_admitted,
+         dispatched=st["dispatched"], equal_to_aligner=True)
+
+    # (c) the engine, its device left at its default on the card
+    eng_reads, eng_refs, _ = ragged_pairs(genome, n_engine, *engine_lengths,
+                                          seed=7073)
+    want_e = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        eng_reads, eng_refs)
+    kw = {} if device.type == "cuda" else {"device": device}
+    eng = AlignmentEngine(AlignerConfig(), batch_size=engine_batch,
+                          rescue_rounds=2, **kw)
+    if eng.aligner.device.type != device.type:
+        raise AssertionError(f"engine on {eng.aligner.device}")
+    for i, (r, f) in enumerate(zip(eng_reads, eng_refs)):
+        eng.submit(AlignRequest(rid=i, read=r, ref=f))
+    genasm_dc.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    stats = eng.serve_until_empty()
+    _sync(device)
+    eng_s = time.perf_counter() - t0
+    e_launches, e_other = _path_counts(device, "fused", "engine")
+    for i in range(n_engine):
+        got = eng.results[i]
+        if (got["ok"], got["dist"], got["cigar"], got["k_used"]) != (
+                not want_e.failed[i], int(want_e.dist[i]), want_e.cigars[i],
+                int(want_e.k_used[i])):
+            raise AssertionError(f"engine result {i} differs")
+    n_batches = -(-n_engine // engine_batch)
+    pad = n_batches * engine_batch - n_engine
+    if (stats["batches"], stats["padded_lanes"]) != (n_batches, pad) \
+            or stats["aligned"] + stats["failed"] != n_engine:
+        raise AssertionError(f"engine stats: {stats}")
+    with eng.gateway() as egw:
+        ten = egw.tenant("t", priority=0)
+        efuts = [ten.submit(eng_reads[i], eng_refs[i])
+                 for i in range(n_engine_gateway)]
+        _assert_records([f.result(timeout=timeout_s) for f in efuts],
+                        _take(want_e, range(n_engine_gateway)),
+                        "engine.gateway()")
+    eng.close()
+    emit("engine", pairs=n_engine, batch_size=engine_batch,
+         seconds=eng_s, pairs_per_s=n_engine / eng_s,
+         equal_to_aligner=True, stats=stats,
+         gateway_pairs=n_engine_gateway, launches=e_launches,
+         other_path_calls=e_other)
+
+
+def _take(res, rows):
+    """The AlignResult of the lanes `rows` of `res`."""
+    rows = list(rows)
+    return AlignResult(res.dist[rows], [res.cigars[i] for i in rows],
+                       [res.ops[i] for i in rows], res.failed[rows],
+                       res.k_used[rows], res.read_consumed[rows],
+                       res.ref_consumed[rows])
+
+
+# ---- phase 8: the read mapper at full width ----
+
+def _stage_seconds(mapper) -> dict:
+    """Seconds of each funnel stage of the mapper's last batch, from its
+    obs spans."""
+    recs = mapper.obs.tracer.records()
+    batch = [r for r in recs if r["name"] == "mapper.map_batch"][-1]
+    out = {"map_batch": batch["t1"] - batch["t0"]}
+    for r in recs:
+        if r["parent"] == batch["sid"]:
+            out[r["name"]] = out.get(r["name"], 0.0) + r["t1"] - r["t0"]
+    return out
+
+
+def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
+                 n_reads: int = 1024, read_len: int = 1_000,
+                 batch_lanes: int = 1024, n_cpu: int = 64) -> None:
+    """``repro_torch.mapper.ReadMapper(genome, MapperConfig(),
+    rescue_rounds=2, batch_lanes=...)`` on the default config and device:
+    `n_reads` CLR reads of `read_len` at 10 % error from the 5 Mbp genome
+    (seed 2022) with 4 planted partial-repeat decoys a read, mapped twice
+    (the second batch is the steady one, its counts set to 0 just before
+    it).  Holds: every mapped read's CIGAR, dist, k_used and ref_end
+    equal to a direct ``GenASMAligner`` of the read against its winning
+    candidate's window; the pre-filter's scores on `device` equal to
+    ``xdrop_extend`` on the CPU; `n_cpu` reads through a CPU mapper equal
+    field for field; ``examples/map_reads.py``'s floors (recall at the
+    true locus >= 95 %, no read at a decoy, kill rate > 0.2); K1, K2, K4
+    launched, no plain call."""
+    genome = synth_genome(genome_len, seed=2022)
+    t0 = time.perf_counter()
+    rs = simulate_reads(genome, n_reads, ReadSimConfig(
+        read_len=read_len, error_rate=0.10, seed=2022))
+    g2, decoy_pos = plant_decoys(genome, rs, decoys_per_read=4)
+    sim_s = time.perf_counter() - t0
+    kw = {} if device.type == "cuda" else {"device": device}
+    t0 = time.perf_counter()
+    mapper = ReadMapper(g2, MapperConfig(), rescue_rounds=2,
+                        batch_lanes=batch_lanes, **kw)
+    index_s = time.perf_counter() - t0
+    if mapper.session.device.type != device.type:
+        raise AssertionError(f"mapper on {mapper.session.device}")
+    t0 = time.perf_counter()
+    cold = mapper.map_batch(rs.reads)
+    cold_s = time.perf_counter() - t0
+    seen = []
+    inner = pipeline.xdrop_extend
+
+    def spy(reads, refs, **kw):
+        scores = inner(reads, refs, **kw)
+        seen.append((reads, refs, kw, scores))
+        return scores
+
+    pipeline.xdrop_extend = spy
+    try:
+        genasm_dc.reset_counts()
+        transfer.reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        out = mapper.map_batch(rs.reads)
+        _sync(device)
+        steady_s = time.perf_counter() - t0
+    finally:
+        pipeline.xdrop_extend = inner
+    launches, other = _path_counts(device, "fused", "mapper")
+    moved = transfer.stats()
+    stages = _stage_seconds(mapper)
+    if [dataclasses.astuple(m) for m in out.mapped] != \
+            [dataclasses.astuple(m) for m in cold.mapped]:
+        raise AssertionError("the two map_batch calls differ")
+    # the pre-filter on the card against the CPU, every lane of the batch
+    (packed_r, packed_f, xkw, scores), = seen
+    if xkw.get("device") != mapper.session.device:
+        raise AssertionError(f"pre-filter ran on {xkw.get('device')}")
+    cpu_scores = xdrop_extend(packed_r, packed_f, band=xkw["band"],
+                              x_drop=xkw["x_drop"], device="cpu")
+    if not np.array_equal(scores, cpu_scores):
+        raise AssertionError("pre-filter scores on the card differ from "
+                             "the CPU's")
+    prefilter = dict(lanes=int(packed_r.shape[0]),
+                     candidates=out.stats["n_candidates"],
+                     steps=int(packed_r.shape[1] + packed_f.shape[1]))
+    if device.type == "cuda":
+        prof = _device_breakdown(lambda: xdrop_extend(
+            packed_r, packed_f, band=xkw["band"], x_drop=xkw["x_drop"],
+            device=device))
+        prefilter.update(wall_s=prof["wall_s"],
+                         device_ms=sum(prof["device_ms"].values()),
+                         device_launches=sum(
+                             prof["device_launches"].values()),
+                         kernel_launches=prof["device_launches"][
+                             "torch_kernels"],
+                         copies=prof["device_launches"]["memcpy"],
+                         idle_share=prof["idle_share"])
+    # mapped reads against a direct alignment of their winning windows
+    rows, windows = [], []
+    for mr in out.mapped:
+        if mr.ok:
+            c = next(c for c in mr.candidates
+                     if c.ok and c.ref_start == mr.ref_start)
+            rows.append(mr)
+            windows.append((c.ref_start, c.ref_end))
+    direct = GenASMAligner(AlignerConfig(), rescue_rounds=2,
+                           device=device).align(
+        [rs.reads[mr.read_id] for mr in rows],
+        [g2[a:b] for a, b in windows])
+    for i, mr in enumerate(rows):
+        if (mr.cigar, mr.dist, mr.k_used, mr.ref_end) != (
+                direct.cigars[i], int(direct.dist[i]),
+                int(direct.k_used[i]),
+                windows[i][0] + int(direct.ref_consumed[i])) \
+                or direct.failed[i]:
+            raise AssertionError(f"mapped read {mr.read_id} differs from "
+                                 f"its direct alignment")
+    # the CPU mapper on the first reads
+    with ReadMapper(g2, MapperConfig(), rescue_rounds=2,
+                    batch_lanes=batch_lanes, device="cpu") as cpu_mapper:
+        t0 = time.perf_counter()
+        cpu_out = cpu_mapper.map_batch(rs.reads[:n_cpu])
+        cpu_s = time.perf_counter() - t0
+    if [dataclasses.astuple(m) for m in cpu_out.mapped] != \
+            [dataclasses.astuple(m) for m in out.mapped[:n_cpu]]:
+        raise AssertionError("the CPU mapper's reads differ from the "
+                             "card's")
+    st = out.stats
+    hits = sum(1 for mr, tp in zip(out.mapped, rs.true_pos)
+               if mr.ok and abs(mr.ref_start - tp) <= 20)
+    decoy_hits = sum(1 for mr in out.mapped if mr.ok and any(
+        abs(mr.ref_start - dp) <= 50 for dp in decoy_pos[mr.read_id]))
+    recall = hits / st["n_reads"]
+    mapper.close()
+    emit("mapper", reads=n_reads, read_len=read_len, genome_bp=genome_len,
+         sim_s=sim_s, index_s=index_s, index=mapper.index.stats(),
+         funnel=st, recall=recall, decoy_hits=decoy_hits,
+         cold_s=cold_s, steady_s=steady_s, reads_per_s=n_reads / steady_s,
+         stage_s=stages, prefilter=prefilter,
+         session_both_batches={k: mapper.session.stats[k] for k in (
+             "dispatches", "lanes", "pad_lanes", "rescue_dispatches",
+             "rescue_lanes")},
+         uploads=moved.h2d_calls, downloads=moved.d2h_calls,
+         direct_equal=len(rows), cpu_reads=n_cpu, cpu_s=cpu_s,
+         cpu_equal=True, launches=launches, other_path_calls=other)
+    if recall < 0.95 or decoy_hits or st["kill_rate"] <= 0.2:
+        raise AssertionError(f"mapper floors missed: recall {recall:.4f}, "
+                             f"{decoy_hits} reads at a decoy, kill rate "
+                             f"{st['kill_rate']:.4f}")
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_s = {}
@@ -1157,6 +1561,8 @@ def main() -> None:
                   fused_res, profile_rs=long_reads(1024, read_len=500))
     timed("end_to_end", phase_end_to_end, cuda)
     timed("session", phase_session, cuda)
+    timed("gateway", phase_gateway, cuda)
+    timed("mapper", phase_mapper, cuda)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():

@@ -4,7 +4,9 @@ There are no learned weights: the state shared by both packages is the
 aligner configuration and the encoded inputs.  The inputs (``uint8`` read
 and ref codes, see ``core.aligner.encode`` / ``encode_ref``) are numpy
 arrays both packages take as they are.  The configuration maps with
-``config_from_reference``, a session's spec with ``spec_from_reference``.
+``config_from_reference``, a session's spec with ``spec_from_reference``,
+a gateway's policy with ``policy_from_reference`` and a mapper's
+configuration with ``mapper_config_from_reference``.
 """
 from __future__ import annotations
 
@@ -47,3 +49,19 @@ def spec_from_reference(fields: dict):
             f"mesh={fields['mesh']!r}: the port runs on one device "
             f"(mesh=None); sharding is ROADMAP Queue 1 item 8")
     return AlignSpec(**{**fields, "cfg": config_from_reference(fields["cfg"])})
+
+
+def policy_from_reference(fields: dict):
+    """Port GatewayPolicy from ``dataclasses.asdict`` of a reference
+    GatewayPolicy: every knob as it is."""
+    from .api.gateway import GatewayPolicy
+    return GatewayPolicy(**fields)
+
+
+def mapper_config_from_reference(fields: dict):
+    """Port MapperConfig from ``dataclasses.asdict`` of a reference
+    MapperConfig: every knob as it is.  The mapper's other state is the
+    genome (the same ``uint8`` codes in both packages) and the minimizer
+    index built from it."""
+    from .mapper.pipeline import MapperConfig
+    return MapperConfig(**fields)

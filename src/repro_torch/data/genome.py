@@ -2,8 +2,10 @@
 ``repro.data.genome``; the same seed gives the same reads).
 
 A seeded random genome, reads sampled with a PacBio CLR-like edit profile
-(default 10% errors split ~40/35/25 sub/ins/del), and the true-locus
-reference segment of each read.
+(default 10% errors split ~40/35/25 sub/ins/del), the true-locus
+reference segment of each read, and the mapper's decoys: fabricated
+candidate segments (``candidate_chains``) or partial repeats planted in
+the genome (``plant_decoys``).
 """
 from __future__ import annotations
 
@@ -97,3 +99,62 @@ def simulate_reads(genome: np.ndarray, n_reads: int,
         pos.append(p)
         spans.append(span)
     return ReadSet(reads, segs, np.array(pos), np.array(spans))
+
+
+def candidate_chains(genome: np.ndarray, rs: ReadSet, decoys_per_read: int = 0,
+                     seed: int = 7) -> list[tuple[int, np.ndarray]]:
+    """minimap2 `-P`-like candidate list: for each read, the true-locus
+    segment plus `decoys_per_read` random loci (which should fail to align).
+    Returns list of (read_index, ref_segment)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, seg in enumerate(rs.ref_segments):
+        out.append((i, seg))
+        for _ in range(decoys_per_read):
+            p = int(rng.integers(0, len(genome) - len(seg)))
+            out.append((i, genome[p:p + len(seg)].copy()))
+    return out
+
+
+def plant_decoys(genome: np.ndarray, rs: ReadSet, decoys_per_read: int = 4,
+                 chunk: int = 250, divergence: float = 0.03,
+                 seed: int = 17) -> tuple[np.ndarray, np.ndarray]:
+    """Plant partial-repeat decoy loci for END-TO-END mapper evaluation.
+
+    ``candidate_chains`` hands an aligner fabricated decoy segments; a
+    real mapper discovers its own candidates, so decoys must live IN the
+    genome.  For each read, copy a ``chunk``-long piece from the interior
+    of its true segment (lightly mutated by ``divergence``) to
+    ``decoys_per_read`` random loci.  Seeding finds the shared chunk and
+    chaining extrapolates a full candidate window around it — but the
+    window's flanks are unrelated sequence, so the X-drop pre-filter
+    (anchored at the window start) kills it, the way partial repeats
+    behave in real mapping.  Decoy sites avoid every true locus and each
+    other, so planting never corrupts ground truth.
+
+    Returns (planted genome copy, (n_reads, decoys_per_read) decoy
+    positions).
+    """
+    rng = np.random.default_rng(seed)
+    g = genome.copy()
+    occupied = [(int(p), int(p + s)) for p, s in zip(rs.true_pos, rs.spans)]
+    pos = np.zeros((len(rs.reads), decoys_per_read), np.int64)
+    for i, seg in enumerate(rs.ref_segments):
+        # interior chunk: past any pre-filter prefix, clear of the tail
+        lo = min(max(0, len(seg) - chunk), max(0, len(seg) // 2 - chunk // 2))
+        src = seg[lo:lo + chunk].copy()
+        for d in range(decoys_per_read):
+            piece = src.copy()
+            flip = rng.random(len(piece)) < divergence
+            piece[flip] = (piece[flip] + 1 + rng.integers(
+                0, 3, int(flip.sum()))) % 4
+            for _ in range(1000):
+                p = int(rng.integers(0, len(g) - len(piece)))
+                if all(p + len(piece) <= a or p >= b for a, b in occupied):
+                    break
+            else:
+                raise RuntimeError("no free decoy site found")
+            g[p:p + len(piece)] = piece
+            occupied.append((p, p + len(piece)))
+            pos[i, d] = p
+    return g, pos

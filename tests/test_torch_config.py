@@ -1,7 +1,9 @@
 """The port's AlignerConfig against the reference's: every derived
 property equal over a grid, the same ValueErrors, each reference backend
 mapped to its counterpart, and ``n_symbols`` ignored as the reference
-ignores it.  Also holds the helper the
+ignores it.  The gateway's policy and the mapper's configuration convert
+from the reference's values, and the policy refuses what the reference
+refuses.  Also holds the helper the
 other port tests share: ``cfg_pair``."""
 import dataclasses
 
@@ -166,3 +168,47 @@ def test_resolve_config_and_fingerprint():
         != resolve_config(None, backend="plain").fingerprint()
     with pytest.raises(TypeError, match="n_symbols"):
         resolve_config(None, n_symbols=None)
+
+
+@pytest.mark.parametrize("fields", [
+    {}, dict(capacity=96, shed_frac=(1.0, 0.6), linger_s=0.0,
+             service_margin_s=0.25)])
+def test_policy_from_reference_round_trips(fields):
+    from repro.api import GatewayPolicy as RefPolicy
+    from repro_torch.api import GatewayPolicy
+    from repro_torch.convert import policy_from_reference
+    ref = RefPolicy(**fields)
+    port = policy_from_reference(dataclasses.asdict(ref))
+    assert port == GatewayPolicy(**fields)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+    for p in range(4):
+        assert port.frac_for(p) == ref.frac_for(p)
+
+
+@pytest.mark.parametrize("fields", [
+    {}, dict(k=11, w=6, max_occ=16, min_anchors=2, max_candidates=3,
+             prefilter=False, seg_len=96, band=4, x_drop=12,
+             min_score_frac=0.4)])
+def test_mapper_config_from_reference_round_trips(fields):
+    from repro.mapper import MapperConfig as RefMapperConfig
+    from repro_torch.convert import mapper_config_from_reference
+    from repro_torch.mapper import MapperConfig
+    ref = RefMapperConfig(**fields)
+    port = mapper_config_from_reference(dataclasses.asdict(ref))
+    assert port == MapperConfig(**fields)
+    assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(capacity=0), dict(shed_frac=()), dict(shed_frac=(1.0, 0.0)),
+    dict(shed_frac=(1.5,)), dict(linger_s=-0.1),
+    dict(service_margin_s=-1.0)])
+def test_gateway_policy_refuses_what_the_reference_refuses(bad):
+    """The reference validates GatewayPolicy with bare asserts; the port
+    keeps them, so both refuse each bad value with AssertionError."""
+    from repro.api import GatewayPolicy as RefPolicy
+    from repro_torch.api import GatewayPolicy
+    with pytest.raises(AssertionError):
+        RefPolicy(**bad)
+    with pytest.raises(AssertionError):
+        GatewayPolicy(**bad)

@@ -1,21 +1,26 @@
 """The port stands alone: importing it (or chip_smoke) pulls in neither JAX
 nor the reference package; its entry points run on the card unless the
-caller asks for the CPU; a kernel wrapper raises on a device it has
-neither a kernel nor a plain version for."""
+caller asks for the CPU (the gateway, the engine and the mapper too); a
+kernel wrapper raises on a device it has neither a kernel nor a plain
+version for."""
 import json
 import os
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import plan
 from repro_torch.core.aligner import GenASMAligner
 from repro_torch.core.config import AlignerConfig
+from repro_torch.data.genome import synth_genome
 from repro_torch.kernels import genasm_dc
 from repro_torch.kernels.ops import _to_kernel_layout
+from repro_torch.mapper import ReadMapper, xdrop_extend
+from repro_torch.serve.engine import AlignmentEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -46,7 +51,11 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.kernels.genasm_dc" in MODULES and len(MODULES) >= 14
     assert {"repro_torch.api.session", "repro_torch.obs.metrics",
             "repro_torch.serve.align_step",
-            "repro_torch.distributed.sharding"} <= set(MODULES)
+            "repro_torch.distributed.sharding", "repro_torch.api.gateway",
+            "repro_torch.serve.engine", "repro_torch.mapper",
+            "repro_torch.mapper.index", "repro_torch.mapper.chain",
+            "repro_torch.mapper.prefilter",
+            "repro_torch.mapper.pipeline"} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
 
 
@@ -72,6 +81,29 @@ def test_plan_default_device_is_cuda_and_never_falls_back(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         plan(W=16, O=6, k=4, backend="split", device="cuda")
     assert plan(device="cpu").device == torch.device("cpu")
+
+
+def test_engine_and_mapper_default_to_cuda_and_never_fall_back(
+        monkeypatch):
+    """AlignmentEngine() and ReadMapper(genome) with no device plan their
+    session on the card and raise where there is none; the gateway runs
+    on its session's device; the pre-filter refuses the card too."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    genome = synth_genome(20_000, seed=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AlignmentEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ReadMapper(genome)
+    reads = np.zeros((2, 8), np.uint8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        xdrop_extend(reads, np.zeros((2, 12), np.uint8), band=4)
+    eng = AlignmentEngine(device="cpu")
+    assert eng.aligner.device == torch.device("cpu")
+    with eng.gateway() as gw:
+        assert gw.session.device == torch.device("cpu")
+    with ReadMapper(genome, device="cpu") as m:
+        assert m.session.device == torch.device("cpu")
+    eng.close()
 
 
 def _inputs(device="cpu"):

@@ -8,7 +8,9 @@ text and JSON lines in both packages.  Then the session's side: the
 legacy ``session.stats`` / cache counters equal the registry's reads,
 ``obs='off'`` reads zeros, a raising done-callback is recorded and never
 poisons, and the span tree of a two-bucket batch with one rescue rung is
-the reference session's, record for record."""
+the reference session's, record for record.  The gateway's and the
+mapper's counter families are registry views and read as the reference's
+on the same traffic."""
 import json
 import threading
 
@@ -19,7 +21,9 @@ import repro.obs as ref_obs
 from repro.api import plan as ref_plan
 from repro.core.config import AlignerConfig as RefConfig
 from repro_torch import obs as port_obs
-from repro_torch.api import AlignSession, CompileCache, plan
+from repro_torch.api import (AlignSession, CompileCache, Gateway,
+                             GatewayPolicy, plan)
+from repro_torch.core.config import AlignerConfig
 from repro_torch.core import transfer
 from repro_torch.obs import (MetricsRegistry, NULL_METRIC, NULL_REGISTRY,
                              NULL_SPAN, NULL_TRACER, OBS_OFF, Obs, Tracer,
@@ -343,6 +347,99 @@ def test_session_trace_equals_reference_session_trace():
         "device.execute", "session.dispatch", "device.execute",
         "session.dispatch", "rescue.rung", "retire.decode", "retire.decode"]
     assert port[4]["attrs"] == {"k": 4, "lanes": 1, "n_todo": 1}
+
+
+def _gateway_snapshot(pkg_plan, pkg_gateway, pkg_policy, cfg):
+    """Four exact pairs through one tenant of a manual-pump gateway on a
+    fake clock; returns (gateway, the gateway-family registry reads)."""
+    clk = FakeClock()
+    s = pkg_plan(cfg, rescue_rounds=0, batch_lanes=4, clock=clk)
+    g = pkg_gateway(s, pkg_policy(capacity=64), clock=clk, auto_pump=False)
+    try:
+        rng = np.random.default_rng(3)
+        ten = g.tenant("acme")
+        pairs = []
+        for _ in range(4):
+            r = rng.integers(0, 4, 30).astype(np.uint8)
+            pairs.append(ten.submit(r, r.copy()))
+        g.pump(clk())
+        for gf in pairs:
+            assert gf.result()["ok"]
+        snap = g.obs.snapshot()            # gateway shares the session obs
+        return g, snap
+    finally:
+        g.close()
+        s.close()
+
+
+def test_gateway_family_matches_registry():
+    """The gateway's legacy stats are views over the session's registry,
+    and the gateway family reads as the reference gateway's does."""
+    from repro.api import Gateway as RefGateway
+    from repro.api import GatewayPolicy as RefPolicy
+    g, snap = _gateway_snapshot(
+        lambda cfg, **kw: plan(cfg, backend="plain", device="cpu", **kw),
+        Gateway, GatewayPolicy, AlignerConfig(W=16, O=6, k=2))
+    for key, name in Gateway.STAT_METRICS.items():
+        assert g.stats[key] == snap[name], (key, name)
+    assert g.stats["submitted"] == 4 and g.stats["completed"] == 4
+    out = g.gateway_stats()
+    assert out["submitted"] == snap["gateway_submitted_total"]
+    assert out["tenants"]["acme"]["completed"] == \
+        snap['gateway_tenant_completed_total{tenant="acme"}'] == 4
+    # live-load gauges mirror the functional ints
+    assert out["queued"] == snap["gateway_queued"] == 0
+    assert out["outstanding"] == snap["gateway_outstanding"] == 0
+    # completion latency lands in the histogram
+    assert snap["gateway_latency_seconds"]["count"] == 4
+    _, ref_snap = _gateway_snapshot(
+        lambda cfg, **kw: ref_plan(cfg, cache="private", **kw), RefGateway,
+        RefPolicy, REF_CFG)
+    family = lambda sn: {k: v for k, v in sn.items()
+                         if k.startswith("gateway")}
+    assert family(snap) == family(ref_snap)
+
+
+def test_mapper_funnel_matches_registry_deltas():
+    """Each batch's funnel stats are the registry's counter deltas, the
+    stage spans nest under the batch span, and the mapper family reads as
+    the reference mapper's does on the same reads."""
+    from repro.mapper import ReadMapper as RefReadMapper
+    from repro_torch.data.genome import (ReadSimConfig, simulate_reads,
+                                         synth_genome)
+    from repro_torch.mapper import ReadMapper
+
+    genome = synth_genome(30_000, seed=3)
+    rs = simulate_reads(genome, 4, ReadSimConfig(read_len=200,
+                                                 error_rate=0.05, seed=4))
+    kw = dict(W=32, O=12, k=8, rescue_rounds=1, batch_lanes=8)
+    with ReadMapper(genome, backend="plain", device="cpu", **kw) as m:
+        b1 = m.map_batch(rs.reads[:2])
+        b2 = m.map_batch(rs.reads[2:])
+        snap = m.obs.snapshot()
+        for key, name in ReadMapper.FUNNEL_METRICS.items():
+            assert b1.stats[key] + b2.stats[key] == snap[name], (key, name)
+        assert snap["mapper_batches_total"] == 2
+        assert b1.stats["n_reads"] == 2 and b2.stats["n_reads"] == 2
+        for b in (b1, b2):
+            assert b.stats["kill_rate"] == \
+                b.stats["n_killed"] / max(1, b.stats["n_candidates"])
+        # funnel spans nested under the batch span
+        recs = m.obs.tracer.records()
+        batches = [r for r in recs if r["name"] == "mapper.map_batch"]
+        assert len(batches) == 2
+        for stage in ("index.lookup", "chain", "prefilter", "align"):
+            stage_recs = [r for r in recs if r["name"] == stage]
+            assert len(stage_recs) == 2, stage
+            assert {r["parent"] for r in stage_recs} == \
+                {b["sid"] for b in batches}
+    with RefReadMapper(genome, backend="jnp", **kw) as rm:
+        rm.map_batch(rs.reads[:2])
+        rm.map_batch(rs.reads[2:])
+        ref_snap = rm.obs.snapshot()
+    family = lambda sn: {k: v for k, v in sn.items()
+                         if k.startswith("mapper")}
+    assert family(snap) == family(ref_snap)
 
 
 class _Boom(BaseException):
