@@ -16,7 +16,10 @@ the reference's ``lane_tile='auto'`` of 2,816.  Then the front doors a
 user calls, each record held against ``GenASMAligner`` on the card: the
 session (``repro_torch.api.plan``), the multi-tenant gateway and the
 serving engine (phase ``gateway``), and the read mapper with its X-drop
-pre-filter (phase ``mapper``).
+pre-filter (phase ``mapper``).  Last the paper's comparison (phase
+``paper``): the GenASM variants and the Edlib-like and KSW2-like
+baselines on the CPU and on the card, the distance-only row through K3,
+the footprint / access model and the near-duplicate operator.
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -42,20 +45,28 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import (CompileCache, Gateway,             # noqa: E402
                              GatewayPolicy, ShedError, plan)
-from repro_torch.core import transfer                          # noqa: E402
+from repro_torch.baselines.dp import (INF,                      # noqa: E402
+                                      affine_traceback,
+                                      banded_affine_dist)
+from repro_torch.baselines.myers import (banded_traceback,     # noqa: E402
+                                         myers_distance)
+from repro_torch.core import counting, transfer                # noqa: E402
 from repro_torch.core.aligner import (AlignResult,            # noqa: E402
                                       GenASMAligner)
 from repro_torch.core.config import AlignerConfig              # noqa: E402
+from repro_torch.core.genasm import dc_dmajor                  # noqa: E402
 from repro_torch.core.windowing import (H100_SMS,              # noqa: E402
                                         n_main_windows, plan_lane_tile)
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
+from repro_torch.data.dedup import near_duplicates             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
                                      plant_decoys, simulate_reads,
                                      synth_genome)
 from repro_torch.kernels import build, genasm_dc               # noqa: E402
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
-from repro_torch.kernels.ops import _to_kernel_layout          # noqa: E402
+from repro_torch.kernels.ops import (_to_kernel_layout,        # noqa: E402
+                                    genasm_dc_op)
 from repro_torch.mapper import (MapperConfig, ReadMapper,      # noqa: E402
                                 pipeline, xdrop_extend)
 from repro_torch.serve.engine import (AlignmentEngine,         # noqa: E402
@@ -1535,6 +1546,322 @@ def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
                              f"{st['kill_rate']:.4f}")
 
 
+# ---- phase 9: the paper's comparison path ----
+
+#: (ratio, its CPU contender, the paper's GPU ratio), as
+#: benchmarks/bench_aligners.py:gpu_rows defines them: CPU per-pair time
+#: over GPU per-pair time
+PAPER_RATIOS = (("gpu_vs_cpu_genasm", "genasm_improved", 4.1),
+                ("gpu_vs_ksw2_like", "ksw2_like_affine_dp", 62.0),
+                ("gpu_vs_edlib_like", "edlib_like_myers", 7.2))
+#: the paper's footprint and memory-access reductions
+PAPER_REDUCTIONS = {"footprint": 24.0, "accesses": 12.0}
+#: the GenASM variants of the paper's table (bench_aligners.run)
+GENASM_VARIANTS = {"genasm_improved": dict(store="band", early_term=True),
+                   "genasm_sene_only": dict(store="and", early_term=False),
+                   "genasm_unimproved": dict(store="edges4",
+                                             early_term=False)}
+
+
+def _median_s(fn, device: torch.device):
+    """(median seconds, timed runs, last result) of `fn`: on the card one
+    warm-up run and three timed; on the CPU (nothing to compile) three
+    timed runs where the first took under 2 s, else that one."""
+    cuda = device.type == "cuda"
+    if cuda:
+        fn()
+    ts, out = [], None
+    while len(ts) < 3 and (cuda or not ts or ts[0] < 2.0):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        ts.append(time.perf_counter() - t0)
+    return sorted(ts)[len(ts) // 2], len(ts), out
+
+
+def _paper_reads(n_reads: int, read_len: int = 1_000):
+    """bench_aligners.run's corpus: 10 % error reads from a 400 kbp genome
+    (seed 0, reads seed 1); a larger batch starts with the same reads."""
+    return simulate_reads(synth_genome(400_000, seed=0), n_reads,
+                          ReadSimConfig(read_len=read_len, error_rate=0.10,
+                                        seed=1))
+
+
+def _baseline_inputs(rs, m_pad: int, n_pad: int):
+    """The baselines' (pat, txt, m_len, n_len) int32 tensors on the CPU:
+    reads padded with 255 to m_pad, refs with 9 to n_pad.  Raises where a
+    ref does not fit n_pad (the recipe would truncate it, and a truncated
+    ref is no longer what GenASM aligned)."""
+    n = len(rs.reads)
+    pat = np.full((n, m_pad), 255, np.int32)
+    txt = np.full((n, n_pad), 9, np.int32)
+    ml = np.zeros(n, np.int32)
+    nl = np.zeros(n, np.int32)
+    for i, (r, s) in enumerate(zip(rs.reads, rs.ref_segments)):
+        if len(r) > m_pad or len(s) > n_pad:
+            raise AssertionError(f"pair {i}: {len(r)} / {len(s)} bases do "
+                                 f"not fit {m_pad} / {n_pad}")
+        pat[i, :len(r)], txt[i, :len(s)] = r, s
+        ml[i], nl[i] = len(r), len(s)
+    return tuple(torch.from_numpy(x) for x in (pat, txt, ml, nl))
+
+
+def _token_edits(tokens, rate: float, rng):
+    """`tokens` with each token substituted, followed by an inserted
+    token, or deleted with probability rate / 3 each."""
+    out = []
+    for t in tokens:
+        x = rng.random()
+        if x < rate / 3:
+            out.append(int(rng.integers(0, 50_000)))
+        elif x < 2 * rate / 3:
+            out += [int(t), int(rng.integers(0, 50_000))]
+        elif x >= rate:
+            out.append(int(t))
+    return np.array(out, np.int64)
+
+
+def dedup_corpus(n_seqs: int = 48, n_near: int = 12, length: int = 1_000,
+                 rate: float = 0.05, seed: int = 20):
+    """`n_seqs` token sequences of `length` tokens: sequences 2i and 2i+1
+    (i < n_near) a random sequence and its near-duplicate at `rate` token
+    edits, the rest random.  Returns (seqs, planted pairs)."""
+    rng = np.random.default_rng(seed)
+    seqs, planted = [], []
+    while len(seqs) < n_seqs:
+        seqs.append(rng.integers(0, 50_000, length))
+        if len(planted) < n_near:
+            seqs.append(_token_edits(seqs[-1], rate, rng))
+            planted.append((len(seqs) - 2, len(seqs) - 1))
+    return seqs, planted
+
+
+def _paper_stores(cfg: AlignerConfig) -> dict:
+    """Each kernel's store per lane from ``core.counting``'s GPU model,
+    beside what its block asks for (``kernels.genasm_dc``'s geometry) and
+    the unpadded words of the reference's model."""
+    k1 = genasm_dc.tb_fused_geometry(cfg)
+    out = {"tb_fused": dict(
+        k=cfg.k, space="shared", words=counting.gpu_store_words(cfg, 1),
+        unpadded_words=counting.kernel_scratch_words(cfg, 1),
+        lanes_per_block=k1.lanes, block_shared_bytes=k1.shared_bytes)}
+    for name, cfg_t, banded in (("tail_banded", cfg, True),
+                                ("tail_full", cfg.replace(k=2 * cfg.k),
+                                 False)):
+        n_text = cfg_t.W + 4 * cfg_t.k
+        geo = genasm_dc.tail_geometry(cfg_t, n_text, cfg_t.W + n_text,
+                                      banded=banded)
+        out[name] = dict(
+            k=cfg_t.k, space=geo.placement,
+            words=counting.gpu_tail_store_words(cfg_t, 1, banded=banded),
+            unpadded_words=counting.tail_scratch_words(cfg_t, 1,
+                                                       banded=banded),
+            lanes_per_block=geo.lanes, block_shared_bytes=geo.shared_bytes,
+            device_bytes=4 * geo.store_words)
+    k3 = genasm_dc.dc_band_geometry(cfg)
+    out["dc_band"] = dict(
+        k=cfg.k, space="device", words=counting.gpu_split_store_words(cfg, 1),
+        placement=k3.placement, lanes_per_block=k3.lanes,
+        block_shared_bytes=k3.shared_bytes,
+        ring_bytes=4 * 2 * k3.chunk * k3.lanes * k3.lane_stride)
+    for row in out.values():
+        row["bytes"] = 4 * row["words"]
+    return out
+
+
+def phase_paper(device: torch.device, n_pairs: int = 24,
+                n_bulk: int = 2048, n_dedup: int = 48, n_dedup_cpu: int = 12,
+                n_traceback: int = 4) -> dict:
+    """The paper's comparison (benchmarks/bench_aligners.py's run and
+    gpu_rows) on the port: `n_pairs` reads of 1 kbp at 10 % error through
+    the three GenASM variants, GenASM-DC alone, the Edlib-like Myers
+    distance and the KSW2-like banded affine DP, each on the CPU (the
+    port's eager PyTorch); then on `device` GenASM (K1, K2, K4) on those
+    pairs and on `n_bulk` reads, Myers, the DP, the distance-only row
+    through K3, and the near-duplicate operator.  Holds every card result
+    equal to its CPU run, GenASM against Myers (a GenASM CIGAR is a
+    global alignment: never below the edit distance) and the oracles, the
+    unit-cost DP equal to Myers inside its band, both host tracebacks, and
+    the launch counts.  Prints per-pair times, the three ratios against
+    the paper's, the footprint / access reductions at the measured level
+    count, and each kernel's store."""
+    cpu = torch.device("cpu")
+    cfg = AlignerConfig(W=64, O=24, k=12)
+    rs = _paper_reads(n_pairs)
+    reads, refs = rs.reads, rs.ref_segments
+    m_pad = 1_000
+    n_pad = int(m_pad * 1.25) + 32
+    nw = -(-m_pad // 32)
+    bw = 160
+    affine = dict(sub=4, gapo=6, gape=2)
+    base_inputs = _baseline_inputs(rs, m_pad, n_pad)
+    n_windows = n_pairs * -(-m_pad // cfg.stride)
+    wrng = np.random.default_rng(1)
+    wpat, wtxt = (torch.from_numpy(wrng.integers(0, 4, (n_windows, cfg.W))
+                                   .astype(np.int32)) for _ in range(2))
+    rows, res, seconds = [], {}, {}
+
+    def row(name, dev, batch, s, runs, **extra):
+        r = dict(name=name, device=dev.type, batch=batch,
+                 us_per_pair=s * 1e6 / batch, runs=runs, **extra)
+        if dev.type == "cpu":
+            r.update(label="torch_eager_cpu",
+                     torch_threads=torch.get_num_threads())
+        rows.append(r)
+        seconds[(name, dev.type, batch)] = s
+
+    # ---- the contenders on the CPU ----
+    for name, kw in GENASM_VARIANTS.items():
+        al = GenASMAligner(cfg.replace(backend="plain", **kw),
+                           rescue_rounds=1, device=cpu)
+        s, runs, res[name] = _median_s(lambda al=al: al.align(reads, refs),
+                                       cpu)
+        row(name, cpu, n_pairs, s, runs)
+        if name == "genasm_improved":
+            cpu_run = dict(al.last_run)
+        else:
+            _assert_same_result(res[name], res["genasm_improved"],
+                                f"paper: {name} against genasm_improved")
+    s, runs, dc = _median_s(lambda: dc_dmajor(wpat, wtxt, cfg=cfg), cpu)
+    row("genasm_dc_distance_only", cpu, n_pairs, s, runs, windows=n_windows)
+    s, runs, my_cpu = _median_s(lambda: myers_distance(
+        *base_inputs, nw=nw, n=n_pad), cpu)
+    row("edlib_like_myers", cpu, n_pairs, s, runs)
+    s, runs, dp_cpu = _median_s(lambda: banded_affine_dist(
+        *base_inputs, bw=bw, m=m_pad, **affine), cpu)
+    row("ksw2_like_affine_dp", cpu, n_pairs, s, runs)
+
+    # ---- the contenders on the card, the counts set to 0 just before ----
+    bulk = _paper_reads(n_bulk)
+    seqs, planted = dedup_corpus(n_dedup)
+    dev_inputs = tuple(x.to(device) for x in base_inputs)
+    genasm_dc.reset_counts()
+    al = GenASMAligner(cfg, rescue_rounds=1, device=device)
+    s, runs, gpu24 = _median_s(lambda: al.align(reads, refs), device)
+    row("genasm_gpu_improved", device, n_pairs, s, runs)
+    dev_run = dict(al.last_run)
+    s, runs, gpu_bulk = _median_s(
+        lambda: al.align(bulk.reads, bulk.ref_segments), device)
+    row("genasm_gpu_improved", device, n_bulk, s, runs,
+        failed_share=float(gpu_bulk.failed.mean()))
+    s, runs, my_dev = _median_s(lambda: myers_distance(
+        *dev_inputs, nw=nw, n=n_pad), device)
+    row("edlib_like_myers", device, n_pairs, s, runs)
+    s, runs, dp_dev = _median_s(lambda: banded_affine_dist(
+        *dev_inputs, bw=bw, m=m_pad, **affine), device)
+    row("ksw2_like_affine_dp", device, n_pairs, s, runs)
+    wpat_d, wtxt_d = wpat.to(device), wtxt.to(device)
+    s, runs, k3 = _median_s(lambda: genasm_dc_op(wpat_d, wtxt_d, cfg=cfg),
+                            device)
+    row("genasm_dc_distance_only", device, n_pairs, s, runs,
+        windows=n_windows)
+    dp_unit = banded_affine_dist(*dev_inputs, bw=bw, m=m_pad).cpu()
+    found = near_duplicates(seqs, device=device)
+    _sync(device)
+    taken, other = (dict(c) for c in _counts(device))
+    if min(taken.values()) == 0 or max(other.values()) != 0:
+        raise AssertionError(f"paper: the card runs did not launch K1, K2, "
+                             f"K4 and K3 alone: {taken}, other path {other}")
+
+    # ---- checks ----
+    _assert_same_result(gpu24, res["genasm_improved"],
+                        "paper: GenASM on the card against the CPU")
+    _assert_same_result(_take(gpu_bulk, range(n_pairs)), gpu24,
+                        "paper: the bulk batch's first lanes")
+    if dev_run["levels_run_total"] != cpu_run["levels_run_total"]:
+        raise AssertionError(f"paper: level counts differ: {dev_run}, "
+                             f"{cpu_run}")
+    for what, got, want in (("myers", my_dev, my_cpu),
+                            ("banded affine DP", dp_dev, dp_cpu),
+                            ("K3 dist", k3[0], dc.dist)):
+        if not np.array_equal(got.cpu().numpy(),
+                              want.numpy().astype(got.cpu().numpy().dtype)):
+            raise AssertionError(f"paper: {what} on the card differs from "
+                                 f"the CPU")
+    my = my_cpu.numpy()
+    ok = np.flatnonzero(~gpu24.failed)
+    for i in ok:
+        if my[i] > gpu24.dist[i]:
+            raise AssertionError(f"paper: pair {i}: GenASM dist "
+                                 f"{gpu24.dist[i]} below the edit distance "
+                                 f"{my[i]}")
+        validate_cigar(reads[i], refs[i], gpu24.ops[i],
+                       expected_dist=int(gpu24.dist[i]))
+    in_band = my <= bw
+    if not np.array_equal(dp_unit.numpy()[in_band], my[in_band]):
+        raise AssertionError("paper: the unit-cost DP differs from Myers "
+                             "inside its band")
+    sample = np.random.default_rng(7).choice(n_pairs, n_traceback,
+                                             replace=False)
+    tracebacks = []
+    for i in sample:
+        d, ops = banded_traceback(reads[i], refs[i], k=int(my[i]))
+        if d != my[i]:
+            raise AssertionError(f"paper: pair {i}: banded traceback {d}, "
+                                 f"Myers {my[i]}")
+        validate_cigar(reads[i], refs[i], ops, expected_dist=d)
+        # the traceback's DP charges gapo on every gap base (a linear gap
+        # cost): equal to the DP's cost at unit costs, an upper bound of
+        # its affine cost
+        for costs, want in ((affine, int(dp_cpu[i])), ({}, int(dp_unit[i]))):
+            cost, ops = affine_traceback(reads[i], refs[i], bw=bw, **costs)
+            if cost is None or want >= INF or cost < want or \
+                    (not costs and cost != want):
+                raise AssertionError(f"paper: pair {i}: affine traceback "
+                                     f"{cost} at {costs}, DP {want}")
+            validate_cigar(reads[i], refs[i], ops,
+                           expected_dist=None if costs else cost)
+            tracebacks.append(dict(pair=int(i), costs=costs or "unit",
+                                   traceback=cost, dp=want))
+    pairs = {(i, j) for i, j, _ in found}
+    if not set(planted) <= pairs:
+        raise AssertionError(f"paper: near-duplicates missed "
+                             f"{sorted(set(planted) - pairs)}")
+    t0 = time.perf_counter()
+    cpu_found = near_duplicates(seqs[:n_dedup_cpu], device=cpu)
+    dedup_cpu_s = time.perf_counter() - t0
+    if cpu_found != [r for r in found if r[1] < n_dedup_cpu]:
+        raise AssertionError("paper: near-duplicates on the card differ "
+                             "from the CPU's")
+
+    # ---- what it prints ----
+    ratios = {}
+    for batch in (n_pairs, n_bulk):
+        gpu = seconds[("genasm_gpu_improved", device.type, batch)] / batch
+        ratios[batch] = {"gpu_pairs_per_s": 1.0 / gpu}
+        for key, base, paper in PAPER_RATIOS:
+            cpu_pair = seconds[(base, "cpu", n_pairs)] / n_pairs
+            ratios[batch][key] = dict(ratio=cpu_pair / gpu, paper=paper,
+                                      cpu=base + " (torch_eager_cpu)")
+    n_windows_main = n_main_windows(max(len(r) for r in reads), cfg)
+    avg_levels = cpu_run["levels_run_total"] / (n_windows_main
+                                                * cpu_run["rounds_run"])
+    out = dict(
+        rows=rows, ratios=ratios, cpu_torch_threads=torch.get_num_threads(),
+        avg_levels=avg_levels,
+        avg_levels_is="upper bound of the per-lane mean: each main window "
+                      "adds its batch's maximum level count",
+        levels_run_total=cpu_run["levels_run_total"],
+        rounds_run=cpu_run["rounds_run"], main_windows=n_windows_main,
+        reduction=counting.reduction_report(cfg, avg_levels),
+        paper_reductions=PAPER_REDUCTIONS,
+        stores=_paper_stores(cfg),
+        lane_state_words_per_thread=counting.gpu_lane_state_words(cfg),
+        checks=dict(pairs=n_pairs, genasm_ok=len(ok),
+                    unit_dp_pairs_in_band=int(in_band.sum()),
+                    tracebacks=tracebacks,
+                    myers_median=float(np.median(my)),
+                    bulk_failed=int(gpu_bulk.failed.sum())),
+        dedup=dict(seqs=len(seqs), pairs=len(seqs) * (len(seqs) - 1) // 2,
+                   planted=len(planted), found=len(found),
+                   cpu_seqs=n_dedup_cpu, cpu_records=len(cpu_found),
+                   cpu_s=dedup_cpu_s),
+        launches=taken, other_path_calls=other)
+    emit("paper", **out)
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_s = {}
@@ -1563,6 +1890,7 @@ def main() -> None:
     timed("session", phase_session, cuda)
     timed("gateway", phase_gateway, cuda)
     timed("mapper", phase_mapper, cuda)
+    timed("paper", phase_paper, cuda)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():

@@ -1,0 +1,179 @@
+"""Analytic DP-table footprint / memory-access model (port of
+``repro.core.counting``; the paper's §I claims).
+
+GenASM-DC keeps its running bitvectors on chip; the *memory* pressure is
+(a) writing the traceback table and (b) the traceback's reads.  These
+counters mirror that accounting for each variant, in 32-bit words:
+
+  baseline  (edges4, no ET, full vectors, all columns)   — GenASM (MICRO'20)
+  +SENE     (store only R = M&S&D&I)                     — paper idea 1
+  +ET       (only levels 0..d_min computed/stored)       — paper idea 2
+  +DENT     (band words of reachable columns only)       — paper idea 3
+
+``WindowCounts``, the three ``*_counts``, ``kernel_scratch_words``,
+``tail_scratch_words`` and ``reduction_report`` are the reference's
+formulas, number for number.
+
+The ``gpu_*`` functions describe where the port's Hopper kernels keep
+their stores, from the blocks ``kernels.genasm_dc`` derives (the
+reference's versions model its Triton path, a register model):
+
+  * K1 (``tb_fused_geometry``): the DENT band in the block's dynamic
+    shared memory, (k+1) x ncols_band x nwb words a lane plus row and bank
+    pads (``gpu_store_words``).
+  * K2 / K4 (``tail_geometry``): the tail's store in shared memory or in
+    device memory, whichever ``TAIL_PLACEMENT`` names; in device memory
+    the skewed (n_text + rows0 - 1) x L x nwb x rows0 layout
+    (``gpu_tail_store_words``).
+  * K3 (``dc_band_geometry``): the band is the kernel's output, (k+1) x
+    ncols_band x nwb words a lane in device memory, written through a
+    ring of wavefront steps in shared memory or straight from registers
+    (``gpu_split_store_words``).
+  * The fill: each of a lane's G threads carries L = KP / G levels from
+    one wavefront step to the next, not k+1 (``gpu_lane_state_words``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..kernels.genasm_dc import (check_instantiated, tail_geometry,
+                                 tb_fused_geometry)
+from .config import AlignerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowCounts:
+    footprint_words: int     # allocated traceback storage
+    dc_writes: int           # words written to the traceback table
+    tb_reads: int            # words read back by the traceback
+
+
+def baseline_counts(cfg: AlignerConfig, tb_steps: float) -> WindowCounts:
+    """Unimproved GenASM-TB: 4 full bitvectors per (column, level)."""
+    cells = cfg.W * (cfg.k + 1)
+    words = 4 * cfg.nw
+    # traceback inspects the 4 stored edge vectors of the current cell
+    return WindowCounts(cells * words, cells * words,
+                        int(tb_steps * 4 * cfg.nw))
+
+
+def improved_counts(cfg: AlignerConfig, tb_steps: float,
+                    levels_run: float) -> WindowCounts:
+    """SENE + DENT (+ET via levels_run = average levels actually filled)."""
+    cols = cfg.ncols_band
+    alloc = cols * (cfg.k + 1) * cfg.nwb
+    writes = int(cols * levels_run * cfg.nwb)
+    # SENE recomputation reads R[d][j-1], R[d-1][j-1], R[d-1][j] per step
+    reads = int(tb_steps * 3 * cfg.nwb)
+    return WindowCounts(alloc, writes, reads)
+
+
+def sene_only_counts(cfg: AlignerConfig, tb_steps: float) -> WindowCounts:
+    cells = cfg.W * (cfg.k + 1)
+    return WindowCounts(cells * cfg.nw, cells * cfg.nw,
+                        int(tb_steps * 3 * cfg.nw))
+
+
+def kernel_scratch_words(cfg: AlignerConfig, tile: int) -> int:
+    """The square kernels' DENT band store, in words, per problem tile:
+    (k+1) levels x ncols_band reachable columns x nwb band words per lane
+    (the reference's declared VMEM scratch).  Equals
+    ``improved_counts(...).footprint_words * tile``."""
+    return (cfg.k + 1) * cfg.ncols_band * cfg.nwb * tile
+
+
+def tail_scratch_words(cfg: AlignerConfig, tile: int,
+                       n_text: int | None = None,
+                       banded: bool | None = None) -> int:
+    """The rectangular-tail store, in words, per problem tile (the
+    reference's declared VMEM scratch).
+
+    banded (default: cfg.tail_banded) — the DENT-style tail band keeps
+    nwb words per (level, text column) around the per-lane diagonal,
+    with column 0 analytic (ones_below needs no store); the full-store
+    fallback keeps the whole (k+1, n_text+1, NW) SENE table."""
+    if n_text is None:
+        n_text = cfg.W + 4 * cfg.k
+    if banded is None:
+        banded = cfg.tail_banded
+    if banded:
+        return (cfg.k + 1) * n_text * cfg.nwb * tile
+    return (cfg.k + 1) * (n_text + 1) * cfg.nw * tile
+
+
+def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
+    """Words of K1's DENT band for `tile` lanes, in the block's dynamic
+    shared memory: per lane k+1 rows of ncols_band x nwb words, with the
+    row and bank pads of ``tb_fused_geometry``.  The reference's Triton
+    path kept the same band unpadded in device memory
+    (``kernel_scratch_words``)."""
+    return tb_fused_geometry(cfg).band_words * tile
+
+
+def gpu_tail_store_words(cfg: AlignerConfig, tile: int,
+                         n_text: int | None = None,
+                         banded: bool | None = None) -> int:
+    """Words of the tail kernel's store for `tile` lanes (K2 where
+    `banded`, default ``cfg.tail_banded``, else K4; ``n_text`` text
+    columns, default W + 4k, with the aligner's op budget W + n_text),
+    wherever ``tail_geometry`` places it: in shared memory k+1 padded rows
+    of n_text x nwb words (K4: nw), in device memory the skewed
+    (n_text + rows0 - 1) x L x nwb x rows0 layout.  The reference's
+    Triton path kept (k+1) x n_text x nwb (K4: (k+1) x (n_text+1) x nw)
+    words in device memory (``tail_scratch_words``)."""
+    if n_text is None:
+        n_text = cfg.W + 4 * cfg.k
+    geo = tail_geometry(cfg, n_text, cfg.W + n_text, banded=banded)
+    return (geo.shared_store_words or geo.store_words) * tile
+
+
+def gpu_split_store_words(cfg: AlignerConfig, tile: int) -> int:
+    """Words of K3's band for `tile` lanes: the kernel's output, (k+1) x
+    ncols_band x nwb words a lane in device memory
+    (``kernel_scratch_words``).  It leaves the block through a ring of
+    wavefront steps in shared memory (``dc_band_geometry``'s "staged") or
+    straight from the fill's registers ("direct"); the ring is staging,
+    not store."""
+    check_instantiated(cfg)
+    return kernel_scratch_words(cfg, tile)
+
+
+def gpu_lane_state_words(cfg: AlignerConfig) -> int:
+    """Live DP words one fill thread carries from one wavefront step to
+    the next: its L = KP / G levels of the current column and the column
+    before of the level below its lowest (the word its neighbour shuffles
+    up), nw words each.  A lane's G threads hold G times that.  The
+    reference's lane-per-thread model carried 2 x (k+1) columns of nw
+    words in one thread."""
+    levels = tb_fused_geometry(cfg).levels_per_thread
+    return (levels + 1) * cfg.nw
+
+
+def reduction_report(cfg: AlignerConfig, avg_levels: float,
+                     tb_steps: float | None = None) -> dict:
+    """Footprint / access reduction factors for a steady-state main window.
+
+    avg_levels: measured average of (d_min+1) per window (ET).
+    tb_steps:   traceback walk length; defaults to stride + avg window cost.
+    """
+    if tb_steps is None:
+        tb_steps = cfg.stride + (avg_levels - 1.0)
+    base = baseline_counts(cfg, tb_steps)
+    sene = sene_only_counts(cfg, tb_steps)
+    impr = improved_counts(cfg, tb_steps, avg_levels)
+    impr_alloc_touched = cfg.ncols_band * avg_levels * cfg.nwb
+    return {
+        "baseline_footprint_words": base.footprint_words,
+        "improved_footprint_words": impr.footprint_words,
+        "improved_touched_words": impr_alloc_touched,
+        "footprint_reduction_alloc": base.footprint_words / impr.footprint_words,
+        "footprint_reduction_touched": base.footprint_words / impr_alloc_touched,
+        "sene_only_reduction": base.footprint_words / sene.footprint_words,
+        "baseline_accesses": base.dc_writes + base.tb_reads,
+        "improved_accesses": impr.dc_writes + impr.tb_reads,
+        "access_reduction": (base.dc_writes + base.tb_reads)
+                            / max(1, impr.dc_writes + impr.tb_reads),
+        # the reference's name: the improved band's bytes a problem
+        # (kernel_scratch_words(cfg, 1) * 4)
+        "vmem_bytes_per_problem": impr.footprint_words * 4,
+    }

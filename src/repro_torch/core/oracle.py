@@ -1,6 +1,7 @@
 """Reference oracles (numpy copy of ``repro.core.oracle``): the op codes,
-classic DP edit distance, and CIGAR validation.  Independent of the DP
-under test, so it checks the kernels' output on the card."""
+classic DP edit distance with its full table and an optimal traceback,
+CIGAR validation and run-length encoding.  Independent of the DP under
+test, so it checks the kernels' output on the card."""
 from __future__ import annotations
 
 import numpy as np
@@ -65,3 +66,53 @@ def validate_cigar(p: np.ndarray, t: np.ndarray, ops,
     if expected_dist is not None:
         _check(cost == expected_dist,
                f"cigar cost {cost} != distance {expected_dist}")
+
+
+def dp_table(p: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """The full (m+1, n+1) edit-distance DP table of p against t."""
+    m, n = len(p), len(t)
+    D = np.zeros((m + 1, n + 1), dtype=np.int64)
+    D[:, 0] = np.arange(m + 1)
+    D[0, :] = np.arange(n + 1)
+    for i in range(1, m + 1):
+        for j in range(1, n + 1):
+            D[i, j] = min(
+                D[i - 1, j - 1] + (p[i - 1] != t[j - 1]),
+                D[i - 1, j] + 1,
+                D[i, j - 1] + 1,
+            )
+    return D
+
+
+def dp_traceback(p: np.ndarray, t: np.ndarray) -> tuple[int, list[int]]:
+    """Optimal CIGAR (front-first op list) preferring =, X, D, I like the
+    GenASM traceback implementations (D = consume text only)."""
+    D = dp_table(p, t)
+    i, j = len(p), len(t)
+    ops: list[int] = []
+    while i > 0 or j > 0:
+        d = D[i, j]
+        if i > 0 and j > 0 and p[i - 1] == t[j - 1] and D[i - 1, j - 1] == d:
+            ops.append(OP_MATCH); i -= 1; j -= 1
+        elif i > 0 and j > 0 and D[i - 1, j - 1] == d - 1:
+            ops.append(OP_SUBST); i -= 1; j -= 1
+        elif j > 0 and D[i, j - 1] == d - 1:
+            ops.append(OP_DEL); j -= 1
+        else:
+            ops.append(OP_INS); i -= 1
+    ops.reverse()
+    return int(D[len(p), len(t)]), ops
+
+
+def ops_to_cigar_string(ops) -> str:
+    """Run-length encode a front-first op list into a CIGAR-like string."""
+    out = []
+    prev, run = None, 0
+    for op in list(ops) + [None]:
+        if op == prev:
+            run += 1
+        else:
+            if prev is not None:
+                out.append(f"{run}{OP_CHARS[prev]}")
+            prev, run = op, 1
+    return "".join(out)

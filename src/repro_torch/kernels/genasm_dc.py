@@ -361,6 +361,8 @@ class TbFusedGeometry:
     lanes: int                  #: lanes per block
     threads: int                #: threads per block
     shared_bytes: int           #: dynamic shared memory per block
+    band_words: int             #: int32 words of a lane's DENT band in
+                                #: shared memory, pads included
 
 
 @dataclasses.dataclass(frozen=True)
@@ -373,6 +375,8 @@ class TailGeometry:
     shared_bytes: int           #: dynamic shared memory per block
     store_words: int            #: int32 words of a lane's store in device
                                 #: memory ("global"), else 0
+    shared_store_words: int     #: int32 words of a lane's store in shared
+                                #: memory, pads included ("shared"), else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -407,6 +411,14 @@ def levels_bucket(k: int) -> int:
 def _half_bank_pad(words: int) -> int:
     """The smallest count >= words that is 16 mod 32."""
     return words + (16 - words % 32) % 32
+
+
+def _shared_store_words(levels: int, cols: int, nwb: int) -> int:
+    """Words of one lane's store in shared memory: `levels` rows of
+    ``cols * nwb`` words (plus one where that makes the row stride minus
+    nwb even), padded to 16 mod 32 words."""
+    row_words = cols * nwb + (1 if nwb * (cols - 1) % 2 == 0 else 0)
+    return _half_bank_pad(levels * row_words)
 
 
 def _odd_multiple(words: int, r: int) -> int:
@@ -451,10 +463,8 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     check_instantiated(cfg)
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
     group, levels = _group(cfg.k)
-    ncb, nwb = cfg.ncols_band, cfg.nwb
-    row_words = ncb * nwb + (1 if nwb * (ncb - 1) % 2 == 0 else 0)
-    lane_words = (_half_bank_pad((cfg.k + 1) * row_words)
-                  + _half_bank_pad(cfg.W) + max_ops + 1)
+    band = _shared_store_words(cfg.k + 1, cfg.ncols_band, cfg.nwb)
+    lane_words = band + _half_bank_pad(cfg.W) + max_ops + 1
     lanes = _lanes(threads, K1_THREADS, group,
                    lambda n: 4 * n * lane_words, "K1")
     if threads is None and 4 * lanes * lane_words > MAX_SHARED_BYTES:
@@ -463,7 +473,8 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
                          f"{MAX_SHARED_BYTES} B of shared memory")
     return TbFusedGeometry(group=group, levels_per_thread=levels,
                            lanes=lanes, threads=lanes * group,
-                           shared_bytes=4 * lanes * lane_words)
+                           shared_bytes=4 * lanes * lane_words,
+                           band_words=band)
 
 
 def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
@@ -543,13 +554,13 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
 
     want = placement or TAIL_PLACEMENT[(cfg.nw, levels_bucket(k))]
     if want == "shared":
-        row_words = n_text * nwb + (1 if nwb * (n_text - 1) % 2 == 0 else 0)
-        store_lane = _half_bank_pad((k + 1) * row_words)
+        store_lane = _shared_store_words(k + 1, n_text, nwb)
         lanes = _lanes(threads, TAIL_THREADS, group,
                        lambda n: block_bytes(n, store_lane), "the tail")
         if block_bytes(lanes, store_lane) <= MAX_SHARED_BYTES:
             return TailGeometry(group, levels, lanes, lanes * group,
-                                "shared", block_bytes(lanes, store_lane), 0)
+                                "shared", block_bytes(lanes, store_lane), 0,
+                                store_lane)
         if placement == "shared":
             raise ValueError(f"W={cfg.W} k={cfg.k}: a tail lane's store "
                              f"of {4 * store_lane} B exceeds a block's "
@@ -562,7 +573,7 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
                          f"more than a block's {MAX_SHARED_BYTES} B")
     return TailGeometry(group, levels, lanes, lanes * group, "global",
                         block_bytes(lanes, 0),
-                        (n_text + rows0 - 1) * levels * nwb * rows0)
+                        (n_text + rows0 - 1) * levels * nwb * rows0, 0)
 
 
 def _occupancy(query, *args) -> tuple[int, int]:

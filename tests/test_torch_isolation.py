@@ -1,8 +1,8 @@
 """The port stands alone: importing it (or chip_smoke) pulls in neither JAX
 nor the reference package; its entry points run on the card unless the
-caller asks for the CPU (the gateway, the engine and the mapper too); a
-kernel wrapper raises on a device it has neither a kernel nor a plain
-version for."""
+caller asks for the CPU (the gateway, the engine, the mapper and the
+near-duplicate operator too); a kernel wrapper raises on a device it has
+neither a kernel nor a plain version for."""
 import json
 import os
 import subprocess
@@ -16,6 +16,7 @@ import torch
 from repro_torch.api import plan
 from repro_torch.core.aligner import GenASMAligner
 from repro_torch.core.config import AlignerConfig
+from repro_torch.data.dedup import near_duplicates
 from repro_torch.data.genome import synth_genome
 from repro_torch.kernels import genasm_dc
 from repro_torch.kernels.ops import _to_kernel_layout
@@ -55,7 +56,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.serve.engine", "repro_torch.mapper",
             "repro_torch.mapper.index", "repro_torch.mapper.chain",
             "repro_torch.mapper.prefilter",
-            "repro_torch.mapper.pipeline"} <= set(MODULES)
+            "repro_torch.mapper.pipeline", "repro_torch.baselines",
+            "repro_torch.baselines.myers", "repro_torch.baselines.dp",
+            "repro_torch.core.counting", "repro_torch.core.oracle",
+            "repro_torch.data.dedup"} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
 
 
@@ -85,9 +89,9 @@ def test_plan_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 def test_engine_and_mapper_default_to_cuda_and_never_fall_back(
         monkeypatch):
-    """AlignmentEngine() and ReadMapper(genome) with no device plan their
-    session on the card and raise where there is none; the gateway runs
-    on its session's device; the pre-filter refuses the card too."""
+    """AlignmentEngine(), ReadMapper(genome) and near_duplicates(seqs) with
+    no device run on the card and raise where there is none; the gateway
+    runs on its session's device; the pre-filter refuses the card too."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     genome = synth_genome(20_000, seed=1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -97,6 +101,11 @@ def test_engine_and_mapper_default_to_cuda_and_never_fall_back(
     reads = np.zeros((2, 8), np.uint8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         xdrop_extend(reads, np.zeros((2, 12), np.uint8), band=4)
+    tokens = [np.arange(40), np.arange(40)]
+    for seqs in (tokens, []):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            near_duplicates(seqs)
+    assert near_duplicates(tokens, device="cpu") == [(0, 1, 0)]
     eng = AlignmentEngine(device="cpu")
     assert eng.aligner.device == torch.device("cpu")
     with eng.gateway() as gw:
