@@ -12,11 +12,13 @@ PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
 split backend (K3 and the PyTorch traceback), holds the two results
 equal, and checks the kernel path against the CPU plain path end to end:
 on both backends, through all three rungs of the rescue ladder, and with
-the reference's ``lane_tile='auto'`` of 2,816.  Then the front doors a
-user calls, each record held against ``GenASMAligner`` on the card: the
-session (``repro_torch.api.plan``), the multi-tenant gateway and the
-serving engine (phase ``gateway``), and the read mapper with its X-drop
-pre-filter (phase ``mapper``).  Last the paper's comparison (phase
+the reference's ``lane_tile='auto'`` of 2,816, then shards the pair axis
+over a mesh of the card listed four times (phase ``mesh``: the aligner,
+the split backend, a session and the engine, each equal to its unsharded
+run).  Then the front doors a user calls, each record held against
+``GenASMAligner`` on the card: the session (``repro_torch.api.plan``),
+the multi-tenant gateway and the serving engine (phase ``gateway``),
+and the read mapper with its X-drop pre-filter (phase ``mapper``).  Last the paper's comparison (phase
 ``paper``): the GenASM variants and the Edlib-like and KSW2-like
 baselines on the CPU and on the card, the distance-only row through K3,
 the footprint / access model and the near-duplicate operator.
@@ -65,6 +67,8 @@ from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
 from repro_torch.kernels import build, genasm_dc               # noqa: E402
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
+from repro_torch.distributed.sharding import pair_shards      # noqa: E402
+from repro_torch.launch.mesh import make_test_mesh             # noqa: E402
 from repro_torch.kernels.ops import (_to_kernel_layout,        # noqa: E402
                                     genasm_dc_op)
 from repro_torch.mapper import (MapperConfig, ReadMapper,      # noqa: E402
@@ -719,15 +723,15 @@ def long_reads(n_pairs: int = 2048, read_len: int = 10_000,
 
 
 def _drive(device: torch.device, backend: str, rs,
-           cfg: AlignerConfig | None = None):
+           cfg: AlignerConfig | None = None, mesh=None):
     """Align `rs` through ``GenASMAligner.align`` on `backend` at `cfg`
-    (default: the default geometry, W=64, O=24, k=12, ladder to 48), the
-    launch counts set to 0 just before and read just after.  Fails unless
-    exactly the backend's kernels ran on the card (or, on the CPU, exactly
-    their plain versions).  Returns the aligner, the result, the host
-    seconds and the counts."""
+    (default: the default geometry, W=64, O=24, k=12, ladder to 48), on
+    `mesh` if one is given, the launch counts set to 0 just before and
+    read just after.  Fails unless exactly the backend's kernels ran on
+    the card (or, on the CPU, exactly their plain versions).  Returns the
+    aligner, the result, the host seconds and the counts."""
     cfg = (cfg or AlignerConfig()).replace(backend=backend)
-    aligner = GenASMAligner(cfg, rescue_rounds=2, device=device)
+    aligner = GenASMAligner(cfg, rescue_rounds=2, device=device, mesh=mesh)
     genasm_dc.reset_counts()
     _sync(device)
     t0 = time.perf_counter()
@@ -771,7 +775,7 @@ def phase_main_path(device: torch.device, rs, sample: int = 64):
                failed_share=float(res.failed.mean()),
                cigars_validated=checked, **aligner.last_run,
                summary=res.summary(base_k=aligner.cfg.k),
-               transfers=vars(aligner.transfers), launches=taken,
+               transfers=dict(vars(aligner.transfers)), launches=taken,
                other_path_calls=other)
     emit("main_path", **out)
     if device.type == "cuda":
@@ -817,7 +821,7 @@ def phase_main_path_split(device: torch.device, rs, fused: dict,
                pairs_per_s=n_pairs / align_s,
                failed_share=float(res.failed.mean()),
                equal_to_fused=True, windows=windows, **aligner.last_run,
-               transfers=vars(aligner.transfers), launches=taken,
+               transfers=dict(vars(aligner.transfers)), launches=taken,
                other_path_calls=other)
     emit("main_path_split", **out)
     if device.type == "cuda":
@@ -914,7 +918,7 @@ def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
     return results[device.type], runs[device.type], seconds
 
 
-def phase_end_to_end(device: torch.device, n_pairs: int = 32,
+def phase_end_to_end(device: torch.device, n_pairs: int = 8,
                      read_len: int = 2_000, tile_pairs: int = 8,
                      tile_read_len: int = 600) -> None:
     """Each backend on `device` against the same backend on the CPU; then
@@ -951,6 +955,169 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 32,
          pairs=tile_pairs, read_len=tile_read_len, equal=True,
          seconds=seconds, rounds_run=run["rounds_run"],
          failed_share=float(res.failed.mean()))
+
+
+# ---- phase 5b: the pair axis sharded over a mesh ----
+
+def _mesh_align(device, rs, mesh, fused: dict, fused_res, what: str) -> dict:
+    """(a) and (e): the fused backend on `mesh` over the main path's batch.
+    Every AlignResult field and the level count equal phase main_path's
+    unsharded run (``fused``, ``fused_res``), one upload and one download,
+    and each kernel launched once a shard that holds a lane (every shard
+    of the main batch) for each unsharded launch, no plain version."""
+    aligner, res, align_s, taken, other = _drive(device, "fused", rs,
+                                                 mesh=mesh)
+    n = len(pair_shards(len(rs.reads), aligner.cfg, mesh))
+    _assert_same_result(res, fused_res, f"mesh {what} vs main_path")
+    for key in ("levels_run_total", "rounds_run"):
+        if aligner.last_run[key] != fused[key]:
+            raise AssertionError(f"mesh {what}: {key} "
+                                 f"{aligner.last_run[key]} != {fused[key]}")
+    t = aligner.transfers
+    if (t.h2d_calls, t.d2h_calls) != (1, 1) or \
+            (t.h2d_bytes, t.d2h_bytes) != (fused["transfers"]["h2d_bytes"],
+                                           fused["transfers"]["d2h_bytes"]):
+        raise AssertionError(f"mesh {what}: transfers {t} against "
+                             f"{fused['transfers']} unsharded")
+    want = {k: n * v for k, v in fused["launches"].items()}
+    if taken != want:
+        raise AssertionError(f"mesh {what}: launches {taken}, not {n} x "
+                             f"the unsharded {fused['launches']}")
+    n_pairs = len(rs.reads)
+    out = dict(leg=what, shards=mesh.size, shards_run=n,
+               devices=[str(d) for d in mesh.devices.flat],
+               pairs=n_pairs, align_s=align_s, pairs_per_s=n_pairs / align_s,
+               equal_to_main_path=True, **aligner.last_run,
+               unsharded_ladder_s=fused["ladder_s"],
+               unsharded_pairs_per_s=fused["pairs_per_s"],
+               transfers=dict(vars(t)), launches=taken,
+               other_path_calls=other)
+    emit("mesh", **out)
+    return out
+
+
+def phase_mesh(device: torch.device, rs, fused: dict, fused_res,
+               shards: int = 4, n_split: int = 256, split_len: int = 1_000,
+               n_session: int = 512, session_lengths=(1_000, 16_000),
+               n_burst: int = 2, batch_lanes: int = 1024, n_engine: int = 300,
+               engine_lengths=(1_000, 4_000), engine_batch: int = 256,
+               timeout_s: float = 600.0) -> dict:
+    """The aligner's pair axis sharded over a mesh of `device` listed
+    `shards` times (``make_test_mesh((shards,), ("data",))``; one H100 is
+    one device, so the shards run one after another on it), the default
+    ``AlignerConfig()``, ``rescue_rounds=2``.  (a) ``GenASMAligner(mesh=)``
+    on the main path's batch `rs`: equal to phase main_path (``fused``,
+    ``fused_res``) field for field, levels included, 1 upload / 1
+    download, every kernel launched `shards` x its unsharded count.
+    (b) The split backend (K3) on `n_split` reads of `split_len` bp: equal
+    to the unsharded split run, K3 launched `shards` x.  (c) A threaded
+    session with bucket rescue on the mesh (``batch_lanes``) over
+    `n_session` CLR pairs of `session_lengths`, `n_burst` with an
+    insertion burst (the k=48 rung): every record equals
+    ``GenASMAligner`` on the card, one upload and one download a
+    dispatch, every lane class a multiple of lane_tile x `shards`.
+    (d) ``AlignmentEngine(batch_size=engine_batch, mesh=)`` on `n_engine`
+    pairs: ``pad_multiple`` lane_tile x `shards`, results equal, no pad
+    lane in results or stats.  (e) Where the host has more than one
+    card, (a) again on a mesh of every card."""
+    cfg = AlignerConfig()
+    mesh = make_test_mesh((shards,), ("data",), devices=[device] * shards)
+    quantum = cfg.lane_tile * shards
+    out = {"a": _mesh_align(device, rs, mesh, fused, fused_res,
+                            f"{shards} x {device}")}
+
+    # (b) the split backend, sharded and not
+    small = long_reads(n_split, read_len=split_len)
+    runs = {}
+    for label, m in (("unsharded", None), ("sharded", mesh)):
+        aligner, res, seconds, taken, _ = _drive(device, "split", small,
+                                                 mesh=m)
+        runs[label] = (res, aligner.last_run, seconds, taken)
+    (base, base_run, base_s, base_taken), (res, run, seconds, taken) = \
+        runs["unsharded"], runs["sharded"]
+    _assert_same_result(res, base, "mesh split vs unsharded split")
+    running = len(pair_shards(n_split, cfg, mesh))
+    if run["levels_run_total"] != base_run["levels_run_total"] or \
+            taken["dc_band"] != running * base_taken["dc_band"]:
+        raise AssertionError(f"mesh split: levels {run} vs {base_run}, K3 "
+                             f"{taken['dc_band']} vs {base_taken['dc_band']}")
+    out["b"] = dict(leg="split", shards=shards, shards_run=running,
+                    pairs=n_split,
+                    read_len=split_len, seconds=seconds,
+                    unsharded_seconds=base_s, equal_to_unsharded=True,
+                    rounds_run=run["rounds_run"],
+                    levels_run_total=run["levels_run_total"],
+                    launches=taken)
+    emit("mesh", **out["b"])
+
+    # (c) the threaded session with bucket rescue on the mesh
+    genome = synth_genome(5_000_000, seed=2022)
+    reads, refs, burst = ragged_pairs(genome, n_session, *session_lengths,
+                                      seed=8084, n_burst=n_burst)
+    want = GenASMAligner(cfg, rescue_rounds=2, device=device).align(reads,
+                                                                    refs)
+    if int(want.k_used.max()) != 48:
+        raise AssertionError("no session pair took the k=48 rung")
+    session = plan(cfg, rescue_rounds=2, batch_lanes=batch_lanes,
+                   executor="thread", rescue_mode="bucket", mesh=mesh,
+                   cache=CompileCache(), device=device)
+    ladder = session._ladder
+    out["c"] = _session_pass("mesh", session, reads, refs, want, device,
+                             phase="mesh_session")
+    if any(c % quantum for c in ladder) or out["c"]["lanes"] % quantum or \
+            out["c"]["rescue_lanes"] % quantum or \
+            session._retire_thread is not None:
+        raise AssertionError(f"mesh session: lane classes {ladder}, "
+                             f"{out['c']['lanes']} / "
+                             f"{out['c']['rescue_lanes']} lanes, not "
+                             f"multiples of {quantum}, or the retire thread "
+                             f"still runs")
+
+    # (d) the engine on the mesh
+    eng_reads, eng_refs, _ = ragged_pairs(genome, n_engine, *engine_lengths,
+                                          seed=9095)
+    want_e = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        eng_reads, eng_refs)
+    eng = AlignmentEngine(cfg, batch_size=engine_batch, rescue_rounds=2,
+                          mesh=mesh, device=device)
+    if eng.pad_multiple != quantum:
+        raise AssertionError(f"engine pad_multiple {eng.pad_multiple}")
+    for i, (r, f) in enumerate(zip(eng_reads, eng_refs)):
+        eng.submit(AlignRequest(rid=i, read=r, ref=f))
+    genasm_dc.reset_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    stats = eng.serve_until_empty()
+    _sync(device)
+    eng_s = time.perf_counter() - t0
+    e_launches, _ = _path_counts(device, "fused", "mesh engine")
+    eng.close()
+    if set(eng.results) != set(range(n_engine)) or \
+            stats["aligned"] + stats["failed"] != n_engine:
+        raise AssertionError(f"mesh engine: a pad lane reached the "
+                             f"results or stats: {stats}")
+    for i in range(n_engine):
+        got = eng.results[i]
+        if (got["ok"], got["dist"], got["cigar"], got["k_used"]) != (
+                not want_e.failed[i], int(want_e.dist[i]), want_e.cigars[i],
+                int(want_e.k_used[i])):
+            raise AssertionError(f"mesh engine result {i} differs")
+    out["d"] = dict(leg="engine", shards=shards, pairs=n_engine,
+                    batch_size=eng.batch_size, pad_multiple=eng.pad_multiple,
+                    seconds=eng_s, stats=stats, equal_to_aligner=True,
+                    launches=e_launches)
+    emit("mesh", **out["d"])
+
+    # (e) every card of the host, where there is more than one
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards > 1:
+        out["e"] = _mesh_align(device, rs, make_test_mesh((cards,),
+                                                          ("data",)),
+                               fused, fused_res, f"{cards} cards")
+    else:
+        emit("mesh", leg="every card", ran=False,
+             reason=f"{max(cards, 1)} device")
+    return out
 
 
 # ---- phase 6: the session front door at full width ----
@@ -994,7 +1161,7 @@ def _spy_shapes(session) -> set:
 
 
 def _session_pass(label: str, session, reads, refs, want, device,
-                  profile: bool = False) -> dict:
+                  profile: bool = False, phase: str = "session") -> dict:
     """Align (reads, refs) through `session` (submit each pair, flush,
     collect every future), the launch and transfer counts set to 0 just
     before and read just after.  Raises unless every record equals
@@ -1049,7 +1216,7 @@ def _session_pass(label: str, session, reads, refs, want, device,
            "max_k_used": int(got["res"].k_used.max())}
     if profile:
         out["profile"] = prof
-    emit("session", **out)
+    emit(phase, **out)
     return out
 
 
@@ -1209,9 +1376,9 @@ def _gateway_pass(device, session, tenants, n_threads: int, linger_s: float,
     return gw, futs, seconds, counts
 
 
-def phase_gateway(device: torch.device, n_short: int = 512,
-                  short_lengths=(1_000, 2_000), n_bulk: int = 512,
-                  bulk_lengths=(8_000, 16_000), n_burst: int = 8,
+def phase_gateway(device: torch.device, n_short: int = 64,
+                  short_lengths=(1_000, 2_000), n_bulk: int = 64,
+                  bulk_lengths=(8_000, 16_000), n_burst: int = 2,
                   short_deadline_s: float = 60.0, batch_lanes: int = 512,
                   n_threads: int = 8, linger_s: float = 1.0,
                   shed_capacity: int = 256, n_shed_bulk: int = 300,
@@ -1235,7 +1402,8 @@ def phase_gateway(device: torch.device, n_short: int = 512,
     ``GenASMAligner`` on the card, the stats reconcile and K1, K2, K4
     (and no plain version) ran.  (b) A deterministic shed pass: a gateway
     of ``capacity=shed_capacity`` without pumping takes `n_shed_bulk`
-    bulk then `n_shed_short` short pairs; exactly the bulk beyond 0.75 x
+    bulk then `n_shed_short` short pairs (a tenant's pairs taken again
+    from its first where it has fewer); exactly the bulk beyond 0.75 x
     capacity shed, none dispatched, and the admitted records equal.
     (c) ``AlignmentEngine(batch_size=engine_batch)`` on `n_engine` pairs
     over `engine_lengths` (device left at its default on the card): its
@@ -1310,7 +1478,7 @@ def phase_gateway(device: torch.device, n_short: int = 512,
             ("bulk", 1, bulk, bulk_refs, n_shed_bulk),
             ("short", 0, short, short_refs, n_shed_short)):
         ten = gw.tenant(name, priority=priority)
-        for j in range(count):
+        for j in (i % len(reads) for i in range(count)):
             try:
                 admitted[name].append((j, ten.submit(reads[j], refs[j])))
             except ShedError:
@@ -1887,6 +2055,7 @@ def main() -> None:
     split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
                   fused_res, profile_rs=long_reads(1024, read_len=500))
     timed("end_to_end", phase_end_to_end, cuda)
+    timed("mesh", phase_mesh, cuda, rs, fused, fused_res)
     timed("session", phase_session, cuda)
     timed("gateway", phase_gateway, cuda)
     timed("mapper", phase_mapper, cuda)

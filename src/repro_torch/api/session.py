@@ -55,7 +55,10 @@ waits for that event on the session's own side stream and downloads
 there, so a download waits for its own dispatch and not for the kernels
 queued after it.  Compacted rescue rungs run on that side stream too.
 Downloads are synchronous, so a dispatch's outputs are read before they
-are freed (no ``record_stream`` needed).
+are freed (no ``record_stream`` needed).  On a mesh
+(``spec.mesh``) each shard goes up to its own device in the dispatch's
+one upload, and the session keeps one side stream and records one event
+a distinct device of the mesh.
 
 A session's mutating API (submit/flush/results/close) is safe to drive
 from many client threads: a submit lock serialises queue mutation and
@@ -77,13 +80,14 @@ import numpy as np
 import torch
 
 from ..core import transfer
-from ..core.aligner import AlignResult, resolve_device
+from ..core.aligner import AlignResult, check_mesh_device, resolve_device
 from ..core.cigar import decode_batch, records_from_state
 from ..core.config import AlignerConfig, resolve_config
 from ..core.windowing import (SENTINEL_READ, SENTINEL_REF, bucket_avals,
                               pad_geometry, pow2_bucket, rescue_schedule)
 from ..distributed.sharding import (bucket_lanes, lane_classes,
-                                    mesh_fingerprint)
+                                    mesh_fingerprint, n_pair_shards,
+                                    pair_devices, pair_shards)
 from ..obs import MetricsRegistry, default_registry, resolve_obs
 from ..serve.align_step import launch_plan, make_align_step, on_device
 
@@ -133,7 +137,9 @@ class AlignSpec:
                     inflight_ceiling) when every windowed dispatch
                     saturated its lane class, and narrows it by one (down
                     to 1) when none did.
-    mesh          — must be None: the port runs on one device.
+    mesh          — a ``launch.mesh.DeviceMesh`` to shard each dispatch's
+                    pair axis over (lane classes then quantise to
+                    lane_tile * n_pair_shards), or None.
     """
     cfg: AlignerConfig = AlignerConfig()
     rescue_rounds: int = 2
@@ -193,7 +199,10 @@ def plan(cfg: AlignerConfig | None = None, *, backend: str | None = None,
     one validation funnel.
 
     ``device`` is CUDA unless the caller asks for the CPU (the kernels'
-    plain PyTorch versions); it raises where there is no CUDA.
+    plain PyTorch versions); it raises where there is no CUDA.  ``mesh``
+    (a ``launch.mesh.DeviceMesh`` of devices of that type) shards every
+    dispatch's pair axis; each dispatch still makes one upload and one
+    download.
     ``cache``: ``'shared'`` (default) joins the process-wide CompileCache;
     ``'private'`` isolates this session; an explicit :class:`CompileCache`
     shares exactly with whoever else holds it.  ``clock`` injects the time
@@ -203,6 +212,7 @@ def plan(cfg: AlignerConfig | None = None, *, backend: str | None = None,
     reads zeros); an :class:`repro_torch.obs.Obs` a caller-scoped bundle.
     """
     device = resolve_device(device)
+    check_mesh_device(mesh, device)
     cfg = resolve_config(cfg, backend=backend, **cfg_overrides)
     spec = AlignSpec(cfg=cfg, rescue_rounds=rescue_rounds,
                      rescue_mode=rescue_mode,
@@ -227,28 +237,43 @@ _ARG_NAMES = ("reads", "read_len", "refs", "ref_len")
 class AlignExecutable:
     """One bucket's prepared align step (see the module docstring): the
     step, the (shape, dtype) of each input it accepts, its device, and the
-    launch plan its build prepared.  Calling it with anything else raises
+    launch plan its build prepared.  On a mesh (``shards``: the device of
+    each pair shard) each input is a tuple of one tensor a shard, and
+    `avals` is one shard's.  Calling it with anything else raises
     TypeError, as a compiled executable refuses other avals."""
 
-    __slots__ = ("step", "avals", "device", "launches")
+    __slots__ = ("step", "avals", "device", "launches", "shards")
 
-    def __init__(self, step, avals, device, launches):
+    def __init__(self, step, avals, device, launches, shards=None):
         self.step = step
         self.avals = avals
         self.device = device
         self.launches = launches
+        self.shards = shards
 
     def __call__(self, *args):
         if len(args) != len(self.avals):
             raise TypeError(f"an align executable takes {len(self.avals)} "
                             f"inputs, got {len(args)}")
-        for name, t, (shape, dtype) in zip(_ARG_NAMES, args, self.avals):
-            if (tuple(t.shape) != shape or t.dtype != dtype
-                    or not on_device(t, self.device)):
-                raise TypeError(
-                    f"{name}: {tuple(t.shape)} {t.dtype} on {t.device}, but "
-                    f"this executable was prepared for {shape} {dtype} on "
-                    f"{self.device}")
+        if self.shards is None:
+            per_shard, devices = [args], [self.device]
+        else:
+            if any(not isinstance(a, (tuple, list))
+                   or len(a) != len(self.shards) for a in args):
+                raise TypeError(f"this executable runs on a mesh of "
+                                f"{len(self.shards)} pair shards: each "
+                                f"input is a tuple of one tensor a shard")
+            per_shard, devices = list(zip(*args)), self.shards
+        for i, (shard, dev) in enumerate(zip(per_shard, devices)):
+            where = "" if self.shards is None else f" of shard {i}"
+            for name, t, (shape, dtype) in zip(_ARG_NAMES, shard,
+                                               self.avals):
+                if (tuple(t.shape) != shape or t.dtype != dtype
+                        or not on_device(t, dev)):
+                    raise TypeError(
+                        f"{name}{where}: {tuple(t.shape)} {t.dtype} on "
+                        f"{t.device}, but this executable was prepared for "
+                        f"{shape} {dtype} on {dev}")
         return self.step(*args)
 
 
@@ -256,14 +281,17 @@ def build_executable(cfg: AlignerConfig, lanes: int, read_bucket: int,
                      ref_bucket: int, rescue_rounds: int | None,
                      device, mesh=None) -> AlignExecutable:
     """Prepare one bucket's executable: the align step at the bucket's
-    read length and its launch plan (``serve.align_step.launch_plan``)."""
+    read length and its launch plan (``serve.align_step.launch_plan``).
+    On a mesh, `lanes` (a multiple of ``pair_pad_multiple``) splits into
+    equal shards."""
     step = make_align_step(cfg, read_bucket, mesh,
                            rescue_rounds=rescue_rounds, device=device)
-    avals = bucket_avals(cfg, lanes, read_bucket, ref_bucket,
-                         rescue_rounds or 0)
-    return AlignExecutable(step, avals, torch.device(device),
-                           launch_plan(cfg, read_bucket, rescue_rounds,
-                                       device))
+    avals = bucket_avals(cfg, lanes // n_pair_shards(mesh), read_bucket,
+                         ref_bucket, rescue_rounds or 0)
+    return AlignExecutable(
+        step, avals, torch.device(device),
+        launch_plan(cfg, read_bucket, rescue_rounds, device, mesh),
+        None if mesh is None else pair_devices(mesh))
 
 
 class _Pending:
@@ -542,7 +570,8 @@ class _Dispatch:
     reads: list            # n_real host code arrays (for bucket rescue)
     refs: list
     out: dict              # device tensors from the executable
-    ready: object = None   # CUDA event after the launch (None on the CPU)
+    ready: object = None   # CUDA events after the launch, one a device of
+                           # the dispatch (None on the CPU)
 
 
 _SHUTDOWN = object()       # retire-queue sentinel for close()
@@ -610,10 +639,13 @@ class AlignSession:
             store = cache
         self.cache = _SessionCacheView(store, registry=self.obs.registry)
         self._mesh_fp = mesh_fingerprint(spec.mesh)
-        # retire downloads (and runs rescue rungs) on this stream, after
-        # the dispatch's event (module docstring)
-        self._retire_stream = (torch.cuda.Stream(self.device)
-                               if self.device.type == "cuda" else None)
+        # retire downloads (and runs rescue rungs) on these streams, one
+        # a device the dispatches run on, after the dispatch's events
+        # (module docstring)
+        devices = ((self.device,) if spec.mesh is None
+                   else tuple(dict.fromkeys(pair_devices(spec.mesh))))
+        self._retire_streams = ([torch.cuda.Stream(d) for d in devices]
+                                if self.device.type == "cuda" else [])
         self._queues: dict[tuple, list] = {}   # bucket -> [(future, r, f)]
         self._inflight: deque[_Dispatch] = deque()   # sync executor only
         self._open: dict[int, AlignFuture] = {}   # not yet handed out
@@ -889,15 +921,19 @@ class AlignSession:
                                    rescue_rounds=rounds)
             Lr, Lf = pad_geometry(self.cfg, rb, fb, rounds or 0)
             dev = transfer.to_device(
-                self._pad_batch(reads, refs, lanes, Lr, Lf), self.device)
+                self._pad_batch(reads, refs, lanes, Lr, Lf), self.device,
+                pair_shards(lanes, self.cfg, self.mesh))
             # bucket mode launches without a host sync: this span covers
             # upload + enqueue, not device occupancy
             with self.obs.span("device.execute", lanes=lanes):
                 out, _ = exe(*dev)
                 ready = None
-                if self._retire_stream is not None:
-                    ready = torch.cuda.Event()
-                    ready.record(torch.cuda.current_stream(self.device))
+                if self._retire_streams:
+                    ready = []
+                    for stream in self._retire_streams:
+                        ready.append(torch.cuda.Event())
+                        ready[-1].record(
+                            torch.cuda.current_stream(stream.device))
         d = _Dispatch(futs, reads, refs, out, ready)
         if threaded:
             self._enqueue_retire(d)
@@ -1007,12 +1043,15 @@ class AlignSession:
     # ---- retire / rescue (either thread) -------------------------------
 
     def _on_retire_stream(self, d: _Dispatch):
-        """The stream retire works on: the session's side stream, after
-        the dispatch's event (CUDA); nothing to switch on the CPU."""
-        if d.ready is None:
-            return contextlib.nullcontext()
-        self._retire_stream.wait_event(d.ready)
-        return torch.cuda.stream(self._retire_stream)
+        """The streams retire works on: the session's side stream of each
+        device, after the dispatch's event there (CUDA); nothing to switch
+        on the CPU."""
+        streams = contextlib.ExitStack()
+        if d.ready is not None:
+            for stream, ready in zip(self._retire_streams, d.ready):
+                stream.wait_event(ready)
+                streams.enter_context(torch.cuda.stream(stream))
+        return streams
 
     def _retire(self, d: _Dispatch):
         """Force one dispatch: download once, decode (core.cigar), run
@@ -1058,7 +1097,8 @@ class AlignSession:
                                        rescue_rounds=None)
                 Lr, Lf = pad_geometry(cfg_r, rb, fb, 0)
                 dev = transfer.to_device(
-                    self._pad_batch(reads, refs, lanes, Lr, Lf), self.device)
+                    self._pad_batch(reads, refs, lanes, Lr, Lf), self.device,
+                    pair_shards(lanes, cfg_r, self.mesh))
                 out, _ = exe(*dev)
                 host = transfer.to_host(
                     {k: out[k] for k in ("ops", "n_ops", "dist", "failed",

@@ -37,18 +37,38 @@ def config_from_reference(fields: dict) -> AlignerConfig:
     return AlignerConfig(backend=BACKEND_MAP[backend], **fields)
 
 
-def spec_from_reference(fields: dict):
+def spec_from_reference(fields: dict, mesh=None):
     """Port AlignSpec from ``dataclasses.asdict`` of a reference AlignSpec:
     ``cfg`` (a dict of the reference config's fields) through
-    ``config_from_reference``, every session knob as it is.  Only
-    ``mesh=None`` maps: the port runs on one device."""
+    ``config_from_reference``, every session knob as it is.
+
+    The reference's mesh holds JAX devices, which the port cannot take
+    (nor can ``dataclasses.asdict`` copy it: put the reference's mesh
+    object back into the dict).  Where the reference spec has one, the
+    caller passes the port's
+    ``launch.mesh.DeviceMesh`` as `mesh`: its ``axis_names`` and ``shape``
+    must equal the reference mesh's (read by attribute, no JAX import),
+    else ValueError, as for a reference mesh with no `mesh` or a `mesh`
+    for a reference spec that has none.  An object that is not a
+    DeviceMesh raises TypeError."""
     from .api.session import AlignSpec
+    from .distributed.sharding import check_mesh
+    check_mesh(mesh)
     fields = dict(fields)
-    if fields.get("mesh") is not None:
-        raise NotImplementedError(
-            f"mesh={fields['mesh']!r}: the port runs on one device "
-            f"(mesh=None); sharding is ROADMAP Queue 1 item 8")
-    return AlignSpec(**{**fields, "cfg": config_from_reference(fields["cfg"])})
+    ref_mesh = fields.get("mesh")
+    if (ref_mesh is None) != (mesh is None):
+        raise ValueError(f"the reference spec's mesh is {ref_mesh!r} but "
+                         f"the port's mesh is {mesh!r}: pass the port's "
+                         f"DeviceMesh exactly where the reference has a "
+                         f"mesh")
+    if mesh is not None:
+        ref = (tuple(ref_mesh.axis_names), list(dict(ref_mesh.shape).items()))
+        port = (tuple(mesh.axis_names), list(mesh.shape.items()))
+        if ref != port:
+            raise ValueError(f"the port's mesh {port} has other axes or "
+                             f"sizes than the reference's {ref}")
+    return AlignSpec(**{**fields, "cfg": config_from_reference(fields["cfg"]),
+                        "mesh": mesh})
 
 
 def policy_from_reference(fields: dict):

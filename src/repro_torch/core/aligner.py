@@ -12,6 +12,12 @@ with doubled k) runs in one of two modes, equal per lane:
 * ``device`` (default) — one upload, the whole k-doubling ladder on the
   device under a per-lane mask (``align_pairs_rescued``), one download;
 * ``host`` — re-pad and re-upload the failed subset every round.
+
+``mesh=`` (a ``launch.mesh.DeviceMesh``) shards the pair axis over the
+mesh's data axes (``distributed.sharding``): each shard goes from host
+memory straight to its device, the ladder runs there, and the download
+joins the shards in lane order; still one upload and one download a
+batch, and every result equal to ``mesh=None``.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import torch
 from .cigar import decode_batch, ops_to_string, records_from_state
 from .config import AlignerConfig, resolve_config
 from .transfer import TransferStats
+from ..distributed.sharding import check_mesh, pair_shards
 from .windowing import (SENTINEL_READ, SENTINEL_REF, align_pairs,
                         align_pairs_rescued, pad_geometry)
 
@@ -114,6 +121,19 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def check_mesh_device(mesh, device: torch.device):
+    """`mesh` as it is, after checking that it is a mesh at all (raises
+    TypeError) and that its devices are of `device`'s type
+    (ValueError)."""
+    check_mesh(mesh)
+    if mesh is not None:
+        other = {d.type for d in mesh.devices.flat} - {device.type}
+        if other:
+            raise ValueError(f"{mesh!r} holds {sorted(other)} devices; "
+                             f"this entry point runs on {device}")
+    return mesh
+
+
 class GenASMAligner:
     """Batch long-read aligner implementing the paper's improved GenASM.
 
@@ -122,11 +142,13 @@ class GenASMAligner:
     aligner's uploads, downloads and rescue-gate syncs; ``last_run`` holds
     the rounds and levels of the last device-mode batch, and its host
     clock split: upload through download (``ladder_s``, which waits for
-    the device) and the CIGAR decode (``decode_s``)."""
+    the device) and the CIGAR decode (``decode_s``).  ``mesh`` shards
+    every batch's pair axis (module docstring); its devices must be of
+    `device`'s type."""
 
     def __init__(self, cfg: AlignerConfig = AlignerConfig(),
                  rescue_rounds: int = 2, backend: str | None = None,
-                 rescue_mode: str = "device", device="cuda"):
+                 rescue_mode: str = "device", device="cuda", mesh=None):
         if rescue_mode not in RESCUE_MODES:
             raise ValueError(f"rescue_mode={rescue_mode!r} is not one of "
                              f"{RESCUE_MODES}")
@@ -134,6 +156,7 @@ class GenASMAligner:
         self.rescue_rounds = rescue_rounds
         self.rescue_mode = rescue_mode
         self.device = resolve_device(device)
+        self.mesh = check_mesh_device(mesh, self.device)
         self.transfers = TransferStats()
         self.last_run: dict = {}
 
@@ -156,12 +179,16 @@ class GenASMAligner:
         return self._align_device(reads, refs)
 
     def _upload(self, reads, refs, rescue_rounds, cfg):
+        """Pad and upload one batch: one transfer, each mesh shard
+        straight to its device."""
         max_read_len = max(len(r) for r in reads)
         Lr, Lf = pad_geometry(cfg, max_read_len, max(len(f) for f in refs),
                               rescue_rounds)
         rpad, rlen = self._pad(reads, Lr, SENTINEL_READ)
         fpad, flen = self._pad(refs, Lf, SENTINEL_REF)
-        dev = self.transfers.to_device((rpad, rlen, fpad, flen), self.device)
+        dev = self.transfers.to_device(
+            (rpad, rlen, fpad, flen), self.device,
+            pair_shards(len(reads), cfg, self.mesh))
         return dev, max_read_len
 
     def _align_device(self, reads, refs) -> AlignResult:
@@ -171,7 +198,8 @@ class GenASMAligner:
                                          self.cfg)
         out = align_pairs_rescued(*dev, cfg=self.cfg,
                                   max_read_len=max_read_len,
-                                  rescue_rounds=self.rescue_rounds)
+                                  rescue_rounds=self.rescue_rounds,
+                                  mesh=self.mesh)
         self.transfers.gate_syncs += out["gate_syncs"]
         host = self.transfers.to_host({key: out[key] for key in (
             "ops", "n_ops", "dist", "failed", "k_used", "read_consumed",
@@ -202,7 +230,8 @@ class GenASMAligner:
                 break
             dev, max_read_len = self._upload([reads[i] for i in todo],
                                              [refs[i] for i in todo], 0, cfg)
-            out = align_pairs(*dev, cfg=cfg, max_read_len=max_read_len)
+            out = align_pairs(*dev, cfg=cfg, max_read_len=max_read_len,
+                              mesh=self.mesh)
             host = self.transfers.to_host({key: out[key] for key in (
                 "ops", "n_ops", "dist", "failed", "read_consumed",
                 "ref_consumed")})

@@ -17,6 +17,12 @@ Two ways of counting, fed by the same calls:
   ``gate_syncs``: the rescue ladder's round gate is a host check of
   ``failed.any()``, a device-to-host sync counted apart from the
   downloads.
+
+On a mesh a batch moves as one tensor a shard (``distributed.sharding``):
+an upload copies each shard's lanes from host memory straight to its
+device, a download joins the shards' arrays in lane order, and each still
+counts as ONE transfer of the whole batch's bytes, as the reference's
+sharded batch does.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..distributed.sharding import merge_pairs
 from ..obs import default_registry
 
 # the session's background retire executor downloads concurrently with the
@@ -50,18 +57,34 @@ def stats() -> "TransferStats":
                          d2h_bytes=_D2H_BYTES.value)
 
 
-def to_device(arrays, device) -> tuple:
-    """Upload a tuple of numpy arrays to `device`; counts as ONE
-    transfer."""
+def _upload(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def to_device(arrays, device, shards=None) -> tuple:
+    """Upload a tuple of batch-major numpy arrays to `device`; counts as
+    ONE transfer.  With `shards` (``sharding.pair_shards``: a (device,
+    lane slice) a shard), each array comes back as a tuple of per-shard
+    tensors, each on its shard's device."""
     _H2D_CALLS.inc()
     _H2D_BYTES.inc(sum(int(a.nbytes) for a in arrays))
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if shards is None:
+        return tuple(_upload(a, device) for a in arrays)
+    return tuple(tuple(_upload(a[lanes], dev) for dev, lanes in shards)
                  for a in arrays)
 
 
+def _download(t) -> np.ndarray:
+    if isinstance(t, (tuple, list)):
+        return merge_pairs([x.cpu().numpy() for x in t])
+    return t.cpu().numpy()
+
+
 def to_host(tensors: dict) -> dict:
-    """Download a dict of tensors as numpy; counts as ONE transfer."""
-    out = {key: t.cpu().numpy() for key, t in tensors.items()}
+    """Download a dict of tensors as numpy; counts as ONE transfer.  A
+    value that is a tuple of per-shard tensors comes back as one array,
+    the shards joined in lane order."""
+    out = {key: _download(t) for key, t in tensors.items()}
     _D2H_CALLS.inc()
     _D2H_BYTES.inc(sum(int(a.nbytes) for a in out.values()))
     return out
@@ -75,11 +98,11 @@ class TransferStats:
     d2h_bytes: int = 0
     gate_syncs: int = 0
 
-    def to_device(self, arrays, device) -> tuple:
+    def to_device(self, arrays, device, shards=None) -> tuple:
         """:func:`to_device`, counted on this object too."""
         self.h2d_calls += 1
         self.h2d_bytes += sum(int(a.nbytes) for a in arrays)
-        return to_device(arrays, device)
+        return to_device(arrays, device, shards)
 
     def to_host(self, tensors: dict) -> dict:
         """:func:`to_host`, counted on this object too."""

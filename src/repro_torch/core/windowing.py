@@ -7,7 +7,7 @@ advance, repeat; the final <= W read chars align in one tail window
 against the remaining reference.  All pairs advance in lockstep; pairs
 whose window edit distance exceeds k are flagged ``failed``.
 
-Two decisions of the port (see PERF.md):
+Three decisions of the port (see PERF.md):
 
 * the reference's ``lax.scan`` over the main windows is a Python loop with
   one DC launch per window (K1 on backend 'fused', K3 on 'split'); every
@@ -15,7 +15,10 @@ Two decisions of the port (see PERF.md):
 * the reference's on-device round gate ``lax.cond(any(failed))`` is a host
   check of ``failed.any()`` before each rescue round.  It is the one
   device-to-host sync of the ladder, counted in the returned
-  ``gate_syncs``.
+  ``gate_syncs``;
+* on a mesh (``mesh=``) the reference's ``shard_map`` is one pass a
+  shard, each on its own device, driven by the host in lockstep, window
+  by window; the gate reads every shard in one sync.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import dataclasses
 
 import torch
 
+from ..distributed.sharding import check_shards
 from ..kernels.genasm_dc import tb_fused_geometry
 from ..kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
 from .bitops import SENTINEL_PAT, SENTINEL_TEXT
@@ -156,14 +160,14 @@ def _append_ops(buf, off, ops, nops, active):
     return buf
 
 
-def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
-                max_read_len: int) -> dict:
-    """Batched windowed alignment on the device of the inputs.
-
-    reads: (B, Lr) uint8 codes, sentinel-padded by >= W past read_len;
-    refs: (B, Lf) uint8 codes, sentinel-padded by >= W+4k past ref_len.
-    Returns the op buffer, n_ops, dist, failed, read/ref consumption and
-    the level count summed over windows (a 0-d tensor)."""
+def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
+                max_read_len: int):
+    """One shard's pass of one rung, as a generator: each ``next()`` runs
+    one main window; the return value is the shard's outputs, with its
+    per-window level counts ``levels`` ((nm,) int32, on its device, no
+    host sync).  The geometry (nm, op budget, tail width) comes from the
+    batch-wide `max_read_len` and the arrays' widths, never from the
+    shard's own lanes."""
     B = reads.shape[0]
     dev = reads.device
     W, k, stride = cfg.W, cfg.k, cfg.stride
@@ -178,7 +182,7 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
 
     read_pos, ref_pos, off, dist = zeros(), zeros(), zeros(), zeros()
     failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    levels = torch.zeros((), dtype=torch.int32, device=dev)
+    levels = []
     buf = torch.full((B, op_budget + 1), OP_NONE, dtype=torch.uint8,
                      device=dev)
     wfull = torch.full((B,), W, dtype=torch.int32, device=dev)
@@ -206,7 +210,8 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
         off = torch.where(commit, off + tb["n_ops"], off)
         dist = torch.where(commit, dist + tb["cost"], dist)
         failed = failed | (active & ~solved)
-        levels = levels + levels_run
+        levels.append(levels_run.to(torch.int32))
+        yield
 
     # ---- tail window: remaining read (in (O, W]) vs remaining ref ----
     m_tail = torch.clamp(read_len - read_pos, 0, W)
@@ -240,14 +245,85 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
         "read_consumed": torch.where(t_ok, read_pos + tb_t["read_adv"],
                                      read_pos),
         "ref_consumed": torch.where(t_ok, ref_pos + tb_t["ref_adv"], ref_pos),
-        "levels_run_total": levels,
-        "n_main_windows": nm,
+        "levels": (torch.stack(levels) if levels else
+                   torch.zeros(0, dtype=torch.int32, device=dev)),
     }
+
+
+def _rung(shards, cfg: AlignerConfig, max_read_len: int):
+    """One rung over every shard, the windows in lockstep: window w of
+    shard 0, then of shard 1, and so on, each shard on its device's
+    current stream, so the devices of a multi-GPU mesh run together.
+    Returns the shards' outputs and the rung's level count: the sum over
+    windows of the batch-wide maximum, a 0-d int32 tensor on the first
+    shard's device."""
+    passes = [_shard_pass(*shard, cfg, max_read_len) for shard in shards]
+    outs = [None] * len(passes)
+    live = list(range(len(passes)))
+    while live:
+        for i in list(live):
+            try:
+                next(passes[i])
+            except StopIteration as done:
+                outs[i] = done.value
+                live.remove(i)
+    dev = outs[0]["levels"].device
+    per_window = torch.stack([o.pop("levels").to(dev) for o in outs])
+    return outs, per_window.amax(0).sum(dtype=torch.int32)
+
+
+def _shards_of(args, mesh) -> list:
+    """The batch as (reads, read_len, refs, ref_len) a shard: the one
+    batch without a mesh, else the per-shard tensors ``args`` hold."""
+    if mesh is None:
+        return [tuple(args)]
+    check_shards(args, mesh)
+    return list(zip(*args))
+
+
+def _unshard(outs: list, mesh, keys) -> dict:
+    """Per-lane outputs as the caller gave the inputs: tensors without a
+    mesh, tuples of per-shard tensors on one."""
+    if mesh is None:
+        return {key: outs[0][key] for key in keys}
+    return {key: tuple(o[key] for o in outs) for key in keys}
+
+
+_LANE_KEYS = ("ops", "n_ops", "dist", "failed", "read_consumed",
+              "ref_consumed")
+
+
+def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
+                max_read_len: int, mesh=None) -> dict:
+    """Batched windowed alignment on the device of the inputs.
+
+    reads: (B, Lr) uint8 codes, sentinel-padded by >= W past read_len;
+    refs: (B, Lf) uint8 codes, sentinel-padded by >= W+4k past ref_len.
+    Returns the op buffer, n_ops, dist, failed, read/ref consumption and
+    the level count summed over windows (a 0-d tensor).
+
+    `mesh` (a ``launch.mesh.DeviceMesh``): each input is a tuple of one
+    tensor a pair shard, each on its shard's device
+    (``transfer.to_device(..., shards=sharding.pair_shards(B, cfg,
+    mesh))``), and so is each per-lane output; every shard runs the
+    batch's `max_read_len` geometry, and ``levels_run_total`` sums each
+    window's maximum over all shards.  Equal to the unsharded run."""
+    outs, levels = _rung(_shards_of((reads, read_len, refs, ref_len), mesh),
+                         cfg, max_read_len)
+    return {**_unshard(outs, mesh, _LANE_KEYS), "levels_run_total": levels,
+            "n_main_windows": n_main_windows(max_read_len, cfg)}
+
+
+def _any_failed(failed: list) -> bool:
+    """The round gate: whether any lane of any shard is still failed, read
+    in one device-to-host sync."""
+    dev = failed[0].device
+    return bool(torch.stack([f.any().to(dev) for f in failed]).any())
 
 
 def align_pairs_rescued(reads, read_len, refs, ref_len, *,
                         cfg: AlignerConfig, max_read_len: int,
-                        rescue_rounds: int = 2) -> dict:
+                        rescue_rounds: int = 2, mesh=None) -> dict:
     """Multi-round k-doubling rescue on the device: round 0 is plain
     ``align_pairs``; each later round re-runs the whole batch with doubled
     k, and a per-lane mask freezes lanes already solved.  A round runs only
@@ -257,45 +333,50 @@ def align_pairs_rescued(reads, read_len, refs, ref_len, *,
 
     refs must be sentinel-padded for the FINAL round's tail width.  Returns
     the align_pairs dict plus k_used (0 where never solved), rounds_run,
-    n_rounds and gate_syncs."""
+    n_rounds and gate_syncs.
+
+    `mesh`: as for ``align_pairs``.  Each shard's state stays on its
+    device for the whole ladder; the gate is global, so a later round runs
+    on every shard while any lane of any shard is failed (its solved lanes
+    frozen, their levels still counted), as in the reference."""
     cfgs = rescue_schedule(cfg, rescue_rounds)
-    B = reads.shape[0]
-    dev = reads.device
+    shards = _shards_of((reads, read_len, refs, ref_len), mesh)
     budget = total_op_budget(max_read_len, cfgs[-1])
 
-    def zeros():
-        return torch.zeros(B, dtype=torch.int32, device=dev)
+    def start(shard):
+        B, dev = shard[0].shape[0], shard[0].device
+        st = {key: torch.zeros(B, dtype=torch.int32, device=dev) for key in (
+            "n_ops", "dist", "read_consumed", "ref_consumed", "k_used")}
+        st["ops"] = torch.full((B, budget), OP_NONE, dtype=torch.uint8,
+                               device=dev)
+        st["failed"] = torch.ones(B, dtype=torch.bool, device=dev)
+        return st
 
-    ops = torch.full((B, budget), OP_NONE, dtype=torch.uint8, device=dev)
-    n_ops, dist, rcon, fcon, k_used = zeros(), zeros(), zeros(), zeros(), zeros()
-    failed = torch.ones(B, dtype=torch.bool, device=dev)
-    levels = torch.zeros((), dtype=torch.int32, device=dev)
+    state = [start(shard) for shard in shards]
+    levels = torch.zeros((), dtype=torch.int32, device=shards[0][0].device)
     rounds_run = gate_syncs = 0
     for rnd, cfg_r in enumerate(cfgs):
         if rnd > 0:
             gate_syncs += 1
-            if not bool(failed.any()):
+            if not _any_failed([st["failed"] for st in state]):
                 break
-        out = align_pairs(reads, read_len, refs, ref_len, cfg=cfg_r,
-                          max_read_len=max_read_len)
-        newly = failed & ~out["failed"]
-        # the final round also merges the partial progress of still-failed
-        # lanes, so rescue_rounds=0 equals plain align_pairs
-        upd = newly
-        if rnd == len(cfgs) - 1:
-            upd = newly | (failed & out["failed"])
-        ops_r = torch.nn.functional.pad(
-            out["ops"], (0, budget - out["ops"].shape[1]), value=OP_NONE)
-        ops = torch.where(upd[:, None], ops_r, ops)
-        n_ops = torch.where(upd, out["n_ops"], n_ops)
-        dist = torch.where(upd, out["dist"], dist)
-        rcon = torch.where(upd, out["read_consumed"], rcon)
-        fcon = torch.where(upd, out["ref_consumed"], fcon)
-        k_used = torch.where(newly, cfg_r.k, k_used)
-        failed = failed & out["failed"]
-        levels = levels + out["levels_run_total"]
+        outs, rung_levels = _rung(shards, cfg_r, max_read_len)
+        for st, out in zip(state, outs):
+            newly = st["failed"] & ~out["failed"]
+            # the final round also merges the partial progress of
+            # still-failed lanes, so rescue_rounds=0 equals align_pairs
+            upd = newly
+            if rnd == len(cfgs) - 1:
+                upd = newly | (st["failed"] & out["failed"])
+            ops_r = torch.nn.functional.pad(
+                out["ops"], (0, budget - out["ops"].shape[1]), value=OP_NONE)
+            st["ops"] = torch.where(upd[:, None], ops_r, st["ops"])
+            for key in ("n_ops", "dist", "read_consumed", "ref_consumed"):
+                st[key] = torch.where(upd, out[key], st[key])
+            st["k_used"] = torch.where(newly, cfg_r.k, st["k_used"])
+            st["failed"] = st["failed"] & out["failed"]
+        levels = levels + rung_levels
         rounds_run += 1
-    return {"ops": ops, "n_ops": n_ops, "dist": dist, "failed": failed,
-            "k_used": k_used, "read_consumed": rcon, "ref_consumed": fcon,
+    return {**_unshard(state, mesh, _LANE_KEYS + ("k_used",)),
             "levels_run_total": levels, "rounds_run": rounds_run,
             "n_rounds": len(cfgs), "gate_syncs": gate_syncs}

@@ -41,8 +41,10 @@ class AlignmentEngine:
     lanes are dropped before results/stats are recorded.  (The session
     applies the same trick again at its lane quantum.)
 
-    ``mesh`` must be None: the port runs on one device, and any other
-    value raises NotImplementedError (``distributed.sharding``)."""
+    ``mesh`` (a ``launch.mesh.DeviceMesh``) shards every batch's pair axis
+    over the mesh's data axes; batches then pad to ``pad_multiple`` =
+    lane_tile * n_pair_shards (``distributed.sharding``), so each shard
+    holds equal, tile-aligned lanes."""
 
     def __init__(self, cfg: AlignerConfig = AlignerConfig(),
                  batch_size: int = 64, max_wait_s: float = 0.05,

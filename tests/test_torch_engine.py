@@ -18,6 +18,7 @@ from repro.serve.engine import AlignmentEngine as RefEngine
 from repro.serve.engine import AlignRequest as RefRequest
 from repro_torch.api import Gateway
 from repro_torch.convert import config_from_reference
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.serve.engine import AlignmentEngine, AlignRequest
 from tests.test_differential import CFG as REF_DCFG
 
@@ -141,5 +142,11 @@ def test_engine_gateway_fronts_the_engine_session(corpus):
 
 
 def test_engine_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="one device"):
+    """A mesh is a ``launch.mesh.DeviceMesh``: any other object is refused
+    by its type, and a mesh of CUDA devices under a CPU engine by its
+    devices (the engine's mesh serving is tests/test_torch_mesh_serving.py)."""
+    with pytest.raises(TypeError, match="str"):
         AlignmentEngine(batch_size=4, mesh="fake-mesh", device="cpu")
+    cuda_mesh = make_test_mesh((2,), ("data",), devices=["cuda:0"] * 2)
+    with pytest.raises(ValueError, match="cuda"):
+        AlignmentEngine(batch_size=4, mesh=cuda_mesh, device="cpu")

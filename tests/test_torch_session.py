@@ -31,6 +31,7 @@ from repro.api import AlignSpec as RefAlignSpec
 from repro.api import AlignSession as RefAlignSession
 from repro.core import windowing as ref_win
 from repro.distributed import sharding as ref_sharding
+from repro.launch.mesh import make_test_mesh as ref_make_test_mesh
 from repro.serve.align_step import make_align_step as ref_make_align_step
 from repro_torch.api import AlignSession, AlignSpec, CompileCache, plan
 from repro_torch.api.session import build_executable
@@ -176,7 +177,7 @@ def test_plan_resolves_and_validates_once():
         plan(CFG, rescue_mode="teleport", device="cpu")
     with pytest.raises(ValueError, match="store"):
         resolve_config(CFG, backend="fused", store="and")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="object"):
         plan(CFG, mesh=object(), device="cpu")
     assert AlignSpec(cfg=CFG).key() == AlignSpec(cfg=CFG).key()
     auto = plan(CFG, k=6, lane_tile="auto", device="cpu")
@@ -264,11 +265,22 @@ def test_pad_geometry_and_bucket_avals_equal_reference(W, O, k):
 
 
 def test_mesh_is_refused_by_name():
-    for fn in (sharding.n_pair_shards, sharding.mesh_fingerprint):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    """An object that is not a ``launch.mesh.DeviceMesh`` is refused,
+    naming its type; a reference spec with a mesh maps only with the
+    port's mesh beside it."""
+    for fn in (sharding.n_pair_shards, sharding.mesh_fingerprint,
+               sharding.pair_axes):
+        with pytest.raises(TypeError, match="str"):
             fn("a-mesh")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(TypeError, match="str"):
         make_align_step(CFG, 64, mesh="a-mesh", device="cpu")
+    ref_mesh = ref_make_test_mesh((1,), ("data",))
+    fields = {**dataclasses.asdict(RefAlignSpec(cfg=DCFG)),
+              "mesh": ref_mesh}
+    with pytest.raises(ValueError, match="reference spec's mesh"):
+        spec_from_reference(fields)
+    with pytest.raises(TypeError, match="str"):
+        spec_from_reference(fields, mesh="a-mesh")
 
 
 def test_plan_lane_tile_hopper_model():
