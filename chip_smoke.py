@@ -47,6 +47,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import (CompileCache, Gateway,             # noqa: E402
                              GatewayPolicy, ShedError, plan)
+from repro_torch.api.session import build_executable           # noqa: E402
 from repro_torch.baselines.dp import (INF,                      # noqa: E402
                                       affine_traceback,
                                       banded_affine_dist)
@@ -58,7 +59,8 @@ from repro_torch.core.aligner import (AlignResult,            # noqa: E402
 from repro_torch.core.config import AlignerConfig              # noqa: E402
 from repro_torch.core.genasm import dc_dmajor                  # noqa: E402
 from repro_torch.core.windowing import (H100_SMS,              # noqa: E402
-                                        n_main_windows, plan_lane_tile)
+                                        n_main_windows, pad_geometry,
+                                        plan_lane_tile)
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.dedup import near_duplicates             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
@@ -779,8 +781,8 @@ def phase_main_path(device: torch.device, rs, sample: int = 64):
                other_path_calls=other)
     emit("main_path", **out)
     if device.type == "cuda":
-        emit("main_path_profile", **_device_breakdown(
-            lambda: aligner.align(rs.reads, rs.ref_segments)))
+        _profile_later("main_path_profile",
+                       lambda: aligner.align(rs.reads, rs.ref_segments))
     return out, res
 
 
@@ -826,9 +828,9 @@ def phase_main_path_split(device: torch.device, rs, fused: dict,
     emit("main_path_split", **out)
     if device.type == "cuda":
         prof = profile_rs if profile_rs is not None else rs
-        emit("main_path_split_profile", pairs=len(prof.reads),
-             read_len=len(prof.reads[0]), **_device_breakdown(
-                 lambda: aligner.align(prof.reads, prof.ref_segments)))
+        _profile_later("main_path_split_profile",
+                       lambda: aligner.align(prof.reads, prof.ref_segments),
+                       pairs=len(prof.reads), read_len=len(prof.reads[0]))
     return out
 
 
@@ -842,6 +844,30 @@ def _profiled_kernel(key: str) -> str:
                 else "tail_full")
     return next((k for k in KERNELS if f"{k}_kernel" in key),
                 "memcpy" if "memcpy" in key.lower() else "torch_kernels")
+
+
+#: profiled runs, each deferred to phase ``profiles`` at the end of the
+#: script: torch.profiler leaves CUPTI attached to the process, which slows
+#: every later launch on the host (a 16 kbp bucket's graph replay took
+#: 16.6 ms instead of 0.43 ms after one profile, tools/torch_graph_probe.py),
+#: so no other phase runs after a profile
+_PROFILES: list = []
+
+
+def _profile_later(phase: str, run, **fields) -> None:
+    """Profile `run` (``_device_breakdown``) in phase ``profiles`` and
+    emit it there as `phase`, with `fields`."""
+    _PROFILES.append((phase, run, fields))
+
+
+def phase_profiles() -> list:
+    """Every deferred profile, in the order the phases asked for them."""
+    rows = []
+    for phase, run, fields in _PROFILES:
+        rows.append(dict(**fields, **_device_breakdown(run)))
+        emit(phase, **rows[-1])
+    _PROFILES.clear()
+    return rows
 
 
 def _device_breakdown(run) -> dict:
@@ -900,14 +926,23 @@ def _with_burst(rs, lane: int, n: int, seed: int):
     return reads, list(rs.ref_segments)
 
 
+#: the CPU side of a card-against-CPU check pads to this many lanes: the
+#: plain path's cost follows the padded lanes, and no record, rung count or
+#: level count depends on the pad unit
+CPU_LANE_TILE = 8
+
+
 def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
-    """Align on `device` and on the CPU; raise unless every field is
-    equal.  Returns (result, aligner's last_run, seconds per device)."""
+    """Align on `device` (at `cfg`) and on the CPU (at `cfg` padded to
+    ``CPU_LANE_TILE`` lanes); raise unless every field is equal.  Returns
+    (result, aligner's last_run, seconds per device)."""
     results, runs, seconds = {}, {}, {}
     batch = SimpleNamespace(reads=reads, ref_segments=refs)
-    for dev in (device, torch.device("cpu")):
+    cfg = cfg or AlignerConfig()
+    for dev, dev_cfg in ((device, cfg), (torch.device("cpu"), cfg.replace(
+            lane_tile=CPU_LANE_TILE))):
         aligner, results[dev.type], seconds[dev.type], _, _ = _drive(
-            dev, backend, batch, cfg)
+            dev, backend, batch, dev_cfg)
         runs[dev.type] = aligner.last_run
     _assert_same_result(results[device.type], results["cpu"],
                         f"end to end ({backend}{what})")
@@ -1161,16 +1196,15 @@ def _spy_shapes(session) -> set:
 
 
 def _session_pass(label: str, session, reads, refs, want, device,
-                  profile: bool = False, phase: str = "session") -> dict:
+                  profile=None, phase: str = "session") -> dict:
     """Align (reads, refs) through `session` (submit each pair, flush,
     collect every future), the launch and transfer counts set to 0 just
     before and read just after.  Raises unless every record equals
     `want` (``GenASMAligner.align`` on the same pairs), exactly the
     backend's kernels launched (no plain version), and each dispatch and
-    each rescue-rung dispatch made one upload and one download.  With
-    `profile`, the pass runs under torch.profiler (``_device_breakdown``),
-    and `seconds` is its host time under the profiler, without the
-    profiler's start and stop."""
+    each rescue-rung dispatch made one upload and one download.
+    `profile`, a callable that aligns the pairs once more through a warm
+    session, is profiled in phase ``profiles`` (``_profile_later``)."""
     backend = session.cfg.backend
     asked = _spy_shapes(session)
     genasm_dc.reset_counts()
@@ -1178,13 +1212,9 @@ def _session_pass(label: str, session, reads, refs, want, device,
     got = {}
     _sync(device)
     t0 = time.perf_counter()
-    if profile:
-        prof = _device_breakdown(
-            lambda: got.update(res=session.align(reads, refs)))
-    else:
-        got["res"] = session.align(reads, refs)
+    got["res"] = session.align(reads, refs)
     _sync(device)
-    seconds = prof["wall_s"] if profile else time.perf_counter() - t0
+    seconds = time.perf_counter() - t0
     session.close()
     launches, other = _path_counts(device, backend,
                                    f"session pass {label}")
@@ -1214,8 +1244,8 @@ def _session_pass(label: str, session, reads, refs, want, device,
            moved.d2h_bytes, "launches": launches, "other_path_calls": other,
            "failed_share": float(got["res"].failed.mean()),
            "max_k_used": int(got["res"].k_used.max())}
-    if profile:
-        out["profile"] = prof
+    if profile is not None:
+        _profile_later(f"{phase}_profile", profile, pass_=label)
     emit(phase, **out)
     return out
 
@@ -1281,8 +1311,10 @@ def phase_session(device: torch.device, n_pairs: int = 2048,
         raise AssertionError(f"pass a built {passes['a']['builds']} "
                              f"executables for "
                              f"{passes['a']['shapes_asked']} shapes")
-    passes["b"] = _session_pass("b", plan(cfg, **kw), reads, refs, want,
-                                device, profile=device.type == "cuda")
+    passes["b"] = _session_pass(
+        "b", plan(cfg, **kw), reads, refs, want, device,
+        profile=(lambda: plan(cfg, **kw).align(reads, refs))
+        if device.type == "cuda" else None)
     passes["c"] = _session_pass("c", plan(cfg, executor="thread", **kw),
                                 reads, refs, want, device)
     for label in ("b", "c"):
@@ -1321,6 +1353,334 @@ def phase_session(device: torch.device, n_pairs: int = 2048,
          sms=sms, lane_tile_auto=plan_lane_tile(cfg),
          store=store.stats()["executables"])
     return passes
+
+
+# ---- phase graphs: the session's executables as captured CUDA graphs ----
+
+def _same_step_output(got, want, what: str) -> None:
+    """Raise unless two align steps' (out, summary) are equal field for
+    field (a mesh's per-shard tuples shard for shard)."""
+    for part, a, b in (("out", got[0], want[0]), ("summary", got[1],
+                                                  want[1])):
+        if set(a) != set(b):
+            raise AssertionError(f"{what}: {part} keys {set(a)} vs "
+                                 f"{set(b)}")
+        for key in b:
+            x, y = a[key], b[key]
+            pairs = zip(x, y) if isinstance(y, tuple) else [(x, y)]
+            for u, v in pairs:
+                same = (torch.equal(u, v) if isinstance(v, torch.Tensor)
+                        else u == v)
+                if not same:
+                    raise AssertionError(f"{what}: {part}[{key!r}] differs")
+
+
+def _graph_against_eager(exe, args, device, what: str) -> dict:
+    """One captured executable's call against its eager step on the same
+    inputs: every output field equal and the same kernel launches.
+    Returns the launches, the host time of the call (it returns before
+    the device finishes) and to the end of the device's work, the eager
+    step's, and the graphs' own figures."""
+    if device.type == "cuda" and exe.graphs is None:
+        raise AssertionError(f"{what}: the executable was not captured")
+    _sync(device)
+    genasm_dc.reset_counts()
+    t0 = time.perf_counter()
+    got = exe(*args)
+    call_s = time.perf_counter() - t0
+    _sync(device)
+    graph_s = time.perf_counter() - t0
+    graph_launches = dict(genasm_dc.LAUNCHES)
+    genasm_dc.reset_counts()
+    t0 = time.perf_counter()
+    want = exe.step(*args)
+    _sync(device)
+    eager_s = time.perf_counter() - t0
+    eager_launches = dict(genasm_dc.LAUNCHES)
+    _same_step_output(got, want, what)
+    if graph_launches != eager_launches:
+        raise AssertionError(f"{what}: the graphs launched "
+                             f"{graph_launches}, the eager step "
+                             f"{eager_launches}")
+    row = dict(what=what, equal_to_eager=True, launches=graph_launches,
+               call_s=call_s, graph_s=graph_s, eager_s=eager_s)
+    if exe.graphs is not None:
+        row.update(_graph_figures(exe))
+    return row
+
+
+def _graph_figures(exe) -> dict:
+    """What one executable's capture cost: per graph its nodes, capture
+    and instantiate seconds and launches; the memory pool's and the static
+    inputs' bytes."""
+    g = exe.graphs
+    return dict(graphs=[{k: st[k] for k in ("rung", "shard", "nodes",
+                                            "capture_s", "instantiate_s")}
+                        for st in g.stats],
+                nodes=sum(st["nodes"] or 0 for st in g.stats),
+                pool_bytes=g.pool_bytes, argument_bytes=g.argument_bytes,
+                compile_s=g.compile_s)
+
+
+def _dispatch_parts(session, cfg, lanes: int, bucket, pairs, device,
+                    reps: int = 3) -> dict:
+    """Host seconds of each part of one warm bucket-mode dispatch, the
+    median of `reps`, each from an idle card: the padding, the upload, the
+    executable's call (copy-in, replay, clone-out) and the graph's
+    replay alone."""
+    reads, refs, _ = pairs
+    rb, fb = bucket
+    Lr, Lf = pad_geometry(cfg, rb, fb, 0)
+    exe = session._executable(cfg, lanes, rb, fb, rescue_rounds=None)
+    arrays = session._pad_batch(reads, refs, lanes, Lr, Lf)
+    args = transfer.to_device(arrays, device)
+    parts = {"pad": lambda: session._pad_batch(reads, refs, lanes, Lr, Lf),
+             "upload": lambda: transfer.to_device(arrays, device),
+             "call": lambda: exe(*args)}
+    if exe.graphs is not None:
+        parts["replay"] = exe.graphs.rungs[0][0].replay
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(reps):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[name] = float(np.median(times))
+    _sync(device)
+    return out
+
+
+def phase_graphs(device: torch.device, lanes: int = 1024,
+                 short_lengths=(600, 1_000), long_lengths=(9_000, 15_500),
+                 n_burst: int = 4, reps: int = 3, n_tenant: int = 64,
+                 tenant_short=(1_000, 2_000), tenant_bulk=(8_000, 16_000),
+                 gateway_lanes: int = 512, linger_s: float = 0.05,
+                 gateway_store=None, timeout_s: float = 600.0) -> list:
+    """The session's executables as captured CUDA graphs
+    (``serve.graphs``), held against their eager steps on the card; budget
+    40 s.  Default ``AlignerConfig()`` (W=64, O=24, k=12, fused),
+    ``rescue_rounds=2``, `lanes` a dispatch.  (a) Bucket mode at a 1 kbp
+    and a 16 kbp read bucket (`short_lengths`, `long_lengths`): ``exe(*
+    args)`` against ``exe.step(*args)`` on the same uploaded batch, every
+    output field and the kernel launches equal; each graph's nodes,
+    memory pool, capture and instantiate seconds.  (b) Device mode at the
+    1 kbp bucket, `n_burst` lanes with an insertion burst so all three
+    rung graphs run: the same checks.  (c) ``session.dispatch`` wall
+    (the session's ``wall_s``) of each bucket, warm, `reps` times in
+    turns, with the upload's host time beside it (a spy on
+    ``transfer.to_device``), the executable's call (span
+    ``device.execute``) and the batch's submits less the dispatch (the
+    padding, staged as pairs arrive); every record equal to
+    ``GenASMAligner``; and each part of a dispatch timed alone from an
+    idle card (``_dispatch_parts``).
+    (d) Two threaded sessions sharing one compile cache, from two client
+    threads, on the 1 kbp bucket: records equal.  (f) A 16 kbp capture on
+    one thread while another launches, downloads and pins memory in a
+    loop: the graphs equal the eager step.  (e) The gateway at the
+    reference's 50 ms linger (`linger_s`) on a threaded session
+    (`gateway_lanes`): `n_tenant` short and `n_tenant` bulk pairs as in
+    phase ``gateway``, records equal; dispatches and mean pairs a
+    dispatch.  With `gateway_store` (phase ``gateway``'s executables: the
+    same spec and pairs) the pass measures dispatching, not builds."""
+    genome = synth_genome(5_000_000, seed=2022)
+    cfg = AlignerConfig()
+    t0 = time.perf_counter()
+    sets = {"1k": ragged_pairs(genome, lanes, *short_lengths, seed=8081,
+                               n_burst=n_burst),
+            "16k": ragged_pairs(genome, lanes, *long_lengths, seed=9091)}
+    sim_s = time.perf_counter() - t0
+    want = {name: GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        reads, refs) for name, (reads, refs, _) in sets.items()}
+    if int(want["1k"].k_used.max()) != 48:
+        raise AssertionError("no burst lane of the 1 kbp set took k=48")
+    store = CompileCache()
+    session = plan(cfg, rescue_rounds=2, batch_lanes=lanes,
+                   max_inflight=2, cache=store, device=device)
+    longest = {name: (max(map(len, reads)), max(map(len, refs)))
+               for name, (reads, refs, _) in sets.items()}
+    buckets = {name: session.bucket_for(*n) for name, n in longest.items()}
+    emit("graphs_stream", sim_s=sim_s, buckets=buckets, pairs=lanes,
+         threads=[t.name for t in threading.enumerate()],
+         main_windows={name: n_main_windows(rb, cfg)
+                       for name, (rb, _) in buckets.items()})
+    rows = []
+
+    def bucket_args(name, rounds):
+        reads, refs, _ = sets[name]
+        rb, fb = buckets[name]
+        Lr, Lf = pad_geometry(cfg, rb, fb, rounds or 0)
+        arrays = session._pad_batch(reads, refs, lanes, Lr, Lf)
+        return (rb, fb), transfer.to_device(arrays, device)
+
+    # (a) and (b): captured against eager
+    for name, rounds in (("1k", None), ("16k", None), ("1k", 2)):
+        (rb, fb), args = bucket_args(name, rounds)
+        t0 = time.perf_counter()
+        exe = session._executable(cfg, lanes, rb, fb, rescue_rounds=rounds)
+        build_s = time.perf_counter() - t0
+        row = _graph_against_eager(
+            exe, args, device, f"{name} bucket, rescue_rounds={rounds}")
+        row.update(bucket=[rb, fb], lanes=lanes, build_s=build_s,
+                   main_windows=n_main_windows(rb, cfg),
+                   mode="bucket" if rounds is None else "device")
+        rows.append(row)
+        emit("graphs", **row)
+
+    # (c) the dispatch wall, warm, the buckets in turns
+    session.warmup(longest.values())
+    uploads = []
+    upload = transfer.to_device
+
+    def timed_upload(*a, **kw):
+        t = time.perf_counter()
+        out = upload(*a, **kw)
+        uploads.append(time.perf_counter() - t)
+        return out
+    walls = {name: [] for name in sets}
+    futs = {name: [] for name in sets}
+    transfer.to_device = timed_upload
+    session.obs.tracer.reset()
+    try:
+        for _ in range(reps):
+            for name, (reads, refs, _) in sets.items():
+                w0 = session.stats["wall_s"]
+                t0 = time.perf_counter()
+                futs[name].append([session.submit(r, f)
+                                   for r, f in zip(reads, refs)])
+                wall = session.stats["wall_s"] - w0
+                walls[name].append(dict(
+                    wall_s=wall, upload_s=uploads[-1],
+                    staging_s=time.perf_counter() - t0 - wall))
+        executes = [r["t1"] - r["t0"] for r in session.obs.tracer.records()
+                    if r["name"] == "device.execute"]
+        session.flush()
+        for name, per_rep in futs.items():
+            for fs in per_rep:
+                _assert_records([f.result() for f in fs], want[name],
+                                f"graphs dispatch pass, {name}")
+    finally:
+        transfer.to_device = upload
+    session.close()
+    for i, row in enumerate(w for rep in zip(*walls.values()) for w in rep):
+        row["execute_s"] = executes[i]      # the executable's call
+    net = {name: float(np.median([w["wall_s"] - w["upload_s"] for w in v]))
+           for name, v in walls.items()}
+    rows.append(dict(what="dispatch wall", walls_s=walls, net_median_s=net,
+        ratio_16k_to_1k=net["16k"] / net["1k"],
+        parts_s={name: _dispatch_parts(session, cfg, lanes, buckets[name],
+                                       sets[name], device)
+                 for name in sets},
+        executables=[dict(key=str(k[1:6]), **_graph_figures(e))
+                     for k, e in store._exe.items()
+                     if getattr(e, "graphs", None) is not None]))
+    emit("graphs", **rows[-1])
+
+    # (d) two threaded sessions on one compile cache, one bucket
+    reads, refs, _ = sets["1k"]
+    pair = [plan(cfg, rescue_rounds=2, batch_lanes=lanes // 4,
+                 executor="thread", cache=store, device=device)
+            for _ in range(2)]
+    got, errors = [None] * len(reads), []
+
+    def client(s, lanes_of):
+        try:
+            fs = [(i, s.submit(reads[i], refs[i])) for i in lanes_of]
+            s.flush()
+            for i, f in fs:
+                got[i] = f.result(timeout=timeout_s)
+        except BaseException as e:               # reported below
+            errors.append(e)
+    threads = [threading.Thread(target=client, args=(
+        s, range(j, len(reads), 2))) for j, s in enumerate(pair)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout_s)
+    shared_s = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"shared-cache sessions failed: {errors}")
+    _assert_records(got, want["1k"], "two sessions on one compile cache")
+    shared_hits = sum(s.cache.shared_hits for s in pair)
+    for s in pair:
+        s.close()
+    rows.append(dict(what="two threaded sessions, one cache",
+                     pairs=len(reads), seconds=shared_s,
+                     equal_to_aligner=True, shared_hits=shared_hits,
+                     builds=sum(s.cache.lowerings for s in pair)))
+    emit("graphs", **rows[-1])
+
+    # (f) a capture while another thread launches, downloads (a stream
+    # sync) and pins memory; a device-wide sync is refused while any stream
+    # captures (serve.graphs)
+    half = lanes // 2
+    reads, refs, _ = sets["16k"]
+    rb, fb = buckets["16k"]
+    Lr, Lf = pad_geometry(cfg, rb, fb, 0)
+    args = transfer.to_device(session._pad_batch(
+        reads[:half], refs[:half], half, Lr, Lf), device)
+    built, errors = [], []
+
+    def build():
+        try:
+            built.append(build_executable(cfg, half, rb, fb, None, device))
+        except BaseException as e:               # reported below
+            errors.append(e)
+    thread = threading.Thread(target=build)
+    thread.start()
+    syncs = 0
+    probe = torch.zeros(1 << 16, dtype=torch.uint8, device=device)
+    while thread.is_alive():
+        probe.add_(1).cpu()           # a launch, a download, a stream sync
+        torch.empty(1 << 20, dtype=torch.uint8,
+                    pin_memory=device.type == "cuda")
+        syncs += 1
+    thread.join()
+    if errors:
+        raise AssertionError(f"a capture beside another thread's syncs "
+                             f"failed: {errors}")
+    rows.append(_graph_against_eager(
+        built[0], args, device, "capture beside another thread's syncs"))
+    rows[-1].update(other_thread_syncs=syncs, lanes=half)
+    emit("graphs", **rows[-1])
+
+    # (e) the gateway at the reference's 50 ms linger, cold
+    short, short_refs, _ = ragged_pairs(genome, n_tenant, *tenant_short,
+                                        seed=5051)
+    bulk, bulk_refs, _ = ragged_pairs(genome, n_tenant, *tenant_bulk,
+                                      seed=6062, n_burst=2)
+    want_t = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
+        short + bulk, short_refs + bulk_refs)
+    gw_session = plan(cfg, rescue_rounds=2, batch_lanes=gateway_lanes,
+                      executor="thread", cache=gateway_store or CompileCache(),
+                      device=device)
+    tenants = {"short": (0, 60.0, short, short_refs),
+               "bulk": (1, None, bulk, bulk_refs)}
+    gw, gfuts, seconds, (launches, _) = _gateway_pass(
+        device, gw_session, tenants, 8, linger_s, 0.005, timeout_s)
+    for name, rows_of in (("short", range(n_tenant)),
+                          ("bulk", range(n_tenant, 2 * n_tenant))):
+        _assert_records([f.result() for f in gfuts[name]],
+                        _take(want_t, rows_of), f"50 ms gateway, {name}")
+    st = gw.gateway_stats()
+    n_disp = len(gw.dispatch_log)
+    rows.append(dict(what="gateway", linger_s=linger_s,
+                     pairs=2 * n_tenant, seconds=seconds,
+                     pairs_per_s=2 * n_tenant / seconds,
+                     dispatches=n_disp,
+                     mean_pairs_per_dispatch=st["dispatched"] / n_disp,
+                     partial_dispatches=st["partial_dispatches"],
+                     builds=gw_session.cache.stats()["lowerings"],
+                     launches=launches, equal_to_aligner=True))
+    gw_session.close()
+    emit("graphs", **rows[-1])
+    if device.type == "cuda" and net["16k"] > 2 * net["1k"]:
+        raise AssertionError(f"a 16 kbp dispatch less its upload took "
+                             f"{net['16k']:.4f} s, over twice the 1 kbp "
+                             f"bucket's {net['1k']:.4f} s")
+    return rows
 
 
 # ---- phase 7: the gateway and the serving engine at full width ----
@@ -1367,12 +1727,12 @@ def _gateway_pass(device, session, tenants, n_threads: int, linger_s: float,
         t.start()
     for t in threads:
         t.join(timeout_s)
+    gw.close()          # drained: nothing builds (captures) any more
     _sync(device)
     seconds = time.perf_counter() - t0
     if any(t.is_alive() for t in threads) or errors:
         raise AssertionError(f"gateway clients failed or hung: {errors}")
     counts = _path_counts(device, "fused", "gateway pass")
-    gw.close()
     return gw, futs, seconds, counts
 
 
@@ -1408,7 +1768,8 @@ def phase_gateway(device: torch.device, n_short: int = 64,
     (c) ``AlignmentEngine(batch_size=engine_batch)`` on `n_engine` pairs
     over `engine_lengths` (device left at its default on the card): its
     results equal, its last batch padded; then `n_engine_gateway` pairs
-    through ``engine.gateway()``."""
+    through ``engine.gateway()``.  Returns the main pass's executable
+    store."""
     genome = synth_genome(5_000_000, seed=2022)
     t0 = time.perf_counter()
     short, short_refs, _ = ragged_pairs(genome, n_short, *short_lengths,
@@ -1425,8 +1786,9 @@ def phase_gateway(device: torch.device, n_short: int = 64,
     want_bulk = _take(want, range(n_short, n_short + n_bulk))
     if int(want_bulk.k_used.max()) != 48:
         raise AssertionError("no bulk pair took the k=48 rung")
+    store = CompileCache()
     session = plan(cfg, rescue_rounds=2, batch_lanes=batch_lanes,
-                   executor="thread", cache=CompileCache(), device=device)
+                   executor="thread", cache=store, device=device)
     tenants = {"short": (0, short_deadline_s, short, short_refs),
                "bulk": (1, None, bulk, bulk_refs)}
     gw, futs, seconds, (launches, other) = _gateway_pass(
@@ -1555,6 +1917,7 @@ def phase_gateway(device: torch.device, n_short: int = 64,
          equal_to_aligner=True, stats=stats,
          gateway_pairs=n_engine_gateway, launches=e_launches,
          other_path_calls=e_other)
+    return store
 
 
 def _take(res, rows):
@@ -1649,17 +2012,9 @@ def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
                      candidates=out.stats["n_candidates"],
                      steps=int(packed_r.shape[1] + packed_f.shape[1]))
     if device.type == "cuda":
-        prof = _device_breakdown(lambda: xdrop_extend(
+        _profile_later("mapper_prefilter_profile", lambda: xdrop_extend(
             packed_r, packed_f, band=xkw["band"], x_drop=xkw["x_drop"],
-            device=device))
-        prefilter.update(wall_s=prof["wall_s"],
-                         device_ms=sum(prof["device_ms"].values()),
-                         device_launches=sum(
-                             prof["device_launches"].values()),
-                         kernel_launches=prof["device_launches"][
-                             "torch_kernels"],
-                         copies=prof["device_launches"]["memcpy"],
-                         idle_share=prof["idle_share"])
+            device=device), **prefilter)
     # mapped reads against a direct alignment of their winning windows
     rows, windows = [], []
     for mr in out.mapped:
@@ -2057,9 +2412,11 @@ def main() -> None:
     timed("end_to_end", phase_end_to_end, cuda)
     timed("mesh", phase_mesh, cuda, rs, fused, fused_res)
     timed("session", phase_session, cuda)
-    timed("gateway", phase_gateway, cuda)
+    store = timed("gateway", phase_gateway, cuda)
+    timed("graphs", phase_graphs, cuda, gateway_store=store)
     timed("mapper", phase_mapper, cuda)
     timed("paper", phase_paper, cuda)
+    timed("profiles", phase_profiles)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():

@@ -27,35 +27,46 @@ per (spec, bucket, lanes, rung, device) in a **process-shared**
   ``GenASMAligner.align`` lane for lane.
 
 **What a cached "executable" is here.**  The reference caches
-``make_align_step(...).lower(*bucket_avals).compile()``; PyTorch has no
-such object.  An executable of the port is a prepared launch plan, an
-:class:`AlignExecutable`, keyed by the reference's key plus the device:
-``(spec.key(), cfg.fingerprint(), lanes, read_bucket, ref_bucket,
-rescue_rounds, mesh_fingerprint, str(device))``.  Its build does the
-one-time work of a shape: on CUDA it checks that the kernels are
+``make_align_step(...).lower(*bucket_avals).compile()``; the port's
+counterpart is an :class:`AlignExecutable`, keyed by the reference's key
+plus the device: ``(spec.key(), cfg.fingerprint(), lanes, read_bucket,
+ref_bucket, rescue_rounds, mesh_fingerprint, str(device))``.  Its build
+does the one-time work of a shape: on CUDA it checks that the kernels are
 instantiated for every rung's configuration (so an unsupported W or k
 raises in ``warmup()`` or the first dispatch, never mid-ladder), loads the
 kernel library (building it at first use), derives the K1 / K2 / K4 / K3
 blocks the step will launch and queries each instantiation's occupancy,
-which also raises its dynamic shared-memory limit, so the first dispatch
-pays no setup (``serve.align_step.launch_plan``).  It launches no kernel
-and moves no transfer counter.  On ``device='cpu'`` it is the same key and
-plan without the library (no occupancy).  The executable refuses inputs
-whose shapes, dtypes or device differ from its bucket's ``bucket_avals``,
-as a compiled executable would, so the hit / miss / lowering counters mean
-shape stability; ``lowerings`` counts builds.  No CUDA graph: the device
-rescue ladder has a host round gate.
+which also raises its dynamic shared-memory limit
+(``serve.align_step.launch_plan``).  Then, on CUDA with backend 'fused',
+it captures the step into CUDA graphs over static inputs of the bucket's
+shapes (``serve.graphs``): one graph in bucket mode, one a rung in
+``rescue_mode='device'``, one a pair shard on a mesh; a failed capture
+raises.  The build launches no kernel (a capture records its launches;
+each replay counts them) and moves no transfer counter.  What stays
+eager: backend 'split' (its PyTorch traceback syncs once a walk step),
+backend 'plain', and every executable on ``device='cpu'`` (the same key
+and plan, without the library).  The executable refuses inputs whose
+shapes, dtypes or device differ from its bucket's ``bucket_avals``, as a
+compiled executable would, so the hit / miss / lowering counters mean
+shape stability; ``lowerings`` counts builds.
 
-**Dispatch and retire on the card.**  In bucket mode a dispatch uploads
-and launches without a host sync (the launch returns while the device
-computes); ``rescue_mode='device'`` syncs once per later rung on the
-ladder's gate (``failed.any()``), so its dispatch blocks.  Each CUDA
-dispatch records an event on the dispatching thread's stream; retire
-waits for that event on the session's own side stream and downloads
-there, so a download waits for its own dispatch and not for the kernels
-queued after it.  Compacted rescue rungs run on that side stream too.
-Downloads are synchronous, so a dispatch's outputs are read before they
-are freed (no ``record_stream`` needed).  On a mesh
+**Dispatch and retire on the card.**  Each submit writes its pair into
+its bucket queue's padded batch (pinned host memory on the card), so a
+dispatch uploads once and calls the executable: a captured one copies the batch
+into its static inputs, replays and clones its outputs on a stream of its
+own, under its lock, so in bucket mode control returns while the device
+computes, whatever the bucket's window count; an eager one issues its
+window loop from Python.  ``rescue_mode='device'`` syncs once per later
+rung on the ladder's gate (``failed.any()``), so its dispatch blocks.
+Each CUDA dispatch records an event on the dispatching thread's stream;
+retire waits for that event on the session's own side stream and
+downloads there, so a download waits for its own dispatch and not for
+the kernels queued after it.  Compacted rescue rungs run on that side
+stream too.  Downloads are synchronous, so a dispatch's outputs are read
+before they are freed (no ``record_stream`` needed).  The session's
+uploads, executable calls, event records and downloads run inside
+``serve.graphs.device_work()``, so they never overlap a capture (an
+executable's build, on any thread of the process).  On a mesh
 (``spec.mesh``) each shard goes up to its own device in the dispatch's
 one upload, and the session keeps one side stream and records one event
 a distinct device of the mesh.
@@ -89,6 +100,7 @@ from ..distributed.sharding import (bucket_lanes, lane_classes,
                                     mesh_fingerprint, n_pair_shards,
                                     pair_devices, pair_shards)
 from ..obs import MetricsRegistry, default_registry, resolve_obs
+from ..serve import graphs
 from ..serve.align_step import launch_plan, make_align_step, on_device
 
 
@@ -236,20 +248,24 @@ _ARG_NAMES = ("reads", "read_len", "refs", "ref_len")
 
 class AlignExecutable:
     """One bucket's prepared align step (see the module docstring): the
-    step, the (shape, dtype) of each input it accepts, its device, and the
-    launch plan its build prepared.  On a mesh (``shards``: the device of
-    each pair shard) each input is a tuple of one tensor a shard, and
-    `avals` is one shard's.  Calling it with anything else raises
-    TypeError, as a compiled executable refuses other avals."""
+    eager step, the (shape, dtype) of each input it accepts, its device,
+    the launch plan its build prepared and, where it runs captured, its
+    graphs (``serve.graphs.GraphedStep``, else None).  On a mesh
+    (``shards``: the device of each pair shard) each input is a tuple of
+    one tensor a shard, and `avals` is one shard's.  Calling it with
+    anything else raises TypeError, as a compiled executable refuses other
+    avals."""
 
-    __slots__ = ("step", "avals", "device", "launches", "shards")
+    __slots__ = ("step", "avals", "device", "launches", "shards", "graphs")
 
-    def __init__(self, step, avals, device, launches, shards=None):
+    def __init__(self, step, avals, device, launches, shards=None,
+                 graphs=None):
         self.step = step
         self.avals = avals
         self.device = device
         self.launches = launches
         self.shards = shards
+        self.graphs = graphs
 
     def __call__(self, *args):
         if len(args) != len(self.avals):
@@ -274,6 +290,8 @@ class AlignExecutable:
                         f"{name}{where}: {tuple(t.shape)} {t.dtype} on "
                         f"{t.device}, but this executable was prepared for "
                         f"{shape} {dtype} on {dev}")
+        if self.graphs is not None:
+            return self.graphs(*args)
         return self.step(*args)
 
 
@@ -281,17 +299,23 @@ def build_executable(cfg: AlignerConfig, lanes: int, read_bucket: int,
                      ref_bucket: int, rescue_rounds: int | None,
                      device, mesh=None) -> AlignExecutable:
     """Prepare one bucket's executable: the align step at the bucket's
-    read length and its launch plan (``serve.align_step.launch_plan``).
+    read length, its launch plan (``serve.align_step.launch_plan``) and,
+    where ``serve.graphs.captures``, the step captured into CUDA graphs.
     On a mesh, `lanes` (a multiple of ``pair_pad_multiple``) splits into
     equal shards."""
     step = make_align_step(cfg, read_bucket, mesh,
                            rescue_rounds=rescue_rounds, device=device)
     avals = bucket_avals(cfg, lanes // n_pair_shards(mesh), read_bucket,
                          ref_bucket, rescue_rounds or 0)
-    return AlignExecutable(
-        step, avals, torch.device(device),
-        launch_plan(cfg, read_bucket, rescue_rounds, device, mesh),
-        None if mesh is None else pair_devices(mesh))
+    devices = [torch.device(device)] if mesh is None else pair_devices(mesh)
+    plan_ = launch_plan(cfg, read_bucket, rescue_rounds, device, mesh)
+    captured = None
+    if graphs.captures(cfg, device):
+        captured = graphs.GraphedStep(cfg, read_bucket, rescue_rounds, avals,
+                                      devices, mesh)
+    return AlignExecutable(step, avals, torch.device(device), plan_,
+                           None if mesh is None else tuple(devices),
+                           captured)
 
 
 class _Pending:
@@ -647,6 +671,9 @@ class AlignSession:
         self._retire_streams = ([torch.cuda.Stream(d) for d in devices]
                                 if self.device.type == "cuda" else [])
         self._queues: dict[tuple, list] = {}   # bucket -> [(future, r, f)]
+        # bucket -> its queue's padded rows, written at submit: (what the
+        # upload takes, numpy views to fill), ``_host_batch``
+        self._staged: dict[tuple, tuple] = {}
         self._inflight: deque[_Dispatch] = deque()   # sync executor only
         self._open: dict[int, AlignFuture] = {}   # not yet handed out
         self._next_rid = 0
@@ -791,6 +818,7 @@ class AlignSession:
             self._m["requests"].inc()
             bucket = self.bucket_for(len(read), len(ref))
             q = self._queues.setdefault(bucket, [])
+            self._stage(bucket, len(q), read, ref)
             q.append((fut, read, ref))
             if len(q) >= self._current_lanes(bucket):
                 self._dispatch(bucket, self._queues.pop(bucket))
@@ -888,7 +916,8 @@ class AlignSession:
     # ---- dispatch ------------------------------------------------------
 
     def _dispatch(self, bucket, items):
-        """Pad one bucket batch on host, upload once, launch the executable,
+        """Upload one bucket batch (padded as its pairs were submitted)
+        once, launch the executable,
         and hand the dispatch to the executor: the sync path retires the
         oldest inline once max_inflight is exceeded (double buffering);
         the threaded path enqueues it for the background retire thread
@@ -919,21 +948,23 @@ class AlignSession:
             rounds = self.spec.rescue_rounds if device_mode else None
             exe = self._executable(self.cfg, lanes, rb, fb,
                                    rescue_rounds=rounds)
-            Lr, Lf = pad_geometry(self.cfg, rb, fb, rounds or 0)
-            dev = transfer.to_device(
-                self._pad_batch(reads, refs, lanes, Lr, Lf), self.device,
-                pair_shards(lanes, self.cfg, self.mesh))
-            # bucket mode launches without a host sync: this span covers
-            # upload + enqueue, not device occupancy
-            with self.obs.span("device.execute", lanes=lanes):
-                out, _ = exe(*dev)
-                ready = None
-                if self._retire_streams:
-                    ready = []
-                    for stream in self._retire_streams:
-                        ready.append(torch.cuda.Event())
-                        ready[-1].record(
-                            torch.cuda.current_stream(stream.device))
+            bufs, views = self._staged.pop(bucket)
+            self._repeat_last(views, len(items), lanes)
+            with graphs.device_work():
+                dev = transfer.to_device(
+                    tuple(b[:lanes] for b in bufs), self.device,
+                    pair_shards(lanes, self.cfg, self.mesh))
+                # bucket mode launches without a host sync: this span
+                # covers upload + enqueue, not device occupancy
+                with self.obs.span("device.execute", lanes=lanes):
+                    out, _ = exe(*dev)
+                    ready = None
+                    if self._retire_streams:
+                        ready = []
+                        for stream in self._retire_streams:
+                            ready.append(torch.cuda.Event())
+                            ready[-1].record(
+                                torch.cuda.current_stream(stream.device))
         d = _Dispatch(futs, reads, refs, out, ready)
         if threaded:
             self._enqueue_retire(d)
@@ -946,23 +977,58 @@ class AlignSession:
         self._adapt(bucket, len(items))
         self._adapt_inflight(len(items) >= cls)
 
+    def _host_batch(self, lanes, Lr, Lf) -> tuple:
+        """Uninitialised host rows of one batch (reads, read_len, refs,
+        ref_len): (what the upload takes, numpy views to fill), pinned
+        host memory for the card (``transfer.host_empty``)."""
+        bufs = [transfer.host_empty(shape, dtype, self.device)
+                for shape, dtype in (((lanes, Lr), np.uint8),
+                                     ((lanes,), np.int32),
+                                     ((lanes, Lf), np.uint8),
+                                     ((lanes,), np.int32))]
+        return tuple(b for b, _ in bufs), tuple(v for _, v in bufs)
+
+    @staticmethod
+    def _put_row(views, i, read, ref) -> None:
+        """Lane i: the pair's codes, then sentinels to the row's end."""
+        rpad, rlen, fpad, flen = views
+        rpad[i, :len(read)] = read
+        rpad[i, len(read):] = SENTINEL_READ
+        rlen[i] = len(read)
+        fpad[i, :len(ref)] = ref
+        fpad[i, len(ref):] = SENTINEL_REF
+        flen[i] = len(ref)
+
+    @staticmethod
+    def _repeat_last(views, n: int, lanes: int) -> None:
+        """Ragged lane tails are REPEATS of the last real pair (exactly as
+        alignable as its twin, so pads can't keep rescue gates open or
+        skew stats)."""
+        for v in views:
+            v[n:lanes] = v[n - 1]
+
+    def _stage(self, bucket, i: int, read, ref) -> None:
+        """Write a submitted pair into row i of its bucket queue's padded
+        batch (allocated at the queue's first pair, at the bucket's lane
+        class): the padding is paid as pairs arrive, and a dispatch only
+        uploads.  Callers hold the submit lock."""
+        staged = self._staged.get(bucket)
+        if staged is None:
+            rounds = (self.spec.rescue_rounds
+                      if self.spec.rescue_mode == "device" else 0)
+            staged = self._staged[bucket] = self._host_batch(
+                self._current_lanes(bucket),
+                *pad_geometry(self.cfg, *bucket, rounds))
+        self._put_row(staged[1], i, read, ref)
+
     def _pad_batch(self, reads, refs, lanes, Lr, Lf):
-        """Pad to `lanes` rows of (Lr, Lf) sentinels; ragged lane tails are
-        REPEATS of the last real pair (exactly as alignable as its twin,
-        so pads can't keep rescue gates open or skew stats)."""
-        n = len(reads)
-        reads = list(reads) + [reads[-1]] * (lanes - n)
-        refs = list(refs) + [refs[-1]] * (lanes - n)
-        rpad = np.full((lanes, Lr), SENTINEL_READ, np.uint8)
-        fpad = np.full((lanes, Lf), SENTINEL_REF, np.uint8)
-        rlen = np.zeros(lanes, np.int32)
-        flen = np.zeros(lanes, np.int32)
+        """One batch padded at once (a rescue rung): `lanes` rows of (Lr,
+        Lf), ``_put_row`` a pair, ``_repeat_last`` the tail."""
+        bufs, views = self._host_batch(lanes, Lr, Lf)
         for i, (r, f) in enumerate(zip(reads, refs)):
-            rpad[i, :len(r)] = r
-            rlen[i] = len(r)
-            fpad[i, :len(f)] = f
-            flen[i] = len(f)
-        return rpad, rlen, fpad, flen
+            self._put_row(views, i, r, f)
+        self._repeat_last(views, len(reads), lanes)
+        return bufs
 
     # ---- the background retire executor --------------------------------
 
@@ -1048,9 +1114,10 @@ class AlignSession:
         on the CPU."""
         streams = contextlib.ExitStack()
         if d.ready is not None:
-            for stream, ready in zip(self._retire_streams, d.ready):
-                stream.wait_event(ready)
-                streams.enter_context(torch.cuda.stream(stream))
+            with graphs.device_work():
+                for stream, ready in zip(self._retire_streams, d.ready):
+                    stream.wait_event(ready)
+                    streams.enter_context(torch.cuda.stream(stream))
         return streams
 
     def _retire(self, d: _Dispatch):
@@ -1062,7 +1129,8 @@ class AlignSession:
             keys = ("ops", "n_ops", "dist", "failed", "read_consumed",
                     "ref_consumed") + (("k_used",)
                                        if "k_used" in d.out else ())
-            host = transfer.to_host({k: d.out[k] for k in keys})
+            with graphs.device_work():
+                host = transfer.to_host({k: d.out[k] for k in keys})
             failed, dist, k_used, rcon, fcon, all_ops = \
                 decode_batch(host, n, self.cfg.k)
             if self.spec.rescue_mode == "bucket" and failed.any():
@@ -1096,13 +1164,15 @@ class AlignSession:
                 exe = self._executable(cfg_r, lanes, rb, fb,
                                        rescue_rounds=None)
                 Lr, Lf = pad_geometry(cfg_r, rb, fb, 0)
-                dev = transfer.to_device(
-                    self._pad_batch(reads, refs, lanes, Lr, Lf), self.device,
-                    pair_shards(lanes, cfg_r, self.mesh))
-                out, _ = exe(*dev)
-                host = transfer.to_host(
-                    {k: out[k] for k in ("ops", "n_ops", "dist", "failed",
-                                         "read_consumed", "ref_consumed")})
+                host = self._pad_batch(reads, refs, lanes, Lr, Lf)
+                with graphs.device_work():
+                    out, _ = exe(*transfer.to_device(
+                        host, self.device,
+                        pair_shards(lanes, cfg_r, self.mesh)))
+                    host = transfer.to_host(
+                        {k: out[k] for k in ("ops", "n_ops", "dist",
+                                             "failed", "read_consumed",
+                                             "ref_consumed")})
             self._m["rescue_dispatches"].inc()
             self._m["rescue_lanes"].inc(lanes)
             ok = ~np.asarray(host["failed"])
@@ -1138,6 +1208,7 @@ class AlignSession:
         for fut in open_futs:
             fut._fail(perr)
         self._queues.clear()
+        self._staged.clear()
         self._inflight.clear()
 
     def _forget(self, rid: int) -> None:
@@ -1157,8 +1228,11 @@ class AlignSession:
                 for i, it in enumerate(q):
                     if it[0] is fut:
                         del q[i]
+                        for v in self._staged[bucket][1]:
+                            v[i:len(q)] = v[i + 1:len(q) + 1].copy()
                         if not q:
                             del self._queues[bucket]
+                            del self._staged[bucket]
                         fut._cancelled = True
                         fut._fail(RequestCancelled(
                             f"request rid={fut.rid} cancelled before "

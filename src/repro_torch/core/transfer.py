@@ -57,13 +57,35 @@ def stats() -> "TransferStats":
                          d2h_bytes=_D2H_BYTES.value)
 
 
+def host_empty(shape, dtype, device):
+    """An uninitialised host array of numpy `dtype` to fill and then
+    upload to `device`: (what to hand ``to_device``, a numpy view to fill).
+    For the card a pinned tensor, which the upload sends as it is (no copy
+    into pinned memory) and which the caching host allocator reuses only
+    once that copy is done; else a numpy array."""
+    if torch.device(device).type == "cuda":
+        t = torch.empty(shape, dtype=torch.from_numpy(
+            np.empty(0, dtype)).dtype, pin_memory=True)
+        return t, t.numpy()
+    a = np.empty(shape, dtype)
+    return a, a
+
+
 def _upload(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    """One array (numpy, or a host tensor from ``host_empty``) to
+    `device`.  To the card through pinned host memory, without a host
+    sync: the copy queues behind the stream's earlier work (a session's
+    previous dispatch) instead of waiting for it."""
+    t = a if isinstance(a, torch.Tensor) else \
+        torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def to_device(arrays, device, shards=None) -> tuple:
-    """Upload a tuple of batch-major numpy arrays to `device`; counts as
-    ONE transfer.  With `shards` (``sharding.pair_shards``: a (device,
+    """Upload a tuple of batch-major numpy arrays (or ``host_empty``
+    tensors) to `device`; counts as ONE transfer.  With `shards` (``sharding.pair_shards``: a (device,
     lane slice) a shard), each array comes back as a tuple of per-shard
     tensors, each on its shard's device."""
     _H2D_CALLS.inc()

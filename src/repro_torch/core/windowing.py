@@ -250,13 +250,34 @@ def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
     }
 
 
+def shard_rung(reads, read_len, refs, ref_len, cfg: AlignerConfig,
+               max_read_len: int) -> dict:
+    """One shard's whole pass of one rung (``_shard_pass`` run to its
+    end): what a session's CUDA graph of one shard captures
+    (``serve.graphs``); no host sync."""
+    gen = _shard_pass(reads, read_len, refs, ref_len, cfg, max_read_len)
+    try:
+        while True:
+            next(gen)
+    except StopIteration as done:
+        return done.value
+
+
+def rung_levels(levels: list):
+    """A rung's level count from each shard's per-window levels: the sum
+    over windows of the maximum over shards, a 0-d int32 tensor on the
+    first shard's device."""
+    dev = levels[0].device
+    return torch.stack([lv.to(dev) for lv in levels]).amax(0).sum(
+        dtype=torch.int32)
+
+
 def _rung(shards, cfg: AlignerConfig, max_read_len: int):
     """One rung over every shard, the windows in lockstep: window w of
     shard 0, then of shard 1, and so on, each shard on its device's
     current stream, so the devices of a multi-GPU mesh run together.
-    Returns the shards' outputs and the rung's level count: the sum over
-    windows of the batch-wide maximum, a 0-d int32 tensor on the first
-    shard's device."""
+    Returns the shards' outputs and the rung's level count
+    (``rung_levels``)."""
     passes = [_shard_pass(*shard, cfg, max_read_len) for shard in shards]
     outs = [None] * len(passes)
     live = list(range(len(passes)))
@@ -267,9 +288,7 @@ def _rung(shards, cfg: AlignerConfig, max_read_len: int):
             except StopIteration as done:
                 outs[i] = done.value
                 live.remove(i)
-    dev = outs[0]["levels"].device
-    per_window = torch.stack([o.pop("levels").to(dev) for o in outs])
-    return outs, per_window.amax(0).sum(dtype=torch.int32)
+    return outs, rung_levels([o.pop("levels") for o in outs])
 
 
 def _shards_of(args, mesh) -> list:
@@ -281,7 +300,7 @@ def _shards_of(args, mesh) -> list:
     return list(zip(*args))
 
 
-def _unshard(outs: list, mesh, keys) -> dict:
+def unshard(outs: list, mesh, keys) -> dict:
     """Per-lane outputs as the caller gave the inputs: tensors without a
     mesh, tuples of per-shard tensors on one."""
     if mesh is None:
@@ -289,8 +308,8 @@ def _unshard(outs: list, mesh, keys) -> dict:
     return {key: tuple(o[key] for o in outs) for key in keys}
 
 
-_LANE_KEYS = ("ops", "n_ops", "dist", "failed", "read_consumed",
-              "ref_consumed")
+LANE_KEYS = ("ops", "n_ops", "dist", "failed", "read_consumed",
+             "ref_consumed")
 
 
 def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
@@ -310,15 +329,43 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
     window's maximum over all shards.  Equal to the unsharded run."""
     outs, levels = _rung(_shards_of((reads, read_len, refs, ref_len), mesh),
                          cfg, max_read_len)
-    return {**_unshard(outs, mesh, _LANE_KEYS), "levels_run_total": levels,
+    return {**unshard(outs, mesh, LANE_KEYS), "levels_run_total": levels,
             "n_main_windows": n_main_windows(max_read_len, cfg)}
 
 
-def _any_failed(failed: list) -> bool:
+def any_failed(failed: list) -> bool:
     """The round gate: whether any lane of any shard is still failed, read
     in one device-to-host sync."""
     dev = failed[0].device
     return bool(torch.stack([f.any().to(dev) for f in failed]).any())
+
+
+def ladder_start(B: int, device, budget: int) -> dict:
+    """A shard's ladder state before round 0: every lane failed, no op."""
+    st = {key: torch.zeros(B, dtype=torch.int32, device=device) for key in (
+        "n_ops", "dist", "read_consumed", "ref_consumed", "k_used")}
+    st["ops"] = torch.full((B, budget), OP_NONE, dtype=torch.uint8,
+                           device=device)
+    st["failed"] = torch.ones(B, dtype=torch.bool, device=device)
+    return st
+
+
+def ladder_merge(st: dict, out: dict, cfg_r: AlignerConfig, final: bool,
+                 budget: int) -> dict:
+    """A shard's ladder state after a round at `cfg_r` whose outputs are
+    `out`: lanes the round newly solved take its results (and k_used);
+    the `final` round also merges the partial progress of still-failed
+    lanes, so rescue_rounds=0 equals align_pairs.  No host sync."""
+    newly = st["failed"] & ~out["failed"]
+    upd = newly | (st["failed"] & out["failed"]) if final else newly
+    ops_r = torch.nn.functional.pad(
+        out["ops"], (0, budget - out["ops"].shape[1]), value=OP_NONE)
+    new = {"ops": torch.where(upd[:, None], ops_r, st["ops"])}
+    for key in ("n_ops", "dist", "read_consumed", "ref_consumed"):
+        new[key] = torch.where(upd, out[key], st[key])
+    new["k_used"] = torch.where(newly, cfg_r.k, st["k_used"])
+    new["failed"] = st["failed"] & out["failed"]
+    return new
 
 
 def align_pairs_rescued(reads, read_len, refs, ref_len, *,
@@ -326,10 +373,10 @@ def align_pairs_rescued(reads, read_len, refs, ref_len, *,
                         rescue_rounds: int = 2, mesh=None) -> dict:
     """Multi-round k-doubling rescue on the device: round 0 is plain
     ``align_pairs``; each later round re-runs the whole batch with doubled
-    k, and a per-lane mask freezes lanes already solved.  A round runs only
-    while some lane is still failed (the host gate, one sync per later
-    round); a skipped round would change nothing, and neither would any
-    round after it.
+    k, and a per-lane mask freezes lanes already solved (``ladder_merge``).
+    A round runs only while some lane is still failed (the host gate, one
+    sync per later round); a skipped round would change nothing, and
+    neither would any round after it.
 
     refs must be sentinel-padded for the FINAL round's tail width.  Returns
     the align_pairs dict plus k_used (0 where never solved), rounds_run,
@@ -342,41 +389,20 @@ def align_pairs_rescued(reads, read_len, refs, ref_len, *,
     cfgs = rescue_schedule(cfg, rescue_rounds)
     shards = _shards_of((reads, read_len, refs, ref_len), mesh)
     budget = total_op_budget(max_read_len, cfgs[-1])
-
-    def start(shard):
-        B, dev = shard[0].shape[0], shard[0].device
-        st = {key: torch.zeros(B, dtype=torch.int32, device=dev) for key in (
-            "n_ops", "dist", "read_consumed", "ref_consumed", "k_used")}
-        st["ops"] = torch.full((B, budget), OP_NONE, dtype=torch.uint8,
-                               device=dev)
-        st["failed"] = torch.ones(B, dtype=torch.bool, device=dev)
-        return st
-
-    state = [start(shard) for shard in shards]
+    state = [ladder_start(shard[0].shape[0], shard[0].device, budget)
+             for shard in shards]
     levels = torch.zeros((), dtype=torch.int32, device=shards[0][0].device)
     rounds_run = gate_syncs = 0
     for rnd, cfg_r in enumerate(cfgs):
         if rnd > 0:
             gate_syncs += 1
-            if not _any_failed([st["failed"] for st in state]):
+            if not any_failed([st["failed"] for st in state]):
                 break
-        outs, rung_levels = _rung(shards, cfg_r, max_read_len)
-        for st, out in zip(state, outs):
-            newly = st["failed"] & ~out["failed"]
-            # the final round also merges the partial progress of
-            # still-failed lanes, so rescue_rounds=0 equals align_pairs
-            upd = newly
-            if rnd == len(cfgs) - 1:
-                upd = newly | (st["failed"] & out["failed"])
-            ops_r = torch.nn.functional.pad(
-                out["ops"], (0, budget - out["ops"].shape[1]), value=OP_NONE)
-            st["ops"] = torch.where(upd[:, None], ops_r, st["ops"])
-            for key in ("n_ops", "dist", "read_consumed", "ref_consumed"):
-                st[key] = torch.where(upd, out[key], st[key])
-            st["k_used"] = torch.where(newly, cfg_r.k, st["k_used"])
-            st["failed"] = st["failed"] & out["failed"]
-        levels = levels + rung_levels
+        outs, lv = _rung(shards, cfg_r, max_read_len)
+        state = [ladder_merge(st, out, cfg_r, rnd == len(cfgs) - 1, budget)
+                 for st, out in zip(state, outs)]
+        levels = levels + lv
         rounds_run += 1
-    return {**_unshard(state, mesh, _LANE_KEYS + ("k_used",)),
+    return {**unshard(state, mesh, LANE_KEYS + ("k_used",)),
             "levels_run_total": levels, "rounds_run": rounds_run,
             "n_rounds": len(cfgs), "gate_syncs": gate_syncs}

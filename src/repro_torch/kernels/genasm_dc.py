@@ -45,10 +45,13 @@ reference's arithmetic, words as int64 in [0, 2**32)); for a CUDA tensor it
 launches the kernel and raises if the launch fails; any other device
 raises.  ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of
 the plain versions, one per wrapper call, so a run can show which path did
-the work.
+the work.  A launch issued while its thread captures a CUDA graph
+(``recording_launches``) runs nothing then: it is recorded, and each
+replay of the graph counts the launches it holds (``add_launches``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import threading
@@ -77,6 +80,39 @@ _COUNTS_LOCK = threading.Lock()
 def _bump(counts: dict, name: str) -> None:
     with _COUNTS_LOCK:
         counts[name] += 1
+
+
+#: per thread: the launches a CUDA graph being captured on it holds
+_RECORDING = threading.local()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within this context the calling thread's kernel launches are
+    recorded into the dict it yields, not counted in LAUNCHES: the
+    launches of a CUDA graph captured here, which run at its replays."""
+    rec = dict.fromkeys(KERNELS, 0)
+    outer = getattr(_RECORDING, "launches", None)
+    _RECORDING.launches = rec
+    try:
+        yield rec
+    finally:
+        _RECORDING.launches = outer
+
+
+def add_launches(launches: dict) -> None:
+    """Count the launches one replay of a captured graph holds."""
+    with _COUNTS_LOCK:
+        for name, n in launches.items():
+            LAUNCHES[name] += n
+
+
+def _count_launch(name: str) -> None:
+    rec = getattr(_RECORDING, "launches", None)
+    if rec is None:
+        _bump(LAUNCHES, name)
+    else:
+        rec[name] += 1
 
 
 def reset_counts() -> None:
@@ -307,7 +343,7 @@ def _launch(name, *tensors, ints, block=()):
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        _bump(LAUNCHES, name)
+        _count_launch(name)
         rc = fn(*[t.data_ptr() for t in tensors], *ints, *block, stream)
     _check_rc(lib, f"genasm_{name} kernel launch", rc)
 

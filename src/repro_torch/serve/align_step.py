@@ -41,7 +41,15 @@ def align_step(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
         out = align_pairs_rescued(reads, read_len, refs, ref_len, cfg=cfg,
                                   max_read_len=max_read_len,
                                   rescue_rounds=rescue_rounds, mesh=mesh)
-    dev = (reads if mesh is None else reads[0]).device
+    return out, step_summary(out, cfg, rescue_rounds, mesh)
+
+
+def step_summary(out: dict, cfg: AlignerConfig, rescue_rounds: int | None,
+                 mesh=None) -> dict:
+    """An align step's summary of its outputs `out`: 0-d int32 tensors on
+    the device of the (first shard's) lanes, summed over every shard, no
+    host sync."""
+    dev = (out["dist"] if mesh is None else out["dist"][0]).device
     i32 = torch.int32
 
     def total(fn, *keys):
@@ -63,7 +71,7 @@ def align_step(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
             "failed", "k_used")
         summary["rounds_run"] = torch.full((), out["rounds_run"], dtype=i32,
                                            device=dev)
-    return out, summary
+    return summary
 
 
 def on_device(t: torch.Tensor, device: torch.device) -> bool:

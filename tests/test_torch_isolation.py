@@ -59,7 +59,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.mapper.pipeline", "repro_torch.baselines",
             "repro_torch.baselines.myers", "repro_torch.baselines.dp",
             "repro_torch.core.counting", "repro_torch.core.oracle",
-            "repro_torch.data.dedup"} <= set(MODULES)
+            "repro_torch.data.dedup", "repro_torch.serve.graphs",
+            "repro_torch.configs.genasm", "repro_torch.analysis.roofline",
+            "repro_torch.launch.dryrun_aligner"} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
 
 
