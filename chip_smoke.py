@@ -21,7 +21,12 @@ the multi-tenant gateway and the serving engine (phase ``gateway``),
 and the read mapper with its X-drop pre-filter (phase ``mapper``).  Last the paper's comparison (phase
 ``paper``): the GenASM variants and the Edlib-like and KSW2-like
 baselines on the CPU and on the card, the distance-only row through K3,
-the footprint / access model and the near-duplicate operator.
+the footprint / access model and the near-duplicate operator.  Then the
+LM scaffold's serving path (phase ``lm``): every architecture of
+``repro_torch.models`` at its tiny size on the card against the CPU, one
+layer of Granite-3-2B and of OLMoE at published widths, and Granite-3-2B
+served at full width and depth in bfloat16 (prefill, decode, greedy
+generation) with its times beside their bounds.
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -29,6 +34,7 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -78,6 +84,12 @@ from repro_torch.mapper import (MapperConfig, ReadMapper,      # noqa: E402
 from repro_torch.serve.engine import (AlignmentEngine,         # noqa: E402
                                       AlignRequest)
 from repro_torch.serve.align_step import launch_plan           # noqa: E402
+from repro_torch.data.tokens import TokenStream, to_device      # noqa: E402
+from repro_torch.models.registry import (ARCH_IDS,             # noqa: E402
+                                         get_config, get_model,
+                                         tiny_config)
+from repro_torch.serve.kvcache import (greedy_generate,        # noqa: E402
+                                       pad_cache)
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
 # INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper whitepaper)
@@ -135,12 +147,17 @@ def _counts(device: torch.device):
     return genasm_dc.PLAIN_CALLS, genasm_dc.LAUNCHES
 
 
+def _smi() -> str:
+    """The first card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
+    smi = _smi()
     print(smi, flush=True)
     emit("device", name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), nvidia_smi=smi,
@@ -854,23 +871,23 @@ def _profiled_kernel(key: str) -> str:
 _PROFILES: list = []
 
 
-def _profile_later(phase: str, run, **fields) -> None:
-    """Profile `run` (``_device_breakdown``) in phase ``profiles`` and
-    emit it there as `phase`, with `fields`."""
-    _PROFILES.append((phase, run, fields))
+def _profile_later(phase: str, run, top: int = 0, **fields) -> None:
+    """Profile `run` (``_device_breakdown``, its `top` kernels by name) in
+    phase ``profiles`` and emit it there as `phase`, with `fields`."""
+    _PROFILES.append((phase, run, top, fields))
 
 
 def phase_profiles() -> list:
     """Every deferred profile, in the order the phases asked for them."""
     rows = []
-    for phase, run, fields in _PROFILES:
-        rows.append(dict(**fields, **_device_breakdown(run)))
+    for phase, run, top, fields in _PROFILES:
+        rows.append(dict(**fields, **_device_breakdown(run, top)))
         emit(phase, **rows[-1])
     _PROFILES.clear()
     return rows
 
 
-def _device_breakdown(run) -> dict:
+def _device_breakdown(run, top: int = 0) -> dict:
     """Device time of one more run of `run` under torch.profiler (CUDA
     activity), by kernel (ours by name, the rest of PyTorch's together,
     copies), beside the run's host-clock time.  Device busy time is the
@@ -879,7 +896,8 @@ def _device_breakdown(run) -> dict:
     rest of the wall time.  It reads the profiler's raw events rather
     than ``key_averages()``, whose event tree takes minutes to build for
     a few hundred thousand launches; ``profile_s`` is the host time the
-    profiler takes to stop and hand them over, and this sum."""
+    profiler takes to stop and hand them over, and this sum.  With `top`,
+    also the `top` kernel names with the most device time (ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -888,6 +906,7 @@ def _device_breakdown(run) -> dict:
         t1 = time.perf_counter()
     ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
     launches = dict.fromkeys(ms, 0)
+    by_name = {}
     spans = []
     for ev in prof.profiler.kineto_results.events():
         if ev.device_type() != torch.autograd.DeviceType.CUDA:
@@ -895,6 +914,10 @@ def _device_breakdown(run) -> dict:
         name = _profiled_kernel(ev.name())
         ms[name] += ev.duration_ns() / 1e6
         launches[name] += 1
+        if top:
+            row = by_name.setdefault(ev.name()[:120], [0.0, 0])
+            row[0] += ev.duration_ns() / 1e6
+            row[1] += 1
         spans.append((ev.start_ns(), ev.start_ns() + ev.duration_ns()))
     busy_ns, reach = 0, None
     for start, end in sorted(spans):
@@ -906,10 +929,15 @@ def _device_breakdown(run) -> dict:
             reach = end
     busy = busy_ns / 1e9
     wall = t1 - t0
-    return dict(wall_s=wall, device_ms=ms, device_launches=launches,
-                device_busy_s=busy,
-                idle_share=1 - busy / wall if busy else None,
-                profile_s=time.perf_counter() - t1)
+    out = dict(wall_s=wall, device_ms=ms, device_launches=launches,
+               device_busy_s=busy,
+               idle_share=1 - busy / wall if busy else None,
+               profile_s=time.perf_counter() - t1)
+    if top:
+        out["top_kernels"] = sorted(
+            ([n, round(t, 4), c] for n, (t, c) in by_name.items()),
+            key=lambda r: -r[1])[:top]
+    return out
 
 
 # ---- phase 5: kernel path against plain path, end to end ----
@@ -954,7 +982,7 @@ def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
 
 
 def phase_end_to_end(device: torch.device, n_pairs: int = 8,
-                     read_len: int = 2_000, tile_pairs: int = 8,
+                     read_len: int = 1_000, tile_pairs: int = 8,
                      tile_read_len: int = 600) -> None:
     """Each backend on `device` against the same backend on the CPU; then
     the fused backend on the same batch with one read that only the third
@@ -1033,7 +1061,7 @@ def _mesh_align(device, rs, mesh, fused: dict, fused_res, what: str) -> dict:
 
 def phase_mesh(device: torch.device, rs, fused: dict, fused_res,
                shards: int = 4, n_split: int = 256, split_len: int = 1_000,
-               n_session: int = 512, session_lengths=(1_000, 16_000),
+               n_session: int = 256, session_lengths=(1_000, 4_000),
                n_burst: int = 2, batch_lanes: int = 1024, n_engine: int = 300,
                engine_lengths=(1_000, 4_000), engine_batch: int = 256,
                timeout_s: float = 600.0) -> dict:
@@ -2385,6 +2413,332 @@ def phase_paper(device: torch.device, n_pairs: int = 24,
     return out
 
 
+# ---- phase lm: the LM scaffold's serving path ----
+
+#: float32 on both sides, TF32 off: the card (cuBLAS) and the CPU port run
+#: the same ops and differ only in the order their kernels sum (the CPU
+#: port is held to the JAX reference within the same bound in
+#: tests/test_torch_lm.py)
+LM_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+#: one layer period at published widths, float32, the same bound: sums
+#: over 2,048-8,192 terms moved the logits by 5.7e-6 at most (PERF.md
+#: section 6, this script on an NVIDIA H100 80GB HBM3 at 700 W)
+LM_WIDTH_TOL = LM_F32_TOL
+#: Granite-3-2B in bfloat16, each decode step and prefill's last logits
+#: against one teacher-forced forward over the same tokens: other matmul
+#: shapes (a 2,048-slot cache against 1,568 keys in query chunks) round
+#: otherwise in bfloat16 through 40 layers.  Measured 0.0098 at most, one
+#: bfloat16 step of logits below 1.3 (PERF.md section 6, this script on
+#: an NVIDIA H100 80GB HBM3 at 700 W); the tests' bfloat16 bound, under
+#: the JAX tests' 0.08
+LM_BF16_TOL = dict(rtol=0.02, atol=0.02)
+#: H100 SXM dense bfloat16 peak (NVIDIA data sheet), for the prefill bound
+BF16_FLOPS_PER_S = 989e12
+LM_PROMPT = 12          # part (a)'s prompt steps
+LM_STEPS = 4            # decode steps of parts (a) and (b)
+
+
+def _lm_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _lm_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _lm_leaves(v)]
+    return [tree]
+
+
+def _lm_err(got, want, tol: dict) -> tuple:
+    """(max abs err, within `tol`): |got - want| <= atol + rtol |want|
+    everywhere, as ``np.testing.assert_allclose``."""
+    d = (got.float().cpu() - want.float().cpu()).abs()
+    ok = bool((d <= tol["atol"] + tol["rtol"] * want.float().cpu().abs())
+              .all())
+    return float(d.max()), ok
+
+
+def _lm_batches(cfg, batch: int, prompt: int, steps: int, seed: int,
+                device):
+    """`prompt` steps and `steps` teacher-forced steps after them from
+    ``TokenStream``, on `device`: (prefill batch, [decode batch, ...])."""
+    b = TokenStream(cfg.vocab, batch, prompt + steps, seed=seed,
+                    family=cfg.family, d_model=cfg.d_model,
+                    n_codebooks=cfg.n_codebooks).batch_at(0)
+    b = to_device({k: v for k, v in b.items() if k != "labels"}, device)
+    key = "embeds" if "embeds" in b else "tokens"
+    prefill = {key: b[key][:, :prompt]}
+    decodes = [{key: b[key][:, t:t + 1], "cache_pos": t}
+               for t in range(prompt, prompt + steps)]
+    if "positions" in b:
+        prefill["positions"] = b["positions"][:, :, :prompt]
+        for t, d in zip(range(prompt, prompt + steps), decodes):
+            d["positions"] = b["positions"][:, :, t:t + 1]
+    return prefill, decodes
+
+
+def _lm_outputs(model, seed: int, prompt: int, steps: int,
+                batch: int = 2, train: bool = True,
+                greedy: bool = True) -> dict:
+    """Every output of the serving path for one model: the train-mode
+    logits, prefill's logits and cache, `steps` decode steps after
+    ``pad_cache`` (teacher-forced, so both sides see the same tokens) and
+    the last cache, and ``greedy_generate``'s tokens."""
+    prefill, decodes = _lm_batches(model.cfg, batch, prompt, steps, seed,
+                                   model.device)
+    out = {}
+    if train:
+        with torch.inference_mode():
+            out["train"] = model(prefill, mode="train")[0]
+    logits, cache = model.prefill(prefill)
+    out["prefill"] = logits
+    out["prefill_cache"] = [t.clone() for t in _lm_leaves(cache)]
+    cache = pad_cache(cache, prompt + steps)
+    for i, d in enumerate(decodes):
+        out[f"decode_{i}"], cache = model.decode_step(d, cache)
+    out["decode_cache"] = _lm_leaves(cache)
+    if greedy and not model.cfg.n_codebooks:
+        out["greedy"] = greedy_generate(model, prefill["tokens"], steps,
+                                        prompt + steps)
+    return out
+
+
+def _lm_compare(got: dict, want: dict, tol: dict) -> dict:
+    """Max abs err of each output (caches: over their leaves) and whether
+    it is within `tol`; greedy tokens: equal or not."""
+    res = {}
+    for k, w in want.items():
+        if k == "greedy":
+            res[k] = (0.0, bool(torch.equal(got[k].cpu(), w.cpu())))
+            continue
+        pairs = zip(got[k], w) if isinstance(w, list) else [(got[k], w)]
+        errs = [_lm_err(g, x, tol) for g, x in pairs]
+        res[k] = (max(e for e, _ in errs), all(ok for _, ok in errs))
+    return res
+
+
+def _lm_tiny(device, archs) -> dict:
+    """Part (a): every architecture at ``tiny_config`` in float32, one
+    seeded CPU init copied to `device`, the card against the CPU port;
+    then the card again with TF32 allowed (which must miss the
+    tolerance somewhere, else the tolerance could not tell)."""
+    if torch.get_float32_matmul_precision() != "highest":
+        raise AssertionError("part (a) needs float32 matmuls without TF32")
+    cpu = torch.device("cpu")
+    rows, models = {}, {}
+    for i, arch in enumerate(archs):
+        cfg = dataclasses.replace(tiny_config(get_config(arch)),
+                                  dtype="float32")
+        on_cpu = get_model(cfg, device=cpu,
+                           generator=torch.Generator().manual_seed(i))
+        on_card = copy.deepcopy(on_cpu).to(device)
+        want = _lm_outputs(on_cpu, i, LM_PROMPT, LM_STEPS)
+        got = _lm_outputs(on_card, i, LM_PROMPT, LM_STEPS)
+        res = _lm_compare(got, want, LM_F32_TOL)
+        bad = {k: v for k, v in res.items() if not v[1]}
+        if bad:
+            raise AssertionError(f"lm (a) {arch}: card != CPU port "
+                                 f"beyond {LM_F32_TOL}: {bad}")
+        rows[arch] = dict(max_abs_err=max(e for e, _ in res.values()),
+                          greedy_equal=res.get("greedy", (0, None))[1])
+        models[arch] = (on_card, want)
+    if device.type != "cuda":               # a CPU rehearsal has no TF32
+        return dict(archs=rows, tol=LM_F32_TOL, tf32_caught=None)
+    torch.set_float32_matmul_precision("high")
+    try:
+        for i, arch in enumerate(archs):
+            on_card, want = models[arch]
+            res = _lm_compare(_lm_outputs(on_card, i, LM_PROMPT, LM_STEPS),
+                              want, LM_F32_TOL)
+            rows[arch].update(
+                tf32_max_abs_err=max(e for e, _ in res.values()),
+                tf32_within_tol=all(ok for k, (_, ok) in res.items()
+                                    if k != "greedy"),
+                tf32_greedy_equal=res.get("greedy", (0, None))[1])
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    caught = [a for a, r in rows.items() if not r["tf32_within_tol"]]
+    if not caught:
+        raise AssertionError(f"lm (a): TF32 matmuls stayed within "
+                             f"{LM_F32_TOL} on every architecture: the "
+                             f"tolerance cannot tell TF32 from float32")
+    return dict(archs=rows, tol=LM_F32_TOL, tf32_caught=caught)
+
+
+def _lm_width(device, archs, prompt: int = 64, steps: int = LM_STEPS,
+              batch: int = 2) -> dict:
+    """Part (b): one layer of each of `archs` at its published widths in
+    float32, drawn on `device` and copied to the CPU: prefill and `steps`
+    decode steps, the card against the CPU port."""
+    rows = {}
+    for i, arch in enumerate(archs):
+        cfg = dataclasses.replace(get_config(arch).with_layers(1),
+                                  dtype="float32")
+        on_card = get_model(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(100 + i))
+        on_cpu = copy.deepcopy(on_card).cpu()
+        t0 = time.perf_counter()
+        want = _lm_outputs(on_cpu, 100 + i, prompt, steps, batch,
+                           train=False, greedy=False)
+        cpu_s = time.perf_counter() - t0
+        got = _lm_outputs(on_card, 100 + i, prompt, steps, batch,
+                          train=False, greedy=False)
+        res = _lm_compare(got, want, LM_WIDTH_TOL)
+        bad = {k: v for k, v in res.items() if not v[1]}
+        if bad:
+            raise AssertionError(f"lm (b) {arch}: card != CPU port beyond "
+                                 f"{LM_WIDTH_TOL}: {bad}")
+        rows[arch] = dict(
+            d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            d_ff=cfg.d_ff, experts=cfg.n_experts, top_k=cfg.top_k,
+            vocab=cfg.vocab, vocab_padded=cfg.vocab_padded,
+            params=sum(p.numel() for p in on_card.parameters()),
+            max_abs_err=max(e for e, _ in res.values()),
+            max_abs_logit=float(want["prefill"].abs().max()),
+            errs={k: e for k, (e, _) in res.items()}, cpu_s=cpu_s)
+        del on_card, on_cpu
+    return dict(archs=rows, prompts=batch, prompt_len=prompt, steps=steps,
+                tol=LM_WIDTH_TOL)
+
+
+def _lm_bounds(cfg, batch: int, prompt: int, serve_len: int,
+               n_params: int) -> dict:
+    """The least time the card could take: prefill's products (the
+    layers' matmuls, the logits, and attention over every query-key pair
+    of a prompt, unmasked, as computed) over the bfloat16 peak; a decode
+    step's bytes (every weight and the whole padded KV cache read once)
+    over HBM bandwidth."""
+    D, H, KV, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    L, V = cfg.n_layers, cfg.vocab_padded
+    layer = D * H * Dh + 2 * D * KV * Dh + H * Dh * D + 3 * D * F
+    tokens = batch * prompt
+    flops = (2 * L * layer * tokens + 2 * D * V * tokens
+             + 4 * L * batch * H * prompt * prompt * Dh)
+    cache_bytes = 2 * L * batch * serve_len * KV * Dh * 2
+    step_bytes = n_params * 2 + cache_bytes
+    return dict(prefill_flops=flops,
+                prefill_bound_ms=flops / BF16_FLOPS_PER_S * 1e3,
+                decode_step_bytes=step_bytes, cache_bytes=cache_bytes,
+                decode_bound_ms=step_bytes / HBM_BYTES_PER_S * 1e3)
+
+
+def _lm_serve(device, arch: str = "granite-3-2b", n_layers=None,
+              batch: int = 4, prompt: int = 1536, serve_len: int = 2048,
+              steps: int = 32) -> dict:
+    """Part (c): `arch` at full width and depth in bfloat16, random
+    weights from a generator on the card.  `batch` prompts of `prompt`
+    tokens from ``TokenStream(seed=0)`` (over ``q_chunk``: the chunked
+    attention runs), prefill, ``pad_cache`` to `serve_len`, `steps`
+    greedy decode steps; ``greedy_generate`` gives the same tokens; one
+    teacher-forced train-mode forward over the prompt and the generated
+    tokens gives the decode steps' logits and prefill's last."""
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = cfg.with_layers(n_layers)
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    model = get_model(cfg, device=device,
+                      generator=torch.Generator(device=device).manual_seed(0))
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens = to_device(TokenStream(cfg.vocab, batch, prompt, seed=0)
+                       .batch_at(0), device)["tokens"]
+    vocab = cfg.vocab
+    prefill_s = []
+    for _ in range(2):                       # cold, then warm
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = model.prefill({"tokens": tokens})
+        _sync(device)
+        prefill_s.append(time.perf_counter() - t0)
+    first = logits[:, -1]
+    cache = pad_cache(cache, serve_len)
+    tok = first[:, :vocab].argmax(dim=-1)[:, None]
+    gen, step_logits = [], []
+    _sync(device)
+    t0 = time.perf_counter()
+    for i in range(steps):
+        gen.append(tok)
+        logits, cache = model.decode_step(
+            {"tokens": tok.to(torch.int32), "cache_pos": prompt + i}, cache)
+        step_logits.append(logits[:, -1])
+        tok = logits[:, -1, :vocab].argmax(dim=-1)[:, None]
+    _sync(device)
+    decode_s = time.perf_counter() - t0
+    gen = torch.cat(gen, dim=1)
+    t0 = time.perf_counter()
+    via_api = greedy_generate(model, tokens, steps, serve_len)
+    _sync(device)
+    greedy_s = time.perf_counter() - t0
+    if not torch.equal(via_api, gen):
+        raise AssertionError("lm (c): greedy_generate's tokens differ from "
+                             "the same loop run step by step")
+    full = torch.cat([tokens, gen.to(tokens.dtype)], dim=1)
+    with torch.inference_mode():
+        train_logits = model({"tokens": full}, mode="train")[0]
+    for what, t in (("prefill", first), ("decode", step_logits[0]),
+                    ("train", train_logits)):
+        if not bool(torch.isfinite(t.float()).all()):
+            raise AssertionError(f"lm (c): {what} logits not finite")
+    pre_err, pre_ok = _lm_err(first, train_logits[:, prompt - 1],
+                              LM_BF16_TOL)
+    dec = [_lm_err(s, train_logits[:, prompt + i], LM_BF16_TOL)
+           for i, s in enumerate(step_logits)]
+    if not (pre_ok and all(ok for _, ok in dec)):
+        raise AssertionError(f"lm (c): logits beyond {LM_BF16_TOL}: "
+                             f"prefill {pre_err}, decode "
+                             f"{[e for e, _ in dec]}")
+    bounds = _lm_bounds(cfg, batch, prompt, serve_len, n_params)
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+
+    prof_cache = cache
+
+    def decode_four():
+        t = tok.to(torch.int32)
+        for i in range(4):
+            model.decode_step({"tokens": t, "cache_pos": prompt + steps + i},
+                              prof_cache)
+    _profile_later("lm_prefill_profile",
+                   lambda: model.prefill({"tokens": tokens}), top=12,
+                   arch=arch, batch=batch, prompt=prompt)
+    _profile_later("lm_decode_profile", decode_four, top=12, arch=arch,
+                   steps=4, batch=batch, cache_len=serve_len)
+    return dict(
+        arch=arch, layers=cfg.n_layers, params=n_params,
+        weight_bytes=n_params * 2, batch=batch, prompt=prompt,
+        serve_len=serve_len, steps=steps,
+        prefill_s_cold=prefill_s[0], prefill_s=prefill_s[1],
+        prefill_tokens_per_s=batch * prompt / prefill_s[1],
+        decode_ms_per_step=decode_s * 1e3 / steps,
+        decode_tokens_per_s=batch * steps / decode_s,
+        greedy_generate_s=greedy_s,
+        prefill_max_abs_err=pre_err,
+        decode_max_abs_err=max(e for e, _ in dec),
+        max_abs_logit=float(train_logits.float().abs().max()),
+        tol=LM_BF16_TOL, peak_memory_bytes=peak,
+        card=_smi() if device.type == "cuda" else None, **bounds)
+
+
+def phase_lm(device: torch.device, archs=None, width_archs=("granite-3-2b",
+             "olmoe-1b-7b"), serve_arch="granite-3-2b", serve_layers=None,
+             **serve_kw) -> dict:
+    """The LM scaffold's serving path (``repro_torch.models``,
+    ``serve/kvcache.py``, ``data/tokens.py``) in three parts, one line
+    each: (a) every architecture at ``tiny_config`` in float32, the card
+    against the CPU port, and again with TF32; (b) one layer period at
+    published widths, float32; (c) Granite-3-2B served at full width and
+    depth in bfloat16, with its times beside their bounds."""
+    archs = ARCH_IDS if archs is None else archs
+    out = {}
+    out["a"] = _lm_tiny(device, archs)
+    emit("lm", part="a", **out["a"])
+    out["b"] = _lm_width(device, width_archs)
+    emit("lm", part="b", **out["b"])
+    out["c"] = _lm_serve(device, serve_arch, serve_layers, **serve_kw)
+    emit("lm", part="c", **out["c"])
+    return out
+
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_s = {}
@@ -2416,6 +2770,7 @@ def main() -> None:
     timed("graphs", phase_graphs, cuda, gateway_store=store)
     timed("mapper", phase_mapper, cuda)
     timed("paper", phase_paper, cuda)
+    timed("lm", phase_lm, cuda)
     timed("profiles", phase_profiles)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []

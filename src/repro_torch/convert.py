@@ -1,14 +1,22 @@
 """What carries over from the JAX reference package to this port.
 
-There are no learned weights: the state shared by both packages is the
-aligner configuration and the encoded inputs.  The inputs (``uint8`` read
-and ref codes, see ``core.aligner.encode`` / ``encode_ref``) are numpy
-arrays both packages take as they are.  The configuration maps with
-``config_from_reference``, a session's spec with ``spec_from_reference``,
-a gateway's policy with ``policy_from_reference`` and a mapper's
-configuration with ``mapper_config_from_reference``.
+For the aligner there are no learned weights: the state shared by both
+packages is the aligner configuration and the encoded inputs.  The inputs
+(``uint8`` read and ref codes, see ``core.aligner.encode`` /
+``encode_ref``) are numpy arrays both packages take as they are.  The
+configuration maps with ``config_from_reference``, a session's spec with
+``spec_from_reference``, a gateway's policy with
+``policy_from_reference`` and a mapper's configuration with
+``mapper_config_from_reference``.
+
+The language models have weights.  A reference ``ModelConfig`` maps with
+``model_config_from_reference``, and the reference's parameter tree (its
+leaves as numpy arrays, stacked over layers) loads into a port model with
+``params_from_reference``.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from .core.config import AlignerConfig
 
@@ -85,3 +93,61 @@ def mapper_config_from_reference(fields: dict):
     index built from it."""
     from .mapper.pipeline import MapperConfig
     return MapperConfig(**fields)
+
+
+def model_config_from_reference(fields: dict):
+    """Port ModelConfig from ``dataclasses.asdict`` of a reference
+    ModelConfig: every field as it is."""
+    from .models.config import ModelConfig
+    fields = dict(fields)
+    fields["mrope_sections"] = tuple(fields.get("mrope_sections", ()))
+    return ModelConfig(**fields)
+
+
+def _reference_leaves(tree, path=()):
+    """(dotted name, array) for each leaf of the reference's parameter
+    tree; the leaves of a dict ``layers`` (stacked over layers, the
+    reference's ``lax.scan`` layout) split into ``layers.<i>.<name>``, the
+    entries of a tuple ``layers`` (xLSTM) are ``layers.<i>``."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            if path == () and k == "layers" and isinstance(v, dict):
+                for name, arr in _reference_leaves(v):
+                    arr = np.asarray(arr)
+                    for i in range(arr.shape[0]):
+                        yield f"layers.{i}.{name}", arr[i]
+            else:
+                yield from _reference_leaves(v, path + (str(k),))
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _reference_leaves(v, path + (str(i),))
+    else:
+        yield ".".join(path), np.asarray(tree)
+
+
+def params_from_reference(model, tree):
+    """Load the reference's parameter tree (``model.init(...)`` of the
+    matching reference model, leaves as numpy arrays) into the port
+    `model`, cast to its dtype (the cast the reference's ``cast_tree``
+    makes on every call), and return the model.  Raises ValueError, and
+    loads nothing, where the names or shapes differ from the model's own
+    parameters."""
+    import torch
+    state = dict(model.named_parameters())
+    leaves = dict(_reference_leaves(tree))
+    missing = sorted(set(state) - set(leaves))
+    extra = sorted(set(leaves) - set(state))
+    if missing or extra:
+        raise ValueError(f"the reference tree does not match "
+                         f"{type(model).__name__}({model.cfg.name}): "
+                         f"missing {missing[:8]}, unexpected {extra[:8]}")
+    bad = [(k, leaves[k].shape, tuple(p.shape)) for k, p in state.items()
+           if leaves[k].shape != tuple(p.shape)]
+    if bad:
+        raise ValueError(f"shapes differ (name, reference, port): "
+                         f"{bad[:8]}")
+    with torch.no_grad():
+        for k, p in state.items():
+            p.copy_(torch.from_numpy(
+                np.ascontiguousarray(leaves[k].astype(np.float32))))
+    return model

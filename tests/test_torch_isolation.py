@@ -21,6 +21,10 @@ from repro_torch.data.genome import synth_genome
 from repro_torch.kernels import genasm_dc
 from repro_torch.kernels.ops import _to_kernel_layout
 from repro_torch.mapper import ReadMapper, xdrop_extend
+from repro_torch.data.tokens import TokenStream, to_device
+from repro_torch.models.registry import (ARCH_IDS, get_config, get_model,
+                                         tiny_config)
+from repro_torch.serve.kvcache import greedy_generate
 from repro_torch.serve.engine import AlignmentEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -61,7 +65,17 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.core.counting", "repro_torch.core.oracle",
             "repro_torch.data.dedup", "repro_torch.serve.graphs",
             "repro_torch.configs.genasm", "repro_torch.analysis.roofline",
-            "repro_torch.launch.dryrun_aligner"} <= set(MODULES)
+            "repro_torch.launch.dryrun_aligner",
+            "repro_torch.models.config", "repro_torch.models.common",
+            "repro_torch.models.attention", "repro_torch.models.moe",
+            "repro_torch.models.transformer", "repro_torch.models.mamba2",
+            "repro_torch.models.zamba2", "repro_torch.models.xlstm",
+            "repro_torch.models.xlstm_lm", "repro_torch.models.registry",
+            "repro_torch.serve.kvcache", "repro_torch.data.tokens",
+            "repro_torch.configs.granite_3_2b",
+            "repro_torch.configs.zamba2_2_7b"} <= set(MODULES)
+    assert {f"repro_torch.configs.{a.replace('-', '_').replace('.', '_')}"
+            for a in ARCH_IDS} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
 
 
@@ -115,6 +129,30 @@ def test_engine_and_mapper_default_to_cuda_and_never_fall_back(
     with ReadMapper(genome, device="cpu") as m:
         assert m.session.device == torch.device("cpu")
     eng.close()
+
+
+def test_lm_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
+    """get_model() and to_device() with no device build on the card and
+    raise where there is none; greedy_generate runs on its model's
+    device and raises for a model on a card that is not there, never
+    moving to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_config(get_config("llama3.2-1b"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("granite-3-2b", device="cuda")
+    batch = TokenStream(cfg.vocab, 2, 6).batch_at(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_device(batch)
+    model = get_model(cfg, device="cpu")
+    assert model.device == torch.device("cpu")
+    out = greedy_generate(model, batch["tokens"], n_new=2, max_len=8)
+    assert out.device == torch.device("cpu") and out.shape == (2, 2)
+    monkeypatch.setattr(type(model), "device",
+                        property(lambda self: torch.device("cuda", 0)))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        greedy_generate(model, batch["tokens"], n_new=2, max_len=8)
 
 
 def _inputs(device="cpu"):
