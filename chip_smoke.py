@@ -26,7 +26,11 @@ LM scaffold's serving path (phase ``lm``): every architecture of
 ``repro_torch.models`` at its tiny size on the card against the CPU, one
 layer of Granite-3-2B and of OLMoE at published widths, and Granite-3-2B
 served at full width and depth in bfloat16 (prefill, decode, greedy
-generation) with its times beside their bounds.
+generation) with its times beside their bounds.  Then its training path
+(phase ``train``): every architecture's train steps on the card against
+the CPU, a supervised restart from checkpoints, and Llama-3.2-1B trained
+at full width and depth through ``python -m repro_torch.launch.train``
+(bfloat16 compute, float32 master weights and AdamW state, remat).
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -39,6 +43,7 @@ import dataclasses
 import json
 import re
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -47,7 +52,13 @@ from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
-import torch
+
+# cuBLAS reads its workspace setting when CUDA starts; phase ``train``'s
+# restart leg runs under torch.use_deterministic_algorithms, which asks for
+# a fixed one (8 buffers of 4 MiB)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import torch  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -90,6 +101,13 @@ from repro_torch.models.registry import (ARCH_IDS,             # noqa: E402
                                          tiny_config)
 from repro_torch.serve.kvcache import (greedy_generate,        # noqa: E402
                                        pad_cache)
+from repro_torch.checkpoint.ckpt import (flat_state,           # noqa: E402
+                                         restore_checkpoint)
+from repro_torch.launch import train as train_launch           # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, global_norm   # noqa: E402
+from repro_torch.runtime.ft import FailureInjector, supervise  # noqa: E402
+from repro_torch.train.step import (abstract_state,            # noqa: E402
+                                    init_state, make_train_step)
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
 # INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper whitepaper)
@@ -982,7 +1000,7 @@ def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
 
 
 def phase_end_to_end(device: torch.device, n_pairs: int = 8,
-                     read_len: int = 1_000, tile_pairs: int = 8,
+                     read_len: int = 600, tile_pairs: int = 8,
                      tile_read_len: int = 600) -> None:
     """Each backend on `device` against the same backend on the CPU; then
     the fused backend on the same batch with one read that only the third
@@ -1060,7 +1078,7 @@ def _mesh_align(device, rs, mesh, fused: dict, fused_res, what: str) -> dict:
 
 
 def phase_mesh(device: torch.device, rs, fused: dict, fused_res,
-               shards: int = 4, n_split: int = 256, split_len: int = 1_000,
+               shards: int = 4, n_split: int = 256, split_len: int = 600,
                n_session: int = 256, session_lengths=(1_000, 4_000),
                n_burst: int = 2, batch_lanes: int = 1024, n_engine: int = 300,
                engine_lengths=(1_000, 4_000), engine_batch: int = 256,
@@ -1278,10 +1296,10 @@ def _session_pass(label: str, session, reads, refs, want, device,
     return out
 
 
-def phase_session(device: torch.device, n_pairs: int = 2048,
-                  lengths=(1_000, 16_000), n_burst: int = 16,
-                  n_short: int = 256, short_lengths=(300, 1_000),
-                  n_cpu: int = 32) -> dict:
+def phase_session(device: torch.device, n_pairs: int = 1024,
+                  lengths=(1_000, 16_000), n_burst: int = 8,
+                  n_short: int = 128, short_lengths=(300, 1_000),
+                  n_cpu: int = 8) -> dict:
     """``repro_torch.api`` sessions at full width: the default
     ``AlignerConfig()`` (W=64, O=24, k=12, fused), ``rescue_rounds=2``,
     ``batch_lanes=1024``, ``max_inflight=2``, one executable store.  The
@@ -1482,7 +1500,7 @@ def _dispatch_parts(session, cfg, lanes: int, bucket, pairs, device,
 
 def phase_graphs(device: torch.device, lanes: int = 1024,
                  short_lengths=(600, 1_000), long_lengths=(9_000, 15_500),
-                 n_burst: int = 4, reps: int = 3, n_tenant: int = 64,
+                 n_burst: int = 4, reps: int = 3, n_tenant: int = 32,
                  tenant_short=(1_000, 2_000), tenant_bulk=(8_000, 16_000),
                  gateway_lanes: int = 512, linger_s: float = 0.05,
                  gateway_store=None, timeout_s: float = 600.0) -> list:
@@ -1973,7 +1991,7 @@ def _stage_seconds(mapper) -> dict:
 
 def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
                  n_reads: int = 1024, read_len: int = 1_000,
-                 batch_lanes: int = 1024, n_cpu: int = 64) -> None:
+                 batch_lanes: int = 1024, n_cpu: int = 16) -> None:
     """``repro_torch.mapper.ReadMapper(genome, MapperConfig(),
     rescue_rounds=2, batch_lanes=...)`` on the default config and device:
     `n_reads` CLR reads of `read_len` at 10 % error from the 5 Mbp genome
@@ -2449,9 +2467,9 @@ def _lm_leaves(tree) -> list:
 def _lm_err(got, want, tol: dict) -> tuple:
     """(max abs err, within `tol`): |got - want| <= atol + rtol |want|
     everywhere, as ``np.testing.assert_allclose``."""
-    d = (got.float().cpu() - want.float().cpu()).abs()
-    ok = bool((d <= tol["atol"] + tol["rtol"] * want.float().cpu().abs())
-              .all())
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    d = (got - want).abs()
+    ok = bool((d <= tol["atol"] + tol["rtol"] * want.abs()).all())
     return float(d.max()), ok
 
 
@@ -2739,6 +2757,297 @@ def phase_lm(device: torch.device, archs=None, width_archs=("granite-3-2b",
 
 
 
+# ---- phase train: the LM scaffold's training path ----
+
+#: leg (a): float32, TF32 off, the card against the CPU port over three
+#: steps (the CPU port is held to the reference's train step within the
+#: same bound in tests/test_torch_train.py)
+TRAIN_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+#: leg (b): a restarted run against an uninterrupted one on the card
+TRAIN_RESTART_RTOL = 1e-6
+#: leg (c): Llama-3.2-1B's first bfloat16 step (float32 masters) against
+#: the same step in float32 compute, TF32 off: loss within 1 %, gradient
+#: norm within 5 % (PERF.md section 6, written before the first run)
+TRAIN_BF16_LOSS_RTOL = 0.01
+TRAIN_BF16_NORM_RTOL = 0.05
+TRAIN_OPT = dict(lr=1e-3, total_steps=50, warmup_steps=2)
+#: a training step's state bytes a parameter: float32 weight, gradient,
+#: AdamW m and v
+TRAIN_STATE_BYTES = 16
+
+
+def _check_tf32_off() -> None:
+    if (torch.get_float32_matmul_precision() != "highest"
+            or torch.backends.cuda.matmul.allow_tf32):
+        raise AssertionError("float32 legs need float32 matmuls, TF32 off")
+
+
+def _train_tiny(device, archs, steps: int = 3, batch: int = 2,
+                seq: int = 16) -> dict:
+    """Leg (a): every architecture at ``tiny_config`` in float32, one
+    seeded CPU init copied to `device`, `steps` train steps on each side
+    from the same state: the per-step losses and the parameters after the
+    last step, the card against the CPU port; then one ``grad_accum=2``
+    step against ``grad_accum=1`` on llama, on the card."""
+    _check_tf32_off()
+    cpu = torch.device("cpu")
+    opt = AdamWConfig(**TRAIN_OPT)
+    rows = {}
+
+    def run(model, seed, grad_accum=1, n=steps):
+        cfg = model.cfg
+        stream = TokenStream(cfg.vocab, batch, seq, seed=seed,
+                             family=cfg.family, d_model=cfg.d_model,
+                             n_codebooks=cfg.n_codebooks)
+        step, state = make_train_step(model, opt, grad_accum), \
+            init_state(model)
+        metrics = [step(state, stream.batch_at(i))[1] for i in range(n)]
+        return ([{k: float(v) for k, v in m.items()} for m in metrics],
+                {n: p.detach() for n, p in model.named_parameters()})
+
+    for i, arch in enumerate(archs):
+        cfg = dataclasses.replace(tiny_config(get_config(arch)),
+                                  dtype="float32")
+        on_cpu = get_model(cfg, device=cpu, param_dtype="float32",
+                           generator=torch.Generator().manual_seed(i))
+        on_card = copy.deepcopy(on_cpu).to(device)
+        want, want_p = run(on_cpu, i)
+        got, got_p = run(on_card, i)
+        loss_err, loss_ok = _lm_err(
+            torch.tensor([m["loss"] for m in got]),
+            torch.tensor([m["loss"] for m in want]), TRAIN_F32_TOL)
+        errs = [_lm_err(got_p[k], want_p[k], TRAIN_F32_TOL) for k in want_p]
+        if not (loss_ok and all(ok for _, ok in errs)):
+            raise AssertionError(f"train (a) {arch}: card != CPU port "
+                                 f"beyond {TRAIN_F32_TOL}: loss {loss_err}, "
+                                 f"params {max(e for e, _ in errs)}")
+        rows[arch] = dict(loss_max_abs_err=loss_err,
+                          param_max_abs_err=max(e for e, _ in errs),
+                          losses=[m["loss"] for m in got])
+    cfg = dataclasses.replace(tiny_config(get_config("llama3.2-1b")),
+                              dtype="float32")
+    model = get_model(cfg, device=cpu, param_dtype="float32",
+                      generator=torch.Generator().manual_seed(99))
+    one, one_p = run(copy.deepcopy(model).to(device), 99, n=1)
+    two, two_p = run(copy.deepcopy(model).to(device), 99, grad_accum=2, n=1)
+    acc = {k: _lm_err(torch.tensor(two[0][k]), torch.tensor(one[0][k]),
+                      TRAIN_F32_TOL) for k in one[0]}
+    acc_p = [_lm_err(two_p[k], one_p[k], TRAIN_F32_TOL) for k in one_p]
+    if not (all(ok for _, ok in acc.values()) and all(ok for _, ok in acc_p)):
+        raise AssertionError(f"train (a): grad_accum=2 != 1 beyond "
+                             f"{TRAIN_F32_TOL}: {acc}, params "
+                             f"{max(e for e, _ in acc_p)}")
+    return dict(archs=rows, steps=steps, batch=batch, seq=seq,
+                tol=TRAIN_F32_TOL,
+                grad_accum_max_abs_err=max(
+                    [e for e, _ in acc.values()] + [e for e, _ in acc_p]))
+
+
+def _train_restart(device, steps: int = 10, fail_at: int = 7) -> dict:
+    """Leg (b): tiny llama (bfloat16 compute, float32 masters) supervised
+    for `steps` steps with a checkpoint every step, straight and with a
+    failure injected at `fail_at`, under deterministic algorithms (the
+    embedding's backward accumulates with atomics otherwise): one
+    restart, the same parameters; the last checkpoint written on the card
+    restores on the CPU bit for bit."""
+    import tempfile
+    cfg = tiny_config(get_config("llama3.2-1b"))
+    stream = TokenStream(cfg.vocab, 4, 64, seed=0)
+    opt = AdamWConfig(**TRAIN_OPT)
+
+    def fresh():
+        model = get_model(cfg, device=device, param_dtype="float32",
+                          generator=torch.Generator().manual_seed(0))
+        return make_train_step(model, opt), init_state(model)
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            step, straight = fresh()
+            straight, _, _ = supervise(step, straight, stream, steps=steps,
+                                       ckpt_dir=f"{tmp}/a", ckpt_every=1)
+            step, resumed = fresh()
+            resumed, log, restarts = supervise(
+                step, resumed, stream, steps=steps, ckpt_dir=f"{tmp}/b",
+                ckpt_every=1, injector=FailureInjector([fail_at]))
+            on_cpu, at = restore_checkpoint(
+                f"{tmp}/b", abstract_state(resumed["model"]))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    if restarts != 1 or at != steps:
+        raise AssertionError(f"train (b): {restarts} restarts, latest "
+                             f"checkpoint {at}: {log}")
+    a, b = flat_state(straight), flat_state(resumed)
+    errs = [_lm_err(b[k], a[k], dict(rtol=TRAIN_RESTART_RTOL, atol=0))
+            for k in a]
+    if not all(ok for _, ok in errs):
+        raise AssertionError(f"train (b): the restarted run differs from "
+                             f"the straight one: {max(e for e, _ in errs)}")
+    cpu_flat = flat_state(on_cpu)
+    bitwise = all(torch.equal(cpu_flat[k], b[k].cpu()) for k in b)
+    if not bitwise:
+        raise AssertionError("train (b): the card's checkpoint does not "
+                             "restore on the CPU bit for bit")
+    return dict(steps=steps, fail_at=fail_at, restarts=restarts,
+                restored_to=log[0].get("restored_to"),
+                max_abs_err=max(e for e, _ in errs),
+                bit_equal=all(torch.equal(a[k], b[k]) for k in a),
+                cpu_restore_bit_equal=bitwise, deterministic=True)
+
+
+def _train_bounds(cfg, n_params: int, tokens: int, seq: int) -> dict:
+    """The least time a step could take: 6 N flops a token (forward and
+    backward, no recompute) plus attention's QK^T and PV over every
+    query-key pair of a sequence, unmasked, as computed (4 S^2 Dh a head,
+    forward, three times for the step), over the bfloat16 peak; AdamW's
+    bytes, weight, gradient, m and v read and weight, m, v written in
+    float32, over HBM bandwidth."""
+    attn = 3 * 4 * cfg.n_layers * (tokens // seq) * cfg.n_heads * seq ** 2 \
+        * cfg.head_dim
+    flops = 6 * n_params * tokens + attn
+    adamw_bytes = 7 * 4 * n_params
+    return dict(step_flops=flops, attention_flops=attn,
+                compute_bound_ms=flops / BF16_FLOPS_PER_S * 1e3,
+                adamw_bytes=adamw_bytes,
+                adamw_bound_ms=adamw_bytes / HBM_BYTES_PER_S * 1e3,
+                state_bytes=TRAIN_STATE_BYTES * n_params)
+
+
+def _train_full(device, arch: str = "llama3.2-1b", steps: int = 4,
+                batch: int = 4, seq: int = 1024, tiny: bool = False) -> dict:
+    """Leg (c): `arch` trained `steps` steps through
+    ``repro_torch.launch.train.main`` at full width and depth (bfloat16
+    compute, float32 masters and AdamW state, remat on), no checkpoint
+    (``--ckpt-every`` past the last step: the float32 state of 19.8 GB
+    would take longer to write than the phase's budget).  A spy on the
+    entry point's ``make_train_step`` times each step between CUDA
+    events and keeps its metrics; every loss and gradient norm finite, every
+    parameter moved, and the first step's loss and gradient norm within
+    TRAIN_BF16_*_RTOL of the same step in float32 compute (the same
+    initial weights, TF32 off)."""
+    import tempfile
+    seen = {"ms": [], "metrics": []}
+    real = train_launch.make_train_step
+
+    def spy(model, opt_cfg, grad_accum=1):
+        step = real(model, opt_cfg, grad_accum)
+
+        def timed(state, batch_):
+            if device.type == "cuda":
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = step(state, batch_)
+                ev[1].record()
+                seen["ms"].append(ev)
+            else:
+                t0 = time.perf_counter()
+                out = step(state, batch_)
+                seen["ms"].append((time.perf_counter() - t0) * 1e3)
+            seen["metrics"].append(out[1])
+            seen.setdefault("batch0", batch_)
+            seen.update(state=out[0], step=step, batch=batch_)
+            return out
+        return timed
+
+    argv = ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt-every", "1000", "--device",
+            str(device)] + (["--tiny"] if tiny else [])
+    _sync(device)
+    base = None
+    if device.type == "cuda":      # earlier phases' profiles hold memory
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    train_launch.make_train_step = spy
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            log = train_launch.main(argv + ["--ckpt-dir", tmp])
+            main_s = time.perf_counter() - t0
+    finally:
+        train_launch.make_train_step = real
+    peak = (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None)
+    ms = [ev[0].elapsed_time(ev[1]) if isinstance(ev, list) else ev
+          for ev in seen["ms"]]
+    metrics = [{k: float(v) for k, v in m.items()} for m in seen["metrics"]]
+    if len(metrics) != steps or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in metrics):
+        raise AssertionError(f"train (c): steps' metrics {metrics}")
+    model = seen["state"]["model"]
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    # the entry point's initial weights (its build: float32 draws from a
+    # generator on the device seeded --seed 0; the compute dtype draws
+    # nothing) in float32 compute: every parameter moved from them, and
+    # the first step's loss and gradient norm
+    _check_tf32_off()
+    f32 = get_model(dataclasses.replace(cfg, dtype="float32"), device=device,
+                    param_dtype="float32", generator=torch.Generator(
+                        device=device).manual_seed(0))
+    moved = [float((p - f32.get_parameter(n)).abs().max())
+             for n, p in model.named_parameters()]
+    if min(moved) <= 0:
+        raise AssertionError("train (c): a parameter did not move")
+    loss32, _ = f32.loss(seen["batch0"])
+    loss32.backward()
+    norm32 = float(global_norm({n: p.grad for n, p in f32.named_parameters()
+                                if p.grad is not None}))
+    loss32 = float(loss32)
+    del f32
+    loss_rel = abs(metrics[0]["loss"] - loss32) / abs(loss32)
+    norm_rel = abs(metrics[0]["grad_norm"] - norm32) / norm32
+    if loss_rel > TRAIN_BF16_LOSS_RTOL or norm_rel > TRAIN_BF16_NORM_RTOL:
+        raise AssertionError(f"train (c): bfloat16 step 1 vs float32: loss "
+                             f"{metrics[0]['loss']} / {loss32}, norm "
+                             f"{metrics[0]['grad_norm']} / {norm32}")
+    warm = sorted(ms[1:])[len(ms[1:]) // 2] if len(ms) > 1 else ms[0]
+    tokens = batch * seq
+    bounds = _train_bounds(cfg, n_params, tokens, seq)
+    state, step, batch_ = seen["state"], seen["step"], seen["batch"]
+    _profile_later("train_step_profile", lambda: step(state, batch_),
+                   top=12, arch=arch, batch=batch, seq=seq)
+    return dict(
+        arch=arch, layers=cfg.n_layers, d_model=cfg.d_model,
+        vocab=cfg.vocab, params=n_params, remat=cfg.remat,
+        compute_dtype=str(model.compute_dtype),
+        param_dtypes=sorted({str(p.dtype) for p in model.parameters()}),
+        batch=batch, seq=seq, steps=steps, step_ms=ms,
+        warm_step_ms=warm, tokens_per_s=tokens / warm * 1e3,
+        losses=[m["loss"] for m in metrics],
+        grad_norms=[m["grad_norm"] for m in metrics],
+        lrs=[m["lr"] for m in metrics], main_s=main_s, log=log,
+        f32_loss=loss32, f32_grad_norm=norm32, loss_rel_err=loss_rel,
+        grad_norm_rel_err=norm_rel,
+        tol=dict(loss=TRAIN_BF16_LOSS_RTOL, grad_norm=TRAIN_BF16_NORM_RTOL),
+        min_param_change=min(moved), peak_memory_bytes=peak,
+        memory_at_start_bytes=base,
+        peak_above_start_bytes=None if peak is None else peak - base,
+        card=_smi() if device.type == "cuda" else None, **bounds)
+
+
+def phase_train(device: torch.device, archs=None, **full_kw) -> dict:
+    """The LM scaffold's training path (``TransformerLM.loss`` with remat,
+    ``optim/adamw.py``, ``train/step.py``, ``checkpoint/ckpt.py``,
+    ``runtime/ft.py``, ``launch/train.py``) in three legs, one line each,
+    budget 45 s: (a) every architecture at ``tiny_config`` in float32,
+    three steps on the card against the CPU port, and ``grad_accum``;
+    (b) a supervised restart on the card against a straight run, and the
+    card's checkpoint restored on the CPU; (c) Llama-3.2-1B trained at
+    full width and depth through ``python -m repro_torch.launch.train``,
+    its step time and memory beside their bounds."""
+    archs = ARCH_IDS if archs is None else archs
+    out = {}
+    out["a"] = _train_tiny(device, archs)
+    emit("train", leg="a", **out["a"])
+    out["b"] = _train_restart(device)
+    emit("train", leg="b", **out["b"])
+    out["c"] = _train_full(device, **full_kw)
+    emit("train", leg="c", **out["c"])
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     phase_s = {}
@@ -2762,7 +3071,7 @@ def main() -> None:
          sim_s=phase_s["batch"])
     fused, fused_res = timed("main_path", phase_main_path, cuda, rs)
     split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
-                  fused_res, profile_rs=long_reads(1024, read_len=500))
+                  fused_res, profile_rs=long_reads(512, read_len=300))
     timed("end_to_end", phase_end_to_end, cuda)
     timed("mesh", phase_mesh, cuda, rs, fused, fused_res)
     timed("session", phase_session, cuda)
@@ -2771,6 +3080,7 @@ def main() -> None:
     timed("mapper", phase_mapper, cuda)
     timed("paper", phase_paper, cuda)
     timed("lm", phase_lm, cuda)
+    timed("train", phase_train, cuda)
     timed("profiles", phase_profiles)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []

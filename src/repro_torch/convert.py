@@ -12,7 +12,8 @@ configuration maps with ``config_from_reference``, a session's spec with
 The language models have weights.  A reference ``ModelConfig`` maps with
 ``model_config_from_reference``, and the reference's parameter tree (its
 leaves as numpy arrays, stacked over layers) loads into a port model with
-``params_from_reference``.
+``params_from_reference``; a reference training state (parameters and
+AdamW state) becomes the port's with ``state_from_reference``.
 """
 from __future__ import annotations
 
@@ -125,29 +126,59 @@ def _reference_leaves(tree, path=()):
         yield ".".join(path), np.asarray(tree)
 
 
-def params_from_reference(model, tree):
-    """Load the reference's parameter tree (``model.init(...)`` of the
-    matching reference model, leaves as numpy arrays) into the port
-    `model`, cast to its dtype (the cast the reference's ``cast_tree``
-    makes on every call), and return the model.  Raises ValueError, and
-    loads nothing, where the names or shapes differ from the model's own
-    parameters."""
-    import torch
+def _leaves_like(model, tree, what: str) -> dict:
+    """name -> numpy array of a reference tree shaped like the model's
+    parameters; ValueError where the names or shapes differ."""
     state = dict(model.named_parameters())
     leaves = dict(_reference_leaves(tree))
     missing = sorted(set(state) - set(leaves))
     extra = sorted(set(leaves) - set(state))
     if missing or extra:
-        raise ValueError(f"the reference tree does not match "
+        raise ValueError(f"the reference {what} does not match "
                          f"{type(model).__name__}({model.cfg.name}): "
                          f"missing {missing[:8]}, unexpected {extra[:8]}")
     bad = [(k, leaves[k].shape, tuple(p.shape)) for k, p in state.items()
            if leaves[k].shape != tuple(p.shape)]
     if bad:
-        raise ValueError(f"shapes differ (name, reference, port): "
+        raise ValueError(f"{what}: shapes differ (name, reference, port): "
                          f"{bad[:8]}")
+    return leaves
+
+
+def params_from_reference(model, tree):
+    """Load the reference's parameter tree (``model.init(...)`` of the
+    matching reference model, leaves as numpy arrays, float32) into the
+    port `model`, cast to its parameters' dtype, and return the model.
+    Raises ValueError, and loads nothing, where the names or shapes
+    differ from the model's own parameters."""
+    import torch
+    leaves = _leaves_like(model, tree, "tree")
     with torch.no_grad():
-        for k, p in state.items():
+        for k, p in model.named_parameters():
             p.copy_(torch.from_numpy(
                 np.ascontiguousarray(leaves[k].astype(np.float32))))
     return model
+
+
+def state_from_reference(model, state_tree):
+    """The port's training state (``train.step.init_state``'s layout) from
+    the reference's ``{"params", "opt": {"m", "v", "step"}}`` (numpy
+    leaves, layers stacked on axis 0, as ``restore_checkpoint`` or
+    ``jax.device_get`` give it): the parameters load into `model`
+    (``params_from_reference``), the float32 moments and the int32 step
+    are made on the model's device.  Raises ValueError, loading nothing,
+    where a name or shape differs."""
+    import torch
+    opt = state_tree["opt"]
+    moments = {part: _leaves_like(model, opt[part], f"opt.{part}")
+               for part in ("m", "v")}
+    params_from_reference(model, state_tree["params"])
+    dev = model.device
+
+    def tensor(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=dev)
+    opt_state = {part: {k: tensor(moments[part][k], torch.float32)
+                        for k, _ in model.named_parameters()}
+                 for part in ("m", "v")}
+    opt_state["step"] = tensor(np.asarray(opt["step"]), torch.int32)
+    return {"model": model, "opt": opt_state}

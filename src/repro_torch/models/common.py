@@ -13,9 +13,14 @@ Parameters are ``nn.Parameter``s of the module that uses them, read as
 ``p["name"]`` like the reference's dicts (``ParamModule``), declared with
 the reference's initialisers (``normal * scale`` with a fan-in scale,
 ``zeros``, ``ones``), drawn in float32 from an explicit
-``torch.Generator`` and held in the compute dtype.  The reference keeps
-float32 weights and casts the tree on every call (``cast_tree``); casting
-once at build gives the same values.
+``torch.Generator`` and held in the parameters' dtype (``Init.dtype``).
+The reference keeps float32 weights and casts the tree to the compute
+dtype on every call (``cast_tree``).  A read ``p["name"]`` does that
+cast where the two dtypes differ (float32 master weights under bfloat16
+compute, as training holds them), and autograd carries the gradient back
+through it to the float32 weight; where they are equal (serving, and
+every model built without ``param_dtype``) the read returns the weight
+itself.
 """
 from __future__ import annotations
 
@@ -31,8 +36,18 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def compute_dtype(cfg) -> torch.dtype:
-    """The dtype of a model's weights and activations (``cfg.dtype``)."""
+    """The dtype of a model's activations and of its weights as the layers
+    read them (``cfg.dtype``)."""
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def as_compute(t, dtype):
+    """A weight as a layer reads it: cast to the compute `dtype` where it is
+    held in another (the reference's ``cast_tree``), else the weight
+    itself; anything that is not a tensor (a submodule) as it is."""
+    if isinstance(t, torch.Tensor) and dtype is not None and t.dtype != dtype:
+        return t.to(dtype)
+    return t
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,11 +148,13 @@ def apply_rope(x, positions, theta: float, sections=()):
 @dataclasses.dataclass
 class Init:
     """Where and how a model's parameters are made: the device and dtype
-    they live in, and the generator their normal draws come from (on its
-    own device; the values are moved to `device`)."""
+    they live in, the generator their normal draws come from (on its own
+    device; the values are moved to `device`), and the compute dtype a
+    read casts them to."""
     device: torch.device
     dtype: torch.dtype
     generator: torch.Generator
+    compute_dtype: torch.dtype
 
 
 def make_param(init: Init, shape, kind: str = "normal",
@@ -145,7 +162,7 @@ def make_param(init: Init, shape, kind: str = "normal",
     """One parameter as the reference's ``ParamSpec`` + ``init_param``
     declare it: ``zeros``, ``ones``, or a float32 standard normal times
     `scale` (default 1/sqrt(fan-in), the fan-in being the second-to-last
-    dimension, or the only one), cast to the compute dtype."""
+    dimension, or the only one), cast to the parameters' dtype."""
     shape = tuple(int(s) for s in shape)
     if kind == "zeros":
         t = torch.zeros(shape, dtype=init.dtype, device=init.device)
@@ -163,12 +180,16 @@ def make_param(init: Init, shape, kind: str = "normal",
 
 class ParamModule(nn.Module):
     """A module whose parameters are read by name, ``p["wq"]``, as the
-    reference's functions read their parameter dicts: the functions of
-    this package take either."""
+    reference's functions read their parameter dicts (the functions of
+    this package take either), each cast to ``compute_dtype``
+    (``as_compute``)."""
+
+    compute_dtype = None
 
     def __getitem__(self, name):
-        return getattr(self, name)
+        return as_compute(getattr(self, name), self.compute_dtype)
 
     def declare(self, init: Init, name: str, shape, kind: str = "normal",
                 scale: float | None = None) -> None:
+        self.compute_dtype = init.compute_dtype
         self.register_parameter(name, make_param(init, shape, kind, scale))

@@ -59,9 +59,10 @@ class ModelConfig:
     tie_embeddings: bool = False
     dtype: str = "bfloat16"
 
-    # training-time knobs of the reference (kept so configs convert field
-    # for field; the port's layers are a Python loop and serving keeps no
-    # activations, so neither changes what the port computes)
+    # training-time knobs of the reference: remat recomputes each layer's
+    # activations in the backward pass (torch.utils.checkpoint); the
+    # port's layers are always a Python loop, so scan_layers is kept only
+    # so configs convert field for field
     remat: bool = True
     scan_layers: bool = True
 

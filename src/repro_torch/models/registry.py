@@ -37,26 +37,36 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-def get_model(arch_or_cfg, device="cuda", dtype=None, generator=None):
+def _dtype_name(dtype, what: str) -> str:
+    names = {v: k for k, v in DTYPES.items()}
+    if names.get(dtype, dtype) not in DTYPES:
+        raise ValueError(f"{what}={dtype!r}: the models run in "
+                         f"{sorted(DTYPES)}")
+    return names.get(dtype, dtype)
+
+
+def get_model(arch_or_cfg, device="cuda", dtype=None, generator=None,
+              param_dtype=None):
     """The model of an arch id or a ``ModelConfig``, its parameters drawn
     from `generator` (default: a generator on the model's device seeded
     with 0) and built on ``resolve_device(device)``: the card unless the
     caller asks for the CPU, a RuntimeError where there is no CUDA.
     `dtype` ('float32' / 'bfloat16' or the torch dtype) replaces
-    ``cfg.dtype``: the weights and activations are held in it."""
+    ``cfg.dtype``, the compute dtype.  `param_dtype` is the dtype the
+    weights are held in, by default the compute dtype; training holds
+    them in float32 (the reference's ``init_state(..., dtype=float32)``)
+    and every read casts them to the compute dtype."""
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) \
         else arch_or_cfg
     dev = resolve_device(device)
     if dtype is not None:
-        names = {v: k for k, v in DTYPES.items()}
-        if names.get(dtype, dtype) not in DTYPES:
-            raise ValueError(f"dtype={dtype!r}: the models run in "
-                             f"{sorted(DTYPES)}")
-        cfg = dataclasses.replace(cfg, dtype=names.get(dtype, dtype))
+        cfg = dataclasses.replace(cfg, dtype=_dtype_name(dtype, "dtype"))
+    held = DTYPES[_dtype_name(param_dtype or cfg.dtype, "param_dtype")]
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     cls = {"hybrid": Zamba2LM, "ssm": XLSTMLM}.get(cfg.family, TransformerLM)
-    init = Init(device=dev, dtype=DTYPES[cfg.dtype], generator=generator)
+    init = Init(device=dev, dtype=held, generator=generator,
+                compute_dtype=DTYPES[cfg.dtype])
     return cls(cfg, init)
 
 

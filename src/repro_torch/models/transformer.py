@@ -10,6 +10,11 @@ layout, ``{"kv": {"k", "v"}}`` stacked over layers as
 ``(L, B, Sc, KV, Dh)``, so the caches compare leaf for leaf.  A decode
 step writes its rows into the cache it is given, in place, and returns
 that cache (the reference returns an updated copy).
+
+Training (``loss``) runs the train-mode forward with grad enabled; with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (the
+reference's ``jax.checkpoint(body)``): its activations are recomputed in
+the backward pass instead of kept.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, attn_block
 from .common import (DTYPES, Init, ParamModule, act_fn, compute_dtype,
@@ -69,12 +75,14 @@ def batch_dim(batch):
     raise KeyError("batch has neither tokens nor embeds")
 
 
-class TransformerLM(nn.Module):
+class TransformerLM(ParamModule):
     """Dense / MoE / VLM / audio decoder.  ``model(batch, mode, cache)``
     returns ``(logits, aux, new_cache)`` as the reference's
     ``forward(params, batch, mode, cache)`` does; `batch` holds the
     reference's keys (``tokens`` or ``embeds``, optional ``positions``,
-    ``cache_pos`` in decode), as tensors or numpy arrays."""
+    ``cache_pos`` in decode), as tensors or numpy arrays.  Its own
+    weights are read as ``self["head"]`` (cast to the compute dtype); the
+    embedding lookup casts the rows it takes."""
 
     def __init__(self, cfg, init: Init):
         super().__init__()
@@ -119,6 +127,9 @@ class TransformerLM(nn.Module):
         if "embeds" in batch:                       # stub modality frontends
             x = batch["embeds"]
         else:
+            # the rows, then the cast: the values of the reference's cast
+            # table, and a repeated token's gradient sums in the weight's
+            # dtype (float32 masters), not in bfloat16
             x = self.embed[batch["tokens"].long()]
         x = x.to(self.compute_dtype)
         if cfg.scale_embed:
@@ -155,6 +166,11 @@ class TransformerLM(nn.Module):
         x = x + f * res
         return x, aux, cache_out
 
+    def _remat(self, mode: str) -> bool:
+        """Whether the layers run under ``checkpoint``: ``cfg.remat`` in a
+        train-mode forward that autograd records."""
+        return self.cfg.remat and mode == "train" and torch.is_grad_enabled()
+
     def forward(self, batch, mode="train", cache=None):
         """mode: train | prefill | decode.  Returns (logits, aux,
         new_cache).  Prefill and decode run under ``inference_mode``."""
@@ -175,7 +191,17 @@ class TransformerLM(nn.Module):
 
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
+
+        def train_body(p, x, ig):
+            return self._block(p, x, positions, pos_1d, ig, cfg, None,
+                               None)[:2]
+
         for i, p in enumerate(self.layers):
+            if self._remat(mode):
+                x, aux_l = checkpoint(train_body, p, x, int(is_global[i]),
+                                      use_reentrant=False)
+                aux = aux + aux_l
+                continue
             layer_cache = None
             if mode == "decode":
                 layer_cache = {"k": cache["kv"]["k"][i],
@@ -186,13 +212,13 @@ class TransformerLM(nn.Module):
             aux = aux + aux_l
             caches.append(cache_out)
 
-        x = rms_norm(x, self.final_norm, cfg.rms_eps)
+        x = rms_norm(x, self["final_norm"], cfg.rms_eps)
         if cfg.n_codebooks:
-            logits = torch.einsum("bsd,cdv->bscv", x, self.head)
+            logits = torch.einsum("bsd,cdv->bscv", x, self["head"])
         elif cfg.tie_embeddings:
-            logits = torch.einsum("bsd,vd->bsv", x, self.embed.to(x.dtype))
+            logits = torch.einsum("bsd,vd->bsv", x, self["embed"])
         else:
-            logits = torch.einsum("bsd,dv->bsv", x, self.head)
+            logits = torch.einsum("bsd,dv->bsv", x, self["head"])
         logits = softcap(logits / scalar(cfg.logits_scaling, logits.dtype),
                          cfg.final_softcap)
         new_cache = None
@@ -204,6 +230,28 @@ class TransformerLM(nn.Module):
         return logits, aux, new_cache
 
     # ------------------------------------------------------------- steps --
+    def loss(self, batch):
+        """``(loss, {"ce": ce})`` as the reference's ``loss(params,
+        batch)``: float32 logits with the columns past ``cfg.vocab``
+        masked to -1e30, the mean of ``logsumexp - true logit`` over
+        every label (audio: (B, S, n_codebooks)), plus ``router_aux_coef
+        * aux / n_layers``.  The true logit is a ``gather`` (the
+        reference's one-hot einsum, there for vocab sharding, gives the
+        same value and would cost a float32 (B, S, V) one-hot).  Runs in
+        the caller's grad mode."""
+        cfg = self.cfg
+        batch = self._batch(batch)
+        logits, aux, _ = self.forward(batch, mode="train")
+        lg = logits.float()
+        if cfg.vocab_padded != cfg.vocab:
+            pad = torch.arange(cfg.vocab_padded, device=lg.device) >= cfg.vocab
+            lg = lg.masked_fill(pad, -1e30)
+        lse = torch.logsumexp(lg, dim=-1)
+        labels = batch["labels"].long()
+        true_logit = lg.gather(-1, labels[..., None])[..., 0]
+        ce = (lse - true_logit).mean()
+        return ce + cfg.router_aux_coef * aux / cfg.n_layers, {"ce": ce}
+
     def prefill(self, batch):
         logits, _, cache = self.forward(batch, mode="prefill")
         return logits[:, -1:], cache

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .common import DTYPES, Init, make_param, rms_norm
 from .transformer import TransformerLM
@@ -40,11 +41,15 @@ class XLSTMLM(TransformerLM):
             st = cache["states"][i] if mode == "decode" else None
             h = rms_norm(x, p["ln"], cfg.rms_eps)
             fn = mlstm_block if kind == "mlstm" else slstm_block
-            out, st_new = fn(p, h, cfg, st)
+            if self._remat(mode):           # the block alone, as the reference
+                out, st_new = checkpoint(fn, p, h, cfg, None,
+                                         use_reentrant=False)
+            else:
+                out, st_new = fn(p, h, cfg, st)
             x = x + out
             new_states.append(st_new)
-        x = rms_norm(x, self.final_norm, cfg.rms_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self.head)
+        x = rms_norm(x, self["final_norm"], cfg.rms_eps)
+        logits = torch.einsum("bsd,dv->bsv", x, self["head"])
         new_cache = None
         if mode in ("prefill", "decode"):
             new_cache = {"states": tuple(new_states)}

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, attn_block
 from .common import DTYPES, Init, ParamModule, make_param, rms_norm
@@ -80,8 +81,19 @@ class Zamba2LM(TransformerLM):
                                      dtype=x.dtype, device=x.device)
                       for n in ("k", "v")}
 
+        def train_body(idx, p, x):
+            h = rms_norm(x, p["ln"], cfg.rms_eps)
+            x = x + mamba2_block(p, h, cfg, None, None)[0]
+            if idx % every == every - 1:
+                x = self._shared_block(self.shared, x, x0, positions,
+                                       pos_1d, cfg, None, None)[0]
+            return x
+
         ssm, conv = [], []
         for idx, p in enumerate(self.layers):
+            if self._remat(mode):
+                x = checkpoint(train_body, idx, p, x, use_reentrant=False)
+                continue
             ssm_st = conv_st = None
             if mode == "decode":
                 ssm_st, conv_st = cache["ssm"][idx], cache["conv"][idx]
@@ -102,8 +114,8 @@ class Zamba2LM(TransformerLM):
             ssm.append(ssm_new)
             conv.append(conv_new)
 
-        x = rms_norm(x, self.final_norm, cfg.rms_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self.head)
+        x = rms_norm(x, self["final_norm"], cfg.rms_eps)
+        logits = torch.einsum("bsd,dv->bsv", x, self["head"])
         new_cache = None
         if mode in ("prefill", "decode"):
             new_cache = {"kv": kv_all, "ssm": torch.stack(ssm),

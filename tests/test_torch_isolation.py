@@ -73,7 +73,10 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.models.xlstm_lm", "repro_torch.models.registry",
             "repro_torch.serve.kvcache", "repro_torch.data.tokens",
             "repro_torch.configs.granite_3_2b",
-            "repro_torch.configs.zamba2_2_7b"} <= set(MODULES)
+            "repro_torch.configs.zamba2_2_7b", "repro_torch.optim.adamw",
+            "repro_torch.train.step", "repro_torch.checkpoint.ckpt",
+            "repro_torch.runtime.ft", "repro_torch.runtime.elastic",
+            "repro_torch.launch.train"} <= set(MODULES)
     assert {f"repro_torch.configs.{a.replace('-', '_').replace('.', '_')}"
             for a in ARCH_IDS} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
@@ -153,6 +156,24 @@ def test_lm_serving_defaults_to_cuda_and_never_falls_back(monkeypatch):
                         property(lambda self: torch.device("cuda", 0)))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         greedy_generate(model, batch["tokens"], n_new=2, max_len=8)
+
+
+def test_lm_training_defaults_to_cuda_and_never_falls_back(monkeypatch,
+                                                          tmp_path):
+    """``python -m repro_torch.launch.train`` without ``--device cpu``
+    and ``make_elastic_mesh()`` without devices run on the card and raise
+    where there is none, before building or writing anything."""
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--tiny", "--steps", "1", "--ckpt-dir", str(tmp_path / "ck")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_elastic_mesh()
+    assert not (tmp_path / "ck").exists()
+    assert make_elastic_mesh(devices=["cpu"]).shape == {"data": 1,
+                                                        "model": 1}
 
 
 def _inputs(device="cpu"):
