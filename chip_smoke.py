@@ -31,6 +31,12 @@ generation) with its times beside their bounds.  Then its training path
 the CPU, a supervised restart from checkpoints, and Llama-3.2-1B trained
 at full width and depth through ``python -m repro_torch.launch.train``
 (bfloat16 compute, float32 master weights and AdamW state, remat).
+Then data-parallel training (phase ``train_dp``): the same run as the
+one rank of a world of one over NCCL, the int8 ring on the card, two
+ranks sharing the card over gloo (started by ``python -m
+torch.distributed.run``) against one rank, and the LM dry run of
+Llama-3.2-1B's ``train_4k`` cell with the measured step against its
+bound.
 Every phase prints one JSON line; any failure raises and exits non-zero.
 The last line is ``{"ok": true, "device": {...}}``.  Exits non-zero, with
 no result, where CUDA is not available.  Imports nothing of JAX or of the
@@ -38,12 +44,18 @@ JAX package ``repro``.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
 import re
 import math
+import multiprocessing
 import os
+import shutil
+import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -107,7 +119,8 @@ from repro_torch.launch import train as train_launch           # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, global_norm   # noqa: E402
 from repro_torch.runtime.ft import FailureInjector, supervise  # noqa: E402
 from repro_torch.train.step import (abstract_state,            # noqa: E402
-                                    init_state, make_train_step)
+                                    init_state, make_train_step,
+                                    replica_digest)
 
 # H100 SXM peaks for the bound: HBM3 bandwidth (NVIDIA data sheet) and the
 # INT32 rate, 132 SMs x 64 INT32 lanes x 1.98 GHz boost (Hopper whitepaper)
@@ -357,8 +370,8 @@ def _device_ms(fn, reps: int, device: torch.device):
 def _max_abs_err(name: str, got, ref, what: str) -> int:
     """Max abs difference of a kernel's outputs and its plain version's;
     raises unless it is 0."""
-    err = max(int((a.long() - b.long()).abs().max()) for a, b in
-              zip(got, ref))
+    err = max(int((a.long() - b.to(a.device).long()).abs().max())
+              for a, b in zip(got, ref))
     if err != 0:
         raise AssertionError(f"{name} {what}: kernel and plain version "
                              f"differ (max abs err {err})")
@@ -372,6 +385,29 @@ def _plain(name: str, inputs, kw, device):
     ref = KERNELS[name][1](*inputs, **kw)
     _sync(device)
     return ref, (time.perf_counter() - start) * 1e3
+
+
+def _reference(name: str, inputs, kw, device, refs, cfg, lanes: int):
+    """The plain version's outputs, its ms and where it ran: the next
+    entry of `refs` (``_plain_refs``, computed on the CPU in a worker
+    process) where it holds this case's outputs, else the plain version
+    run on `device`."""
+    if refs is not None:
+        key, ref, ms = next(refs)
+        if key != (name, repr(cfg), lanes):
+            raise AssertionError(f"{name} {cfg} lanes={lanes}: the worker's "
+                                 f"plain outputs are of {key}")
+        if ref is not None:
+            return tuple(torch.from_numpy(a) for a in ref), ms, "cpu"
+    ref, ms = _plain(name, inputs, kw, device)
+    return ref, ms, device.type
+
+
+def _done(refs) -> None:
+    """Raise unless the phase used every entry of `refs`."""
+    if refs is not None and next(refs, None) is not None:
+        raise AssertionError("the worker's plain outputs outnumber the "
+                             "phase's cases")
 
 
 def _timing(name: str, cfg, call, inputs, got, cols, reps: int,
@@ -389,18 +425,21 @@ def _timing(name: str, cfg, call, inputs, got, cols, reps: int,
 
 
 def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
-                reps: int, what: str) -> dict:
+                reps: int, what: str, refs=None) -> dict:
     """One kernel call against its plain version on the same inputs (max
-    abs err 0 or raise); with reps > 0 also its times and bound."""
+    abs err 0 or raise; the plain outputs from `refs` where they hold
+    them, ``_reference``); with reps > 0 also its times and bound."""
     wrapper = KERNELS[name][0]
     inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
     call = lambda: wrapper(*inputs, **kw)               # noqa: E731
     got = call()
-    ref, plain_ms = _plain(name, inputs, kw, device)
+    ref, plain_ms, plain_on = _reference(name, inputs, kw, device, refs, cfg,
+                                         n_pairs)
     err = _max_abs_err(name, got, ref, what)
     dist, _ = _dist_and_steps(name, got)
     row = dict(name=name, W=cfg.W, k=cfg.k, lanes=n_pairs, max_abs_err=err,
-               plain_ms=plain_ms, solved=int((dist <= cfg.k).sum()))
+               plain_ms=plain_ms, plain_on=plain_on,
+               solved=int((dist <= cfg.k).sum()))
     if reps:
         row.update(_timing(name, cfg, call, inputs, got, cols, reps, device))
     return row
@@ -589,20 +628,31 @@ def _k1_geometry(cfg: AlignerConfig) -> dict:
                 threads=geo.threads, shared_bytes=geo.shared_bytes)
 
 
-def phase_k1_grid(device: torch.device, reps: int = 20) -> list[dict]:
-    """K1 over its geometry grid, each case held against tb_fused_plain
-    with max abs err 0; the 2,048-lane cases timed."""
-    rng = np.random.default_rng(15)
-    rows = []
+def _k1_cases():
+    """(kernel, config, lanes) of ``K1_GRID``, in phase k1_grid's order."""
     for W, O, k, early_term, lanes in K1_GRID:
-        cfg = AlignerConfig(W=W, O=O, k=k, early_term=early_term)
-        row = _check_case("tb_fused", cfg, lanes, rng, device,
+        yield "tb_fused", AlignerConfig(W=W, O=O, k=k,
+                                        early_term=early_term), lanes
+
+
+def phase_k1_grid(device: torch.device, reps: int = 20,
+                  refs=None) -> list[dict]:
+    """K1 over its geometry grid, each case held against tb_fused_plain
+    with max abs err 0 (the untimed cases' plain outputs from `refs`, a
+    future of ``_plain_refs("k1")``, where given); the 2,048-lane cases
+    timed."""
+    rng = np.random.default_rng(GRID_SEEDS["k1"])
+    refs = None if refs is None else iter(refs.result())
+    rows = []
+    for name, cfg, lanes in _k1_cases():
+        row = _check_case(name, cfg, lanes, rng, device,
                           reps if lanes >= 2048 else 0,
-                          f"W={W} k={k} early_term={early_term} "
-                          f"lanes={lanes}")
-        row.update(_k1_geometry(cfg), early_term=early_term)
+                          f"W={cfg.W} k={cfg.k} early_term={cfg.early_term} "
+                          f"lanes={lanes}", refs)
+        row.update(_k1_geometry(cfg), early_term=cfg.early_term)
         emit("k1_grid", **row)
         rows.append(row)
+    _done(refs)
     return rows
 
 
@@ -637,24 +687,35 @@ def phase_k1_occupancy(usage: dict) -> dict:
 K3_GRID = [case for case in K1_GRID if case[4] < 2048]
 
 
+def _k3_cases(timed_lanes=(2048, 4096)):
+    """(kernel, config, lanes) of ``K3_GRID`` and the main path's shapes at
+    each of `timed_lanes`, in phase k3_grid's order."""
+    timed = [(64, 24, k, True, lanes) for lanes in timed_lanes
+             for k in (12, 24, 48)]
+    for W, O, k, early_term, lanes in K3_GRID + timed:
+        yield "dc_band", AlignerConfig(W=W, O=O, k=k,
+                                       early_term=early_term), lanes
+
+
 def phase_k3_grid(device: torch.device, reps: int = 20,
                   usage: dict | None = None,
-                  timed_lanes=(2048, 4096)) -> list[dict]:
+                  timed_lanes=(2048, 4096), refs=None) -> list[dict]:
     """K3 over ``K3_GRID``, then the main path's shapes (W=64, k = 12, 24,
     48) at each of `timed_lanes`, timed; each case in both band
     placements, launched through the C entry point at that placement's
     geometry (``k3_launcher``) and held against ``dc_band_plain`` with max
     abs err 0; each row with its block, shared bytes asked and allowed,
     blocks per SM and ptxas's report (with ``usage``), the timed rows with
-    their device ms and bound."""
-    rng = np.random.default_rng(17)
+    their device ms and bound.  `refs` (a future of
+    ``_plain_refs("k3")``) holds the untimed cases' plain outputs."""
+    rng = np.random.default_rng(GRID_SEEDS["k3"])
+    refs = None if refs is None else iter(refs.result())
     rows = []
-    timed = [(64, 24, k, True, lanes) for lanes in timed_lanes
-             for k in (12, 24, 48)]
-    for W, O, k, early_term, lanes in K3_GRID + timed:
-        cfg = AlignerConfig(W=W, O=O, k=k, early_term=early_term)
+    for _, cfg, lanes in _k3_cases(timed_lanes):
+        W, k, early_term = cfg.W, cfg.k, cfg.early_term
         inputs, kw, cols = _case("dc_band", cfg, lanes, rng, device)
-        ref, plain_ms = _plain("dc_band", inputs, kw, device)
+        ref, plain_ms, plain_on = _reference("dc_band", inputs, kw, device,
+                                             refs, cfg, lanes)
         for placement in K3_PLACEMENTS:
             geo, geo_row = _k3_geometry(cfg, placement, usage)
             call = k3_launcher(cfg, geo, inputs)
@@ -663,12 +724,13 @@ def phase_k3_grid(device: torch.device, reps: int = 20,
                        lanes=lanes, max_abs_err=_max_abs_err(
                            "dc_band", got, ref, f"W={W} k={k} early_term="
                            f"{early_term} lanes={lanes} {placement}"),
-                       plain_ms=plain_ms, **geo_row)
+                       plain_ms=plain_ms, plain_on=plain_on, **geo_row)
             if lanes >= 2048:
                 row.update(_timing("dc_band", cfg, call, inputs, got, cols,
                                    reps, device))
             emit("k3_grid", **row)
             rows.append(row)
+    _done(refs)
     return rows
 
 
@@ -706,46 +768,90 @@ TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
               (64, 24, 48, "auto", "tail_full")]
 
 
+def _tail_cases(lane_counts=(37, 1, 2048)):
+    """(kernel, config, lanes) of ``TAIL_GRID`` at each of `lane_counts`
+    below 2,048 and ``TAIL_TIMED`` at the others, in phase tail_grid's
+    order."""
+    for lanes in lane_counts:
+        for W, O, k, tail_store, name in (TAIL_TIMED if lanes >= 2048
+                                          else TAIL_GRID):
+            yield name, AlignerConfig(W=W, O=O, k=k,
+                                      tail_store=tail_store), lanes
+
+
 def phase_tail_grid(device: torch.device, reps: int = 20,
                     usage: dict | None = None,
-                    lane_counts=(37, 1, 2048)) -> list[dict]:
+                    lane_counts=(37, 1, 2048), refs=None) -> list[dict]:
     """K2 and K4 over ``TAIL_GRID`` at 37 and 1 lanes and ``TAIL_TIMED``
     at 2,048 (timed), each case in both store placements wherever one
     lane's store fits a block's shared memory (else global only), launched
     through the C entry point at that placement's geometry
     (``tail_launcher``) and held against the plain version with max abs
-    err 0."""
-    rng = np.random.default_rng(16)
+    err 0 (the untimed cases' from `refs`, a future of
+    ``_plain_refs("tail")``, where given)."""
+    rng = np.random.default_rng(GRID_SEEDS["tail"])
+    refs = None if refs is None else iter(refs.result())
     rows = []
-    for lanes in lane_counts:
-        for W, O, k, tail_store, name in (TAIL_TIMED if lanes >= 2048
-                                          else TAIL_GRID):
-            cfg = AlignerConfig(W=W, O=O, k=k, tail_store=tail_store)
-            if (name == "tail_banded") != cfg.tail_banded:
-                raise AssertionError(f"W={W} k={k} tail_store={tail_store} "
-                                     f"does not select {name}")
-            inputs, kw, cols = _case(name, cfg, lanes, rng, device)
-            ref, plain_ms = _plain(name, inputs, kw, device)
-            for placement in PLACEMENTS:
-                try:
-                    geo, geo_row = _tail_geometry(name, cfg, placement, usage)
-                except ValueError as exc:       # the lane fits no block
-                    emit("tail_grid", name=name, W=W, k=k, lanes=lanes,
-                         placement=placement, skipped=str(exc))
-                    continue
-                call = tail_launcher(name, cfg, geo, inputs, kw)
-                got = call()
-                row = dict(name=name, W=W, k=k, tail_store=tail_store,
-                           lanes=lanes, max_abs_err=_max_abs_err(
-                               name, got, ref, f"W={W} k={k} lanes={lanes} "
-                               f"{placement}"),
-                           plain_ms=plain_ms, **geo_row)
-                if lanes >= 2048:
-                    row.update(_timing(name, cfg, call, inputs, got, cols,
-                                       reps, device))
-                emit("tail_grid", **row)
-                rows.append(row)
+    for name, cfg, lanes in _tail_cases(lane_counts):
+        W, k, tail_store = cfg.W, cfg.k, cfg.tail_store
+        if (name == "tail_banded") != cfg.tail_banded:
+            raise AssertionError(f"W={W} k={k} tail_store={tail_store} "
+                                 f"does not select {name}")
+        inputs, kw, cols = _case(name, cfg, lanes, rng, device)
+        ref, plain_ms, plain_on = _reference(name, inputs, kw, device,
+                                             refs, cfg, lanes)
+        for placement in PLACEMENTS:
+            try:
+                geo, geo_row = _tail_geometry(name, cfg, placement, usage)
+            except ValueError as exc:       # the lane fits no block
+                emit("tail_grid", name=name, W=W, k=k, lanes=lanes,
+                     placement=placement, skipped=str(exc))
+                continue
+            call = tail_launcher(name, cfg, geo, inputs, kw)
+            got = call()
+            row = dict(name=name, W=W, k=k, tail_store=tail_store,
+                       lanes=lanes, max_abs_err=_max_abs_err(
+                           name, got, ref, f"W={W} k={k} lanes={lanes} "
+                           f"{placement}"),
+                       plain_ms=plain_ms, plain_on=plain_on, **geo_row)
+            if lanes >= 2048:
+                row.update(_timing(name, cfg, call, inputs, got, cols,
+                                   reps, device))
+            emit("tail_grid", **row)
+            rows.append(row)
+    _done(refs)
     return rows
+
+
+#: each grid's seed for its inputs
+GRID_SEEDS = {"k1": 15, "tail": 16, "k3": 17}
+GRID_CASES = {"k1": _k1_cases, "tail": _tail_cases, "k3": _k3_cases}
+
+
+def _plain_refs(grid: str) -> list:
+    """``(case, plain outputs, ms)`` of each case of `grid` (``"k1"``,
+    ``"tail"`` or ``"k3"``: its phase's cases at their default lanes, in
+    its order, inputs drawn from its seed): for the untimed cases (fewer
+    than 2,048 lanes) the plain version's outputs on the CPU, as numpy
+    arrays, and its host ms; None for the timed ones, whose plain version
+    runs on the card.  A worker process computes them while the kernels
+    build; the phase holds its kernels to them (``_reference``)."""
+    rng = np.random.default_rng(GRID_SEEDS[grid])
+    cpu = torch.device("cpu")
+    out = []
+    for name, cfg, lanes in GRID_CASES[grid]():
+        inputs, kw, _ = _case(name, cfg, lanes, rng, cpu)
+        ref, ms = (None, None)
+        if lanes < 2048:
+            ref, ms = _plain(name, inputs, kw, cpu)
+            ref = tuple(t.numpy() for t in ref)
+        out.append(((name, repr(cfg), lanes), ref, ms))
+    return out
+
+
+def _worker_init() -> None:
+    """A worker process's set-up: one thread (it runs beside the build)."""
+    torch.set_num_threads(1)
 
 
 # ---- phase 4: the main path at a real size, fused then split ----
@@ -757,6 +863,13 @@ def long_reads(n_pairs: int = 2048, read_len: int = 10_000,
     return simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                          error_rate=0.10,
                                                          seed=2022))
+
+
+def _simulated(fn, *args, **kw):
+    """``(fn(*args, **kw), its seconds)``, for a worker process."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    return out, time.perf_counter() - t0
 
 
 def _drive(device: torch.device, backend: str, rs,
@@ -2930,8 +3043,8 @@ def _train_full(device, arch: str = "llama3.2-1b", steps: int = 4,
     seen = {"ms": [], "metrics": []}
     real = train_launch.make_train_step
 
-    def spy(model, opt_cfg, grad_accum=1):
-        step = real(model, opt_cfg, grad_accum)
+    def spy(model, opt_cfg, grad_accum=1, **kw):
+        step = real(model, opt_cfg, grad_accum, **kw)
 
         def timed(state, batch_):
             if device.type == "cuda":
@@ -3021,7 +3134,8 @@ def _train_full(device, arch: str = "llama3.2-1b", steps: int = 4,
         f32_loss=loss32, f32_grad_norm=norm32, loss_rel_err=loss_rel,
         grad_norm_rel_err=norm_rel,
         tol=dict(loss=TRAIN_BF16_LOSS_RTOL, grad_norm=TRAIN_BF16_NORM_RTOL),
-        min_param_change=min(moved), peak_memory_bytes=peak,
+        min_param_change=min(moved), digest=replica_digest(state),
+        peak_memory_bytes=peak,
         memory_at_start_bytes=base,
         peak_above_start_bytes=None if peak is None else peak - base,
         card=_smi() if device.type == "cuda" else None, **bounds)
@@ -3044,11 +3158,546 @@ def phase_train(device: torch.device, archs=None, **full_kw) -> dict:
     out["b"] = _train_restart(device)
     emit("train", leg="b", **out["b"])
     out["c"] = _train_full(device, **full_kw)
-    emit("train", leg="c", **out["c"])
+    emit("train", leg="c", **{k: v for k, v in out["c"].items()
+                              if k != "digest"})
     return out
 
 
+# ---- phase train_dp: data-parallel training and the LM dry run ----
+
+#: leg (a): the world of one against phase train (c), same seed: an
+#: all-reduce over one rank and a division by 1 change nothing
+DP_ONE_RTOL = 1e-6
+#: leg (b): data-parallel ranks against one rank with the same global
+#: batch, float32, TF32 off: float32 rounding of the gradients' other sum
+#: order only (tests/test_torch_train_dp.py holds the same bound on the
+#: CPU)
+DP_TOL = dict(rtol=1e-5, atol=1e-5)
+#: seconds a leg's ranks may take, each
+DP_LEG_TIMEOUT_S = 300
+#: leg (a)'s run of launch.train, phase train (c)'s arguments
+DP_TRAIN_ARGS = ["--arch", "llama3.2-1b", "--steps", "4", "--batch", "4",
+                 "--seq", "1024", "--ckpt-every", "1000", "--log-every", "1"]
+#: leg (b)'s runs of launch.train, float32 compute, 3 steps each:
+#: Llama-3.2-1B at published widths cut to 2 layers (1.54 GB of
+#: gradients a sync), and tiny OLMoE with a checkpoint every step and a
+#: failure at step 2 (rank 0's saves, the barriers, every rank's restore)
+DP_B_CASES = {
+    "llama3.2-1b x2 layers": ["--arch", "llama3.2-1b", "--layers", "2",
+                              "--batch", "4", "--seq", "256",
+                              "--ckpt-every", "1000"],
+    "olmoe-1b-7b tiny": ["--arch", "olmoe-1b-7b", "--tiny", "--batch", "8",
+                         "--seq", "64", "--ckpt-every", "1"]}
+DP_B_ARGS = ["--steps", "3", "--dtype", "float32", "--log-every", "1"]
+#: tools/torch_train_cards.py's run of launch.train at world 1 and world
+#: n: Llama-3.2-1B at full width and depth in float32 compute (in bf16 a
+#: world of n may drift from a world of one by a master weight's rounding
+#: flipping its bf16 copy: 1.3e-5 at world 4 on the CPU, PERF.md 7), a
+#: global batch of 8 x 512 tokens that 1, 2, 4 and 8 ranks divide
+DP_CARDS_ARGS = ["--arch", "llama3.2-1b", "--steps", "4", "--batch", "8",
+                 "--seq", "512", "--dtype", "float32", "--ckpt-every",
+                 "1000", "--log-every", "1"]
+
+
+@contextlib.contextmanager
+def _environ(**env):
+    """``os.environ`` with `env` set for the block (None: removed)."""
+    saved = {k: os.environ.get(k) for k in env}
+    for k, v in env.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _world_of_one():
+    """The environment ``torch.distributed.run`` gives the one rank of a
+    world of one, its store on a free local port: under it
+    ``launch.train.main`` initialises the process group itself."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    return _environ(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+                    LOCAL_WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                    MASTER_PORT=str(port))
+
+
+@contextlib.contextmanager
+def _kept_states():
+    """``launch.train``'s ``make_train_step`` wrapped for the block so
+    that each step's state is kept: yields a dict whose ``"state"`` is
+    the last step's."""
+    seen = {}
+    real = train_launch.make_train_step
+
+    def spy(*args, **kw):
+        step = real(*args, **kw)
+
+        def kept(state, batch):
+            out = step(state, batch)
+            seen["state"] = out[0]
+            return out
+        return kept
+    train_launch.make_train_step = spy
+    try:
+        yield seen
+    finally:
+        train_launch.make_train_step = real
+
+
+#: seconds a leg's ranks wait for their go (``_wait_for_go``) before they
+#: give up: they start before the script's first phase
+DP_GO_TIMEOUT_S = 1500
+
+
+def _start_leg(leg: str, n: int, out: Path, device: torch.device,
+               tiny: bool) -> subprocess.Popen:
+    """Start `n` ranks of ``chip_smoke.py --train-dp-child <leg>`` with
+    ``python -m torch.distributed.run --standalone``, their output in
+    `out`.  Each rank imports what it needs, then waits for ``<out>/go``
+    (``_finish_leg``) before it touches the device, so their start-up
+    can overlap earlier phases.  `device` and `tiny` (the models at
+    ``tiny_config``) serve a rehearsal on the CPU."""
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), OMP_NUM_THREADS="4",
+               CHIP_SMOKE_PID=str(os.getpid()))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", str(Path(__file__).resolve()),
+           "--train-dp-child", leg, str(out), device.type,
+           "tiny" if tiny else "full"]
+    with open(out / f"{leg}.stdout", "w") as so, \
+            open(out / f"{leg}.stderr", "w") as se:
+        return subprocess.Popen(cmd, stdout=so, stderr=se, env=env,
+                                start_new_session=True)
+
+
+def _stop_leg(proc: subprocess.Popen) -> None:
+    """Stop `proc`'s launcher and ranks if they still run: SIGTERM to the
+    launcher, which stops its ranks (each in a session of its own), and
+    SIGKILL to its group past 20 s; a waiting rank also exits once its
+    launcher is gone (``_wait_for_go``)."""
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+
+
+def _finish_leg(leg: str, proc: subprocess.Popen, out: Path) -> dict:
+    """Let the ranks of `proc` (``_start_leg``) go and return rank 0's
+    record; a rank that fails (or outlives DP_LEG_TIMEOUT_S from its go)
+    fails the leg."""
+    (out / "go").touch()
+    t0 = time.perf_counter()
+    try:
+        proc.wait(timeout=DP_LEG_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        _stop_leg(proc)
+    tail = {k: (out / f"{leg}.{k}").read_text()[-4000:]
+            for k in ("stdout", "stderr")}
+    if proc.returncode != 0:
+        raise AssertionError(f"train_dp ({leg}): exit {proc.returncode} "
+                             f"after {time.perf_counter() - t0:.1f} s\n"
+                             f"{tail['stdout']}\n{tail['stderr']}")
+    rec = json.loads((out / f"{leg}.json").read_text())
+    rec["leg_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _run_leg(leg: str, n: int, out: Path, device: torch.device,
+             tiny: bool) -> dict:
+    """``_start_leg`` and at once ``_finish_leg``."""
+    return _finish_leg(leg, _start_leg(leg, n, out, device, tiny), out)
+
+
+def _wait_for_go(out: Path) -> None:
+    """Block until ``<out>/go`` exists; SystemExit past DP_GO_TIMEOUT_S or
+    once the launcher that started this rank, or the script that started
+    the launcher, is gone."""
+    t0, launcher = time.perf_counter(), os.getppid()
+    script = int(os.environ.get("CHIP_SMOKE_PID", 0))
+    while not (out / "go").exists():
+        if time.perf_counter() - t0 > DP_GO_TIMEOUT_S:
+            raise SystemExit(f"no go in {DP_GO_TIMEOUT_S} s")
+        if os.getppid() != launcher or (script and not _alive(script)):
+            raise SystemExit("the launcher or the script is gone")
+        time.sleep(0.05)
+
+
+def _alive(pid: int) -> bool:
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def _max_rel(got, want) -> float:
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def _losses(metrics: dict) -> list:
+    return [r["loss"] for r in metrics["log"] if "loss" in r]
+
+
+def _dp_compare(got, want) -> dict:
+    """The data-parallel state `got` against the single rank's `want`:
+    max abs error over every parameter and AdamW leaf and whether all are
+    within DP_TOL."""
+    a, b = flat_state(got), flat_state(want)
+    worst, ok = 0.0, True
+    for k, t in a.items():
+        if t.dtype.is_floating_point:
+            err = (t - b[k]).abs()
+            worst = max(worst, float(err.max()))
+            ok &= bool((err <= DP_TOL["atol"] + DP_TOL["rtol"]
+                        * b[k].abs()).all())
+        else:
+            ok &= torch.equal(t, b[k])
+    return dict(max_abs_err=worst, within_tol=ok)
+
+
+def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
+    """Leg (b): two ranks sharing cuda:0 over gloo (host-staged), each
+    running ``launch.train.main`` with ``--device cuda:0 --backend gloo``
+    on each of DP_B_CASES.  The first run's entry point initialises the
+    group from the launcher's environment and destroys it; the ranks
+    then form a group over a fresh file store (a second group over the
+    launcher's store could read the first's stale addresses), which the
+    second run and OLMoE's router check use as they find it.  Rank 0
+    then runs each case alone through the same entry point (the
+    launcher's RANK and WORLD_SIZE removed), with the same global batch,
+    and holds the states to DP_TOL."""
+    import torch.distributed as dist
+    from repro_torch.models.moe import global_batch, router_topk
+    dev = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    r, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    _check_tf32_off()
+    size = ["--tiny"] if tiny else []
+    rec = {"transport": "gloo, host-staged", "world": n}
+    states = {}
+
+    def dp_run(i, name, args):
+        path = out / f"b{i}_metrics.json"
+        t0 = time.perf_counter()
+        with _kept_states() as seen:
+            train_launch.main(args + DP_B_ARGS + [
+                "--device", str(dev), "--backend", "gloo", "--ckpt-dir",
+                str(out / f"ckpt_b{i}"), "--metrics-out", str(path)] + (
+                size if i == 0 else []) + (
+                ["--inject-failure-at", "2"] if i == 1 else []))
+        states[name] = seen["state"]
+        return path, time.perf_counter() - t0
+
+    cases = list(DP_B_CASES.items())
+    paths = {cases[0][0]: dp_run(0, *cases[0])}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(out / "store_b"), n), rank=r, world_size=n)
+    try:
+        paths[cases[1][0]] = dp_run(1, *cases[1])
+        cfg = dataclasses.replace(tiny_config(get_config("olmoe-1b-7b")),
+                                  dtype="float32")
+        model = get_model(cfg, device=dev, param_dtype="float32",
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+        x = torch.randn((8, 16, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+        w = model.layers[0].moe["router"]
+        mine = x[r * 8 // n:(r + 1) * 8 // n]
+        with torch.no_grad():
+            want = float(router_topk(x, w, cfg)[2])
+            with global_batch(dist.group.WORLD):
+                got = float(router_topk(mine, w, cfg)[2])
+            local = float(router_topk(mine, w, cfg)[2])
+        auxes = [None] * n
+        dist.all_gather_object(auxes, (got, local))
+        rec["olmoe_aux"] = dict(global_batch=want,
+                                ranks=[g for g, _ in auxes],
+                                per_rank_mean=sum(v for _, v in auxes) / n)
+    finally:
+        dist.destroy_process_group()
+    if r != 0:
+        return
+    for i, (name, args) in enumerate(cases):
+        path, seconds = paths[name]
+        dp = json.loads(path.read_text())
+        t0 = time.perf_counter()
+        with _environ(RANK=None, WORLD_SIZE=None), _kept_states() as seen:
+            single = train_launch.main(args + DP_B_ARGS + [
+                "--device", str(dev), "--ckpt-dir",
+                str(out / f"ckpt_b{i}_one")] + (size if i == 0 else []))
+        losses = _losses(dp)
+        ones = [row["loss"] for row in single if "loss" in row]
+        rec[name] = dict(
+            losses=losses, single_losses=ones,
+            loss_rel_err=_max_rel(losses, ones), sync_ms=dp["sync_ms"],
+            step_ms=dp["step_ms"], restarts=dp["restarts"],
+            backend=dp["backend"], mesh=dp["mesh"], device=dp["device"],
+            replicas_bit_identical=all(d == dp["digests"][0]
+                                       for d in dp["digests"]),
+            params=dp["params"], seconds=seconds,
+            single_seconds=time.perf_counter() - t0,
+            **_dp_compare(states[name], seen["state"]))
+        del states[name], seen["state"]
+        if kind == "cuda":
+            torch.cuda.empty_cache()
+    (out / "b.json").write_text(json.dumps(rec))
+
+
+#: elements of the float32 vector ``tools/torch_train_cards.py`` reduces
+DP_RING_ELEMS = 1 << 28
+
+
+def _dp_child_cards(out: Path, kind: str, tiny: bool) -> None:
+    """``tools/torch_train_cards.py``'s ranks, one card each over NCCL:
+    the int8 ring against ``dist.all_reduce`` on the same float32 vector
+    (device ms, median of 5, and the ring's error against the exact
+    sum), then DP_CARDS_ARGS's run of ``launch.train.main`` at this world
+    (on the group the ranks made)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import compressed_allreduce
+    from repro_torch.launch.train import _ms, _timed
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda", local) if kind == "cuda" else \
+        torch.device(kind)
+    if kind == "cuda":
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev)
+    else:
+        dist.init_process_group("gloo")
+    r, n = dist.get_rank(), dist.get_world_size()
+    try:
+        g = torch.randn(DP_RING_ELEMS >> (16 if tiny else 0), device=dev,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(r))
+
+        def timed(fn):
+            times = []
+            call = _timed(fn, dev, times)
+            for _ in range(5):
+                out_ = call()
+                _sync(dev)
+            return out_, sorted(_ms(times))[2]
+
+        def exact():
+            t = g.clone()
+            dist.all_reduce(t)
+            return t
+        want, ar_ms = timed(exact)
+        got, ring_ms = timed(lambda: compressed_allreduce(g))
+        err = float((got - want).abs().max() / want.abs().max())
+        nbytes = g.numel() * 4
+        ring = dict(elems=g.numel(), all_reduce_ms=ar_ms, int8_ring_ms=ring_ms,
+                    rel_err=err, bound=0.05,
+                    all_reduce_bus_gb_s=2 * (n - 1) / n * nbytes / ar_ms / 1e6,
+                    int8_ring_bus_gb_s=2 * (n - 1) / n * (nbytes / 4)
+                    / ring_ms / 1e6, nvlink_gb_s=450.0)
+        del g, want, got
+        if kind == "cuda":
+            torch.cuda.empty_cache()
+        path = out / "cards_metrics.json"
+        train_launch.main(DP_CARDS_ARGS + (["--tiny"] if tiny else []) + [
+            "--device", kind, "--ckpt-dir", str(out / "ckpt_cards"),
+            "--metrics-out", str(path)])
+        if r == 0:
+            (out / "cards.json").write_text(json.dumps(
+                {"ring": ring, "a": json.loads(path.read_text())}))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_dp_child(argv) -> None:
+    """A rank of phase ``train_dp``'s legs, started by ``_run_leg``."""
+    leg, out, kind, size = argv[0], Path(argv[1]), argv[2], argv[3]
+    _wait_for_go(out)
+    {"b": _dp_child_b, "cards": _dp_child_cards}[leg](
+        out, kind, size == "tiny")
+
+
+def _leg_a(device: torch.device, train_c: dict, tmp: Path,
+           tiny: bool) -> dict:
+    """Leg (a): phase train (c)'s run of ``launch.train.main`` again as
+    the one rank of a world of one (``_world_of_one``: the entry point
+    initialises NCCL from the launcher's environment, takes
+    ``cuda:LOCAL_RANK`` and syncs the gradients), in this process: a
+    rank of its own would add ~25 s of start-up and a cold first step.
+    Its losses against phase train (c)'s within DP_ONE_RTOL, and whether
+    its final state is bit-equal to (c)'s (``replica_digest``)."""
+    path = tmp / "a_metrics.json"
+    with _world_of_one():
+        train_launch.main(DP_TRAIN_ARGS + (["--tiny"] if tiny else []) + [
+            "--device", device.type, "--ckpt-dir", str(tmp / "ckpt_a"),
+            "--metrics-out", str(path)])
+    a = json.loads(path.read_text())
+    losses = _losses(a)
+    rel = _max_rel(losses, train_c["losses"])
+    if len(losses) != len(train_c["losses"]) or rel > DP_ONE_RTOL:
+        raise AssertionError(f"train_dp (a): losses {losses} against "
+                             f"phase train (c)'s {train_c['losses']}")
+    warm = sorted(a["step_ms"][1:])[len(a["step_ms"][1:]) // 2]
+    return dict(
+        transport=a["backend"], world=a["world"], mesh=a["mesh"],
+        device=a["device"], losses=losses, train_c_losses=train_c["losses"],
+        loss_rel_err=rel, tol=DP_ONE_RTOL,
+        state_bit_equal_to_train_c=a["digests"][0] == train_c["digest"],
+        step_ms=a["step_ms"], warm_step_ms=warm,
+        tokens_per_s=4 * 1024 / warm * 1e3, sync_ms=a["sync_ms"],
+        compute_bound_ms=train_c["compute_bound_ms"],
+        train_c_warm_step_ms=train_c["warm_step_ms"],
+        peak_memory_bytes=a["peak_memory_bytes"], params=a["params"],
+        wall_s=a["wall_s"],
+        card=_smi() if device.type == "cuda" else None)
+
+
+def _leg_c(device: torch.device, tmp: Path, tiny: bool) -> dict:
+    """Leg (c): the int8 ring on the device, in a world of one of this
+    process (NCCL on the card): ``_quant`` / ``_dequant`` and
+    ``compressed_allreduce`` against the CPU, bit for bit, then one step
+    of leg (a)'s model cut to 2 layers through ``launch.train.main``
+    with ``--grad-compress`` and without."""
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import (_dequant, _quant,
+                                                     compressed_allreduce)
+    dev = torch.device(device.type, 0) if device.type == "cuda" else device
+    with _world_of_one():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                device_id=dev if dev.type == "cuda"
+                                else None)
+        try:
+            x = torch.randn((4, 4097),
+                            generator=torch.Generator().manual_seed(3))
+            q, sc = _quant(x.to(dev))
+            cq, csc = _quant(x)
+            got = compressed_allreduce(x[0].to(dev))
+            want = _dequant(*_quant(x[0]))
+            c = dict(quant_equal=torch.equal(q.cpu(), cq),
+                     scale_equal=torch.equal(sc.cpu(), csc),
+                     dequant_equal=torch.equal(_dequant(q, sc).cpu(),
+                                               _dequant(cq, csc)),
+                     allreduce_equal=torch.equal(got.cpu(), want),
+                     allreduce_max_abs_err=float((got.cpu() - want)
+                                                 .abs().max()))
+            runs = {}
+            for name, extra in (("int8_ring", ["--grad-compress"]),
+                                ("all_reduce", [])):
+                path = tmp / f"c_{name}.json"
+                train_launch.main(
+                    ["--arch", "llama3.2-1b", "--layers", "2", "--steps",
+                     "1", "--batch", "4", "--seq", "1024", "--ckpt-every",
+                     "1000", "--log-every", "1", "--device", device.type,
+                     "--ckpt-dir", str(tmp / f"ckpt_c_{name}"),
+                     "--metrics-out", str(path)]
+                    + (["--tiny"] if tiny else []) + extra)
+                runs[name] = json.loads(path.read_text())
+        finally:
+            dist.destroy_process_group()
+    c["step_losses"] = {k: v["log"][0]["loss"] for k, v in runs.items()}
+    c["sync_ms"] = {k: v["sync_ms"] for k, v in runs.items()}
+    c["step_ms"] = {k: v["step_ms"] for k, v in runs.items()}
+    c["states_equal"] = runs["int8_ring"]["digests"] == \
+        runs["all_reduce"]["digests"]
+    if not (c["quant_equal"] and c["scale_equal"] and c["dequant_equal"]
+            and c["allreduce_equal"]):
+        raise AssertionError(f"train_dp (c): the device's int8 ring "
+                             f"differs from the CPU: {c}")
+    ls = c["step_losses"]
+    if ls["int8_ring"] != ls["all_reduce"] or not all(
+            math.isfinite(v) for v in ls.values()):
+        raise AssertionError(f"train_dp (c): step losses {ls}")
+    return c
+
+
+def _leg_d(warm_step_ms: float, tokens: int) -> dict:
+    """Leg (d): ``launch.dryrun`` on ``llama3.2-1b`` x ``train_4k`` and
+    leg (a)'s step (`warm_step_ms` for `tokens` tokens) against the cell's
+    roofline at `tokens` a card: the compute term scaled by the tokens,
+    the memory term's lower bound (AdamW's state bytes, and the batch's
+    scaled), no collective in a world of one."""
+    from repro_torch.launch import dryrun
+    from repro_torch.analysis.roofline import HBM_BW
+    t0 = time.perf_counter()
+    rec = dryrun.run_cell("llama3.2-1b", "train_4k")
+    roof = rec["roofline"]
+    scale = tokens / (rec["rows"] * rec["seq"])     # a card's tokens -> (a)
+    lower = roof["bytes_lower_bound"]
+    compute_ms = roof["compute_s"] * 1e3 * scale
+    memory_ms = (lower["state_bytes"] + lower["batch_bytes"] * scale) \
+        / HBM_BW * 1e3
+    bound_ms = max(compute_ms, memory_ms)
+    return dict(
+        arch="llama3.2-1b", shape="train_4k", cards=rec["cards"],
+        rows=rec["rows"], roofline={k: roof[k] for k in (
+            "compute_s", "memory_s", "collective_s", "dominant", "bound_s",
+            "flops_global", "bytes_lower_bound", "memory_upper_s",
+            "bytes_upper_bound_global", "coll_wire_bytes_per_card",
+            "int8_ring_bytes_per_card", "model_flops", "useful_fraction",
+            "n_params")},
+        memory=rec["memory"], compute_ms_at_tokens=compute_ms,
+        memory_lower_ms_at_tokens=memory_ms, bound_ms_at_tokens=bound_ms,
+        memory_upper_ms_at_tokens=roof["memory_upper_s"] * 1e3 * scale,
+        tokens=tokens, step_over_bound=warm_step_ms / bound_ms,
+        dryrun_s=time.perf_counter() - t0)
+
+
+def phase_train_dp(device: torch.device, train_c: dict,
+                   tiny: bool = False, leg_b=None) -> dict:
+    """Data-parallel training and the LM dry run, one line a leg, budget
+    35 s: (b) two ranks sharing the card over gloo, started by
+    ``torch.distributed.run``, against one rank; (a) a world of one over
+    NCCL through ``launch.train.main`` at Llama-3.2-1B's full width and
+    depth, its losses against phase train (c)'s; (c) the int8 ring on the
+    card; (d) ``launch.dryrun`` on ``llama3.2-1b`` x ``train_4k`` and leg
+    (a)'s step against its bound.  `leg_b` is (b)'s ranks and their directory
+    if ``_start_leg`` started them earlier.  `tiny` (the models at
+    ``tiny_config``, the CPU as `device`) is a rehearsal."""
+    import tempfile
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # (b) first: its ranks need ~25 GB of the card, which this process
+        # holds cached once (a) has run
+        b = _finish_leg("b", *leg_b) if leg_b else \
+            _run_leg("b", 2, tmp, device, tiny)
+        for name in DP_B_CASES:
+            row = b[name]
+            if not (row["within_tol"] and row["replicas_bit_identical"]
+                    and row["backend"] == "gloo"):
+                raise AssertionError(f"train_dp (b) {name}: {row}")
+        if b["olmoe-1b-7b tiny"]["restarts"] != 1:
+            raise AssertionError(f"train_dp (b): no restart: {b}")
+        aux = b["olmoe_aux"]
+        if not all(abs(g - aux["global_batch"]) <= 1e-6 * abs(
+                aux["global_batch"]) for g in aux["ranks"]):
+            raise AssertionError(f"train_dp (b): router aux {aux}")
+        res["b"] = b
+        emit("train_dp", leg="b", **b)
+        t0 = time.perf_counter()
+        res["a"] = _leg_a(device, train_c, tmp, tiny)
+        res["a"]["leg_s"] = time.perf_counter() - t0
+        emit("train_dp", leg="a", **res["a"])
+        t0 = time.perf_counter()
+        res["c"] = _leg_c(device, tmp, tiny)
+        res["c"]["leg_s"] = time.perf_counter() - t0
+        emit("train_dp", leg="c", **res["c"])
+    res["d"] = _leg_d(res["a"]["warm_step_ms"], 4 * 1024)
+    emit("train_dp", leg="d", **res["d"])
+    return res
+
+
 def main() -> None:
+    import tempfile
     t0 = time.perf_counter()
     phase_s = {}
 
@@ -3056,22 +3705,57 @@ def main() -> None:
         start = time.perf_counter()
         out = fn(*args, **kw)
         phase_s[phase] = time.perf_counter() - start
+        print(f"[chip_smoke] {phase}: {phase_s[phase]:.2f} s, "
+              f"{time.perf_counter() - t0:.2f} s in all", file=sys.stderr,
+              flush=True)
         return out
 
     smi = phase_device()
-    usage = timed("build", phase_build)
     cuda = torch.device("cuda")
+    # two worker processes simulate the main batch (~20 s of Python) and
+    # run the grids' untimed plain versions on the CPU (~60 s of launches
+    # on the card), and phase train_dp's leg (b) ranks start up (and then
+    # wait), while the kernels build and the grids run
+    sim = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_worker_init)
+    batch = sim.submit(_simulated, long_reads)
+    refs = {grid: sim.submit(_plain_refs, grid) for grid in GRID_SEEDS}
+    split_profile = sim.submit(long_reads, 512, read_len=300)
+    dp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
+    leg_b = _start_leg("b", 2, dp_dir, cuda, False)
+    try:
+        kernels = _phases(cuda, timed, phase_s, sim, batch, refs,
+                          split_profile, (leg_b, dp_dir))
+    finally:
+        _stop_leg(leg_b)
+        sim.shutdown(cancel_futures=True)
+        shutil.rmtree(dp_dir, ignore_errors=True)
+    emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
+            leg_b) -> list:
+    """Every phase after ``phase_device``, in order; returns the
+    ``kernels`` line's entries."""
+    usage = timed("build", phase_build)
     rows = timed("kernel", phase_kernels, cuda, usage=usage)
-    timed("k1_grid", phase_k1_grid, cuda)
+    timed("k1_grid", phase_k1_grid, cuda, refs=refs["k1"])
     occupancy = timed("k1_occupancy", phase_k1_occupancy, usage)
-    timed("tail_grid", phase_tail_grid, cuda, usage=usage)
-    timed("k3_grid", phase_k3_grid, cuda, usage=usage)
-    rs = timed("batch", long_reads)
+    timed("tail_grid", phase_tail_grid, cuda, usage=usage, refs=refs["tail"])
+    timed("k3_grid", phase_k3_grid, cuda, usage=usage, refs=refs["k3"])
+    rs, sim_s = timed("batch", batch.result)
     emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
-         sim_s=phase_s["batch"])
+         sim_s=sim_s, waited_s=phase_s["batch"])
     fused, fused_res = timed("main_path", phase_main_path, cuda, rs)
     split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
-                  fused_res, profile_rs=long_reads(512, read_len=300))
+                  fused_res, profile_rs=split_profile.result())
+    sim.shutdown()
     timed("end_to_end", phase_end_to_end, cuda)
     timed("mesh", phase_mesh, cuda, rs, fused, fused_res)
     timed("session", phase_session, cuda)
@@ -3080,7 +3764,8 @@ def main() -> None:
     timed("mapper", phase_mapper, cuda)
     timed("paper", phase_paper, cuda)
     timed("lm", phase_lm, cuda)
-    timed("train", phase_train, cuda)
+    trained = timed("train", phase_train, cuda)
+    timed("train_dp", phase_train_dp, cuda, trained["c"], leg_b=leg_b)
     timed("profiles", phase_profiles)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []
@@ -3120,13 +3805,11 @@ def main() -> None:
                                       placement=r.get("placement"),
                                       ptxas=r.get("ptxas")) for r in wide]
         kernels.append(entry)
-    emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s)
-    print(json.dumps({"kernels": kernels}))
-    print(smi)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    return kernels
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--train-dp-child"]:
+        train_dp_child(sys.argv[2:])
+    else:
+        main()

@@ -15,7 +15,13 @@ The values are copied from the device to the host before
 float32 master weights and AdamW moments), so a bfloat16 leaf is refused
 rather than upcast.  A restore loads into the tensors of the state it is
 given, in place on their devices, or, for an ``abstract_state`` (tensors
-on the ``meta`` device), into new CPU tensors.
+on the ``meta`` device), into new CPU tensors; with ``shardings`` (the
+reference's elastic restore) every leaf becomes a DTensor on its
+sharding's mesh, each rank keeping its own slice of the full array, so a
+checkpoint saved under one mesh restores under another.  A state of
+DTensors saves its full values (``full_tensor``: every rank of the mesh
+must call ``save_checkpoint``; the file is one, written where
+``write=True``).
 """
 from __future__ import annotations
 
@@ -58,11 +64,19 @@ def _nest(flat: dict) -> dict:
     return state
 
 
+def _full(t):
+    """A leaf's full value: a DTensor's ``full_tensor()`` (a collective
+    over its mesh), any other tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
 def save_checkpoint(ckpt_dir, state, step: int, *, keep: int = 3,
-                    async_save: bool = False):
+                    async_save: bool = False, write: bool = True):
     """Atomic: write to a tmp dir, rename.  Returns the checkpoint's path
     (or the in-flight thread when `async_save`).  Raises ValueError,
-    writing nothing, for a bfloat16 leaf."""
+    writing nothing, for a bfloat16 leaf.  ``write=False`` gathers the
+    full values of a DTensor state (its part of the collective) and
+    writes nothing: the ranks other than the writer."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     flat = flat_state(state)
     bf16 = sorted(k for k, t in flat.items() if t.dtype == torch.bfloat16)
@@ -71,11 +85,13 @@ def save_checkpoint(ckpt_dir, state, step: int, *, keep: int = 3,
                          f"bfloat16 and a checkpoint does not upcast; "
                          f"train float32 master weights "
                          f"(get_model(..., param_dtype='float32'))")
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     # snapshot to host memory synchronously (copies, never views of the
     # live tensors the next step updates in place); write async if asked
-    host = {k: t.detach().to("cpu", copy=True).numpy()
+    host = {k: _full(t.detach()).to("cpu", copy=True).numpy()
             for k, t in flat.items()}
+    if not write:
+        return None
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
 
     def _write():
         tmp = ckpt_dir / f".tmp_step_{step}"
@@ -113,12 +129,17 @@ def latest_step(ckpt_dir) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore_checkpoint(ckpt_dir, state, *, step: int | None = None):
+def restore_checkpoint(ckpt_dir, state, *, step: int | None = None,
+                       shardings=None):
     """Load checkpoint `step` (default: the latest) into `state` and return
     ``(state, step)``.  A live state (``train.step.init_state``) is loaded
     in place, each tensor on its own device; an ``abstract_state`` gives a
-    new state of CPU tensors.  Raises ValueError, loading nothing, where a
-    name, shape or dtype differs from the checkpoint's."""
+    new state of CPU tensors.  With `shardings` (``launch.dryrun
+    .tree_shardings`` of the state's specs on a torch DeviceMesh, in the
+    state's layout, possibly for another mesh than the one saved under)
+    the result is a new state of DTensors, each rank holding its slice.
+    Raises ValueError, loading nothing, where a name, shape or dtype
+    differs from the checkpoint's."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -137,6 +158,10 @@ def restore_checkpoint(ckpt_dir, state, *, step: int | None = None):
                          f"match the state: missing {missing[:8]}, "
                          f"unexpected {extra[:8]}, (name, shape, dtype "
                          f"saved, wanted) {bad[:8]}")
+    if shardings is not None:
+        from ..runtime.elastic import place
+        sh = flat_state(shardings)
+        return _nest({k: place(arrays[k], sh[k]) for k in flat}), step
     if all(t.is_meta for t in flat.values()):
         return _nest({k: arrays[k] for k in flat}), step
     with torch.no_grad():

@@ -105,25 +105,44 @@ def model_config_from_reference(fields: dict):
     return ModelConfig(**fields)
 
 
-def _reference_leaves(tree, path=()):
-    """(dotted name, array) for each leaf of the reference's parameter
-    tree; the leaves of a dict ``layers`` (stacked over layers, the
-    reference's ``lax.scan`` layout) split into ``layers.<i>.<name>``, the
-    entries of a tuple ``layers`` (xLSTM) are ``layers.<i>``."""
+def _rows(leaf):
+    arr = np.asarray(leaf)
+    return [arr[i] for i in range(arr.shape[0])]
+
+
+def _reference_leaves(tree, path=(), leaf=np.asarray, unstack=_rows):
+    """(dotted name, ``leaf(value)``) for each leaf of the reference's
+    parameter tree; the leaves of a dict ``layers`` (stacked over layers,
+    the reference's ``lax.scan`` layout) split into ``layers.<i>.<name>``
+    by ``unstack`` (default: the rows of the array), the entries of a
+    tuple ``layers`` (xLSTM) are ``layers.<i>``.  This is the one map of
+    the reference's paths onto the port's ``named_parameters()``."""
     if isinstance(tree, dict):
         for k, v in tree.items():
             if path == () and k == "layers" and isinstance(v, dict):
-                for name, arr in _reference_leaves(v):
-                    arr = np.asarray(arr)
-                    for i in range(arr.shape[0]):
-                        yield f"layers.{i}.{name}", arr[i]
+                for name, stacked in _reference_leaves(v, (), lambda x: x,
+                                                       unstack):
+                    for i, one in enumerate(unstack(stacked)):
+                        yield f"layers.{i}.{name}", leaf(one)
             else:
-                yield from _reference_leaves(v, path + (str(k),))
+                yield from _reference_leaves(v, path + (str(k),), leaf,
+                                             unstack)
     elif isinstance(tree, (tuple, list)):
         for i, v in enumerate(tree):
-            yield from _reference_leaves(v, path + (str(i),))
+            yield from _reference_leaves(v, path + (str(i),), leaf, unstack)
     else:
-        yield ".".join(path), np.asarray(tree)
+        yield ".".join(path), leaf(tree)
+
+
+def specs_from_reference(param_specs) -> dict:
+    """``{port parameter name: spec tuple}`` from the reference's
+    ``model.param_specs()`` (its ``ParamSpec`` leaves, read through their
+    ``.shape`` and ``.spec``): a stacked layer's spec loses its leading
+    layer axis, as the port's per-layer parameters have none."""
+    return dict(_reference_leaves(
+        param_specs,
+        leaf=lambda ps: tuple(ps.spec) if hasattr(ps, "spec") else ps,
+        unstack=lambda ps: [tuple(ps.spec[1:])] * ps.shape[0]))
 
 
 def _leaves_like(model, tree, what: str) -> dict:

@@ -1,13 +1,36 @@
 """Training entry point (port of ``repro/launch/train.py``): float32 master
 weights under the config's compute dtype, the synthetic token stream, and
 the supervised loop with checkpoint/restart, on one device (the card
-unless ``--device cpu``).
+unless ``--device cpu``) or data-parallel over ranks.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --tiny --steps 200 --batch 8 --seq 256 --ckpt-dir /path/to/ckpt
 
-Training over several cards (``--model-parallel`` above 1, a data axis)
-waits for ROADMAP Queue 1 item 4.
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b ...
+
+Under ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` set) it
+initialises the process group, NCCL on cards and gloo for ``--device
+cpu`` (``--backend`` overrides: two ranks sharing one card need gloo,
+NCCL refuses them).  Each rank takes ``cuda:LOCAL_RANK`` unless the
+caller names a device (``--device cuda:<i>``); a ``LOCAL_RANK`` past the
+visible cards is an error.  The mesh is ``(world, 1)`` over ``("data",
+"model")``; every rank reads the same global ``TokenStream`` batch and
+takes its rows (``train.step.shard_batch``: rows ``[r*B/n, (r+1)*B/n)``
+without accumulation), so the run sees the tokens a single-device run
+sees; a ``--batch`` that does not divide is a ValueError.  The gradients
+are averaged over the ranks (``--grad-compress``: the int8 ring of
+``distributed.collectives``), rank 0 writes the checkpoints, and only
+rank 0 prints.
+
+Where the port differs from the reference: the reference's default
+``--model-parallel 0`` factors the devices with ``best_mesh_shape``, which
+prefers a model axis ((1, 2) on 2 devices), and GSPMD shards the state
+and the compute over it.  The port trains over the data axis only, the
+state replicated on every rank, until the model axis is ported (ROADMAP
+Queue 1 item 11); ``--model-parallel`` above 1 raises NotImplementedError.
+The reference's results do not depend on its mesh (its own test holds
+sharded against single-device within 2e-2, ``tests/test_distributed.py``).
 """
 from __future__ import annotations
 
@@ -26,12 +49,16 @@ from ..models.registry import get_config, get_model, tiny_config
 from ..optim.adamw import AdamWConfig
 from ..runtime.elastic import make_elastic_mesh
 from ..runtime.ft import FailureInjector, supervise
-from ..train.step import init_state, make_train_step
+from ..train.step import (init_state, make_allreduce_grad_sync,
+                          make_train_step, replica_digest, shard_batch)
+
+MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 11 (the model axis)"
 
 
-def build(args):
-    """(config, model): the model with float32 master weights on
-    ``args.device``, drawn from a generator there seeded ``args.seed``."""
+def build(args, device=None):
+    """(config, model): the model with float32 master weights on `device`
+    (default ``args.device``), drawn from a generator there seeded
+    ``args.seed``, computing in ``args.dtype`` where it is given."""
     cfg = get_config(args.arch)
     if args.tiny:
         cfg = tiny_config(cfg, n_layers=args.layers or 2)
@@ -43,11 +70,70 @@ def build(args):
             over["d_model"] = args.d_model
         if over:
             cfg = dataclasses.replace(cfg, **over)
-    dev = resolve_device(args.device)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, dtype=args.dtype)
+    dev = resolve_device(args.device if device is None else device)
     model = get_model(cfg, device=dev, param_dtype="float32",
                       generator=torch.Generator(device=dev)
                       .manual_seed(args.seed))
     return cfg, model
+
+
+def rank_device(device: str) -> torch.device:
+    """This rank's device: ``--device`` as given where it names one
+    (``cpu``, ``cuda:<i>``), else ``cuda:LOCAL_RANK``; RuntimeError where
+    ``LOCAL_RANK`` is not below the visible cards."""
+    dev = resolve_device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", 0))
+    if local >= torch.cuda.device_count():
+        raise RuntimeError(f"LOCAL_RANK {local} but "
+                           f"{torch.cuda.device_count()} visible cards; "
+                           f"pass --device cuda:<i> to share one")
+    return torch.device("cuda", local)
+
+
+def init_distributed(dev: torch.device, backend: str = "auto"):
+    """The world's process group (None without ``RANK`` / ``WORLD_SIZE``
+    in the environment): NCCL on cards, gloo on the CPU, or `backend`.
+    Returns ``(group, created)``: a group initialised by the caller is
+    used as it is."""
+    import torch.distributed as dist
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None, False
+    if dist.is_initialized():
+        return dist.group.WORLD, False
+    if backend == "auto":
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend, device_id=dev if backend == "nccl" else None)
+    return dist.group.WORLD, True
+
+
+def _timed(fn, dev, times: list):
+    """`fn` with each call's device time recorded (CUDA events; host time
+    on the CPU) into `times`."""
+    def timed(*args):
+        if dev.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            out = fn(*args)
+            ev[1].record()
+            times.append(ev)
+        else:
+            t0 = time.perf_counter()
+            out = fn(*args)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def _ms(times: list) -> list:
+    return [ev[0].elapsed_time(ev[1]) if isinstance(ev, list) else ev
+            for ev in times]
 
 
 def main(argv=None):
@@ -68,43 +154,117 @@ def main(argv=None):
     ap.add_argument("--inject-failure-at", type=int, default=-1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dtype", default=None,
+                    choices=("float32", "bfloat16"),
+                    help="compute dtype (default: the config's); the "
+                         "master weights are float32 either way")
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto", "nccl", "gloo"))
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="sync gradients with the int8 ring "
+                         "(distributed.collectives)")
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--metrics-out", default=None,
+                    help="rank 0 writes the log, each step's time and "
+                         "gradient sync time, peak memory and every "
+                         "rank's replica digest here (JSON)")
     args = ap.parse_args(argv)
     if args.model_parallel not in (0, 1):
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: training over several "
-            f"cards is ROADMAP Queue 1 item 4; the port trains on one "
-            f"device")
+            f"--model-parallel {args.model_parallel}: sharded compute over "
+            f"a model axis is {MODEL_AXIS_ITEM}; the port trains "
+            f"data-parallel over every rank")
 
-    cfg, model = build(args)
-    mesh = make_elastic_mesh(args.model_parallel, devices=[model.device])
+    world = int(os.environ["WORLD_SIZE"]) if "RANK" in os.environ \
+        and "WORLD_SIZE" in os.environ else 1
+    if args.batch % (world * args.grad_accum):      # before any group
+        raise ValueError(f"--batch {args.batch} does not divide into "
+                         f"{world} ranks x --grad-accum {args.grad_accum}")
+    dev = rank_device(args.device)
+    group, created = init_distributed(dev, args.backend)
+    try:
+        return _run(args, dev, group)
+    finally:
+        if created:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _run(args, dev, group):
+    import torch.distributed as dist
+    rank = dist.get_rank(group) if group is not None else 0
+    world = dist.get_world_size(group) if group is not None else 1
+    say = print if rank == 0 else (lambda *a, **k: None)
+    cfg, model = build(args, dev)
+    mesh = make_elastic_mesh(1, devices=[dev]) if group is not None \
+        else make_elastic_mesh(args.model_parallel, devices=[model.device])
+    shape = (dict(zip(mesh.mesh_dim_names, mesh.shape))
+             if hasattr(mesh, "mesh_dim_names") else mesh.shape)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"mesh: {mesh.shape} on {model.device}  arch: {cfg.name}  "
-          f"params: {n_params / 1e6:.1f}M")
+    say(f"mesh: {shape} on {model.device}  arch: {cfg.name}  "
+        f"params: {n_params / 1e6:.1f}M")
 
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(10, args.steps // 20))
-    step_fn = make_train_step(model, opt_cfg, grad_accum=args.grad_accum)
+    sync_times, step_times = [], []
+    sync = None
+    if group is not None:
+        if args.grad_compress:
+            from ..distributed.collectives import make_compressed_grad_sync
+            sync = make_compressed_grad_sync(group)
+        else:
+            sync = make_allreduce_grad_sync(group)
+        if args.metrics_out:
+            sync = _timed(sync, dev, sync_times)
+    step_fn = make_train_step(model, opt_cfg, grad_accum=args.grad_accum,
+                              group=group, grad_sync=sync)
+    if args.metrics_out:
+        step_fn = _timed(step_fn, dev, step_times)
     state = init_state(model)
     stream = TokenStream(cfg.vocab, args.batch, args.seq, args.seed,
                          family=cfg.family, d_model=cfg.d_model,
                          n_codebooks=cfg.n_codebooks)
+    data = stream if group is None else (
+        lambda i: shard_batch(stream.batch_at(i), rank, world,
+                              args.grad_accum))
     injector = (FailureInjector([args.inject_failure_at])
                 if args.inject_failure_at >= 0 else None)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
     state, log, restarts = supervise(
-        step_fn, state, stream, steps=args.steps,
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        injector=injector)
-    if model.device.type == "cuda":
-        torch.cuda.synchronize(model.device)
+        step_fn, state, data,
+        steps=args.steps, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, injector=injector,
+        log_every=args.log_every, group=group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
     wall = time.time() - t0
     toks = args.steps * args.batch * args.seq
     for rec in log[-5:]:
-        print(json.dumps(rec))
+        say(json.dumps(rec))
     losses = [r["loss"] for r in log if "loss" in r]
-    print(f"done: {args.steps} steps, {restarts} restarts, "
-          f"{toks/wall:.0f} tok/s, final loss "
-          f"{losses[-1] if losses else float('nan'):.4f}")
+    say(f"done: {args.steps} steps, {restarts} restarts, "
+        f"{toks/wall:.0f} tok/s, final loss "
+        f"{losses[-1] if losses else float('nan'):.4f}")
+    if args.metrics_out:
+        digest = replica_digest(state)
+        digests = [digest] * world
+        if group is not None:
+            dist.all_gather_object(digests, digest, group=group)
+        if rank == 0:
+            with open(args.metrics_out, "w") as f:
+                json.dump({"log": log, "restarts": restarts, "world": world,
+                           "mesh": shape, "device": str(dev),
+                           "backend": dist.get_backend(group)
+                           if group is not None else None,
+                           "step_ms": _ms(step_times),
+                           "sync_ms": _ms(sync_times), "wall_s": wall,
+                           "tokens": toks, "params": n_params,
+                           "peak_memory_bytes":
+                           torch.cuda.max_memory_allocated(dev)
+                           if dev.type == "cuda" else None,
+                           "digests": digests}, f)
     return log
 
 

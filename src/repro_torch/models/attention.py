@@ -74,14 +74,14 @@ class Attention(ParamModule):
     def __init__(self, cfg, init: Init):
         super().__init__()
         D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self.declare(init, "wq", (D, H * Dh))
-        self.declare(init, "wk", (D, KV * Dh))
-        self.declare(init, "wv", (D, KV * Dh))
-        self.declare(init, "wo", (H * Dh, D))
+        self.declare(init, "wq", (D, H * Dh), spec=("data", "model"))
+        self.declare(init, "wk", (D, KV * Dh), spec=("data", "model"))
+        self.declare(init, "wv", (D, KV * Dh), spec=("data", "model"))
+        self.declare(init, "wo", (H * Dh, D), spec=("model", "data"))
         if cfg.qkv_bias:
-            self.declare(init, "bq", (H * Dh,), "zeros")
-            self.declare(init, "bk", (KV * Dh,), "zeros")
-            self.declare(init, "bv", (KV * Dh,), "zeros")
+            self.declare(init, "bq", (H * Dh,), "zeros", spec=("model",))
+            self.declare(init, "bk", (KV * Dh,), "zeros", spec=("model",))
+            self.declare(init, "bv", (KV * Dh,), "zeros", spec=("model",))
 
 
 def attn_block(p, x, positions, pos_1d, cfg, layer_is_global=0,

@@ -162,8 +162,13 @@ def make_param(init: Init, shape, kind: str = "normal",
     """One parameter as the reference's ``ParamSpec`` + ``init_param``
     declare it: ``zeros``, ``ones``, or a float32 standard normal times
     `scale` (default 1/sqrt(fan-in), the fan-in being the second-to-last
-    dimension, or the only one), cast to the parameters' dtype."""
+    dimension, or the only one), cast to the parameters' dtype.  On the
+    ``meta`` device (a dry run's build) it holds the shape and dtype only
+    and draws nothing."""
     shape = tuple(int(s) for s in shape)
+    if init.device.type == "meta":        # shapes only: no values, no draw
+        return nn.Parameter(torch.empty(shape, dtype=init.dtype,
+                                        device="meta"))
     if kind == "zeros":
         t = torch.zeros(shape, dtype=init.dtype, device=init.device)
     elif kind == "ones":
@@ -182,7 +187,9 @@ class ParamModule(nn.Module):
     """A module whose parameters are read by name, ``p["wq"]``, as the
     reference's functions read their parameter dicts (the functions of
     this package take either), each cast to ``compute_dtype``
-    (``as_compute``)."""
+    (``as_compute``).  Every parameter carries the reference's logical
+    spec (``ParamSpec.spec``, without the stacked layer axis), read back
+    by ``partition_specs``."""
 
     compute_dtype = None
 
@@ -190,6 +197,31 @@ class ParamModule(nn.Module):
         return as_compute(getattr(self, name), self.compute_dtype)
 
     def declare(self, init: Init, name: str, shape, kind: str = "normal",
-                scale: float | None = None) -> None:
+                scale: float | None = None, *, spec: tuple) -> None:
         self.compute_dtype = init.compute_dtype
-        self.register_parameter(name, make_param(init, shape, kind, scale))
+        self.register(name, make_param(init, shape, kind, scale), spec)
+
+    def register(self, name: str, param: nn.Parameter, spec: tuple) -> None:
+        """Register `param` as `name` with its logical `spec`: per
+        dimension a mesh-axis name, a tuple of names or None (ValueError
+        for another number of entries)."""
+        spec = tuple(spec)
+        if len(spec) != param.ndim:
+            raise ValueError(f"{name}: spec {spec} for a parameter of "
+                             f"shape {tuple(param.shape)}")
+        self.register_parameter(name, param)
+        self.__dict__.setdefault("_specs", {})[name] = spec
+
+
+def partition_specs(module: nn.Module) -> dict:
+    """``{parameter name: spec}`` for every parameter of `module`, keyed
+    as ``named_parameters()``; ValueError for a parameter declared
+    without a spec."""
+    specs = {}
+    for prefix, sub in module.named_modules():
+        for name, spec in sub.__dict__.get("_specs", {}).items():
+            specs[f"{prefix}.{name}" if prefix else name] = spec
+    missing = [n for n, _ in module.named_parameters() if n not in specs]
+    if missing:
+        raise ValueError(f"parameters without a spec: {missing[:8]}")
+    return {n: specs[n] for n, _ in module.named_parameters()}

@@ -75,14 +75,15 @@ class Mamba2Layer(ParamModule):
         H = d_in // P
         conv_ch = d_in + 2 * N
         e_total = 2 * d_in + 2 * N + H
-        self.declare(init, "ln", (D,), "zeros")
-        self.declare(init, "w_in", (D, e_total))
-        self.declare(init, "conv_w", (cfg.ssm_conv, conv_ch), scale=0.5)
-        self.declare(init, "dt_bias", (H,), "zeros")
-        self.declare(init, "A_log", (H,), "zeros")
-        self.declare(init, "D", (H,), "ones")
-        self.declare(init, "norm_w", (d_in,), "zeros")
-        self.declare(init, "w_out", (d_in, D))
+        self.declare(init, "ln", (D,), "zeros", spec=(None,))
+        self.declare(init, "w_in", (D, e_total), spec=("data", "model"))
+        self.declare(init, "conv_w", (cfg.ssm_conv, conv_ch), scale=0.5,
+                     spec=(None, "model"))
+        self.declare(init, "dt_bias", (H,), "zeros", spec=("model",))
+        self.declare(init, "A_log", (H,), "zeros", spec=("model",))
+        self.declare(init, "D", (H,), "ones", spec=("model",))
+        self.declare(init, "norm_w", (d_in,), "zeros", spec=("model",))
+        self.declare(init, "w_out", (d_in, D), spec=("model", "data"))
 
 
 def causal_conv(hist, w, L: int):

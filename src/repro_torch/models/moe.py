@@ -8,11 +8,48 @@ dropped (it goes to slot E*C, which is cut off, as ``mode="drop"`` drops
 it), and an unfilled slot points at token 0 with weight 0.  The combine
 is a scatter-add, so it sums a token's experts in another order than the
 reference: equal within a tolerance, not bit for bit.
+
+The router's load-balancing loss ``E * sum_e mean(probs_e) *
+mean(onehot_e)`` is a product of two means over the *global* batch, not
+a mean over rows.  Under data parallelism (``global_batch(group)``, which
+``train.step`` enters) each rank's two means are averaged over the group
+with a differentiable all-reduce before the product, so every rank sees
+the global batch's loss and its gradient.  The dispatch is per row and
+needs nothing of the other ranks.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
+
+#: the process group whose ranks together hold the batch, while
+#: ``global_batch`` is entered
+_GROUP = None
+
+
+@contextlib.contextmanager
+def global_batch(group):
+    """Within the block, the router's statistics are means over the rows
+    of every rank of `group` (equal row counts a rank); None: this
+    process's rows only."""
+    global _GROUP
+    outer, _GROUP = _GROUP, group
+    try:
+        yield
+    finally:
+        _GROUP = outer
+
+
+def _group_mean(t):
+    """`t` averaged over ``_GROUP``'s ranks (differentiable), or as it is
+    without a group."""
+    if _GROUP is None:
+        return t
+    import torch.distributed as dist
+    import torch.distributed.nn.functional as dist_nn
+    return dist_nn.all_reduce(t, group=_GROUP) / dist.get_world_size(_GROUP)
 
 from .common import Init, ParamModule, act_fn
 
@@ -23,10 +60,10 @@ class MoE(ParamModule):
     def __init__(self, cfg, init: Init):
         super().__init__()
         D, Fe, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.declare(init, "router", (D, E))
-        self.declare(init, "wg", (E, D, Fe))
-        self.declare(init, "wu", (E, D, Fe))
-        self.declare(init, "wd", (E, Fe, D))
+        self.declare(init, "router", (D, E), spec=(None, None))
+        self.declare(init, "wg", (E, D, Fe), spec=("model", "data", None))
+        self.declare(init, "wu", (E, D, Fe), spec=("model", "data", None))
+        self.declare(init, "wd", (E, Fe, D), spec=("model", None, "data"))
 
 
 def router_topk(x, w_router, cfg):
@@ -39,8 +76,8 @@ def router_topk(x, w_router, cfg):
     if cfg.norm_topk_prob:
         w = w / (w.sum(dim=-1, keepdim=True) + 1e-9)
     E = cfg.n_experts
-    me = probs.mean(dim=(0, 1))
-    fe = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    me = _group_mean(probs.mean(dim=(0, 1)))
+    fe = _group_mean(F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1)))
     aux = E * (me * fe).sum()
     return w.to(x.dtype), idx.to(torch.int32), aux
 

@@ -1,6 +1,7 @@
 """Architecture registry (port of ``repro/models/registry.py``):
-``--arch <id>`` -> config and model.  The reference's ``input_specs``
-(abstract inputs for ``launch/dryrun.py``) waits for that module's port."""
+``--arch <id>`` -> config, model and the abstract inputs of a shape cell
+(``input_specs``, tensors on the ``meta`` device, for
+``launch/dryrun.py``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,14 +56,18 @@ def get_model(arch_or_cfg, device="cuda", dtype=None, generator=None,
     ``cfg.dtype``, the compute dtype.  `param_dtype` is the dtype the
     weights are held in, by default the compute dtype; training holds
     them in float32 (the reference's ``init_state(..., dtype=float32)``)
-    and every read casts them to the compute dtype."""
+    and every read casts them to the compute dtype.  On ``device="meta"``
+    (a dry run) the parameters hold shapes and dtypes only: nothing is
+    allocated or drawn."""
     cfg = get_config(arch_or_cfg) if isinstance(arch_or_cfg, str) \
         else arch_or_cfg
-    dev = resolve_device(device)
+    dev = torch.device(device)
+    if dev.type != "meta":
+        dev = resolve_device(dev)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=_dtype_name(dtype, "dtype"))
     held = DTYPES[_dtype_name(param_dtype or cfg.dtype, "param_dtype")]
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     cls = {"hybrid": Zamba2LM, "ssm": XLSTMLM}.get(cfg.family, TransformerLM)
     init = Init(device=dev, dtype=held, generator=generator,
@@ -98,3 +103,35 @@ def tiny_config(cfg: ModelConfig, n_layers=2) -> ModelConfig:
     if cfg.n_codebooks:
         repl.update(n_codebooks=2)
     return dataclasses.replace(cfg, **repl)
+
+
+def input_specs(cfg: ModelConfig, shape: str, *, tiny: bool = False):
+    """Stand-ins on the ``meta`` device (shapes and dtypes, no memory) for
+    every model input of the shape cell, as the reference's
+    ``input_specs``: ``{"batch": ...}``, and for decode also ``"cache"``
+    (``abstract_cache`` of the global batch at the cell's length).  A
+    decode batch's ``cache_pos`` is a 0-d int32 tensor; `tiny` cuts the
+    cell to 8 x 128."""
+    S, GB, kind = SHAPES[shape]
+    if tiny:
+        S, GB = 128, 8
+    i32, bf16 = torch.int32, torch.bfloat16
+
+    def meta(*shape_, dtype=i32):
+        return torch.empty(shape_, dtype=dtype, device="meta")
+    rows = 1 if kind == "decode" else S
+    if cfg.family == "audio":
+        batch = {"embeds": meta(GB, rows, cfg.d_model, dtype=bf16)}
+        if kind == "train":
+            batch["labels"] = meta(GB, S, cfg.n_codebooks)
+    else:
+        batch = {"tokens": meta(GB, rows)}
+        if kind == "train":
+            batch["labels"] = meta(GB, S)
+    if cfg.family == "vlm":
+        batch["positions"] = meta(3, GB, rows)
+    if kind != "decode":
+        return {"batch": batch}
+    batch["cache_pos"] = meta()
+    model = get_model(cfg, device="meta")
+    return {"batch": batch, "cache": model.abstract_cache(GB, S)}

@@ -23,11 +23,12 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils import _pytree
 from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention, attn_block
 from .common import (DTYPES, Init, ParamModule, act_fn, compute_dtype,
-                     make_param, rms_norm, scalar, softcap)
+                     make_param, partition_specs, rms_norm, scalar, softcap)
 from .moe import MoE, moe_ffn
 
 
@@ -37,9 +38,9 @@ class MLP(ParamModule):
     def __init__(self, cfg, init: Init):
         super().__init__()
         D, F = cfg.d_model, cfg.d_ff
-        self.declare(init, "wg", (D, F))
-        self.declare(init, "wu", (D, F))
-        self.declare(init, "wd", (F, D))
+        self.declare(init, "wg", (D, F), spec=("data", "model"))
+        self.declare(init, "wu", (D, F), spec=("data", "model"))
+        self.declare(init, "wd", (F, D), spec=("model", "data"))
 
 
 def mlp_ffn(p, x, cfg):
@@ -56,12 +57,12 @@ class Block(ParamModule):
     def __init__(self, cfg, init: Init):
         super().__init__()
         D = cfg.d_model
-        self.declare(init, "ln1", (D,), "zeros")
-        self.declare(init, "ln2", (D,), "zeros")
+        self.declare(init, "ln1", (D,), "zeros", spec=(None,))
+        self.declare(init, "ln2", (D,), "zeros", spec=(None,))
         self.attn = Attention(cfg, init)
         if cfg.post_block_norm:
-            self.declare(init, "ln1b", (D,), "zeros")
-            self.declare(init, "ln2b", (D,), "zeros")
+            self.declare(init, "ln1b", (D,), "zeros", spec=(None,))
+            self.declare(init, "ln2b", (D,), "zeros", spec=(None,))
         if cfg.n_experts:
             self.moe = MoE(cfg, init)
         else:
@@ -92,14 +93,18 @@ class TransformerLM(ParamModule):
     def build(self, init: Init) -> None:
         cfg = self.cfg
         D, V = cfg.d_model, cfg.vocab_padded
-        self.embed = make_param(init, (V, D), scale=0.02)
+        self.register("embed", make_param(init, (V, D), scale=0.02),
+                      ("model", "data"))
         self.layers = nn.ModuleList(Block(cfg, init)
                                     for _ in range(cfg.n_layers))
-        self.final_norm = make_param(init, (D,), "zeros")
+        self.register("final_norm", make_param(init, (D,), "zeros"),
+                      (None,))
         if cfg.n_codebooks:
-            self.head = make_param(init, (cfg.n_codebooks, D, V))
+            self.register("head", make_param(init, (cfg.n_codebooks, D, V)),
+                          (None, "data", "model"))
         elif not cfg.tie_embeddings:
-            self.head = make_param(init, (D, V))
+            self.register("head", make_param(init, (D, V)),
+                          ("data", "model"))
 
     @property
     def device(self) -> torch.device:
@@ -262,11 +267,28 @@ class TransformerLM(ParamModule):
         logits, _, cache = self.forward(batch, mode="decode", cache=cache)
         return logits, cache
 
+    def partition_specs(self) -> dict:
+        """``{parameter name: logical spec}`` for every parameter: the
+        reference's ``partition_specs()``, keyed by ``named_parameters()``
+        (a stacked layer's spec without its leading layer axis)."""
+        return partition_specs(self)
+
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16):
+        """Zeros in ``abstract_cache``'s layout on the model's device."""
+        return _pytree.tree_map(
+            lambda t: torch.zeros(t.shape, dtype=t.dtype,
+                                  device=self.device),
+            self.abstract_cache(batch_size, max_len, dtype))
+
+    def abstract_cache(self, batch_size: int, max_len: int,
+                       dtype=torch.bfloat16):
+        """The decode cache's layout as tensors on the ``meta`` device
+        (shapes and dtypes, no memory): ``{"kv": {"k", "v"}}`` of
+        ``(L, B, max_len, KV, Dh)``."""
         cfg = self.cfg
         L, KV, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
         shape = (L, batch_size, max_len, KV, Dh)
         dtype = DTYPES.get(dtype, dtype)
-        return {"kv": {n: torch.zeros(shape, dtype=dtype, device=self.device)
+        return {"kv": {n: torch.empty(shape, dtype=dtype, device="meta")
                        for n in ("k", "v")}}

@@ -28,16 +28,17 @@ class MLSTMLayer(ParamModule):
         super().__init__()
         D, H = cfg.d_model, cfg.n_heads
         Di = 2 * D
-        self.declare(init, "ln", (D,), "zeros")
-        self.declare(init, "w_up", (D, 2 * Di))
-        self.declare(init, "conv_w", (DCONV, Di), scale=0.5)
-        self.declare(init, "wq", (Di, Di))
-        self.declare(init, "wk", (Di, Di))
-        self.declare(init, "wv", (Di, Di))
-        self.declare(init, "w_i", (Di, H))
-        self.declare(init, "w_f", (Di, H))
-        self.declare(init, "gn", (Di,), "zeros")
-        self.declare(init, "w_down", (Di, D))
+        self.declare(init, "ln", (D,), "zeros", spec=(None,))
+        self.declare(init, "w_up", (D, 2 * Di), spec=("data", "model"))
+        self.declare(init, "conv_w", (DCONV, Di), scale=0.5,
+                     spec=(None, "model"))
+        self.declare(init, "wq", (Di, Di), spec=("data", "model"))
+        self.declare(init, "wk", (Di, Di), spec=("data", "model"))
+        self.declare(init, "wv", (Di, Di), spec=("data", "model"))
+        self.declare(init, "w_i", (Di, H), spec=("model", None))
+        self.declare(init, "w_f", (Di, H), spec=("model", None))
+        self.declare(init, "gn", (Di,), "zeros", spec=(None,))
+        self.declare(init, "w_down", (Di, D), spec=("model", "data"))
 
 
 class SLSTMLayer(ParamModule):
@@ -48,11 +49,11 @@ class SLSTMLayer(ParamModule):
         super().__init__()
         D, H = cfg.d_model, cfg.n_heads
         Dh = D // H
-        self.declare(init, "ln", (D,), "zeros")
-        self.declare(init, "w_gates", (D, 4 * D))
-        self.declare(init, "r_gates", (H, Dh, 4 * Dh))
-        self.declare(init, "gn", (D,), "zeros")
-        self.declare(init, "w_down", (D, D))
+        self.declare(init, "ln", (D,), "zeros", spec=(None,))
+        self.declare(init, "w_gates", (D, 4 * D), spec=("data", "model"))
+        self.declare(init, "r_gates", (H, Dh, 4 * Dh), spec=(None, None, None))
+        self.declare(init, "gn", (D,), "zeros", spec=(None,))
+        self.declare(init, "w_down", (D, D), spec=("data", "model"))
 
 
 def mlstm_mixer(q, k, v, i_gate, f_gate, chunk: int = 256, state=None):

@@ -25,12 +25,14 @@ class XLSTMLM(TransformerLM):
     def build(self, init: Init) -> None:
         cfg = self.cfg
         D, V = cfg.d_model, cfg.vocab_padded
-        self.embed = make_param(init, (V, D), scale=0.02)
+        self.register("embed", make_param(init, (V, D), scale=0.02),
+                      ("model", "data"))
         self.layers = nn.ModuleList(
             (MLSTMLayer if kind == "mlstm" else SLSTMLayer)(cfg, init)
             for kind in self._kinds())
-        self.final_norm = make_param(init, (D,), "zeros")
-        self.head = make_param(init, (D, V))
+        self.register("final_norm", make_param(init, (D,), "zeros"),
+                      (None,))
+        self.register("head", make_param(init, (D, V)), ("data", "model"))
 
     def _forward(self, batch, mode, cache):
         cfg = self.cfg
@@ -56,24 +58,24 @@ class XLSTMLM(TransformerLM):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, aux, new_cache
 
-    def init_cache(self, batch_size: int, max_len: int,
-                   dtype=torch.bfloat16):
+    def abstract_cache(self, batch_size: int, max_len: int,
+                       dtype=torch.bfloat16):
         cfg = self.cfg
         D = cfg.d_model
         Di, H = 2 * D, cfg.n_heads
         Dh, Dh_s = Di // H, D // H
         dtype = DTYPES.get(dtype, dtype)
 
-        def zeros(*shape, dt=dtype):
-            return torch.zeros(shape, dtype=dt, device=self.device)
+        def meta(*shape, dt=dtype):
+            return torch.empty(shape, dtype=dt, device="meta")
         states = []
         for kind in self._kinds():
             if kind == "mlstm":
-                states.append((zeros(batch_size, H, Dh, Dh + 1),
-                               zeros(batch_size, 3, Di)))
+                states.append((meta(batch_size, H, Dh, Dh + 1),
+                               meta(batch_size, 3, Di)))
             else:
-                states.append(tuple(zeros(batch_size, H, Dh_s,
-                                          dt=torch.float32)
+                states.append(tuple(meta(batch_size, H, Dh_s,
+                                         dt=torch.float32)
                                     for _ in range(3))
-                              + (zeros(batch_size, H, Dh_s),))
+                              + (meta(batch_size, H, Dh_s),))
         return {"states": tuple(states)}

@@ -29,9 +29,9 @@ class SharedBlock(ParamModule):
     def __init__(self, cfg, init: Init):
         super().__init__()
         D = cfg.d_model
-        self.declare(init, "fuse", (2 * D, D))
-        self.declare(init, "ln1", (D,), "zeros")
-        self.declare(init, "ln2", (D,), "zeros")
+        self.declare(init, "fuse", (2 * D, D), spec=("data", "model"))
+        self.declare(init, "ln1", (D,), "zeros", spec=(None,))
+        self.declare(init, "ln2", (D,), "zeros", spec=(None,))
         self.attn = Attention(cfg, init)
         self.mlp = MLP(cfg, init)
 
@@ -40,12 +40,14 @@ class Zamba2LM(TransformerLM):
     def build(self, init: Init) -> None:
         cfg = self.cfg
         D, V = cfg.d_model, cfg.vocab_padded
-        self.embed = make_param(init, (V, D), scale=0.02)
+        self.register("embed", make_param(init, (V, D), scale=0.02),
+                      ("model", "data"))
         self.layers = nn.ModuleList(Mamba2Layer(cfg, init)
                                     for _ in range(cfg.n_layers))
         self.shared = SharedBlock(cfg, init)
-        self.final_norm = make_param(init, (D,), "zeros")
-        self.head = make_param(init, (D, V))
+        self.register("final_norm", make_param(init, (D,), "zeros"),
+                      (None,))
+        self.register("head", make_param(init, (D, V)), ("data", "model"))
 
     @property
     def n_apps(self):
@@ -123,8 +125,8 @@ class Zamba2LM(TransformerLM):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return logits, aux, new_cache
 
-    def init_cache(self, batch_size: int, max_len: int,
-                   dtype=torch.bfloat16):
+    def abstract_cache(self, batch_size: int, max_len: int,
+                       dtype=torch.bfloat16):
         cfg = self.cfg
         d_in = cfg.ssm_expand * cfg.d_model
         N, P = cfg.ssm_state, cfg.ssm_head_dim
@@ -134,11 +136,11 @@ class Zamba2LM(TransformerLM):
         KV, Dh = cfg.n_kv_heads, cfg.head_dim
         dtype = DTYPES.get(dtype, dtype)
 
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=dtype, device=self.device)
+        def meta(*shape):
+            return torch.empty(shape, dtype=dtype, device="meta")
         return {
-            "kv": {"k": zeros(A, batch_size, max_len, KV, Dh),
-                   "v": zeros(A, batch_size, max_len, KV, Dh)},
-            "ssm": zeros(L, batch_size, H, N, P),
-            "conv": zeros(L, batch_size, cfg.ssm_conv - 1, conv_ch),
+            "kv": {"k": meta(A, batch_size, max_len, KV, Dh),
+                   "v": meta(A, batch_size, max_len, KV, Dh)},
+            "ssm": meta(L, batch_size, H, N, P),
+            "conv": meta(L, batch_size, cfg.ssm_conv - 1, conv_ch),
         }

@@ -8,6 +8,12 @@ the checkpoint into the model's and optimizer's own tensors
 (``checkpoint.restore_checkpoint``); a failure before the first
 checkpoint restarts the count at step 0 with the state as it is, as the
 reference does.
+
+Data parallel (``group=``): every rank runs the loop on its replica.
+Rank 0 of the group writes each checkpoint and a barrier follows every
+save; every rank restores after a barrier, so no rank reads a checkpoint
+before it is whole.  An injected failure fires at the same step on every
+rank.
 """
 from __future__ import annotations
 
@@ -48,19 +54,39 @@ class Watchdog:
         return False
 
 
+def _barrier(group):
+    if group is not None:
+        import torch.distributed as dist
+        dist.barrier(group=group)
+
+
+def _save(ckpt_dir, state, step: int, group) -> None:
+    """Rank 0 of `group` writes its replica; a barrier follows."""
+    if group is None:
+        save_checkpoint(ckpt_dir, state, step, async_save=False)
+        return
+    import torch.distributed as dist
+    if dist.get_rank(group) == 0:
+        save_checkpoint(ckpt_dir, state, step, async_save=False)
+    _barrier(group)
+
+
 def supervise(train_step: Callable, state, data, *, steps: int,
               ckpt_dir, ckpt_every: int = 50,
               injector: FailureInjector | None = None,
-              log_every: int = 10, max_restarts: int = 5):
+              log_every: int = 10, max_restarts: int = 5, group=None):
     """Run `steps` optimizer steps with checkpoint/restart supervision.
 
     `data` must be indexable by step: a callable step->batch or an object
     with .batch_at(step) (a free-running iterator would desynchronize from
     the step counter after a restore).  Metrics are read (``float``) only
-    on log steps.  Returns (state, log: list of dicts, restarts)."""
+    on log steps.  With a process `group` (data parallel), rank 0 writes
+    the checkpoints and every save and restore meets a barrier.  Returns
+    (state, log: list of dicts, restarts)."""
     data_fn = data.batch_at if hasattr(data, "batch_at") else data
     wd = Watchdog()
     log = []
+    _barrier(group)
     step = latest_step(ckpt_dir) or 0
     if step:
         state, step = restore_checkpoint(ckpt_dir, state)
@@ -85,11 +111,12 @@ def supervise(train_step: Callable, state, data, *, steps: int,
                     rec["straggler"] = True
                 log.append(rec)
             if step % ckpt_every == 0:
-                save_checkpoint(ckpt_dir, state, step, async_save=False)
+                _save(ckpt_dir, state, step, group)
         except Exception as e:  # worker failure -> restore and continue
             restarts += 1
             if restarts > max_restarts:
                 raise
+            _barrier(group)
             last = latest_step(ckpt_dir)
             log.append({"step": step, "event": f"restart({e})",
                         "restored_to": last or 0})

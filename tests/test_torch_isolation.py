@@ -76,7 +76,9 @@ def test_port_imports_neither_jax_nor_reference():
             "repro_torch.configs.zamba2_2_7b", "repro_torch.optim.adamw",
             "repro_torch.train.step", "repro_torch.checkpoint.ckpt",
             "repro_torch.runtime.ft", "repro_torch.runtime.elastic",
-            "repro_torch.launch.train"} <= set(MODULES)
+            "repro_torch.launch.train",
+            "repro_torch.distributed.collectives",
+            "repro_torch.launch.dryrun"} <= set(MODULES)
     assert {f"repro_torch.configs.{a.replace('-', '_').replace('.', '_')}"
             for a in ARCH_IDS} <= set(MODULES)
     assert _foreign_modules(MODULES, ROOT) == []
