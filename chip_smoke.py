@@ -3197,6 +3197,17 @@ DP_B_ARGS = ["--steps", "3", "--dtype", "float32", "--log-every", "1"]
 DP_CARDS_ARGS = ["--arch", "llama3.2-1b", "--steps", "4", "--batch", "8",
                  "--seq", "512", "--dtype", "float32", "--ckpt-every",
                  "1000", "--log-every", "1"]
+#: leg (e): the model axis, leg (b)'s two cases (``--model-parallel 2``):
+#: Llama-3.2-1B cut to 2 layers on (2, 2) over 4 ranks and on (1, 2) over
+#: 2 of them, tiny OLMoE (experts over ``model``, a failure at step 2) on
+#: (1, 2); each against leg (b)'s one rank
+MP_MESHES = ((2, 2), (1, 2))
+MP_ARGS = ["--model-parallel", "2"]
+#: below this a gradient element's RMS over the steps is float32 noise
+#: (``tests/test_torch_train_dp.py::_noise_elements``); such elements are
+#: held to MP_NOISE_TOL and must be under 1 in 10^4 of the state
+MP_NOISE = 1e-7
+MP_NOISE_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @contextlib.contextmanager
@@ -3320,13 +3331,13 @@ def _run_leg(leg: str, n: int, out: Path, device: torch.device,
     return _finish_leg(leg, _start_leg(leg, n, out, device, tiny), out)
 
 
-def _wait_for_go(out: Path) -> None:
-    """Block until ``<out>/go`` exists; SystemExit past DP_GO_TIMEOUT_S or
-    once the launcher that started this rank, or the script that started
-    the launcher, is gone."""
+def _wait_for_go(out: Path, name: str = "go") -> None:
+    """Block until ``<out>/<name>`` exists; SystemExit past
+    DP_GO_TIMEOUT_S or once the launcher that started this rank, or the
+    script that started the launcher, is gone."""
     t0, launcher = time.perf_counter(), os.getppid()
     script = int(os.environ.get("CHIP_SMOKE_PID", 0))
-    while not (out / "go").exists():
+    while not (out / name).exists():
         if time.perf_counter() - t0 > DP_GO_TIMEOUT_S:
             raise SystemExit(f"no go in {DP_GO_TIMEOUT_S} s")
         if os.getppid() != launcher or (script and not _alive(script)):
@@ -3367,7 +3378,7 @@ def _dp_compare(got, want) -> dict:
     return dict(max_abs_err=worst, within_tol=ok)
 
 
-def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
+def _dp_child_b(out: Path, kind: str, tiny: bool, pre: dict) -> None:
     """Leg (b): two ranks sharing cuda:0 over gloo (host-staged), each
     running ``launch.train.main`` with ``--device cuda:0 --backend gloo``
     on each of DP_B_CASES.  The first run's entry point initialises the
@@ -3377,14 +3388,16 @@ def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
     second run and OLMoE's router check use as they find it.  Rank 0
     then runs each case alone through the same entry point (the
     launcher's RANK and WORLD_SIZE removed), with the same global batch,
-    and holds the states to DP_TOL."""
+    and holds the states to DP_TOL; last it hands its one-rank Llama
+    state to leg (e) (``_hand_over``).  `pre`: ``_warm_up``'s."""
     import torch.distributed as dist
     from repro_torch.models.moe import global_batch, router_topk
     dev = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
     r, n = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     _check_tf32_off()
     size = ["--tiny"] if tiny else []
-    rec = {"transport": "gloo, host-staged", "world": n}
+    rec = {"transport": "gloo, host-staged", "world": n,
+           "warm_up_s": pre["warm_up_s"]}
     states = {}
 
     def dp_run(i, name, args):
@@ -3392,7 +3405,8 @@ def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
         t0 = time.perf_counter()
         with _kept_states() as seen:
             train_launch.main(args + DP_B_ARGS + [
-                "--device", str(dev), "--backend", "gloo", "--ckpt-dir",
+                "--model-parallel", "1", "--device", str(dev), "--backend",
+                "gloo", "--ckpt-dir",
                 str(out / f"ckpt_b{i}"), "--metrics-out", str(path)] + (
                 size if i == 0 else []) + (
                 ["--inject-failure-at", "2"] if i == 1 else []))
@@ -3428,6 +3442,7 @@ def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
         dist.destroy_process_group()
     if r != 0:
         return
+    single_llama = None
     for i, (name, args) in enumerate(cases):
         path, seconds = paths[name]
         dp = json.loads(path.read_text())
@@ -3448,10 +3463,16 @@ def _dp_child_b(out: Path, kind: str, tiny: bool) -> None:
             params=dp["params"], seconds=seconds,
             single_seconds=time.perf_counter() - t0,
             **_dp_compare(states[name], seen["state"]))
+        if i == 0:
+            single_llama = flat_state(seen["state"])
         del states[name], seen["state"]
         if kind == "cuda":
             torch.cuda.empty_cache()
     (out / "b.json").write_text(json.dumps(rec))
+    t0 = time.perf_counter()
+    _hand_over(out, single_llama, kind, sender=True)
+    rec_s = {"hand_over_s": time.perf_counter() - t0}
+    (out / "b_hand_over.json").write_text(json.dumps(rec_s))
 
 
 #: elements of the float32 vector ``tools/torch_train_cards.py`` reduces
@@ -3507,8 +3528,8 @@ def _dp_child_cards(out: Path, kind: str, tiny: bool) -> None:
             torch.cuda.empty_cache()
         path = out / "cards_metrics.json"
         train_launch.main(DP_CARDS_ARGS + (["--tiny"] if tiny else []) + [
-            "--device", kind, "--ckpt-dir", str(out / "ckpt_cards"),
-            "--metrics-out", str(path)])
+            "--model-parallel", "1", "--device", kind, "--ckpt-dir",
+            str(out / "ckpt_cards"), "--metrics-out", str(path)])
         if r == 0:
             (out / "cards.json").write_text(json.dumps(
                 {"ring": ring, "a": json.loads(path.read_text())}))
@@ -3516,11 +3537,389 @@ def _dp_child_cards(out: Path, kind: str, tiny: bool) -> None:
         dist.destroy_process_group()
 
 
+def mp_cards_axes(n: int) -> list:
+    """The model axes ``tools/torch_train_cards.py`` trains on over `n`
+    cards: the whole world, then 2 (for n = 4: (1, 4) and (2, 2))."""
+    return sorted({m for m in (n, 2) if m > 1 and n % m == 0},
+                  reverse=True)
+
+
+def _dp_child_cards_mp(out: Path, kind: str, tiny: bool) -> None:
+    """``tools/torch_train_cards.py``'s model-axis ranks, one card each
+    over NCCL: for each model axis of ``mp_cards_axes``, the all-reduce
+    of one activation (a data rank's tokens x d_model, float32) over the
+    ``model`` group (device ms, median of 5), then DP_CARDS_ARGS's run of
+    ``launch.train.main`` with ``--model-parallel M``."""
+    import torch.distributed as dist
+    from repro_torch.launch.train import _ms, _timed
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    local = int(os.environ["LOCAL_RANK"])
+    dev = torch.device("cuda", local) if kind == "cuda" else \
+        torch.device(kind)
+    if kind == "cuda":
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev)
+    else:
+        dist.init_process_group("gloo")
+    r, n = dist.get_rank(), dist.get_world_size()
+    rec = {}
+    try:
+        for m in mp_cards_axes(n):
+            mesh = make_elastic_mesh(m, devices=[dev])
+            cfg = tiny_config(get_config("llama3.2-1b")) if tiny else \
+                get_config("llama3.2-1b")
+            rows = 8 // (n // m)
+            x = torch.randn((rows * 512, cfg.d_model), device=dev)
+            times = []
+            call = _timed(lambda: dist.all_reduce(
+                x, group=mesh.get_group("model")), dev, times)
+            for _ in range(5):
+                call()
+                _sync(dev)
+            ms = sorted(_ms(times))[2]
+            path = out / f"cards_mp{m}_metrics.json"
+            train_launch.main(DP_CARDS_ARGS + (["--tiny"] if tiny else []) + [
+                "--model-parallel", str(m), "--device", kind, "--ckpt-dir",
+                str(out / f"ckpt_cards_mp{m}"), "--metrics-out", str(path)])
+            if r == 0:
+                rec[f"{n // m}x{m}"] = dict(
+                    run=json.loads(path.read_text()), all_reduce_ms=ms,
+                    all_reduce_bytes=x.numel() * 4,
+                    model_all_reduce_bus_gb_s=2 * (m - 1) / m
+                    * x.numel() * 4 / ms / 1e6)
+        if r == 0:
+            (out / "cards_mp.json").write_text(json.dumps(rec))
+    finally:
+        dist.destroy_process_group()
+
+
+def _hand_over(out: Path, flat: dict, kind: str, sender: bool) -> dict:
+    """Leg (b)'s one-rank Llama state (`flat`, name -> tensor) from leg
+    (b)'s rank 0 (`sender`) to leg (e)'s rank 0, which passes its own
+    gathered state of the same layout as `flat` (anywhere) and gets
+    (b)'s on the legs' device `kind`.  On the card by CUDA IPC: the sender writes each leaf's
+    handle (``torch.multiprocessing.reductions.reduce_tensor``) to
+    ``hand_over.pkl`` and keeps its tensors until the receiver, done with
+    the mapped leaves, touches ``hand_over.done``: no byte is copied.  On
+    the CPU (a rehearsal): a gloo group of the two over
+    a file store, one broadcast a leaf."""
+    import pickle
+    import torch.distributed as dist
+    if kind == "cuda":
+        if sender:
+            from torch.multiprocessing.reductions import reduce_tensor
+            shared = {k: reduce_tensor(t.detach()) for k, t in flat.items()}
+            torch.cuda.synchronize()
+            tmp = out / "hand_over.tmp"
+            tmp.write_bytes(pickle.dumps(shared))
+            os.replace(tmp, out / "hand_over.pkl")
+            _wait_for_go(out, "hand_over.done")
+            return flat
+        _wait_for_go(out, "hand_over.pkl")
+        shared = pickle.loads((out / "hand_over.pkl").read_bytes())
+        return {k: fn(*args) for k, (fn, args) in shared.items()}
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(out / "store_hand_over"), 2), rank=0 if sender else 1,
+        world_size=2)
+    got = {}
+    try:
+        for key in sorted(flat):
+            t = flat[key].detach()
+            host = t.cpu() if sender else torch.empty(t.shape,
+                                                      dtype=t.dtype)
+            dist.broadcast(host, 0)
+            got[key] = host.to(kind)
+    finally:
+        dist.destroy_process_group()
+    return got
+
+
+def _noise_mask(got: dict, want: dict, key: str, steps: int = 3):
+    """``tests/test_torch_train_dp.py::_noise_elements``: the elements of
+    state leaf `key` whose gradient's RMS over `steps` (AdamW's
+    bias-corrected sqrt(v)) is below MP_NOISE in both states and not
+    zero in both; None for the step."""
+    if key == "opt.step":
+        return None
+    name = key.split(".", 2)[-1] if key.startswith("opt.") else key[6:]
+    vb = want[f"opt.v.{name}"]
+    va = got[f"opt.v.{name}"].to(vb.device)
+    corr = 1 - AdamWConfig().b2 ** steps
+    return ((va / corr).sqrt() < MP_NOISE) & ((vb / corr).sqrt() < MP_NOISE) \
+        & ((va != 0) | (vb != 0))
+
+
+def _mp_compare(got: dict, want: dict) -> dict:
+    """The gathered model-parallel state `got` (moved a leaf at a time to
+    `want`'s device) against the one rank's `want`: every element within
+    DP_TOL, but a
+    noise element (``_noise_mask``) may miss it and is then held to
+    MP_NOISE_TOL; those exempted must be under 1 in 10^4 of the state.
+    (At Llama-3.2-1B's 128,256 tied rows most rows see no token, and
+    their softmax-sized gradients count as noise: ~1/3 of the state, so
+    the count is of the exempted elements, not of the noise ones.)"""
+    worst = worst_noise = 0.0
+    ok, n_noise, n_exempt, n_all = True, 0, 0, 0
+    for k, b in want.items():
+        a = got[k].to(b.device)
+        n_all += b.numel()
+        if not b.dtype.is_floating_point:
+            ok &= torch.equal(a, b)
+            continue
+        err = (a - b).abs()
+        out = err > DP_TOL["atol"] + DP_TOL["rtol"] * b.abs()
+        worst = max(worst, float(err.max()))
+        noise = _noise_mask(got, want, k)
+        if noise is not None:
+            n_noise += int(noise.sum())
+            exempt = out & noise
+            n_exempt += int(exempt.sum())
+            if bool(exempt.any()):
+                nb = MP_NOISE_TOL["atol"] + MP_NOISE_TOL["rtol"] * b.abs()
+                ok &= bool((err[exempt] <= nb[exempt]).all())
+                worst_noise = max(worst_noise, float(err[exempt].max()))
+            out = out & ~noise
+        ok &= not bool(out.any())
+    return dict(max_abs_err=worst, noise_elements=n_noise,
+                exempted_elements=n_exempt,
+                exempted_max_abs_err=worst_noise, elements=n_all,
+                within_tol=ok and n_exempt * 10_000 < n_all)
+
+
+def _close(got: list, want: list) -> bool:
+    return len(got) == len(want) and all(
+        abs(g - w) <= DP_TOL["atol"] + DP_TOL["rtol"] * abs(w)
+        for g, w in zip(got, want))
+
+
+def _check_leg_e(e: dict, device: torch.device) -> dict:
+    """Leg (e)'s record checked: each mesh's Llama losses and gathered
+    state within DP_TOL of leg (b)'s one rank (noise elements as
+    ``_mp_compare`` holds them), the ranks that hold a block
+    bit-identical, each rank's state bytes equal to the dry run's, the
+    attention, MLP and vocabulary split (no block gathered); OLMoE on
+    (1, 2): its losses with one restart, its experts split, and the
+    split layer's output and router loss equal to the whole layer's.
+    Adds the card's name and power limit and emits the record (before
+    any check fails)."""
+    e["card"] = _smi() if device.type == "cuda" else None
+    emit("train_dp", leg="e", **e)
+    for shape in MP_MESHES:
+        row = e[f"llama {shape[0]}x{shape[1]}"]
+        gathered = [p for p in row["paths"] if p.endswith("gathered")]
+        if not (row["within_tol"] and _close(row["losses"],
+                                             row["single_losses"])
+                and row["replicas_agree"] and not gathered
+                and row["state_bytes"] == row["dryrun_state_bytes"]
+                and any(p.startswith("attention: split")
+                        for p in row["paths"])):
+            raise AssertionError(f"train_dp (e) llama {shape}: {row}")
+    ol, ex = e["olmoe 1x2"], e["olmoe_experts"]
+    if not (_close(ol["losses"], ol["single_losses"]) and ol["restarts"] == 1
+            and ol["replicas_agree"]
+            and ol["state_bytes"] == ol["dryrun_state_bytes"]
+            and "moe: split, 2 of 4 experts" in ol["paths"]
+            and ex["y_max_abs_err"] <= DP_TOL["atol"]
+            and abs(ex["aux_split"] - ex["aux_whole"])
+            <= 1e-6 * abs(ex["aux_whole"])):
+        raise AssertionError(f"train_dp (e) olmoe: {ol} {ex}")
+    return e
+
+
+def _dp_child_e(out: Path, kind: str, tiny: bool, pre) -> None:
+    """Leg (e): the model axis.  Four ranks sharing cuda:0 over gloo
+    (host-staged), warmed up on their (2, 2) group before the go
+    (``_warm_up``: `pre`), run beside leg (b) from the go
+    ``launch.train.main``
+    with ``--model-parallel 2`` on leg (b)'s Llama case: on (2, 2) over
+    the four, then on (1, 2) over ranks 0 and 1 (a group over a file
+    store), and leg (b)'s OLMoE case on (1, 2) with its failure at step
+    2 (a restore of a sharded state); then OLMoE's experts split over
+    ``model`` against the whole layer (its output and router loss) on
+    one batch.  After each Llama run rank 0 gathers the state's leaves
+    (``ModelParallel.gather_to_root``); at the end it gets leg (b)'s
+    one-rank state (``_hand_over``, once (b) is done) and holds both
+    meshes' states and losses to it, and the OLMoE losses to (b)'s one
+    rank.  ``marks_s``: seconds from the go as each part ends."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint.ckpt import param_of
+    from repro_torch.distributed.model_parallel import of, shard_model
+    from repro_torch.launch.dryrun import MeshAxes, train_memory
+    from repro_torch.models.moe import global_batch, moe_ffn
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    from repro_torch.train.step import replicas_agree
+    dev = pre["device"]
+    r = int(os.environ["RANK"])
+    _check_tf32_off()
+    t_go = time.perf_counter()
+    size = ["--tiny"] if tiny else []
+    (llama, llama_args), (olmoe, olmoe_args) = DP_B_CASES.items()
+    rec = {"transport": "gloo, host-staged", "marks_s": {},
+           "warm_up_s": pre["warm_up_s"]}
+    gathered = {}
+
+    def mark(what):
+        rec["marks_s"][what] = time.perf_counter() - t_go
+
+    def mp_run(shape, name, args, extra):
+        path = out / f"e_{name}_{shape[0]}x{shape[1]}.json"
+        t0 = time.perf_counter()
+        with _kept_states() as seen:
+            train_launch.main(args + DP_B_ARGS + MP_ARGS + extra + [
+                "--device", str(dev), "--backend", "gloo", "--ckpt-dir",
+                str(out / f"ckpt_e_{name}_{shape[0]}"), "--metrics-out",
+                str(path)])
+        seconds = time.perf_counter() - t0
+        state = seen.pop("state")
+        mp = of(state["model"])
+        full = {k: t.detach().clone() if param_of(k) is None else
+                mp.gather_to_root(t, param_of(k))
+                for k, t in flat_state(state).items()}
+        return json.loads(path.read_text()) if r == 0 else None, full, \
+            seconds, mp
+    try:
+        for shape in MP_MESHES:
+            if shape == (1, 2):
+                dist.destroy_process_group()
+                if r >= 2:
+                    return
+                dist.init_process_group("gloo", store=dist.FileStore(
+                    str(out / "store_e"), 2), rank=r, world_size=2)
+                os.environ["WORLD_SIZE"] = "2"
+            m, full, seconds, mp = mp_run(shape, llama, llama_args, size)
+            if r == 0:          # in host memory: not in the next peak
+                gathered[shape] = {k: t.cpu() for k, t in full.items()}
+                mem = train_memory(
+                    dataclasses.replace(
+                        tiny_config(get_config("llama3.2-1b")) if tiny
+                        else get_config("llama3.2-1b"), n_layers=2,
+                        dtype="float32"), 256, 4,
+                    MeshAxes(("data", "model"), shape))
+                rec[f"llama {shape[0]}x{shape[1]}"] = dict(
+                    mesh=m["mesh"], world=m["world"], losses=_losses(m),
+                    step_ms=m["step_ms"], collective_ms=m["collective_ms"],
+                    paths=m["paths"], staged=m["staged"],
+                    state_bytes=m["state_bytes"],
+                    dryrun_state_bytes=m["dryrun_state_bytes"],
+                    replicas_agree=replicas_agree(m["digests"]),
+                    peak_memory_bytes=m["peak_memory_bytes"],
+                    dryrun_total_bytes=mem["total_bytes"],
+                    dryrun_activation_bytes=mem["activation_bytes"],
+                    seconds=seconds)
+            del full
+            mark(f"llama {shape[0]}x{shape[1]}")
+        m, full, seconds, _ = mp_run((1, 2), olmoe, olmoe_args,
+                                     ["--tiny", "--inject-failure-at", "2"])
+        mark("olmoe 1x2")
+        if r == 0:
+            rec["olmoe 1x2"] = dict(
+                mesh=m["mesh"], losses=_losses(m), restarts=m["restarts"],
+                paths=m["paths"], state_bytes=m["state_bytes"],
+                dryrun_state_bytes=m["dryrun_state_bytes"],
+                replicas_agree=replicas_agree(m["digests"]),
+                seconds=seconds)
+        # OLMoE's experts over ``model`` against the whole layer
+        cfg = dataclasses.replace(tiny_config(get_config("olmoe-1b-7b")),
+                                  dtype="float32")
+        whole = get_model(cfg, device=dev, param_dtype="float32",
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+        split = get_model(cfg, device=dev, param_dtype="float32",
+                          generator=torch.Generator(device=dev)
+                          .manual_seed(1))
+        mp = shard_model(split, make_elastic_mesh(2, devices=[dev]))
+        x = torch.randn((8, 16, cfg.d_model), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(5))
+        with torch.no_grad():
+            y1, aux1 = moe_ffn(whole.layers[0].moe, x, cfg)
+            with global_batch(mp.group["data"]):
+                y2, aux2 = moe_ffn(split.layers[0].moe, x, cfg)
+        if r == 0:
+            rec["olmoe_experts"] = dict(
+                paths=dict(mp.paths), y_max_abs_err=float((y1 - y2).abs()
+                                                          .max()),
+                aux_whole=float(aux1), aux_split=float(aux2))
+        mark("olmoe experts")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if r != 0:
+        return
+    want = _hand_over(out, gathered[(1, 2)], kind, sender=False)
+    mark("hand over")
+    b = json.loads((out / "b.json").read_text())
+    try:
+        _compare_e(rec, gathered, want, b, llama, olmoe)
+    finally:
+        del want
+        (out / "hand_over.done").touch()
+    mark("compare")
+    (out / "e.json").write_text(json.dumps(rec))
+
+
+def _compare_e(rec, gathered, want, b, llama, olmoe) -> None:
+    """Leg (e)'s rows against leg (b)'s one rank: the Llama losses and
+    gathered states (``_mp_compare``), the OLMoE losses."""
+    for shape in MP_MESHES:
+        row = rec[f"llama {shape[0]}x{shape[1]}"]
+        ones = b[llama]["single_losses"]
+        row.update(single_losses=ones,
+                   loss_rel_err=_max_rel(row["losses"], ones),
+                   **_mp_compare(gathered[shape], want))
+    ones = b[olmoe]["single_losses"]
+    rec["olmoe 1x2"].update(single_losses=ones,
+                            loss_rel_err=_max_rel(rec["olmoe 1x2"]
+                                                  ["losses"], ones))
+
+
+#: the warm-up before the go of legs (b) and (e): one float32 step of tiny
+#: Llama (d_model 64) through launch.main, 4 x 256 tokens
+WARM_ARGS = ["--arch", "llama3.2-1b", "--tiny", "--steps", "1", "--batch",
+             "4", "--seq", "256", "--dtype", "float32", "--ckpt-every",
+             "1000", "--log-every", "1"]
+
+
+def _warm_up(out: Path, leg: str, kind: str) -> dict:
+    """A rank's start-up before the go, off the critical path: its device,
+    CUDA context and kernels (one WARM_ARGS step through
+    ``launch.train.main``, the card's cached memory released after); leg
+    (e)'s ranks take the (2, 2) group of the four from the launcher's
+    environment first and warm up on it with ``--model-parallel 2`` (the
+    host-staged collectives too), each of leg (b)'s ranks alone.
+    Returns the device and the warm-up's seconds."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = torch.device(kind, 0) if kind == "cuda" else torch.device(kind)
+    if kind == "cuda":
+        torch.cuda.set_device(dev)
+    args = WARM_ARGS + ["--device", str(dev), "--ckpt-dir",
+                        str(out / f"ckpt_warm_{leg}_{os.environ['RANK']}")]
+    with contextlib.redirect_stdout(None):
+        if leg == "e":
+            dist.init_process_group("gloo")
+            train_launch.main(args + MP_ARGS + ["--backend", "gloo"])
+        else:
+            with _environ(RANK=None, WORLD_SIZE=None):
+                train_launch.main(args)
+    if kind == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+    return {"device": dev, "warm_up_s": time.perf_counter() - t0}
+
+
 def train_dp_child(argv) -> None:
     """A rank of phase ``train_dp``'s legs, started by ``_run_leg``."""
     leg, out, kind, size = argv[0], Path(argv[1]), argv[2], argv[3]
+    if leg in ("b", "e"):
+        pre = _warm_up(out, leg, kind)
+        _wait_for_go(out)
+        if leg == "e":
+            _dp_child_e(out, kind, size == "tiny", pre)
+        else:
+            _dp_child_b(out, kind, size == "tiny", pre)
+        return
     _wait_for_go(out)
-    {"b": _dp_child_b, "cards": _dp_child_cards}[leg](
+    {"cards": _dp_child_cards, "cards_mp": _dp_child_cards_mp}[leg](
         out, kind, size == "tiny")
 
 
@@ -3650,26 +4049,40 @@ def _leg_d(warm_step_ms: float, tokens: int) -> dict:
 
 
 def phase_train_dp(device: torch.device, train_c: dict,
-                   tiny: bool = False, leg_b=None) -> dict:
-    """Data-parallel training and the LM dry run, one line a leg, budget
-    35 s: (b) two ranks sharing the card over gloo, started by
-    ``torch.distributed.run``, against one rank; (a) a world of one over
-    NCCL through ``launch.train.main`` at Llama-3.2-1B's full width and
-    depth, its losses against phase train (c)'s; (c) the int8 ring on the
-    card; (d) ``launch.dryrun`` on ``llama3.2-1b`` x ``train_4k`` and leg
-    (a)'s step against its bound.  `leg_b` is (b)'s ranks and their directory
-    if ``_start_leg`` started them earlier.  `tiny` (the models at
-    ``tiny_config``, the CPU as `device`) is a rehearsal."""
+                   tiny: bool = False, leg_b=None, leg_e=None) -> dict:
+    """Data-parallel and model-parallel training and the LM dry run, one
+    line a leg, budget 35 s for (a)-(d) and 25 s for (e): (b) two ranks
+    sharing the card over gloo, started by ``torch.distributed.run``,
+    against one rank; (e) the model axis, four ranks sharing the card
+    over gloo (``_dp_child_e``): leg (b)'s cases with ``--model-parallel
+    2`` on (2, 2) and (1, 2) against (b)'s one rank; (a) a world of one
+    over NCCL through ``launch.train.main`` at Llama-3.2-1B's full width
+    and depth, its losses against phase train (c)'s; (c) the int8 ring on
+    the card; (d) ``launch.dryrun`` on ``llama3.2-1b`` x ``train_4k`` and
+    leg (a)'s step against its bound.  `leg_b` and `leg_e` are (b)'s and
+    (e)'s ranks and their directory (one for both) if ``_start_leg``
+    started them earlier.  `tiny` (the models at ``tiny_config``, the CPU
+    as `device`) is a rehearsal."""
     import tempfile
     if device.type == "cuda":
         torch.cuda.empty_cache()
     res = {}
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        # (b) first: its ranks need ~25 GB of the card, which this process
-        # holds cached once (a) has run
-        b = _finish_leg("b", *leg_b) if leg_b else \
-            _run_leg("b", 2, tmp, device, tiny)
+        if leg_b is None:
+            leg_b = (_start_leg("b", 2, tmp, device, tiny), tmp)
+            leg_e = (_start_leg("e", 4, tmp, device, tiny), tmp)
+        # (b) and (e) first, side by side: their ranks need ~30 GB of the
+        # card, which this process holds cached once (a) has run; (b)'s
+        # rank 0 ends once it has handed its one-rank state to (e)
+        try:
+            b = _finish_leg("b", *leg_b)
+        except AssertionError as err:   # (b) waits on (e): show (e) too
+            _stop_leg(leg_e[0])
+            tail = {k: (leg_e[1] / f"e.{k}").read_text()[-4000:]
+                    for k in ("stdout", "stderr")}
+            raise AssertionError(f"{err}\n(e):\n{tail['stdout']}\n"
+                                 f"{tail['stderr']}") from None
         for name in DP_B_CASES:
             row = b[name]
             if not (row["within_tol"] and row["replicas_bit_identical"]
@@ -3683,6 +4096,7 @@ def phase_train_dp(device: torch.device, train_c: dict,
             raise AssertionError(f"train_dp (b): router aux {aux}")
         res["b"] = b
         emit("train_dp", leg="b", **b)
+        res["e"] = _check_leg_e(_finish_leg("e", *leg_e), device)
         t0 = time.perf_counter()
         res["a"] = _leg_a(device, train_c, tmp, tiny)
         res["a"]["leg_s"] = time.perf_counter() - t0
@@ -3724,11 +4138,13 @@ def main() -> None:
     split_profile = sim.submit(long_reads, 512, read_len=300)
     dp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     leg_b = _start_leg("b", 2, dp_dir, cuda, False)
+    leg_e = _start_leg("e", 4, dp_dir, cuda, False)
     try:
         kernels = _phases(cuda, timed, phase_s, sim, batch, refs,
-                          split_profile, (leg_b, dp_dir))
+                          split_profile, (leg_b, dp_dir), (leg_e, dp_dir))
     finally:
         _stop_leg(leg_b)
+        _stop_leg(leg_e)
         sim.shutdown(cancel_futures=True)
         shutil.rmtree(dp_dir, ignore_errors=True)
     emit("done", seconds=time.perf_counter() - t0, phase_seconds=phase_s)
@@ -3740,7 +4156,7 @@ def main() -> None:
 
 
 def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
-            leg_b) -> list:
+            leg_b, leg_e) -> list:
     """Every phase after ``phase_device``, in order; returns the
     ``kernels`` line's entries."""
     usage = timed("build", phase_build)
@@ -3765,7 +4181,8 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
     timed("paper", phase_paper, cuda)
     timed("lm", phase_lm, cuda)
     trained = timed("train", phase_train, cuda)
-    timed("train_dp", phase_train_dp, cuda, trained["c"], leg_b=leg_b)
+    timed("train_dp", phase_train_dp, cuda, trained["c"], leg_b=leg_b,
+          leg_e=leg_e)
     timed("profiles", phase_profiles)
     launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
     kernels = []

@@ -21,7 +21,12 @@ sharding's mesh, each rank keeping its own slice of the full array, so a
 checkpoint saved under one mesh restores under another.  A state of
 DTensors saves its full values (``full_tensor``: every rank of the mesh
 must call ``save_checkpoint``; the file is one, written where
-``write=True``).
+``write=True``).  So does a state whose model is sharded over a
+``("data", "model")`` mesh (``distributed.model_parallel.shard_model``):
+each leaf is gathered from its blocks on the mesh's first rank, which
+writes (every rank calls), and a restore into such a state
+copies each rank's block of the saved value into it, whatever mesh the
+checkpoint was saved under.
 """
 from __future__ import annotations
 
@@ -70,6 +75,20 @@ def _full(t):
     return t.full_tensor() if hasattr(t, "full_tensor") else t
 
 
+def param_of(key: str):
+    """The parameter whose layout ``flat_state`` key `key` has (None for
+    the step)."""
+    if key == "opt.step":
+        return None
+    return key.split(".", 2)[2] if key.startswith("opt.") else key[6:]
+
+
+def _mesh_of(state):
+    """The ``ModelParallel`` of a state's sharded model, or None."""
+    from ..distributed.model_parallel import of
+    return of(state["model"])
+
+
 def save_checkpoint(ckpt_dir, state, step: int, *, keep: int = 3,
                     async_save: bool = False, write: bool = True):
     """Atomic: write to a tmp dir, rename.  Returns the checkpoint's path
@@ -87,6 +106,16 @@ def save_checkpoint(ckpt_dir, state, step: int, *, keep: int = 3,
                          f"(get_model(..., param_dtype='float32'))")
     # snapshot to host memory synchronously (copies, never views of the
     # live tensors the next step updates in place); write async if asked
+    mp = _mesh_of(state)
+    if mp is not None:          # every rank sends, the mesh's first gets
+        flat = {k: t if param_of(k) is None
+                else mp.gather_to_root(t, param_of(k))
+                for k, t in flat.items()}
+        if not write:
+            return None
+        if any(t is None for t in flat.values()):
+            raise ValueError("a sharded state is written by the mesh's "
+                             "first rank (write=True there only)")
     host = {k: _full(t.detach()).to("cpu", copy=True).numpy()
             for k, t in flat.items()}
     if not write:
@@ -138,21 +167,29 @@ def restore_checkpoint(ckpt_dir, state, *, step: int | None = None,
     .tree_shardings`` of the state's specs on a torch DeviceMesh, in the
     state's layout, possibly for another mesh than the one saved under)
     the result is a new state of DTensors, each rank holding its slice.
-    Raises ValueError, loading nothing, where a name, shape or dtype
-    differs from the checkpoint's."""
+    A state whose model is sharded (``model_parallel.shard_model``) takes
+    each rank's block of every saved leaf.  Raises ValueError, loading
+    nothing, where a name, shape (the whole leaf's) or dtype differs from
+    the checkpoint's."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
     flat = flat_state(state)
+    mp = _mesh_of(state)
+
+    def whole(k, t):            # the shape the saved value must have
+        return tuple(t.shape) if mp is None or param_of(k) is None \
+            else mp.shapes[param_of(k)]
     with np.load(ckpt_dir / f"step_{step:08d}" / "shard_0.npz") as data:
         arrays = {k: torch.from_numpy(data[k]) for k in data.files}
     missing = sorted(set(flat) - set(arrays))
     extra = sorted(set(arrays) - set(flat))
-    bad = [(k, tuple(arrays[k].shape), arrays[k].dtype, tuple(t.shape),
+    bad = [(k, tuple(arrays[k].shape), arrays[k].dtype, whole(k, t),
             t.dtype) for k, t in flat.items() if k in arrays and
-           (arrays[k].shape != t.shape or arrays[k].dtype != t.dtype)]
+           (tuple(arrays[k].shape) != whole(k, t)
+            or arrays[k].dtype != t.dtype)]
     if missing or extra or bad:
         raise ValueError(f"checkpoint step {step} in {ckpt_dir} does not "
                          f"match the state: missing {missing[:8]}, "
@@ -166,5 +203,6 @@ def restore_checkpoint(ckpt_dir, state, *, step: int | None = None,
         return _nest({k: arrays[k] for k in flat}), step
     with torch.no_grad():
         for k, t in flat.items():
-            t.copy_(arrays[k])
+            t.copy_(arrays[k] if mp is None or param_of(k) is None
+                    else mp.shard(arrays[k], param_of(k)))
     return state, step

@@ -77,8 +77,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..analysis.roofline import (HBM_BW, count_params, model_flops,
                                  roofline_terms, useful_fraction)
-from ..models.registry import (ARCH_IDS, SHAPES, get_config, get_model,
-                               input_specs, shape_applicable, tiny_config)
+from ..models.registry import (ARCH_IDS, SHAPES, batch_specs, get_config,
+                               get_model, input_specs, shape_applicable,
+                               tiny_config)
 from ..optim.adamw import AdamWConfig
 from ..train.step import init_state, make_train_step
 
@@ -322,6 +323,13 @@ def lower_cell(arch: str, shape: str, *, n_layers=None, tiny: bool = False,
         S, GB = 128, 8
     rows = GB if rows is None else rows
     batch = _rows(input_specs(cfg, shape, tiny=tiny)["batch"], rows)
+    counts = _lower(cfg, batch, kind, S, rows)
+    return counts, cfg, {"seq": S, "batch": GB, "rows": rows, "kind": kind}
+
+
+def _lower(cfg, batch: dict, kind: str, S: int, rows: int) -> dict:
+    """``lower_cell``'s counts of one step of `kind` on `batch` (`rows`
+    rows of `S` tokens) with the model on ``meta``."""
     saved = [0]
 
     def pack(t):
@@ -347,11 +355,10 @@ def lower_cell(arch: str, shape: str, *, n_layers=None, tiny: bool = False,
             else:               # the position does not change the work
                 model.decode_step(dict(batch, cache_pos=0),
                                   model.abstract_cache(rows, S))
-    counts = {"flops": float(flops.get_total_flops()),
-              "bytes": float(moved.bytes),
-              "largest_output_bytes": moved.largest_output,
-              "saved_bytes": saved[0], "aten_ops": moved.ops}
-    return counts, cfg, {"seq": S, "batch": GB, "rows": rows, "kind": kind}
+    return {"flops": float(flops.get_total_flops()),
+            "bytes": float(moved.bytes),
+            "largest_output_bytes": moved.largest_output,
+            "saved_bytes": saved[0], "aten_ops": moved.ops}
 
 
 def _bytes_lower_bound(kind: str, n_params: int, n_active: int,
@@ -387,6 +394,41 @@ def _fit(p, spec, mesh):
     return fit_pspec(tuple(p.shape), _zero_over_pod(spec, mesh), mesh)
 
 
+def _shard_elems(model, mesh) -> int:
+    """Each parameter's elements on a card under its fitted spec, summed
+    (the whole shapes of a model that ``model_parallel.shard_model``
+    sharded)."""
+    from ..distributed.model_parallel import of
+    mp, specs = of(model), model.partition_specs()
+    mesh = mesh_axes(mesh)
+    total = 0
+    for n, p in model.named_parameters():
+        whole = torch.empty(mp.shapes[n] if mp else p.shape, device="meta")
+        total += shard_bytes(whole, _fit(whole, specs[n], mesh), mesh) \
+            // whole.element_size()
+    return total
+
+
+def sharded_state_bytes(model, mesh) -> int:
+    """``memory.sharded.state_bytes`` of a training cell of `model` on
+    `mesh`: the float32 weight, ``m`` and ``v`` of every parameter's
+    block under its fitted spec, and the int32 step (what a rank of
+    ``launch.train`` holds on that mesh)."""
+    return 12 * _shard_elems(model, mesh) + 4
+
+
+def train_memory(cfg, seq: int, global_batch: int, mesh) -> dict:
+    """``memory.sharded`` of a training step of `cfg` (float32 masters,
+    the config's compute dtype) on `global_batch` x `seq` tokens on
+    `mesh`: each ``data`` rank's rows run through the step on ``meta``."""
+    mesh = mesh_axes(mesh)
+    batch = batch_specs(cfg, seq, global_batch, "train")
+    rows = global_batch // _axis_size(mesh, _dp(mesh))
+    counts = _lower(cfg, _rows(batch, rows), "train", seq, rows)
+    return _memory(get_model(cfg, device="meta"), "train", counts, batch,
+                   None, rows, mesh, mesh.size)["sharded"]
+
+
 def _memory(model, kind: str, counts: dict, inputs: dict, cache, rows: int,
             mesh: MeshAxes, cards: int) -> dict:
     """``replicated`` and ``sharded`` bytes a card, each with its parts
@@ -398,10 +440,7 @@ def _memory(model, kind: str, counts: dict, inputs: dict, cache, rows: int,
         inputs else inputs["positions"].shape[1]
     act = counts["saved_bytes"] if kind == "train" \
         else counts["largest_output_bytes"]
-    specs = model.partition_specs()
-    # each parameter's elements on a card under its fitted spec
-    elems = sum(shard_bytes(p, _fit(p, specs[n], mesh), mesh)
-                // p.element_size() for n, p in params.items())
+    elems = _shard_elems(model, mesh)
     if kind == "train":         # float32 weight, m, v and gradient
         rep = {"state_bytes": 12 * n_params + 4, "grad_bytes": 4 * n_params}
         shard = {"state_bytes": 12 * elems + 4, "grad_bytes": 4 * elems}

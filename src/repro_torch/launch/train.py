@@ -1,36 +1,47 @@
 """Training entry point (port of ``repro/launch/train.py``): float32 master
 weights under the config's compute dtype, the synthetic token stream, and
 the supervised loop with checkpoint/restart, on one device (the card
-unless ``--device cpu``) or data-parallel over ranks.
+unless ``--device cpu``) or over ranks on a ``("data", "model")`` mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
       --tiny --steps 200 --batch 8 --seq 256 --ckpt-dir /path/to/ckpt
 
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
-      --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b ...
+      --nproc-per-node 4 -m repro_torch.launch.train --arch llama3.2-1b \\
+      --model-parallel 2 ...
 
 Under ``torch.distributed.run`` (``RANK`` and ``WORLD_SIZE`` set) it
 initialises the process group, NCCL on cards and gloo for ``--device
 cpu`` (``--backend`` overrides: two ranks sharing one card need gloo,
 NCCL refuses them).  Each rank takes ``cuda:LOCAL_RANK`` unless the
 caller names a device (``--device cuda:<i>``); a ``LOCAL_RANK`` past the
-visible cards is an error.  The mesh is ``(world, 1)`` over ``("data",
-"model")``; every rank reads the same global ``TokenStream`` batch and
-takes its rows (``train.step.shard_batch``: rows ``[r*B/n, (r+1)*B/n)``
-without accumulation), so the run sees the tokens a single-device run
-sees; a ``--batch`` that does not divide is a ValueError.  The gradients
-are averaged over the ranks (``--grad-compress``: the int8 ring of
-``distributed.collectives``), rank 0 writes the checkpoints, and only
-rank 0 prints.
+visible cards is an error.
 
-Where the port differs from the reference: the reference's default
-``--model-parallel 0`` factors the devices with ``best_mesh_shape``, which
-prefers a model axis ((1, 2) on 2 devices), and GSPMD shards the state
-and the compute over it.  The port trains over the data axis only, the
-state replicated on every rank, until the model axis is ported (ROADMAP
-Queue 1 item 11); ``--model-parallel`` above 1 raises NotImplementedError.
-The reference's results do not depend on its mesh (its own test holds
-sharded against single-device within 2e-2, ``tests/test_distributed.py``).
+The mesh is ``best_mesh_shape(world, --model-parallel)`` over ``("data",
+"model")``, as the reference's: the default 0 prefers the largest model
+axis that divides the world ((1, 2) on 2 ranks), M >= 1 pins it, and a
+world that M does not divide fails the reference's ``assert`` before any
+group is made.  Every rank reads the same global ``TokenStream`` batch
+and takes the rows of its ``data`` coordinate (``train.step
+.shard_batch``: rows ``[r*B/n, (r+1)*B/n)`` over n data ranks without
+accumulation), so the run sees the tokens a single-device run sees; a
+``--batch`` that does not divide is a ValueError.
+
+* M = 1 (data parallel): every rank holds the whole state and the
+  gradients are averaged over the ranks (``--grad-compress``: the int8
+  ring of ``distributed.collectives``).
+* M > 1: the state is sharded over the mesh
+  (``distributed.model_parallel.shard_model``: each rank holds its block
+  of every float32 weight and of AdamW's ``m`` and ``v``) and the
+  attention heads, MLP columns, MoE experts and vocabulary compute split
+  over ``model`` (``--grad-compress`` is a ValueError there: the ring
+  syncs whole replicated gradients).  The entry point prints the
+  state's bytes a rank beside the dry run's ``sharded.state_bytes``
+  (``launch.dryrun.sharded_state_bytes``).
+
+Rank 0 writes the checkpoints and only rank 0 prints.  ``--metrics-out``
+adds, a step, the ``model`` all-reduce ms and the ``data`` gather and
+reduce-scatter ms (CUDA events) where M > 1.
 """
 from __future__ import annotations
 
@@ -43,16 +54,15 @@ import time
 
 import torch
 
+from ..checkpoint.ckpt import flat_state
 from ..core.aligner import resolve_device
 from ..data.tokens import TokenStream
 from ..models.registry import get_config, get_model, tiny_config
 from ..optim.adamw import AdamWConfig
-from ..runtime.elastic import make_elastic_mesh
+from ..runtime.elastic import best_mesh_shape, make_elastic_mesh
 from ..runtime.ft import FailureInjector, supervise
 from ..train.step import (init_state, make_allreduce_grad_sync,
                           make_train_step, replica_digest, shard_batch)
-
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 item 11 (the model axis)"
 
 
 def build(args, device=None):
@@ -113,9 +123,11 @@ def init_distributed(dev: torch.device, backend: str = "auto"):
     return dist.group.WORLD, True
 
 
-def _timed(fn, dev, times: list):
+def _timed(fn, dev, times: list, mp=None, coll_times=None):
     """`fn` with each call's device time recorded (CUDA events; host time
-    on the CPU) into `times`."""
+    on the CPU) into `times`, and with an `mp` (``ModelParallel`` with
+    ``timing`` on) the call's collectives into `coll_times`, a list a
+    call."""
     def timed(*args):
         if dev.type == "cuda":
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -127,6 +139,8 @@ def _timed(fn, dev, times: list):
             t0 = time.perf_counter()
             out = fn(*args)
             times.append((time.perf_counter() - t0) * 1e3)
+        if mp is not None:
+            coll_times.append(mp.take_times())
         return out
     return timed
 
@@ -134,6 +148,18 @@ def _timed(fn, dev, times: list):
 def _ms(times: list) -> list:
     return [ev[0].elapsed_time(ev[1]) if isinstance(ev, list) else ev
             for ev in times]
+
+
+def _collective_ms(steps: list) -> dict:
+    """``{kind: [ms a step]}`` from ``ModelParallel.take_times`` records,
+    a list a step (``_timed``)."""
+    out = {}
+    for i, records in enumerate(steps):
+        for rec in records:
+            ms = rec[1] if len(rec) == 2 else rec[1].elapsed_time(rec[2])
+            row = out.setdefault(rec[0], [0.0] * len(steps))
+            row[i] += ms
+    return out
 
 
 def main(argv=None):
@@ -169,35 +195,41 @@ def main(argv=None):
                          "gradient sync time, peak memory and every "
                          "rank's replica digest here (JSON)")
     args = ap.parse_args(argv)
-    if args.model_parallel not in (0, 1):
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: sharded compute over "
-            f"a model axis is {MODEL_AXIS_ITEM}; the port trains "
-            f"data-parallel over every rank")
 
     world = int(os.environ["WORLD_SIZE"]) if "RANK" in os.environ \
         and "WORLD_SIZE" in os.environ else 1
-    if args.batch % (world * args.grad_accum):      # before any group
+    # before any group: the reference's assert, the rows, the flags
+    shape = best_mesh_shape(world, args.model_parallel)
+    if args.batch % (shape[0] * args.grad_accum):
         raise ValueError(f"--batch {args.batch} does not divide into "
-                         f"{world} ranks x --grad-accum {args.grad_accum}")
+                         f"{shape[0]} data ranks x --grad-accum "
+                         f"{args.grad_accum}")
+    if args.grad_compress and shape[1] > 1:
+        raise ValueError(f"--grad-compress syncs whole replicated "
+                         f"gradients; --model-parallel {args.model_parallel}"
+                         f" gives a model axis of {shape[1]} on {world} "
+                         f"ranks, whose state is sharded")
     dev = rank_device(args.device)
     group, created = init_distributed(dev, args.backend)
     try:
-        return _run(args, dev, group)
+        return _run(args, dev, group, shape)
     finally:
         if created:
             import torch.distributed as dist
             dist.destroy_process_group()
 
 
-def _run(args, dev, group):
+def _run(args, dev, group, mesh_shape):
     import torch.distributed as dist
+    from .dryrun import sharded_state_bytes
     rank = dist.get_rank(group) if group is not None else 0
     world = dist.get_world_size(group) if group is not None else 1
     say = print if rank == 0 else (lambda *a, **k: None)
     cfg, model = build(args, dev)
-    mesh = make_elastic_mesh(1, devices=[dev]) if group is not None \
-        else make_elastic_mesh(args.model_parallel, devices=[model.device])
+    split = mesh_shape[1] > 1
+    mesh = make_elastic_mesh(mesh_shape[1], devices=[dev]) \
+        if group is not None else make_elastic_mesh(
+            args.model_parallel, devices=[model.device])
     shape = (dict(zip(mesh.mesh_dim_names, mesh.shape))
              if hasattr(mesh, "mesh_dim_names") else mesh.shape)
     n_params = sum(p.numel() for p in model.parameters())
@@ -206,9 +238,14 @@ def _run(args, dev, group):
 
     opt_cfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                           warmup_steps=max(10, args.steps // 20))
-    sync_times, step_times = [], []
-    sync = None
-    if group is not None:
+    sync_times, step_times, coll_times = [], [], []
+    sync = mp = None
+    if split:
+        step_fn = make_train_step(model, opt_cfg,
+                                  grad_accum=args.grad_accum, mesh=mesh)
+        mp = model.mp
+        mp.timing = bool(args.metrics_out)
+    elif group is not None:
         if args.grad_compress:
             from ..distributed.collectives import make_compressed_grad_sync
             sync = make_compressed_grad_sync(group)
@@ -216,16 +253,26 @@ def _run(args, dev, group):
             sync = make_allreduce_grad_sync(group)
         if args.metrics_out:
             sync = _timed(sync, dev, sync_times)
-    step_fn = make_train_step(model, opt_cfg, grad_accum=args.grad_accum,
-                              group=group, grad_sync=sync)
+    if not split:
+        step_fn = make_train_step(model, opt_cfg,
+                                  grad_accum=args.grad_accum, group=group,
+                                  grad_sync=sync)
     if args.metrics_out:
-        step_fn = _timed(step_fn, dev, step_times)
+        step_fn = _timed(step_fn, dev, step_times, mp, coll_times)
     state = init_state(model)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in flat_state(state).values())
+    dry_bytes = sharded_state_bytes(model, mesh) if split else None
+    if split:
+        say(f"state bytes a rank: {state_bytes} (dry run sharded."
+            f"state_bytes on {shape}: {dry_bytes})")
     stream = TokenStream(cfg.vocab, args.batch, args.seq, args.seed,
                          family=cfg.family, d_model=cfg.d_model,
                          n_codebooks=cfg.n_codebooks)
+    d_rank, d_size = (mp.coord["data"], mp.size["data"]) if split \
+        else (rank, world)
     data = stream if group is None else (
-        lambda i: shard_batch(stream.batch_at(i), rank, world,
+        lambda i: shard_batch(stream.batch_at(i), d_rank, d_size,
                               args.grad_accum))
     injector = (FailureInjector([args.inject_failure_at])
                 if args.inject_failure_at >= 0 else None)
@@ -260,6 +307,11 @@ def _run(args, dev, group):
                            if group is not None else None,
                            "step_ms": _ms(step_times),
                            "sync_ms": _ms(sync_times), "wall_s": wall,
+                           "collective_ms": _collective_ms(coll_times),
+                           "paths": dict(mp.paths) if mp else None,
+                           "staged": mp.stats["staged"] if mp else None,
+                           "state_bytes": state_bytes,
+                           "dryrun_state_bytes": dry_bytes,
                            "tokens": toks, "params": n_params,
                            "peak_memory_bytes":
                            torch.cuda.max_memory_allocated(dev)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed import model_parallel
 from .common import Init, ParamModule, apply_rope, scalar, softcap
 
 NEG = -1e30
@@ -90,16 +91,33 @@ def attn_block(p, x, positions, pos_1d, cfg, layer_is_global=0,
     positions (shared across batch).  cache: dict(k, v) of (B, Sc, KV, Dh)
     for decode, written in place at `cache_pos` (clamped, ``cache_start``)
     and returned; the reference returns an updated copy.  Returns
-    (out, cache_out)."""
+    (out, cache_out).
+
+    On a model sharded over ``model`` (``model_parallel.split``) each
+    rank computes its H/M query heads and KV/M KV heads from its column
+    blocks of wq / wk / wv (and the biases) and its row block of wo,
+    between ``copy_to_model`` and ``reduce_from_model``; where the heads
+    do not divide (``_heads_split``) it computes every head on the
+    gathered weights."""
     B, S, D = x.shape
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = torch.einsum("bsd,dh->bsh", x, p["wq"]).reshape(B, S, H, Dh)
-    k = torch.einsum("bsd,dh->bsh", x, p["wk"]).reshape(B, S, KV, Dh)
-    v = torch.einsum("bsd,dh->bsh", x, p["wv"]).reshape(B, S, KV, Dh)
+    mp = model_parallel.split(p) if cache is None else None
+    if mp is not None and not _heads_split(p, cfg, mp):
+        mp.record_path("attention", "gathered")
+        mp = None
+    read = p.local if mp is not None else p.__getitem__
+    if mp is not None:              # this rank's H/M query and KV/M heads
+        mp.record_path("attention", f"split, {H // mp.size['model']} of "
+                                    f"{H} heads")
+        H, KV = H // mp.size["model"], KV // mp.size["model"]
+        x = mp.copy_to_model(x)
+    q = torch.einsum("bsd,dh->bsh", x, read("wq")).reshape(B, S, H, Dh)
+    k = torch.einsum("bsd,dh->bsh", x, read("wk")).reshape(B, S, KV, Dh)
+    v = torch.einsum("bsd,dh->bsh", x, read("wv")).reshape(B, S, KV, Dh)
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(H, Dh)
-        k = k + p["bk"].reshape(KV, Dh)
-        v = v + p["bv"].reshape(KV, Dh)
+        q = q + read("bq").reshape(H, Dh)
+        k = k + read("bk").reshape(KV, Dh)
+        v = v + read("bv").reshape(KV, Dh)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     scale = cfg.attention_multiplier or (1.0 / (Dh ** 0.5))
@@ -122,5 +140,21 @@ def attn_block(p, x, positions, pos_1d, cfg, layer_is_global=0,
                         cap=cfg.attn_softcap, scale=scale)
         cache_out = {"k": ck, "v": cv}
 
-    y = torch.einsum("bsh,hd->bsd", out.reshape(B, S, H * Dh), p["wo"])
+    y = torch.einsum("bsh,hd->bsd", out.reshape(B, S, H * Dh), read("wo"))
+    if mp is not None:
+        y = mp.reduce_from_model(y)
     return y, cache_out
+
+
+def _heads_split(p, cfg, mp) -> bool:
+    """Whether attention can run split over ``model``: whole query and KV
+    heads a rank (H and KV divide by its size; contiguous blocks keep
+    GQA's ``h // G`` pairing) and every weight split over ``model`` on
+    its heads.  Else (a split that falls mid-head) the block runs on
+    gathered weights."""
+    M = mp.size["model"]
+    names = [("wq", 1), ("wk", 1), ("wv", 1), ("wo", 0)]
+    if cfg.qkv_bias:
+        names += [("bq", 0), ("bk", 0), ("bv", 0)]
+    return cfg.n_heads % M == 0 and cfg.n_kv_heads % M == 0 and \
+        all(p.model_split(n, d) for n, d in names)

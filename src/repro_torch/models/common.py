@@ -187,14 +187,42 @@ class ParamModule(nn.Module):
     """A module whose parameters are read by name, ``p["wq"]``, as the
     reference's functions read their parameter dicts (the functions of
     this package take either), each cast to ``compute_dtype``
-    (``as_compute``).  Every parameter carries the reference's logical
-    spec (``ParamSpec.spec``, without the stacked layer axis), read back
-    by ``partition_specs``."""
+    (``as_compute``); on a sharded model each read gathers the weight
+    (``weight``) or takes its ``model`` block (``local``).  Every
+    parameter carries the reference's logical spec (``ParamSpec.spec``,
+    without the stacked layer axis), read back by ``partition_specs``."""
 
     compute_dtype = None
 
     def __getitem__(self, name):
-        return as_compute(getattr(self, name), self.compute_dtype)
+        return as_compute(self.weight(name), self.compute_dtype)
+
+    def weight(self, name):
+        """Parameter (or submodule) `name` in the dtype it is held in: on
+        a model sharded by ``distributed.model_parallel.shard_model`` a
+        parameter's whole value, gathered from its blocks
+        (differentiable: the gradient goes back to this rank's block)."""
+        t = getattr(self, name)
+        mp = self.__dict__.get("mp")
+        if mp is not None and isinstance(t, nn.Parameter):
+            return mp.full(t, self._mp_names[name])
+        return t
+
+    def local(self, name):
+        """Parameter `name`'s block of the ``model`` axis, gathered over
+        ``data`` and cast to ``compute_dtype``: what a layer split over
+        ``model`` computes with (``model_parallel.split``)."""
+        return as_compute(self.local_weight(name), self.compute_dtype)
+
+    def local_weight(self, name):
+        """``local`` in the dtype the parameter is held in."""
+        return self.mp.local(getattr(self, name), self._mp_names[name])
+
+    def model_split(self, name, dim: int) -> bool:
+        """Whether dimension `dim` of parameter `name` is split over the
+        ``model`` axis alone on this module's mesh."""
+        mp = self.__dict__.get("mp")
+        return mp is not None and mp.model_split(self._mp_names[name], dim)
 
     def declare(self, init: Init, name: str, shape, kind: str = "normal",
                 scale: float | None = None, *, spec: tuple) -> None:

@@ -51,6 +51,7 @@ def _group_mean(t):
     import torch.distributed.nn.functional as dist_nn
     return dist_nn.all_reduce(t, group=_GROUP) / dist.get_world_size(_GROUP)
 
+from ..distributed import model_parallel
 from .common import Init, ParamModule, act_fn
 
 
@@ -84,7 +85,15 @@ def router_topk(x, w_router, cfg):
 
 def moe_ffn(p, x, cfg):
     """p: router (D,E), wg/wu (E, D, Fe), wd (E, Fe, D).  x: (B, S, D).
-    Returns (y, aux_loss)."""
+    Returns (y, aux_loss).
+
+    On a model sharded over ``model`` with the experts split
+    (``model_parallel.split``) the routing, sort and dispatch run in full
+    on every rank; each rank runs its E/M experts' slots and
+    scatter-adds a partial `y` that ``reduce_from_model`` sums.  The
+    tokens and the combine weights enter through ``copy_to_model``, so
+    their gradients (the router's among them) are the sums over the
+    experts of every rank."""
     B, S, D = x.shape
     K, E = cfg.top_k, cfg.n_experts
     C = int(S * K / E * cfg.capacity_factor) + 1
@@ -110,16 +119,35 @@ def moe_ffn(p, x, cfg):
     wgt_for = torch.zeros((B, E * C + 1), dtype=x.dtype, device=dev) \
         .scatter_(1, slot, wgt_s)[:, :E * C]
 
+    # ---- experts over ``model``: this rank's E/M experts' slots ----
+    mp = model_parallel.split(p)
+    if mp is not None and not all(p.model_split(n, 0)
+                                  for n in ("wg", "wu", "wd")):
+        mp.record_path("moe", "gathered")
+        mp = None
+    read = p.__getitem__
+    if mp is not None:
+        n_local = E // mp.size["model"]
+        mp.record_path("moe", f"split, {n_local} of {E} experts")
+        mine = slice(mp.coord["model"] * n_local * C,
+                     (mp.coord["model"] + 1) * n_local * C)
+        x, E = mp.copy_to_model(x), n_local
+        tok_for = tok_for[:, mine]
+        wgt_for = mp.copy_to_model(wgt_for)[:, mine]
+        read = p.local
+
     # ---- gather tokens into (B, E, C, D) expert tiles ----
     xe = x.gather(1, tok_for[..., None].expand(B, E * C, D))  # (B, E*C, D)
     xe = xe.reshape(B, E, C, D)
     act = act_fn(cfg.act)
-    h = act(torch.einsum("becd,edf->becf", xe, p["wg"])) * \
-        torch.einsum("becd,edf->becf", xe, p["wu"])
-    ye = torch.einsum("becf,efd->becd", h, p["wd"])
+    h = act(torch.einsum("becd,edf->becf", xe, read("wg"))) * \
+        torch.einsum("becd,edf->becf", xe, read("wu"))
+    ye = torch.einsum("becf,efd->becd", h, read("wd"))
     ye = ye.reshape(B, E * C, D) * wgt_for[..., None]
 
     # ---- combine: per-row scatter-add back to the tokens ----
     y = torch.zeros((B, S, D), dtype=x.dtype, device=dev).scatter_add_(
         1, tok_for[..., None].expand(B, E * C, D), ye.to(x.dtype))
+    if mp is not None:
+        y = mp.reduce_from_model(y)
     return y, aux.float()

@@ -115,6 +115,16 @@ def input_specs(cfg: ModelConfig, shape: str, *, tiny: bool = False):
     S, GB, kind = SHAPES[shape]
     if tiny:
         S, GB = 128, 8
+    batch = batch_specs(cfg, S, GB, kind)
+    if kind != "decode":
+        return {"batch": batch}
+    model = get_model(cfg, device="meta")
+    return {"batch": batch, "cache": model.abstract_cache(GB, S)}
+
+
+def batch_specs(cfg: ModelConfig, S: int, GB: int, kind: str) -> dict:
+    """``input_specs``'s batch for `GB` rows of `S` tokens of a `kind`
+    (train / prefill / decode) step."""
     i32, bf16 = torch.int32, torch.bfloat16
 
     def meta(*shape_, dtype=i32):
@@ -130,8 +140,6 @@ def input_specs(cfg: ModelConfig, shape: str, *, tiny: bool = False):
             batch["labels"] = meta(GB, S)
     if cfg.family == "vlm":
         batch["positions"] = meta(3, GB, rows)
-    if kind != "decode":
-        return {"batch": batch}
-    batch["cache_pos"] = meta()
-    model = get_model(cfg, device="meta")
-    return {"batch": batch, "cache": model.abstract_cache(GB, S)}
+    if kind == "decode":
+        batch["cache_pos"] = meta()
+    return batch

@@ -26,10 +26,28 @@ from torch import nn
 from torch.utils import _pytree
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed import model_parallel
 from .attention import Attention, attn_block
-from .common import (DTYPES, Init, ParamModule, act_fn, compute_dtype,
-                     make_param, partition_specs, rms_norm, scalar, softcap)
+from .common import (DTYPES, Init, ParamModule, act_fn, as_compute,
+                     compute_dtype, make_param, partition_specs, rms_norm,
+                     scalar, softcap)
 from .moe import MoE, moe_ffn
+
+
+def _vocab_parallel_ce(split, lg, labels):
+    """``(logsumexp, true logit)`` over the whole vocabulary from this
+    rank's block of float32 logits `lg` (``_vocab_split``'s `split`)."""
+    import torch.distributed as dist
+    mp, first, rows = split
+    mx = mp.all_reduce(lg.detach().amax(dim=-1), "model",
+                       op=dist.ReduceOp.MAX,
+                       kind="model_all_reduce")
+    se = mp.reduce_from_model(torch.exp(lg - mx[..., None]).sum(dim=-1))
+    idx = labels - first
+    mine = (idx >= 0) & (idx < rows)
+    true = lg.gather(-1, idx.clamp(0, rows - 1)[..., None])[..., 0]
+    true = mp.reduce_from_model(torch.where(mine, true, 0.0))
+    return torch.log(se) + mx, true
 
 
 class MLP(ParamModule):
@@ -44,10 +62,24 @@ class MLP(ParamModule):
 
 
 def mlp_ffn(p, x, cfg):
+    """On a model sharded over ``model`` with the hidden columns split
+    (``model_parallel.split``) each rank computes its F/M columns of wg /
+    wu and its row block of wd, then one ``reduce_from_model``."""
+    mp = model_parallel.split(p)
+    if mp is not None and not all(p.model_split(n, d) for n, d in (
+            ("wg", 1), ("wu", 1), ("wd", 0))):
+        mp.record_path("mlp", "gathered")
+        mp = None
+    read = p.__getitem__
+    if mp is not None:
+        mp.record_path("mlp", f"split, {cfg.d_ff // mp.size['model']} of "
+                              f"{cfg.d_ff} columns")
+        x, read = mp.copy_to_model(x), p.local
     act = act_fn(cfg.act)
-    h = act(torch.einsum("bsd,df->bsf", x, p["wg"])) * \
-        torch.einsum("bsd,df->bsf", x, p["wu"])
-    return torch.einsum("bsf,fd->bsd", h, p["wd"])
+    h = act(torch.einsum("bsd,df->bsf", x, read("wg"))) * \
+        torch.einsum("bsd,df->bsf", x, read("wu"))
+    y = torch.einsum("bsf,fd->bsd", h, read("wd"))
+    return y if mp is None else mp.reduce_from_model(y)
 
 
 class Block(ParamModule):
@@ -131,15 +163,86 @@ class TransformerLM(ParamModule):
         cfg = self.cfg
         if "embeds" in batch:                       # stub modality frontends
             x = batch["embeds"]
+        elif self._vocab_split() is not None:
+            x = self._embed_split(batch["tokens"].long())
         else:
             # the rows, then the cast: the values of the reference's cast
             # table, and a repeated token's gradient sums in the weight's
             # dtype (float32 masters), not in bfloat16
-            x = self.embed[batch["tokens"].long()]
+            x = self._embed_read(local=False)[batch["tokens"].long()]
         x = x.to(self.compute_dtype)
         if cfg.scale_embed:
             x = x * scalar(math.sqrt(cfg.d_model), x.dtype)
         return x * scalar(cfg.embedding_multiplier, x.dtype)
+
+    def _vocab_split(self):
+        """``(ModelParallel, first row, rows)`` of this rank's vocabulary
+        block where the model computes split over ``model`` and the
+        vocabulary dimension of the embedding (and of the head) is split
+        over it; else None."""
+        mp = model_parallel.split(self)
+        head = ("head", 2 if self.cfg.n_codebooks else 1) \
+            if "head" in self._parameters else None
+        if mp is None or not self.model_split("embed", 0) or (
+                head and not self.model_split(*head)):
+            if mp is not None:
+                mp.record_path("vocabulary", "gathered")
+            return None
+        rows = self.cfg.vocab_padded // mp.size["model"]
+        return mp, mp.coord["model"] * rows, rows
+
+    def _embed_split(self, tokens):
+        """The vocabulary-parallel lookup: each rank takes the rows of its
+        block (float32), zeros for the tokens outside it, and
+        ``reduce_from_model`` sums the one row each token has."""
+        mp, first, rows = self._vocab_split()
+        mp.record_path("embedding", f"split, {rows} of "
+                                    f"{self.cfg.vocab_padded} rows")
+        idx = tokens - first
+        mine = (idx >= 0) & (idx < rows)
+        w = self._embed_read(local=True)
+        x = torch.where(mine[..., None], w[idx.clamp(0, rows - 1)], 0.0)
+        return mp.reduce_from_model(x)
+
+    def _embed_read(self, local: bool):
+        """The embedding in the dtype it is held in, as ``weight`` (or
+        ``local_weight``) reads it, read once a forward: a tied model's
+        lookup and head share one gather (and, backward, one
+        reduce-scatter) on a sharded model."""
+        memo = self.__dict__.get("_embed_reads")
+        if memo is None or local not in memo:
+            w = self.local_weight("embed") if local else self.weight("embed")
+            if memo is None:
+                return w
+            memo[local] = w
+        return memo[local]
+
+    def _logits(self, x, vocab_local: bool = False):
+        """The head (or the tied embedding) on the final hidden `x`, with
+        ``logits_scaling`` and ``final_softcap``.  Split over ``model``
+        (``_vocab_split``) each rank computes its vocabulary block's
+        logits: returned as they are with `vocab_local` (``loss``'s
+        vocabulary-parallel cross-entropy), else gathered."""
+        cfg = self.cfg
+        split = self._vocab_split()
+        read = self.__getitem__
+        if split is not None:
+            split[0].record_path("head", f"split, {split[2]} of "
+                                         f"{cfg.vocab_padded} columns")
+            x, read = split[0].copy_to_model(x), self.local
+        if cfg.n_codebooks:
+            logits = torch.einsum("bsd,cdv->bscv", x, read("head"))
+        elif cfg.tie_embeddings:
+            w = as_compute(self._embed_read(local=split is not None),
+                           self.compute_dtype)
+            logits = torch.einsum("bsd,vd->bsv", x, w)
+        else:
+            logits = torch.einsum("bsd,dv->bsv", x, read("head"))
+        logits = softcap(logits / scalar(cfg.logits_scaling, logits.dtype),
+                         cfg.final_softcap)
+        if split is not None and not vocab_local:
+            logits = split[0].gather_from_model(logits, logits.ndim - 1)
+        return logits
 
     def _positions(self, batch, S, cache_pos=None):
         dev = self.device
@@ -176,15 +279,21 @@ class TransformerLM(ParamModule):
         train-mode forward that autograd records."""
         return self.cfg.remat and mode == "train" and torch.is_grad_enabled()
 
-    def forward(self, batch, mode="train", cache=None):
+    def forward(self, batch, mode="train", cache=None,
+                vocab_local: bool = False):
         """mode: train | prefill | decode.  Returns (logits, aux,
-        new_cache).  Prefill and decode run under ``inference_mode``."""
-        if mode == "train":
-            return self._forward(batch, mode, cache)
-        with torch.inference_mode():
-            return self._forward(batch, mode, cache)
+        new_cache).  Prefill and decode run under ``inference_mode``.
+        `vocab_local`: see ``_logits``."""
+        self.__dict__["_embed_reads"] = {}
+        try:
+            if mode == "train":
+                return self._forward(batch, mode, cache, vocab_local)
+            with torch.inference_mode():
+                return self._forward(batch, mode, cache)
+        finally:
+            del self.__dict__["_embed_reads"]
 
-    def _forward(self, batch, mode, cache):
+    def _forward(self, batch, mode, cache, vocab_local=False):
         cfg = self.cfg
         batch = self._batch(batch)
         x = self._embed(batch)
@@ -218,14 +327,7 @@ class TransformerLM(ParamModule):
             caches.append(cache_out)
 
         x = rms_norm(x, self["final_norm"], cfg.rms_eps)
-        if cfg.n_codebooks:
-            logits = torch.einsum("bsd,cdv->bscv", x, self["head"])
-        elif cfg.tie_embeddings:
-            logits = torch.einsum("bsd,vd->bsv", x, self["embed"])
-        else:
-            logits = torch.einsum("bsd,dv->bsv", x, self["head"])
-        logits = softcap(logits / scalar(cfg.logits_scaling, logits.dtype),
-                         cfg.final_softcap)
+        logits = self._logits(x, vocab_local)
         new_cache = None
         if mode == "prefill":
             new_cache = {"kv": {n: torch.stack([c[n] for c in caches])
@@ -243,17 +345,30 @@ class TransformerLM(ParamModule):
         * aux / n_layers``.  The true logit is a ``gather`` (the
         reference's one-hot einsum, there for vocab sharding, gives the
         same value and would cost a float32 (B, S, V) one-hot).  Runs in
-        the caller's grad mode."""
+        the caller's grad mode.
+
+        Split over ``model`` (``_vocab_split``) the cross-entropy is
+        vocabulary-parallel: each rank holds its block's float32 logits
+        only ((B, S, V/M): at Llama-3.2-1B's 128,256 columns, 4 x 256
+        tokens, 263 MB a rank at M = 2 against 525 MB gathered), the max
+        and the sum of exponentials are all-reduced over ``model``, and
+        the true logit comes from the one rank whose block holds it."""
         cfg = self.cfg
         batch = self._batch(batch)
-        logits, aux, _ = self.forward(batch, mode="train")
+        logits, aux, _ = self.forward(batch, mode="train", vocab_local=True)
+        split = self._vocab_split()
         lg = logits.float()
+        first, cols = (0, cfg.vocab_padded) if split is None else split[1:]
         if cfg.vocab_padded != cfg.vocab:
-            pad = torch.arange(cfg.vocab_padded, device=lg.device) >= cfg.vocab
+            pad = torch.arange(first, first + cols,
+                               device=lg.device) >= cfg.vocab
             lg = lg.masked_fill(pad, -1e30)
-        lse = torch.logsumexp(lg, dim=-1)
         labels = batch["labels"].long()
-        true_logit = lg.gather(-1, labels[..., None])[..., 0]
+        if split is None:
+            lse = torch.logsumexp(lg, dim=-1)
+            true_logit = lg.gather(-1, labels[..., None])[..., 0]
+        else:
+            lse, true_logit = _vocab_parallel_ce(split, lg, labels)
         ce = (lse - true_logit).mean()
         return ce + cfg.router_aux_coef * aux / cfg.n_layers, {"ce": ce}
 

@@ -130,8 +130,9 @@ def slstm_block(p, x, cfg, state=None):
                                       device=x.device))
     c, n, m, h_prev = state
     hs = []
+    r_gates = p["r_gates"]
     for t in range(L):
-        rec = torch.einsum("bhd,hde->bhe", h_prev, p["r_gates"])
+        rec = torch.einsum("bhd,hde->bhe", h_prev, r_gates)
         it, ft, zt, ot = (pre[:, t] + rec).chunk(4, dim=-1)
         it, ft = it.float(), ft.float()
         log_f = F.logsigmoid(ft)

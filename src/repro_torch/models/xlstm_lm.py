@@ -34,7 +34,7 @@ class XLSTMLM(TransformerLM):
                       (None,))
         self.register("head", make_param(init, (D, V)), ("data", "model"))
 
-    def _forward(self, batch, mode, cache):
+    def _forward(self, batch, mode, cache, vocab_local=False):
         cfg = self.cfg
         batch = self._batch(batch)
         x = self._embed(batch)
@@ -51,7 +51,7 @@ class XLSTMLM(TransformerLM):
             x = x + out
             new_states.append(st_new)
         x = rms_norm(x, self["final_norm"], cfg.rms_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self["head"])
+        logits = self._logits(x, vocab_local)
         new_cache = None
         if mode in ("prefill", "decode"):
             new_cache = {"states": tuple(new_states)}

@@ -64,7 +64,7 @@ class Zamba2LM(TransformerLM):
         h = h + mlp_ffn(p["mlp"], rms_norm(h, p["ln2"], cfg.rms_eps), cfg)
         return x + h, cache_out
 
-    def _forward(self, batch, mode, cache):
+    def _forward(self, batch, mode, cache, vocab_local=False):
         cfg = self.cfg
         batch = self._batch(batch)
         x = self._embed(batch)
@@ -117,7 +117,7 @@ class Zamba2LM(TransformerLM):
             conv.append(conv_new)
 
         x = rms_norm(x, self["final_norm"], cfg.rms_eps)
-        logits = torch.einsum("bsd,dv->bsv", x, self["head"])
+        logits = self._logits(x, vocab_local)
         new_cache = None
         if mode in ("prefill", "decode"):
             new_cache = {"kv": kv_all, "ssm": torch.stack(ssm),

@@ -59,25 +59,29 @@ def global_norm(grads: dict) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in grads.values()))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, norm=global_norm):
     """(float32 gradients scaled so their global norm is at most
-    `max_norm`, the norm before clipping)."""
-    gn = global_norm(grads)
+    `max_norm`, the norm before clipping); `norm` computes the global
+    norm (``ModelParallel.global_norm`` for the blocks of a sharded
+    state)."""
+    gn = norm(grads)
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     return {n: g.float() * scale for n, g in grads.items()}, gn
 
 
 @torch.no_grad()
 def adamw_update(params: dict, grads: dict, opt_state: dict,
-                 cfg: AdamWConfig) -> dict:
+                 cfg: AdamWConfig, norm=global_norm) -> dict:
     """One AdamW step: updates `params` (name -> tensor, e.g.
     ``dict(model.named_parameters())``) and `opt_state` (``m``, ``v``,
     ``step``) in place from `grads` (the same names; a missing or None
     gradient counts as zeros, as the reference's gradient of an unused
-    weight).  Returns ``{"grad_norm", "lr"}`` as 0-d tensors."""
+    weight).  `norm`: see ``clip_by_global_norm``; every other op is
+    elementwise, so a sharded state updates its blocks as they are.
+    Returns ``{"grad_norm", "lr"}`` as 0-d tensors."""
     grads = {n: torch.zeros_like(p) if grads.get(n) is None else grads[n]
              for n, p in params.items()}
-    grads, gn = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gn = clip_by_global_norm(grads, cfg.clip_norm, norm)
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2

@@ -13,7 +13,9 @@ Data parallel (``group=``): every rank runs the loop on its replica.
 Rank 0 of the group writes each checkpoint and a barrier follows every
 save; every rank restores after a barrier, so no rank reads a checkpoint
 before it is whole.  An injected failure fires at the same step on every
-rank.
+rank.  A state sharded over a ``("data", "model")`` mesh is saved by
+every rank (each leaf gathered) and written by rank 0; a restore takes
+each rank's blocks; pass the world group as `group`.
 """
 from __future__ import annotations
 
@@ -61,12 +63,17 @@ def _barrier(group):
 
 
 def _save(ckpt_dir, state, step: int, group) -> None:
-    """Rank 0 of `group` writes its replica; a barrier follows."""
-    if group is None:
+    """Rank 0 of `group` writes its replica; a barrier follows.  A state
+    sharded over a mesh is gathered by every rank and written by rank 0
+    of the world."""
+    from ..distributed.model_parallel import of
+    if group is None and of(state["model"]) is None:
         save_checkpoint(ckpt_dir, state, step, async_save=False)
         return
     import torch.distributed as dist
-    if dist.get_rank(group) == 0:
+    if of(state["model"]) is not None:
+        save_checkpoint(ckpt_dir, state, step, write=dist.get_rank() == 0)
+    elif dist.get_rank(group) == 0:
         save_checkpoint(ckpt_dir, state, step, async_save=False)
     _barrier(group)
 

@@ -84,7 +84,7 @@ def shard_batch(batch: dict, rank: int, world: int,
 
 
 def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
-                    group=None, grad_sync=None):
+                    group=None, grad_sync=None, mesh=None):
     """``train_step(state, batch) -> (state, metrics)`` for `model` (the
     state's ``"model"``), metrics ``{"loss", "grad_norm", "lr"}`` as 0-d
     tensors on the device; `batch` holds numpy arrays or tensors.  With
@@ -95,11 +95,32 @@ def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
     (``shard_batch``), the gradients are averaged over the group by
     `grad_sync` (default ``make_allreduce_grad_sync(group)``) before the
     clip, and the loss is the group's mean; ``group=None`` is the
-    single-device step."""
+    single-device step.
+
+    With a ``("data", "model")`` torch `mesh` the model is sharded on it
+    (``distributed.model_parallel.shard_model``, in place, where it is
+    not yet; build the state with ``init_state`` after) and `batch` is
+    the rows of this rank's ``data`` coordinate (``shard_batch`` with the
+    ``data`` rank and size; every ``model`` rank of a row reads the same
+    rows).  The gradients arrive averaged over ``data`` from the
+    reduce-scatters of the model's reads, the clip counts every element
+    of the full gradient once (``ModelParallel.global_norm``), the loss
+    is the mean over ``data`` and the router's statistics the global
+    batch's.  `group` and `grad_sync` do not apply (ValueError)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum={grad_accum} must be >= 1")
+    mp = None
+    if mesh is not None:
+        if group is not None or grad_sync is not None:
+            raise ValueError("a (data, model) mesh averages the gradients "
+                             "in the model's reads: no group= or "
+                             "grad_sync= (the int8 ring syncs whole "
+                             "replicated gradients)")
+        from ..distributed.model_parallel import shard_model
+        mp = shard_model(model, mesh)
+        group = mp.group["data"]
     params = dict(model.named_parameters())
-    if group is not None and grad_sync is None:
+    if group is not None and grad_sync is None and mp is None:
         grad_sync = make_allreduce_grad_sync(group)
 
     def train_step(state, batch):
@@ -125,6 +146,11 @@ def make_train_step(model, opt_cfg: AdamWConfig, grad_accum: int = 1,
         for p in params.values():
             p.grad = None
         loss = loss.detach()
+        if mp is not None:
+            loss = mp.all_reduce(loss, "data") / mp.size["data"]
+            om = adamw_update(params, grads, state["opt"], opt_cfg,
+                              norm=mp.global_norm)
+            return state, {"loss": loss, **om}
         if group is not None:
             import torch.distributed as dist
             grads = grad_sync({k: torch.zeros(params[k].shape,
@@ -178,14 +204,37 @@ def replica_digest(state) -> list:
     order) that change with any bit of it: the sum of its 32-bit words,
     and their sum weighted by position (mod 65,521, plus 1); computed on
     the state's devices, for checking that data-parallel replicas are
-    bit-identical without moving them."""
-    from ..checkpoint.ckpt import flat_state
+    bit-identical without moving them.  For a state sharded over a
+    ``("data", "model")`` mesh each leaf's entry adds a third item, the
+    block it holds (``"data=1,model=0"``; ``""`` where it is whole), so
+    that ``replicas_agree`` compares the ranks that hold the same
+    block."""
+    from ..checkpoint.ckpt import flat_state, param_of
+    from ..distributed.model_parallel import of
+    mp = of(state["model"])
     out = []
-    for t in flat_state(state).values():
+    for key, t in flat_state(state).items():
         w = t.detach().reshape(-1)
         w = (w.view(torch.int32) if w.element_size() == 4
              else w.view(torch.int16) if w.element_size() == 2
              else w).to(torch.int64)
         pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
         out.append([int(w.sum()), int((w * pos).sum())])
+        if mp is not None:
+            name = param_of(key)
+            out[-1].append("" if name is None else ",".join(
+                f"{a}={mp.coord[a]}" for a in mp.sharded_over(name)))
     return out
+
+
+def replicas_agree(digests: list) -> bool:
+    """Whether the ranks' ``replica_digest`` lists (one a rank) agree:
+    every leaf bit-identical on the ranks that hold the same block of it
+    (on every rank where the state is not sharded)."""
+    for leaf in zip(*digests):
+        seen = {}
+        for entry in leaf:
+            key = entry[2] if len(entry) > 2 else ""
+            if seen.setdefault(key, entry[:2]) != entry[:2]:
+                return False
+    return len({len(d) for d in digests}) == 1

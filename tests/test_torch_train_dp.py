@@ -121,7 +121,8 @@ if case["extra"]:
         launch.main(["--arch", "llama3.2-1b", "--tiny", "--steps", "10",
                      "--batch", "8", "--seq", "16", "--ckpt-every", "1",
                      "--log-every", "1", "--device", "cpu", "--ckpt-dir",
-                     ckpt, "--metrics-out", metrics] + extra)
+                     ckpt, "--metrics-out", metrics, "--model-parallel",
+                     "1"] + extra)
     if r == 0:
         json.dump({"aux": auxes}, open(os.path.join(OUT, "extra.json"), "w"))
 dist.destroy_process_group()
@@ -341,7 +342,7 @@ from repro_torch.launch import train as launch
 OUT = os.environ["OUT"]
 args = ["--arch", "llama3.2-1b", "--tiny", "--steps", "2", "--seq", "8",
         "--ckpt-every", "100", "--device", "cpu", "--ckpt-dir",
-        os.path.join(OUT, "ck")]
+        os.path.join(OUT, "ck"), "--model-parallel", "1"]
 try:
     launch.main(args + ["--batch", "7"])
     refused = None
@@ -357,8 +358,9 @@ json.dump({"refused": refused, "initialized": dist.is_initialized()},
 def test_launch_train_initialises_its_own_process_group(tmp_path):
     """Under ``RANK`` / ``WORLD_SIZE`` (as ``torch.distributed.run`` sets
     them) ``launch.train.main`` on the CPU starts a gloo group of the
-    world, trains over a (2, 1) mesh and destroys the group it made; a
-    global batch that does not divide over the ranks is a ValueError."""
+    world, trains over a (2, 1) mesh (``--model-parallel 1``: data
+    parallel) and destroys the group it made; a global batch that does
+    not divide over the ranks is a ValueError."""
     run_ranks(_LAUNCH, 2, tmp_path)
     run = json.loads((tmp_path / "run.json").read_text())
     assert run["world"] == 2 and run["backend"] == "gloo"
@@ -370,11 +372,57 @@ def test_launch_train_initialises_its_own_process_group(tmp_path):
         assert rank["initialized"] is False
 
 
-def test_model_parallel_is_refused_naming_its_item(tmp_path):
+def test_model_parallel_needs_a_world_it_divides(tmp_path):
+    """``--model-parallel 2`` in one process (a world of one) fails the
+    reference's ``best_mesh_shape`` assert, before any group is made."""
+    import torch.distributed as dist
     from repro_torch.launch.train import main
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
+    with pytest.raises(AssertionError):
         main(["--tiny", "--device", "cpu", "--model-parallel", "2",
               "--ckpt-dir", str(tmp_path)])
+    assert not dist.is_initialized()
+
+
+_MODEL_PARALLEL = """
+import json, os
+from repro_torch.launch import train as launch
+OUT, NAME = os.environ["OUT"], os.environ["NAME"]
+launch.main(["--arch", "llama3.2-1b", "--tiny", "--steps", "3",
+             "--batch", "4", "--seq", "8", "--ckpt-every", "100",
+             "--log-every", "1", "--device", "cpu", "--ckpt-dir",
+             os.path.join(OUT, "ck_" + NAME), "--metrics-out",
+             os.path.join(OUT, NAME + ".json")]
+            + os.environ["FLAGS"].split())
+"""
+
+
+def test_launch_train_model_parallel_2_trains(tmp_path):
+    """``--model-parallel 2`` under 2 gloo ranks trains on mesh (1, 2):
+    the state sharded (each rank's bytes equal the dry run's
+    ``sharded.state_bytes``), attention, MLP and vocabulary split over
+    ``model``, the loss falling; the default ``--model-parallel 0``
+    factors the same world the same way (``best_mesh_shape``) and
+    trains the same steps."""
+    from repro_torch.train.step import replicas_agree
+    # a world a run: a group made again over one store can read the
+    # first's stale addresses and hang
+    for name, flags in (("two", "--model-parallel 2"), ("default", "")):
+        run_ranks(_MODEL_PARALLEL, 2, tmp_path,
+                  env={"NAME": name, "FLAGS": flags})
+    runs = {name: json.loads((tmp_path / f"{name}.json").read_text())
+            for name in ("two", "default")}
+    for run in runs.values():
+        assert run["mesh"] == {"data": 1, "model": 2}
+        assert run["world"] == 2 and run["backend"] == "gloo"
+        assert run["state_bytes"] == run["dryrun_state_bytes"]
+        assert replicas_agree(run["digests"])
+        assert "attention: split, 2 of 4 heads" in run["paths"]
+        assert not [p for p in run["paths"] if p.endswith("gathered")]
+        assert set(run["collective_ms"]) >= {"model_all_reduce", "norm"}
+        losses = [r["loss"] for r in run["log"] if "loss" in r]
+        assert len(losses) == 3 and losses[-1] < losses[0]
+    assert [r["loss"] for r in runs["two"]["log"]] == \
+        [r["loss"] for r in runs["default"]["log"]]
 
 
 _BACKEND = """

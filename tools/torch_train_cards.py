@@ -16,9 +16,17 @@ compute, 4 steps of a global 8 x 512 tokens, which 1, 2, 4 and 8 ranks
 divide.  World n's losses are held within 1e-5 relative of world 1's
 (the other sum order of the gradients, float32 rounding only; leg (b) of
 phase ``train_dp`` holds the same bound), and every rank's replica is
-bit-identical (``train.step.replica_digest``).  Prints the first card's
-name and power limit, then one JSON line a leg.  Refuses to run on fewer
-than two cards.
+bit-identical (``train.step.replica_digest``).  Then the model axis
+(``chip_smoke.py --train-dp-child cards_mp``): the same run with
+``--model-parallel M`` for each M of ``chip_smoke.mp_cards_axes`` ((1, 4)
+and (2, 2) on four cards), the state sharded and the compute split over
+``model``, each held to world 1's losses within the same bound, the
+ranks that hold a block bit-identical (``train.step.replicas_agree``),
+each rank's state bytes equal to the dry run's ``sharded.state_bytes``,
+with the ``model`` all-reduce's bus GB/s (one activation, a data rank's
+tokens x d_model in float32, median of 5) and each step's collective
+ms.  Prints the first card's name and power limit, then one JSON line a
+leg.  Refuses to run on fewer than two cards.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
 import chip_smoke as cs                                        # noqa: E402
+from repro_torch.train.step import replicas_agree              # noqa: E402
 
 #: world n's losses against world 1's, float32 compute
 LOSS_RTOL = cs.DP_TOL["rtol"]
@@ -59,6 +68,29 @@ def run(device: torch.device, n: int, tiny: bool = False) -> None:
             world1_step_ms=one["step_ms"])
     if rel > LOSS_RTOL or not same or ring["rel_err"] >= 0.05:
         raise SystemExit("torch_train_cards: a check failed")
+    with tempfile.TemporaryDirectory() as tmp:
+        mp = cs._run_leg("cards_mp", n, Path(tmp), device, tiny)
+    bad = []
+    for mesh, row in mp.items():
+        if not isinstance(row, dict):       # the leg's seconds
+            continue
+        run_ = row.pop("run")
+        got = cs._losses(run_)
+        rel = cs._max_rel(got, want)
+        agree = replicas_agree(run_["digests"])
+        cs.emit("train_cards", leg="model_axis", mesh=run_["mesh"],
+                losses=got, world1_losses=want, loss_rel_err=rel,
+                tol=LOSS_RTOL, replicas_agree=agree,
+                state_bytes=run_["state_bytes"],
+                dryrun_state_bytes=run_["dryrun_state_bytes"],
+                step_ms=run_["step_ms"],
+                collective_ms=run_["collective_ms"], paths=run_["paths"],
+                peak_memory_bytes=run_["peak_memory_bytes"], **row)
+        if rel > LOSS_RTOL or not agree or \
+                run_["state_bytes"] != run_["dryrun_state_bytes"]:
+            bad.append(mesh)
+    if bad:
+        raise SystemExit(f"torch_train_cards: model axis {bad} failed")
 
 
 def main() -> None:
