@@ -18,7 +18,10 @@ the split backend, a session and the engine, each equal to its unsharded
 run).  Then the front doors a user calls, each record held against
 ``GenASMAligner`` on the card: the session (``repro_torch.api.plan``),
 the multi-tenant gateway and the serving engine (phase ``gateway``),
-and the read mapper with its X-drop pre-filter (phase ``mapper``).  Last the paper's comparison (phase
+the session's executables as CUDA graphs against their eager steps, the
+device-mode ladder as one graph whose IF nodes a gate kernel sets on the
+card (phase ``graphs``), and the read mapper with its X-drop pre-filter
+(phase ``mapper``).  Last the paper's comparison (phase
 ``paper``): the GenASM variants and the Edlib-like and KSW2-like
 baselines on the CPU and on the card, the distance-only row through K3,
 the footprint / access model and the near-duplicate operator.  Then the
@@ -48,6 +51,7 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import re
 import math
@@ -76,7 +80,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.api import (CompileCache, Gateway,             # noqa: E402
                              GatewayPolicy, ShedError, plan)
-from repro_torch.api.session import build_executable           # noqa: E402
+from repro_torch.api.session import (AlignSession,            # noqa: E402
+                                     build_executable)
 from repro_torch.baselines.dp import (INF,                      # noqa: E402
                                       affine_traceback,
                                       banded_affine_dist)
@@ -95,7 +100,8 @@ from repro_torch.data.dedup import near_duplicates             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
                                      plant_decoys, simulate_reads,
                                      synth_genome)
-from repro_torch.kernels import build, genasm_dc               # noqa: E402
+from repro_torch.kernels import (build, genasm_dc,             # noqa: E402
+                                 ladder_graph)
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
 from repro_torch.distributed.sharding import pair_shards      # noqa: E402
@@ -107,6 +113,9 @@ from repro_torch.mapper import (MapperConfig, ReadMapper,      # noqa: E402
 from repro_torch.serve.engine import (AlignmentEngine,         # noqa: E402
                                       AlignRequest)
 from repro_torch.serve.align_step import launch_plan           # noqa: E402
+from repro_torch.serve import graphs as serve_graphs            # noqa: E402
+from repro_torch.core.cigar import (decode_batch,              # noqa: E402
+                                    records_from_state)
 from repro_torch.data.tokens import TokenStream, to_device      # noqa: E402
 from repro_torch.models.registry import (ARCH_IDS,             # noqa: E402
                                          get_config, get_model,
@@ -149,9 +158,13 @@ _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "tail_banded": _CSRC + "tail_fused.cu",
            "tail_full": _CSRC + "tail_fused.cu",
-           "dc_band": _CSRC + "dc_band.cu"}
+           "dc_band": _CSRC + "dc_band.cu",
+           "ladder_gate": _CSRC + "ladder_graph.cu"}
+#: what the device-mode ladder's gate kernel replaces (no Pallas kernel:
+#: the reference's on-device round gate)
+GATE_REPLACES = "src/repro/core/windowing.py:350 lax.cond(any(failed))"
 #: each kernel template's display name and template parameters
-TEMPLATES = {"tb_fused_kernel": ("tb_fused", ("NW", "KP", "NWB")),
+TEMPLATES = {"tb_fused_kernel": ("tb_fused", ("NW", "KP", "NWB", "PLACE")),
              "tail_fused_kernel": ("tail_fused", ("NW", "KP", "NWB", "PLACE")),
              "dc_band_kernel": ("dc_band", ("NW", "KP", "NWB", "PLACE"))}
 #: K1's ms per launch at 4,096 lanes in its first design (one thread per
@@ -227,7 +240,9 @@ def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
     """The usage key of the instantiation kernel `name` runs for `cfg`."""
     kp = genasm_dc.levels_bucket(cfg.k)
     if name == "tb_fused":
-        return _kernel_name("tb_fused_kernel", (cfg.nw, kp, cfg.nwb))
+        return _kernel_name("tb_fused_kernel", (
+            cfg.nw, kp, cfg.nwb,
+            PLACEMENTS.index(genasm_dc.K1_PLACEMENT[kp])))
     if name == "dc_band":
         return _kernel_name("dc_band_kernel", (cfg.nw, kp, cfg.nwb,
                                                K3_PLACEMENTS.index(placement)))
@@ -245,7 +260,7 @@ def _ptxas_usage(report: str) -> dict:
         if "Function properties for" in line:
             mangled = line.split()[-1]
             template = next((t for t in TEMPLATES if t in mangled), None)
-            name = None
+            name = "ladder_gate" if "ladder_gate_kernel" in mangled else None
             if template is not None:
                 args = re.search(r"_kernelI((?:Li\d+E)+)E", mangled).group(1)
                 name = _kernel_name(template, re.findall(r"Li(\d+)E", args))
@@ -559,48 +574,102 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
 
 
 #: K3 on the card at W > 64 (NW = 3, 4) and where m_pad > W (40, 48):
-#: (W, O, k), each at the phase's lanes, timed
+#: (W, O, k), each at the phase's lanes, timed; the last also K1 and K4
+#: (KP = 128: their band and store in device memory)
 K3_WIDE = [(40, 16, 12), (48, 16, 12), (96, 36, 24), (96, 36, 48),
-           (128, 48, 24), (128, 48, 48)]
+           (128, 48, 24), (128, 48, 48), (128, 48, 96)]
+KP128_TIMED = K3_WIDE[-1]
 
 
 def phase_kernels(device: torch.device, n_pairs: int = 4096,
                   reps: int = 20, usage: dict | None = None) -> list[dict]:
     """Each kernel against its plain version at the main path's shapes
-    (W=64), then K3 at the widths of ``K3_WIDE``.  On the card ``ms`` is
-    the device time per launch (``_device_ms``); ``event_ms`` the
-    CUDA-event time per call of back-to-back wrapper calls, the host's time
-    between launches included.  The tail rows carry their block, store
-    placement and (with ``usage``, ptxas's) registers, spills and blocks
-    per SM; the K3 rows their block, band placement and occupancy."""
+    (W=64), then K3 at the widths of ``K3_WIDE`` and K1 and K4 at
+    ``KP128_TIMED``.  On the card ``ms`` is the device time per launch
+    (``_device_ms``); ``event_ms`` the CUDA-event time per call of
+    back-to-back wrapper calls, the host's time between launches included.
+    The tail rows carry their block, store placement and (with ``usage``,
+    ptxas's) registers, spills and blocks per SM; the K3 rows their block,
+    band placement and occupancy; the K1 rows at KP = 128 their band's
+    placement, bytes a lane and ptxas.  Last the ladder's gate kernel
+    (``_gate_row``)."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
              ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
              ("dc_band", 12), ("dc_band", 24), ("dc_band", 48)]
+    wide = AlignerConfig(W=KP128_TIMED[0], O=KP128_TIMED[1],
+                         k=KP128_TIMED[2])
     cases = [(name, AlignerConfig(k=k)) for name, k in cases] + [
-        ("dc_band", AlignerConfig(W=W, O=O, k=k)) for W, O, k in K3_WIDE]
+        ("dc_band", AlignerConfig(W=W, O=O, k=k)) for W, O, k in K3_WIDE] + [
+        ("tb_fused", wide), ("tail_full", wide)]
     rows = []
     for name, cfg in cases:
         if name.startswith("tail") and (name == "tail_banded") != cfg.tail_banded:
             raise AssertionError(f"k={cfg.k} does not select {name}")
         row = _check_case(name, cfg, n_pairs, rng, device, reps,
                           f"W={cfg.W} k={cfg.k}")
-        if name == "tb_fused":
+        if name == "tb_fused" and cfg.W == 64:
             row["one_thread_ms"] = K1_ONE_THREAD_MS[cfg.k]
+        if name == "tb_fused" and cfg.W != 64:
+            geo = genasm_dc.tb_fused_geometry(cfg)
+            row.update(_k1_geometry(cfg), placement=geo.placement,
+                       store_bytes_per_lane=4 * geo.store_words,
+                       ptxas=(usage or {}).get(_instantiation("tb_fused",
+                                                               cfg)))
         if name.startswith("tail"):
             row.update(_tail_geometry(name, cfg, usage=usage)[1])
         if name == "dc_band":
             row.update(_k3_geometry(cfg, usage=usage)[1])
         emit("kernel", **row)
         rows.append(row)
+    rows.append(_gate_row(device, 1024, reps, usage))
+    emit("kernel", **rows[-1])
     return rows
+
+
+def _gate_row(device: torch.device, lanes: int, reps: int,
+              usage: dict | None = None) -> dict:
+    """The rescue ladder's gate kernel alone (``ladder_graph.ladder_gate``,
+    no condition set) against its plain version on a dispatch's ``failed``
+    of `lanes` lanes, three of them set and then none (max abs err 0 or
+    raise); on the first its device ms, the bound (the lanes' bytes read
+    once and one word written, against one operation a lane) and
+    ``failed.any()``, the one PyTorch call computing the same, as the
+    library's time."""
+    failed = torch.zeros(lanes, dtype=torch.bool, device=device)
+    failed[np.random.default_rng(27).choice(lanes, 3, replace=False)] = True
+    err, plain_ms = 0, None
+    for f in (failed, torch.zeros_like(failed)):
+        got = ladder_graph.ladder_gate(f)
+        _sync(device)
+        t0 = time.perf_counter()
+        ref = ladder_graph.ladder_gate_plain(f)
+        _sync(device)
+        plain_ms = plain_ms or (time.perf_counter() - t0) * 1e3
+        err = max(err, int((got.long() - ref.long()).abs().max()))
+    if err:
+        raise AssertionError(f"ladder_gate: kernel and plain version differ "
+                             f"(max abs err {err})")
+    call = lambda: ladder_graph.ladder_gate(failed)     # noqa: E731
+    t_bytes = (lanes + 4) / HBM_BYTES_PER_S
+    t_ops = lanes / INT32_OPS_PER_S
+    return dict(name="ladder_gate", W=None, k=None, lanes=lanes,
+                max_abs_err=err, plain_ms=plain_ms,
+                ms=_device_ms(call, reps, device) or _time_ms(call, reps,
+                                                              device),
+                event_ms=_time_ms(call, reps, device),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=_device_ms(lambda: failed.any(), reps, device),
+                ptxas=(usage or {}).get("ladder_gate"))
 
 
 #: K1's geometry grid: (W, O, k, early_term, lanes); every (NW, KP, NWB)
 #: instantiation, W = 40 and 48 (m_pad > W), idle levels above k (k=40),
 #: no early termination, lane counts that are no multiple of a block's
-#: lanes, blocks of fewer lanes (W = 96 and 128 at k = 48), and the main
-#: path's own batch width (2,048, timed)
+#: lanes, blocks of fewer lanes (W = 96 and 128 at k = 48), the band in
+#: device memory (KP = 128: k = 64 .. W - 1 at W = 96 and 128), and the
+#: main path's own batch width (2,048, timed)
 K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
            (32, 12, 20, True, 37), (40, 16, 12, True, 37),
            (48, 16, 12, True, 37), (64, 24, 12, True, 37),
@@ -616,6 +685,9 @@ K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
            (128, 48, 24, True, 37), (128, 48, 31, True, 37),
            (128, 48, 40, True, 37), (128, 48, 48, True, 37),
            (128, 48, 48, True, 1),
+           (96, 36, 64, True, 37), (96, 36, 95, True, 1),
+           (128, 48, 64, True, 37), (128, 48, 127, True, 37),
+           (128, 48, 96, False, 37), (128, 48, 127, True, 1),
            (64, 24, 12, True, 2048), (64, 24, 24, True, 2048),
            (64, 24, 48, True, 2048)]
 
@@ -657,15 +729,16 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
 
 
 def phase_k1_occupancy(usage: dict) -> dict:
-    """Per K1 instantiation of the default ladder and of W = 96 and 128 at
-    k = 48 (fewer lanes a block): its block, the dynamic shared bytes a
+    """Per K1 instantiation of the default ladder, of W = 96 and 128 at
+    k = 48 (fewer lanes a block) and of KP = 128 (W = 96, k = 64; W = 128,
+    k = 96: the band in device memory): its block, the dynamic shared bytes a
     block asks for and the instantiation's limit as the card reports it,
     active blocks per SM on this card, and ptxas's registers and spills.
     Returns the rows of the default ladder's k (12, 24, 48)."""
     out = {}
     for W, O, k in ((32, 12, 5), (32, 12, 20), (64, 24, 12), (64, 24, 15),
                     (64, 24, 24), (64, 24, 48), (96, 36, 48),
-                    (128, 48, 48)):
+                    (128, 48, 48), (96, 36, 64), (128, 48, 96)):
         cfg = AlignerConfig(W=W, O=O, k=k)
         row = _k1_geometry(cfg)
         blocks, limit = genasm_dc.tb_fused_occupancy(
@@ -737,8 +810,10 @@ def phase_k3_grid(device: torch.device, reps: int = 20,
 #: the tails' grid: (W, O, k, tail_store, kernel), every (NW, KP, NWB)
 #: instantiation of tail_fused_kernel: K4 at W <= 32 (nwb == nw at the
 #: base k), K2 where the band is the whole vector (tail_store='band'),
-#: W = 40 and 48 (m_pad > W), W = 96 and 128; and W=128, k=48, whose lane
-#: fits no block's shared memory (global only)
+#: W = 40 and 48 (m_pad > W), W = 96 and 128; W=128, k=48, whose lane
+#: fits no block's shared memory (global only); and KP = 128 (global only)
+#: as 'auto' and 'full' resolve it (K4) and as 'band' does (K2, its band
+#: the whole vector)
 TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (32, 12, 5, "band", "tail_banded"),
              (40, 16, 12, "auto", "tail_banded"),
@@ -761,7 +836,10 @@ TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (128, 48, 24, "full", "tail_full"),
              (128, 48, 40, "auto", "tail_banded"),
              (128, 48, 32, "full", "tail_full"),
-             (128, 48, 48, "auto", "tail_full")]
+             (128, 48, 48, "auto", "tail_full"),
+             (96, 36, 64, "auto", "tail_full"),
+             (128, 48, 64, "band", "tail_banded"),
+             (128, 48, 96, "full", "tail_full")]
 #: the main path's tails, timed at 2,048 lanes in both placements
 TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
               (64, 24, 24, "auto", "tail_full"),
@@ -873,7 +951,8 @@ def _simulated(fn, *args, **kw):
 
 
 def _drive(device: torch.device, backend: str, rs,
-           cfg: AlignerConfig | None = None, mesh=None):
+           cfg: AlignerConfig | None = None, mesh=None,
+           rescue_rounds: int = 2):
     """Align `rs` through ``GenASMAligner.align`` on `backend` at `cfg`
     (default: the default geometry, W=64, O=24, k=12, ladder to 48), on
     `mesh` if one is given, the launch counts set to 0 just before and
@@ -881,7 +960,8 @@ def _drive(device: torch.device, backend: str, rs,
     the card (or, on the CPU, exactly their plain versions).  Returns the
     aligner, the result, the host seconds and the counts."""
     cfg = (cfg or AlignerConfig()).replace(backend=backend)
-    aligner = GenASMAligner(cfg, rescue_rounds=2, device=device, mesh=mesh)
+    aligner = GenASMAligner(cfg, rescue_rounds=rescue_rounds, device=device,
+                            mesh=mesh)
     genasm_dc.reset_counts()
     _sync(device)
     t0 = time.perf_counter()
@@ -1091,18 +1171,32 @@ def _with_burst(rs, lane: int, n: int, seed: int):
 CPU_LANE_TILE = 8
 
 
-def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
-    """Align on `device` (at `cfg`) and on the CPU (at `cfg` padded to
-    ``CPU_LANE_TILE`` lanes); raise unless every field is equal.  Returns
-    (result, aligner's last_run, seconds per device)."""
+def _cpu_align(backend: str, reads, refs, cfg: AlignerConfig,
+               rescue_rounds: int = 2):
+    """The CPU side of a card-against-CPU check (``_cuda_equals_cpu``), at
+    `cfg` padded to ``CPU_LANE_TILE`` lanes: (result, the aligner's
+    last_run, seconds).  A worker process can run it ahead."""
+    aligner, res, seconds, _, _ = _drive(
+        torch.device("cpu"), backend, SimpleNamespace(
+            reads=reads, ref_segments=refs),
+        cfg.replace(lane_tile=CPU_LANE_TILE), rescue_rounds=rescue_rounds)
+    return res, aligner.last_run, seconds
+
+
+def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what="",
+                     rescue_rounds: int = 2, cpu=None):
+    """Align on `device` (at `cfg`) and on the CPU (``_cpu_align``, or its
+    result `cpu` where a worker ran it); raise unless every field is
+    equal.  Returns (result, aligner's last_run with the launch counts on
+    `device` under ``launches``, seconds per device)."""
     results, runs, seconds = {}, {}, {}
-    batch = SimpleNamespace(reads=reads, ref_segments=refs)
     cfg = cfg or AlignerConfig()
-    for dev, dev_cfg in ((device, cfg), (torch.device("cpu"), cfg.replace(
-            lane_tile=CPU_LANE_TILE))):
-        aligner, results[dev.type], seconds[dev.type], _, _ = _drive(
-            dev, backend, batch, dev_cfg)
-        runs[dev.type] = aligner.last_run
+    aligner, results[device.type], seconds[device.type], taken, _ = _drive(
+        device, backend, SimpleNamespace(reads=reads, ref_segments=refs),
+        cfg, rescue_rounds=rescue_rounds)
+    runs[device.type] = dict(aligner.last_run, launches=taken)
+    results["cpu"], runs["cpu"], seconds["cpu"] = cpu or _cpu_align(
+        backend, reads, refs, cfg, rescue_rounds)
     _assert_same_result(results[device.type], results["cpu"],
                         f"end to end ({backend}{what})")
     if any(runs[device.type][key] != runs["cpu"][key]
@@ -1112,43 +1206,85 @@ def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what=""):
     return results[device.type], runs[device.type], seconds
 
 
-def phase_end_to_end(device: torch.device, n_pairs: int = 8,
-                     read_len: int = 600, tile_pairs: int = 8,
-                     tile_read_len: int = 600) -> None:
-    """Each backend on `device` against the same backend on the CPU; then
-    the fused backend on the same batch with one read that only the third
-    rung aligns (``rounds_run == 3``); then the fused backend at
+#: the W = 128 ladder of phase end_to_end: k = 15 -> 30 -> 60 -> 120
+#: (KP = 16, 32, 64, 128; the geometry docs/backends.md sizes), and its
+#: batch: pairs, read length, the lane with a burst only k = 120 aligns,
+#: the burst's bases
+WIDE_CFG = AlignerConfig(W=128, O=42, k=15)
+WIDE_ROUNDS = 3
+WIDE_BATCH = (3, 200, 1, 64)
+
+
+def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
+                     tile_pairs: int = 8, tile_read_len: int = 600) -> list:
+    """Phase end_to_end's cases, (name, backend, reads, refs, config,
+    rescue rounds): each backend on `n_pairs` reads of `read_len`; the
+    fused backend on them with one read given a 16-base insertion that
+    only the third rung (k = 48) aligns; the fused backend at
     ``lane_tile=2816`` (what the reference's ``lane_tile='auto'`` gives at
     the default geometry: a pad unit, no block size) on `tile_pairs`
-    reads."""
+    reads; each backend on the W = 128 ladder (``WIDE_CFG``,
+    ``WIDE_ROUNDS``, ``WIDE_BATCH``) with one read only k = 120 aligns."""
     genome = synth_genome(1_000_000, seed=7)
     rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                        seed=7))
-    for backend in PATH_KERNELS:
-        res, _, seconds = _cuda_equals_cpu(device, backend, rs.reads,
-                                           rs.ref_segments)
-        emit("end_to_end", backend=backend, pairs=n_pairs,
-             read_len=read_len, equal=True, seconds=seconds,
-             failed_share=float(res.failed.mean()))
-    lane = min(5, n_pairs - 1)
-    res, run, seconds = _cuda_equals_cpu(
-        device, "fused", *_with_burst(rs, lane, 16, seed=3),
-        what=", three rungs")
-    if run["rounds_run"] != 3 or res.k_used[lane] != 48 or res.failed[lane]:
-        raise AssertionError(f"the burst read did not take the k=48 rung: "
-                             f"{run}, k_used {res.k_used[lane]}")
-    emit("end_to_end", backend="fused", case="three_rungs", pairs=n_pairs,
-         read_len=read_len, equal=True, seconds=seconds, **run)
-    tile = AlignerConfig(lane_tile=2816)
-    rs = simulate_reads(genome, tile_pairs, ReadSimConfig(
+    cfg = AlignerConfig()
+    cases = [(backend, backend, rs.reads, rs.ref_segments, cfg, 2)
+             for backend in PATH_KERNELS]
+    cases.append(("three_rungs", "fused",
+                  *_with_burst(rs, min(5, n_pairs - 1), 16, seed=3), cfg, 2))
+    tile = simulate_reads(genome, tile_pairs, ReadSimConfig(
         read_len=tile_read_len, seed=8))
-    res, run, seconds = _cuda_equals_cpu(device, "fused", rs.reads,
-                                         rs.ref_segments, tile,
-                                         ", lane_tile=2816")
-    emit("end_to_end", backend="fused", case="lane_tile_2816",
-         pairs=tile_pairs, read_len=tile_read_len, equal=True,
-         seconds=seconds, rounds_run=run["rounds_run"],
-         failed_share=float(res.failed.mean()))
+    cases.append(("lane_tile_2816", "fused", tile.reads, tile.ref_segments,
+                  AlignerConfig(lane_tile=2816), 2))
+    n_wide, wide_len, lane, burst = WIDE_BATCH
+    wide = simulate_reads(genome, n_wide, ReadSimConfig(read_len=wide_len,
+                                                        seed=10))
+    reads, refs = _with_burst(wide, lane, burst, seed=5)
+    cases += [(f"w128_{backend}", backend, reads, refs, WIDE_CFG,
+               WIDE_ROUNDS) for backend in PATH_KERNELS]
+    return cases
+
+
+def end_to_end_cpu(**sizes) -> dict:
+    """The CPU side of every case of phase end_to_end (``_cpu_align``),
+    run in a worker process while the kernels build."""
+    return {name: _cpu_align(backend, reads, refs, cfg, rounds)
+            for name, backend, reads, refs, cfg, rounds
+            in end_to_end_cases(**sizes)}
+
+
+def phase_end_to_end(device: torch.device, n_pairs: int = 8,
+                     read_len: int = 600, tile_pairs: int = 8,
+                     tile_read_len: int = 600, cpu=None) -> None:
+    """Every case of ``end_to_end_cases`` on `device` against the same on
+    the CPU, every field equal, and the ladder counts: the burst read of
+    ``three_rungs`` takes k = 48 (``rounds_run == 3``), that of the W =
+    128 cases k = 120 (``rounds_run == 4``).  `cpu`: a future of
+    ``end_to_end_cpu`` at these sizes, else the CPU runs here."""
+    sizes = dict(n_pairs=n_pairs, read_len=read_len, tile_pairs=tile_pairs,
+                 tile_read_len=tile_read_len)
+    cpu = cpu.result() if cpu is not None else end_to_end_cpu(**sizes)
+    want_k = {"three_rungs": (min(5, n_pairs - 1), 48, 3),
+              "w128_fused": (WIDE_BATCH[2], 120, 4),
+              "w128_split": (WIDE_BATCH[2], 120, 4)}
+    for name, backend, reads, refs, cfg, rounds in end_to_end_cases(**sizes):
+        res, run, seconds = _cuda_equals_cpu(
+            device, backend, reads, refs, cfg, f", {name}", rounds,
+            cpu[name])
+        if name in want_k:
+            lane, k, n_rounds = want_k[name]
+            if (run["rounds_run"] != n_rounds or res.k_used[lane] != k
+                    or res.failed[lane]):
+                raise AssertionError(f"{name}: the burst read did not take "
+                                     f"the k={k} rung: {run}, k_used "
+                                     f"{res.k_used[lane]}")
+        emit("end_to_end", backend=backend, case=name, pairs=len(reads),
+             read_len=len(reads[0]), equal=True, seconds=seconds,
+             k_used=res.k_used.tolist(), failed_share=float(
+                 res.failed.mean()),
+             launches=run.get("launches"),
+             **{key: run[key] for key in ("rounds_run", "levels_run_total")})
 
 
 # ---- phase 5b: the pair axis sharded over a mesh ----
@@ -1409,10 +1545,40 @@ def _session_pass(label: str, session, reads, refs, want, device,
     return out
 
 
+def session_stream(n_pairs: int = 1024, lengths=(1_000, 16_000),
+                   n_burst: int = 8, n_short: int = 128,
+                   short_lengths=(300, 1_000), n_cpu: int = 8):
+    """Phase session's stream (`n_pairs` pairs over `lengths`, `n_burst`
+    bursts), its split pass's `n_short` pairs and their simulation
+    seconds, and the session's result on the CPU for the first `n_cpu`
+    short pairs; a worker process makes them while the kernels build."""
+    genome = synth_genome(5_000_000, seed=2022)
+    t0 = time.perf_counter()
+    reads, refs, burst = ragged_pairs(genome, n_pairs, *lengths, seed=2026,
+                                      n_burst=n_burst)
+    short, short_refs, _ = ragged_pairs(genome, n_short, *short_lengths,
+                                        seed=4052)
+    sim_s = time.perf_counter() - t0
+    return ((reads, refs, burst, short, short_refs), sim_s,
+            _session_on(torch.device("cpu"), short[:n_cpu],
+                        short_refs[:n_cpu]))
+
+
+def _session_on(device: torch.device, reads, refs) -> AlignResult:
+    """The pairs through a fresh session of phase session's spec on
+    `device`."""
+    session = plan(AlignerConfig(), rescue_rounds=2, batch_lanes=1024,
+                   cache="private", device=device)
+    try:
+        return session.align(reads, refs)
+    finally:
+        session.close()
+
+
 def phase_session(device: torch.device, n_pairs: int = 1024,
                   lengths=(1_000, 16_000), n_burst: int = 8,
                   n_short: int = 128, short_lengths=(300, 1_000),
-                  n_cpu: int = 8) -> dict:
+                  n_cpu: int = 8, stream=None) -> dict:
     """``repro_torch.api`` sessions at full width: the default
     ``AlignerConfig()`` (W=64, O=24, k=12, fused), ``rescue_rounds=2``,
     ``batch_lanes=1024``, ``max_inflight=2``, one executable store.  The
@@ -1425,14 +1591,12 @@ def phase_session(device: torch.device, n_pairs: int = 1024,
     ``GenASMAligner`` (fused, 2 rescue rounds) on the card, and `n_cpu`
     of the short pairs through the session on the card equal the same
     session on the CPU.  Also holds ``plan_lane_tile``'s blocks per SM
-    against the card's occupancy query for K1."""
-    genome = synth_genome(5_000_000, seed=2022)
-    t0 = time.perf_counter()
-    reads, refs, burst = ragged_pairs(genome, n_pairs, *lengths, seed=2026,
-                                      n_burst=n_burst)
-    short, short_refs, _ = ragged_pairs(genome, n_short, *short_lengths,
-                                        seed=4052)
-    sim_s = time.perf_counter() - t0
+    against the card's occupancy query for K1.  `stream`: a future of
+    ``session_stream`` at these sizes (the pairs and the CPU's result),
+    else both are made here."""
+    (reads, refs, burst, short, short_refs), sim_s, cpu_short = (
+        stream.result() if stream is not None else session_stream(
+            n_pairs, lengths, n_burst, n_short, short_lengths, n_cpu))
     cfg = AlignerConfig()
     t0 = time.perf_counter()
     want = GenASMAligner(cfg, rescue_rounds=2, device=device).align(
@@ -1487,13 +1651,8 @@ def phase_session(device: torch.device, n_pairs: int = 1024,
     passes["e"] = _session_pass("e", plan(cfg, backend="split", **kw),
                                 short, short_refs, want_short, device)
     # the card against the CPU, through the same session spec
-    results = {}
-    for dev in (device, torch.device("cpu")):
-        session = plan(cfg, rescue_rounds=2, batch_lanes=1024,
-                       cache="private", device=dev)
-        results[dev.type] = session.align(short[:n_cpu], short_refs[:n_cpu])
-        session.close()
-    _assert_same_result(results[device.type], results["cpu"],
+    _assert_same_result(_session_on(device, short[:n_cpu],
+                                    short_refs[:n_cpu]), cpu_short,
                         "session on the card vs on the CPU")
     # the Hopper lane-tile model against the card's occupancy query
     occupancy = {e["k"]: e["blocks_per_sm"]
@@ -1516,9 +1675,12 @@ def phase_session(device: torch.device, n_pairs: int = 1024,
 
 # ---- phase graphs: the session's executables as captured CUDA graphs ----
 
-def _same_step_output(got, want, what: str) -> None:
+def _same_step_output(got, want, what: str,
+                      gate_on_card: bool = False) -> None:
     """Raise unless two align steps' (out, summary) are equal field for
-    field (a mesh's per-shard tuples shard for shard)."""
+    field (a mesh's per-shard tuples shard for shard); where
+    `gate_on_card` (`got` from a device-mode ladder graph) its
+    ``gate_syncs`` must be 0, the eager step's being its host syncs."""
     for part, a, b in (("out", got[0], want[0]), ("summary", got[1],
                                                   want[1])):
         if set(a) != set(b):
@@ -1526,6 +1688,11 @@ def _same_step_output(got, want, what: str) -> None:
                                  f"{set(b)}")
         for key in b:
             x, y = a[key], b[key]
+            if gate_on_card and key == "gate_syncs":
+                if x != 0:
+                    raise AssertionError(f"{what}: the ladder graph made "
+                                         f"{x} gate syncs")
+                continue
             pairs = zip(x, y) if isinstance(y, tuple) else [(x, y)]
             for u, v in pairs:
                 same = (torch.equal(u, v) if isinstance(v, torch.Tensor)
@@ -1542,13 +1709,26 @@ def _graph_against_eager(exe, args, device, what: str) -> dict:
     step's, and the graphs' own figures."""
     if device.type == "cuda" and exe.graphs is None:
         raise AssertionError(f"{what}: the executable was not captured")
+    ladder = exe.graphs is not None and exe.graphs.ladder is not None
     _sync(device)
     genasm_dc.reset_counts()
+    ladder_graph.reset_counts()
+    launched = exe.graphs.ladder.launches if ladder else 0
     t0 = time.perf_counter()
     got = exe(*args)
     call_s = time.perf_counter() - t0
     _sync(device)
     graph_s = time.perf_counter() - t0
+    row = dict(what=what)
+    if ladder:              # one launch; the later rungs counted at retire
+        rounds = int(got[0]["rounds_run"])
+        exe.retired(rounds)
+        row.update(rounds_run=rounds, gate_syncs=got[0]["gate_syncs"],
+                   ladder_launches=exe.graphs.ladder.launches - launched,
+                   gate_launches=ladder_graph.LAUNCHES["ladder_gate"])
+        if row["ladder_launches"] != 1:
+            raise AssertionError(f"{what}: {row['ladder_launches']} "
+                                 f"launches of the ladder graph")
     graph_launches = dict(genasm_dc.LAUNCHES)
     genasm_dc.reset_counts()
     t0 = time.perf_counter()
@@ -1556,13 +1736,14 @@ def _graph_against_eager(exe, args, device, what: str) -> dict:
     _sync(device)
     eager_s = time.perf_counter() - t0
     eager_launches = dict(genasm_dc.LAUNCHES)
-    _same_step_output(got, want, what)
+    _same_step_output(got, want, what, gate_on_card=ladder)
     if graph_launches != eager_launches:
         raise AssertionError(f"{what}: the graphs launched "
                              f"{graph_launches}, the eager step "
                              f"{eager_launches}")
-    row = dict(what=what, equal_to_eager=True, launches=graph_launches,
-               call_s=call_s, graph_s=graph_s, eager_s=eager_s)
+    row.update(equal_to_eager=True, launches=graph_launches, call_s=call_s,
+               graph_s=graph_s, eager_s=eager_s,
+               eager_gate_syncs=want[0].get("gate_syncs"))
     if exe.graphs is not None:
         row.update(_graph_figures(exe))
     return row
@@ -1578,7 +1759,8 @@ def _graph_figures(exe) -> dict:
                         for st in g.stats],
                 nodes=sum(st["nodes"] or 0 for st in g.stats),
                 pool_bytes=g.pool_bytes, argument_bytes=g.argument_bytes,
-                compile_s=g.compile_s)
+                compile_s=g.compile_s,
+                ladder=g.ladder_stats if g.ladder is not None else None)
 
 
 def _dispatch_parts(session, cfg, lanes: int, bucket, pairs, device,
@@ -1611,29 +1793,51 @@ def _dispatch_parts(session, cfg, lanes: int, bucket, pairs, device,
     return out
 
 
+def graph_sets(lanes: int = 1024, short_lengths=(600, 1_000),
+               long_lengths=(9_000, 15_500), n_burst: int = 4):
+    """Phase graphs' two sets of `lanes` pairs (a 1 kbp one with `n_burst`
+    insertion bursts, a 16 kbp one) and their simulation seconds; a worker
+    process makes them while the kernels build."""
+    genome = synth_genome(5_000_000, seed=2022)
+    t0 = time.perf_counter()
+    sets = {"1k": ragged_pairs(genome, lanes, *short_lengths, seed=8081,
+                               n_burst=n_burst),
+            "16k": ragged_pairs(genome, lanes, *long_lengths, seed=9091)}
+    return sets, time.perf_counter() - t0
+
+
 def phase_graphs(device: torch.device, lanes: int = 1024,
                  short_lengths=(600, 1_000), long_lengths=(9_000, 15_500),
-                 n_burst: int = 4, reps: int = 3, n_tenant: int = 32,
+                 n_burst: int = 4, reps: int = 3, n_tenant: int = 8,
                  tenant_short=(1_000, 2_000), tenant_bulk=(8_000, 16_000),
                  gateway_lanes: int = 512, linger_s: float = 0.05,
-                 gateway_store=None, timeout_s: float = 600.0) -> list:
+                 gateway_store=None, timeout_s: float = 600.0,
+                 sets=None) -> list:
     """The session's executables as captured CUDA graphs
     (``serve.graphs``), held against their eager steps on the card; budget
-    40 s.  Default ``AlignerConfig()`` (W=64, O=24, k=12, fused),
+    55 s.  Default ``AlignerConfig()`` (W=64, O=24, k=12, fused),
     ``rescue_rounds=2``, `lanes` a dispatch.  (a) Bucket mode at a 1 kbp
     and a 16 kbp read bucket (`short_lengths`, `long_lengths`): ``exe(*
     args)`` against ``exe.step(*args)`` on the same uploaded batch, every
     output field and the kernel launches equal; each graph's nodes,
     memory pool, capture and instantiate seconds.  (b) Device mode at the
-    1 kbp bucket, `n_burst` lanes with an insertion burst so all three
-    rung graphs run: the same checks.  (c) ``session.dispatch`` wall
-    (the session's ``wall_s``) of each bucket, warm, `reps` times in
-    turns, with the upload's host time beside it (a spy on
+    1 kbp bucket, one graph with conditional nodes a dispatch: on the set
+    with `n_burst` insertion bursts (all three rungs run) and on its reads
+    aligned to themselves (no lane fails: rungs 1-2 skipped), one launch,
+    no gate sync, outputs and launches (counted at retire) equal to the
+    eager step's, records equal to ``GenASMAligner``'s, 3 and 1 rounds.
+    (c) ``session.dispatch`` wall (the session's ``wall_s``) of each
+    bucket, warm (each executable called once first, so its clone-outs
+    find their memory cached), `reps` times in turns, in bucket mode and
+    in device mode
+    (a session each), with the upload's host time beside it (a spy on
     ``transfer.to_device``), the executable's call (span
-    ``device.execute``) and the batch's submits less the dispatch (the
-    padding, staged as pairs arrive); every record equal to
-    ``GenASMAligner``; and each part of a dispatch timed alone from an
-    idle card (``_dispatch_parts``).
+    ``device.execute``), its replay or ladder launch and its clone-out,
+    the cyclic GC's pauses and the threads alive (``_spied_parts``) and
+    the batch's submits less the dispatch (the padding, staged as pairs
+    arrive); every record equal to ``GenASMAligner``; no host gate in
+    device mode; and each part of a bucket-mode dispatch timed alone from
+    an idle card (``_dispatch_parts``).
     (d) Two threaded sessions sharing one compile cache, from two client
     threads, on the 1 kbp bucket: records equal.  (f) A 16 kbp capture on
     one thread while another launches, downloads and pins memory in a
@@ -1642,16 +1846,17 @@ def phase_graphs(device: torch.device, lanes: int = 1024,
     (`gateway_lanes`): `n_tenant` short and `n_tenant` bulk pairs as in
     phase ``gateway``, records equal; dispatches and mean pairs a
     dispatch.  With `gateway_store` (phase ``gateway``'s executables: the
-    same spec and pairs) the pass measures dispatching, not builds."""
+    same spec and pairs) the pass measures dispatching, not builds.
+    `sets`: a future of ``graph_sets`` at these lanes and lengths, else
+    they are simulated here."""
     genome = synth_genome(5_000_000, seed=2022)
     cfg = AlignerConfig()
-    t0 = time.perf_counter()
-    sets = {"1k": ragged_pairs(genome, lanes, *short_lengths, seed=8081,
-                               n_burst=n_burst),
-            "16k": ragged_pairs(genome, lanes, *long_lengths, seed=9091)}
-    sim_s = time.perf_counter() - t0
+    sets, sim_s = (sets.result() if sets is not None else
+                   graph_sets(lanes, short_lengths, long_lengths, n_burst))
+    exact = (sets["1k"][0], [r.copy() for r in sets["1k"][0]], [])
     want = {name: GenASMAligner(cfg, rescue_rounds=2, device=device).align(
-        reads, refs) for name, (reads, refs, _) in sets.items()}
+        reads, refs) for name, (reads, refs, _) in (*sets.items(),
+                                                    ("1k_exact", exact))}
     if int(want["1k"].k_used.max()) != 48:
         raise AssertionError("no burst lane of the 1 kbp set took k=48")
     store = CompileCache()
@@ -1660,6 +1865,7 @@ def phase_graphs(device: torch.device, lanes: int = 1024,
     longest = {name: (max(map(len, reads)), max(map(len, refs)))
                for name, (reads, refs, _) in sets.items()}
     buckets = {name: session.bucket_for(*n) for name, n in longest.items()}
+    buckets["1k_exact"] = buckets["1k"]
     emit("graphs_stream", sim_s=sim_s, buckets=buckets, pairs=lanes,
          threads=[t.name for t in threading.enumerate()],
          main_windows={name: n_main_windows(rb, cfg)
@@ -1667,14 +1873,15 @@ def phase_graphs(device: torch.device, lanes: int = 1024,
     rows = []
 
     def bucket_args(name, rounds):
-        reads, refs, _ = sets[name]
+        reads, refs, _ = exact if name == "1k_exact" else sets[name]
         rb, fb = buckets[name]
         Lr, Lf = pad_geometry(cfg, rb, fb, rounds or 0)
         arrays = session._pad_batch(reads, refs, lanes, Lr, Lf)
         return (rb, fb), transfer.to_device(arrays, device)
 
     # (a) and (b): captured against eager
-    for name, rounds in (("1k", None), ("16k", None), ("1k", 2)):
+    for name, rounds in (("1k", None), ("16k", None), ("1k", 2),
+                         ("1k_exact", 2)):
         (rb, fb), args = bucket_args(name, rounds)
         t0 = time.perf_counter()
         exe = session._executable(cfg, lanes, rb, fb, rescue_rounds=rounds)
@@ -1684,50 +1891,86 @@ def phase_graphs(device: torch.device, lanes: int = 1024,
         row.update(bucket=[rb, fb], lanes=lanes, build_s=build_s,
                    main_windows=n_main_windows(rb, cfg),
                    mode="bucket" if rounds is None else "device")
+        if rounds is not None:
+            _device_mode_records(exe, args, want[name], row, device,
+                                 3 if name == "1k" else 1)
         rows.append(row)
         emit("graphs", **row)
 
-    # (c) the dispatch wall, warm, the buckets in turns
-    session.warmup(longest.values())
-    uploads = []
-    upload = transfer.to_device
+    # (c) the dispatch wall, warm, the buckets in turns, in bucket mode and
+    # in device mode
+    dsession = plan(cfg, rescue_rounds=2, rescue_mode="device",
+                    batch_lanes=lanes, max_inflight=2, cache=store,
+                    device=device)
+    modes = {"bucket": session, "device": dsession}
+    for mode, s in modes.items():
+        s.warmup(longest.values())
+        rounds = 2 if mode == "device" else None
+        for name in sets:       # one call each: warms its clone-outs' memory
+            (rb, fb), args = bucket_args(name, rounds)
+            s._executable(cfg, lanes, rb, fb, rescue_rounds=rounds)(*args)
+    _sync(device)
+    uploads, gates = [], []
+    upload, gate = transfer.to_device, serve_graphs.any_failed
 
     def timed_upload(*a, **kw):
         t = time.perf_counter()
         out = upload(*a, **kw)
         uploads.append(time.perf_counter() - t)
         return out
-    walls = {name: [] for name in sets}
-    futs = {name: [] for name in sets}
-    transfer.to_device = timed_upload
-    session.obs.tracer.reset()
+
+    def counted_gate(*a, **kw):
+        gates.append(1)
+        return gate(*a, **kw)
+    walls = {mode: {name: [] for name in sets} for mode in modes}
+    futs = {mode: {name: [] for name in sets} for mode in modes}
+    executes = {}
+    transfer.to_device, serve_graphs.any_failed = timed_upload, counted_gate
     try:
-        for _ in range(reps):
-            for name, (reads, refs, _) in sets.items():
-                w0 = session.stats["wall_s"]
-                t0 = time.perf_counter()
-                futs[name].append([session.submit(r, f)
-                                   for r, f in zip(reads, refs)])
-                wall = session.stats["wall_s"] - w0
-                walls[name].append(dict(
-                    wall_s=wall, upload_s=uploads[-1],
-                    staging_s=time.perf_counter() - t0 - wall))
-        executes = [r["t1"] - r["t0"] for r in session.obs.tracer.records()
-                    if r["name"] == "device.execute"]
-        session.flush()
-        for name, per_rep in futs.items():
-            for fs in per_rep:
-                _assert_records([f.result() for f in fs], want[name],
-                                f"graphs dispatch pass, {name}")
+        with _spied_parts() as parts:
+            for mode, s in modes.items():
+                s.obs.tracer.reset()
+            for _ in range(reps):
+                for mode, s in modes.items():
+                    for name, (reads, refs, _) in sets.items():
+                        w0 = s.stats["wall_s"]
+                        parts.clear()
+                        t0 = time.perf_counter()
+                        futs[mode][name].append([s.submit(r, f) for r, f
+                                                 in zip(reads, refs)])
+                        wall = s.stats["wall_s"] - w0
+                        walls[mode][name].append(dict(
+                            wall_s=wall, upload_s=uploads[-1],
+                            staging_s=time.perf_counter() - t0 - wall,
+                            **parts.summary()))
+            for mode, s in modes.items():
+                executes[mode] = [r["t1"] - r["t0"]
+                                  for r in s.obs.tracer.records()
+                                  if r["name"] == "device.execute"]
+                s.flush()
+        for mode, per_set in futs.items():
+            for name, per_rep in per_set.items():
+                for fs in per_rep:
+                    _assert_records([f.result() for f in fs], want[name],
+                                    f"graphs dispatch pass, {mode}, {name}")
     finally:
-        transfer.to_device = upload
-    session.close()
-    for i, row in enumerate(w for rep in zip(*walls.values()) for w in rep):
-        row["execute_s"] = executes[i]      # the executable's call
-    net = {name: float(np.median([w["wall_s"] - w["upload_s"] for w in v]))
-           for name, v in walls.items()}
+        transfer.to_device, serve_graphs.any_failed = upload, gate
+    for s in modes.values():
+        s.close()
+    if device.type == "cuda" and gates:
+        raise AssertionError(f"device-mode dispatches gated on the host "
+                             f"{len(gates)} times")
+    net = {}
+    for mode, per_set in walls.items():
+        for i, row in enumerate(w for rep in zip(*per_set.values())
+                                for w in rep):
+            row["execute_s"] = executes[mode][i]      # the executable's call
+        net[mode] = {name: float(np.median([w["wall_s"] - w["upload_s"]
+                                            for w in v]))
+                     for name, v in per_set.items()}
     rows.append(dict(what="dispatch wall", walls_s=walls, net_median_s=net,
-        ratio_16k_to_1k=net["16k"] / net["1k"],
+        ratio_16k_to_1k={mode: n["16k"] / n["1k"] for mode, n in net.items()},
+        host_gates=len(gates),
         parts_s={name: _dispatch_parts(session, cfg, lanes, buckets[name],
                                        sets[name], device)
                  for name in sets},
@@ -1835,11 +2078,91 @@ def phase_graphs(device: torch.device, lanes: int = 1024,
                      launches=launches, equal_to_aligner=True))
     gw_session.close()
     emit("graphs", **rows[-1])
-    if device.type == "cuda" and net["16k"] > 2 * net["1k"]:
-        raise AssertionError(f"a 16 kbp dispatch less its upload took "
-                             f"{net['16k']:.4f} s, over twice the 1 kbp "
-                             f"bucket's {net['1k']:.4f} s")
+    for mode, n in net.items():
+        if device.type == "cuda" and n["16k"] > 2 * n["1k"]:
+            raise AssertionError(f"a 16 kbp {mode}-mode dispatch less its "
+                                 f"upload took {n['16k']:.4f} s, over twice "
+                                 f"the 1 kbp bucket's {n['1k']:.4f} s")
     return rows
+
+
+def _device_mode_records(exe, args, want, row, device, rounds: int) -> None:
+    """A device-mode executable's call on `args` decoded as a session's
+    retire decodes it: its records, k_used and rounds_run equal
+    ``GenASMAligner``'s on the same pairs (`want`), `rounds` rungs run;
+    its ``levels_run_total`` (at the bucket's read length) goes into
+    `row`."""
+    out, _ = exe(*args)
+    host = transfer.to_host({k: out[k] for k in (
+        "ops", "n_ops", "dist", "failed", "read_consumed", "ref_consumed",
+        "k_used")})
+    exe.retired(int(out["rounds_run"]))
+    n = len(want.cigars)
+    recs = records_from_state(*decode_batch(host, n, 0))   # k_used in host
+    _assert_records(recs, want, f"{row['what']}: decoded")
+    run = int(out["rounds_run"])
+    if device.type == "cuda" and run != rounds:
+        raise AssertionError(f"{row['what']}: {run} rounds run, not {rounds}")
+    row.update(rounds_checked=run, levels_run_total=int(
+        out["levels_run_total"]), records_equal_aligner=True)
+
+
+class _Parts(list):
+    """(part, seconds) pairs of the dispatches underway (``_spied_parts``)."""
+
+    def summary(self) -> dict:
+        out = {"threads": threading.active_count()}
+        for name, sec in self:
+            out[f"{name}_s"] = out.get(f"{name}_s", 0.0) + sec
+        return out
+
+
+@contextlib.contextmanager
+def _spied_parts():
+    """Within the block, every captured executable's replay (or ladder
+    launch) and clone-out, and every pause of the cyclic garbage collector,
+    outside a session's retire (which a sync dispatch runs inline before
+    its own clock starts), appended to the yielded list as (part,
+    seconds): what grows when a dispatch wall grows."""
+    parts = _Parts()
+    started, retiring = [], threading.local()
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started.append(time.perf_counter())
+        elif started:
+            sec = time.perf_counter() - started.pop()
+            if not getattr(retiring, "on", False):
+                parts.append((f"gc{info['generation']}", sec))
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if not getattr(retiring, "on", False):
+                parts.append((name, time.perf_counter() - t0))
+            return out
+        return run
+
+    def retire(self, d):
+        retiring.on = True
+        try:
+            return saved[3](self, d)
+        finally:
+            retiring.on = False
+    saved = (serve_graphs.CapturedGraph.replay, ladder_graph.CondGraph.launch,
+             serve_graphs._clone, AlignSession._retire)
+    serve_graphs.CapturedGraph.replay = timed("replay", saved[0])
+    ladder_graph.CondGraph.launch = timed("replay", saved[1])
+    serve_graphs._clone = timed("clone", saved[2])
+    AlignSession._retire = retire
+    gc.callbacks.append(on_gc)
+    try:
+        yield parts
+    finally:
+        gc.callbacks.remove(on_gc)
+        (serve_graphs.CapturedGraph.replay, ladder_graph.CondGraph.launch,
+         serve_graphs._clone, AlignSession._retire) = saved
 
 
 # ---- phase 7: the gateway and the serving engine at full width ----
@@ -2102,9 +2425,31 @@ def _stage_seconds(mapper) -> dict:
     return out
 
 
+def _mapper_inputs(genome_len: int, n_reads: int, read_len: int):
+    """Phase mapper's reads and genome with their planted decoys."""
+    genome = synth_genome(genome_len, seed=2022)
+    rs = simulate_reads(genome, n_reads, ReadSimConfig(
+        read_len=read_len, error_rate=0.10, seed=2022))
+    return rs, *plant_decoys(genome, rs, decoys_per_read=4)
+
+
+def mapper_cpu(genome_len: int = 5_000_000, n_reads: int = 1024,
+               read_len: int = 1_000, batch_lanes: int = 1024,
+               n_cpu: int = 16):
+    """Phase mapper's CPU mapper on the first `n_cpu` reads: (its mapped
+    reads, seconds); a worker process runs it while the kernels build."""
+    rs, g2, _ = _mapper_inputs(genome_len, n_reads, read_len)
+    with ReadMapper(g2, MapperConfig(), rescue_rounds=2,
+                    batch_lanes=batch_lanes, device="cpu") as cpu_mapper:
+        t0 = time.perf_counter()
+        mapped = cpu_mapper.map_batch(rs.reads[:n_cpu]).mapped
+        return mapped, time.perf_counter() - t0
+
+
 def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
                  n_reads: int = 1024, read_len: int = 1_000,
-                 batch_lanes: int = 1024, n_cpu: int = 16) -> None:
+                 batch_lanes: int = 1024, n_cpu: int = 16,
+                 cpu=None) -> None:
     """``repro_torch.mapper.ReadMapper(genome, MapperConfig(),
     rescue_rounds=2, batch_lanes=...)`` on the default config and device:
     `n_reads` CLR reads of `read_len` at 10 % error from the 5 Mbp genome
@@ -2116,12 +2461,10 @@ def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
     ``xdrop_extend`` on the CPU; `n_cpu` reads through a CPU mapper equal
     field for field; ``examples/map_reads.py``'s floors (recall at the
     true locus >= 95 %, no read at a decoy, kill rate > 0.2); K1, K2, K4
-    launched, no plain call."""
-    genome = synth_genome(genome_len, seed=2022)
+    launched, no plain call.  `cpu`: a future of ``mapper_cpu`` at these
+    sizes, else the CPU mapper runs here."""
     t0 = time.perf_counter()
-    rs = simulate_reads(genome, n_reads, ReadSimConfig(
-        read_len=read_len, error_rate=0.10, seed=2022))
-    g2, decoy_pos = plant_decoys(genome, rs, decoys_per_read=4)
+    rs, g2, decoy_pos = _mapper_inputs(genome_len, n_reads, read_len)
     sim_s = time.perf_counter() - t0
     kw = {} if device.type == "cuda" else {"device": device}
     t0 = time.perf_counter()
@@ -2195,12 +2538,9 @@ def phase_mapper(device: torch.device, genome_len: int = 5_000_000,
             raise AssertionError(f"mapped read {mr.read_id} differs from "
                                  f"its direct alignment")
     # the CPU mapper on the first reads
-    with ReadMapper(g2, MapperConfig(), rescue_rounds=2,
-                    batch_lanes=batch_lanes, device="cpu") as cpu_mapper:
-        t0 = time.perf_counter()
-        cpu_out = cpu_mapper.map_batch(rs.reads[:n_cpu])
-        cpu_s = time.perf_counter() - t0
-    if [dataclasses.astuple(m) for m in cpu_out.mapped] != \
+    cpu_mapped, cpu_s = (cpu.result() if cpu is not None else mapper_cpu(
+        genome_len, n_reads, read_len, batch_lanes, n_cpu))
+    if [dataclasses.astuple(m) for m in cpu_mapped] != \
             [dataclasses.astuple(m) for m in out.mapped[:n_cpu]]:
         raise AssertionError("the CPU mapper's reads differ from the "
                              "card's")
@@ -4126,22 +4466,29 @@ def main() -> None:
 
     smi = phase_device()
     cuda = torch.device("cuda")
-    # two worker processes simulate the main batch (~20 s of Python) and
-    # run the grids' untimed plain versions on the CPU (~60 s of launches
-    # on the card), and phase train_dp's leg (b) ranks start up (and then
-    # wait), while the kernels build and the grids run
+    # three worker processes simulate the main batch (~20 s of Python) and
+    # the pairs of phases session and graphs (~17 s), and run on the CPU
+    # the grids' untimed plain versions (~60 s of launches on the card)
+    # and the CPU sides of phases end_to_end, session and mapper (~80 s),
+    # and phase train_dp's leg (b) ranks start up (and then wait), while
+    # the kernels build and the grids run
     sim = concurrent.futures.ProcessPoolExecutor(
-        2, mp_context=multiprocessing.get_context("spawn"),
+        3, mp_context=multiprocessing.get_context("spawn"),
         initializer=_worker_init)
     batch = sim.submit(_simulated, long_reads)
     refs = {grid: sim.submit(_plain_refs, grid) for grid in GRID_SEEDS}
     split_profile = sim.submit(long_reads, 512, read_len=300)
+    e2e_cpu = sim.submit(end_to_end_cpu)
+    streams = {"session": sim.submit(session_stream),
+               "graphs": sim.submit(graph_sets),
+               "mapper": sim.submit(mapper_cpu)}
     dp_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_"))
     leg_b = _start_leg("b", 2, dp_dir, cuda, False)
     leg_e = _start_leg("e", 4, dp_dir, cuda, False)
     try:
         kernels = _phases(cuda, timed, phase_s, sim, batch, refs,
-                          split_profile, (leg_b, dp_dir), (leg_e, dp_dir))
+                          split_profile, e2e_cpu, streams, (leg_b, dp_dir),
+                          (leg_e, dp_dir))
     finally:
         _stop_leg(leg_b)
         _stop_leg(leg_e)
@@ -4156,7 +4503,7 @@ def main() -> None:
 
 
 def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
-            leg_b, leg_e) -> list:
+            e2e_cpu, streams, leg_b, leg_e) -> list:
     """Every phase after ``phase_device``, in order; returns the
     ``kernels`` line's entries."""
     usage = timed("build", phase_build)
@@ -4171,20 +4518,23 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
     fused, fused_res = timed("main_path", phase_main_path, cuda, rs)
     split = timed("main_path_split", phase_main_path_split, cuda, rs, fused,
                   fused_res, profile_rs=split_profile.result())
-    sim.shutdown()
-    timed("end_to_end", phase_end_to_end, cuda)
+    timed("end_to_end", phase_end_to_end, cuda, cpu=e2e_cpu)
     timed("mesh", phase_mesh, cuda, rs, fused, fused_res)
-    timed("session", phase_session, cuda)
+    timed("session", phase_session, cuda, stream=streams["session"])
     store = timed("gateway", phase_gateway, cuda)
-    timed("graphs", phase_graphs, cuda, gateway_store=store)
-    timed("mapper", phase_mapper, cuda)
+    graph_rows = timed("graphs", phase_graphs, cuda, gateway_store=store,
+                       sets=streams["graphs"])
+    timed("mapper", phase_mapper, cuda, cpu=streams["mapper"])
+    sim.shutdown()
     timed("paper", phase_paper, cuda)
     timed("lm", phase_lm, cuda)
     trained = timed("train", phase_train, cuda)
     timed("train_dp", phase_train_dp, cuda, trained["c"], leg_b=leg_b,
           leg_e=leg_e)
     timed("profiles", phase_profiles)
-    launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"]}
+    launches = {**fused["launches"], "dc_band": split["launches"]["dc_band"],
+                "ladder_gate": next(r["gate_launches"] for r in graph_rows
+                                    if r.get("rounds_run") == 3)}
     kernels = []
     for name, (_, _, replaces) in KERNELS.items():
         own = [r for r in rows if r["name"] == name]
@@ -4218,10 +4568,22 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
         wide = [r for r in own if r["W"] != 64]
         if wide:
             entry["by_width"] = [dict(W=r["W"], k=r["k"], ms=r["ms"],
+                                      event_ms=r["event_ms"],
+                                      plain_ms=r["plain_ms"],
                                       bound_ms=r["bound_ms"],
+                                      bound_by=r["bound_by"],
                                       placement=r.get("placement"),
+                                      store_bytes_per_lane=r.get(
+                                          "store_bytes_per_lane"),
                                       ptxas=r.get("ptxas")) for r in wide]
         kernels.append(entry)
+    gate = next(r for r in rows if r["name"] == "ladder_gate")
+    kernels.append(dict(
+        name="ladder_gate", route="cuda", source=SOURCES["ladder_gate"],
+        replaces=GATE_REPLACES, launches=launches["ladder_gate"],
+        **{key: gate[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "event_ms", "lanes", "ptxas")}))
     return kernels
 
 

@@ -39,8 +39,9 @@ blocks the step will launch and queries each instantiation's occupancy,
 which also raises its dynamic shared-memory limit
 (``serve.align_step.launch_plan``).  Then, on CUDA with backend 'fused',
 it captures the step into CUDA graphs over static inputs of the bucket's
-shapes (``serve.graphs``): one graph in bucket mode, one a rung in
-``rescue_mode='device'``, one a pair shard on a mesh; a failed capture
+shapes (``serve.graphs``): one graph in bucket mode, one graph with
+conditional nodes holding every rung in ``rescue_mode='device'`` (the
+card runs the gate), one a pair shard on a mesh; a failed capture
 raises.  The build launches no kernel (a capture records its launches;
 each replay counts them) and moves no transfer counter.  What stays
 eager: backend 'split' (its PyTorch traceback syncs once a walk step),
@@ -56,8 +57,13 @@ dispatch uploads once and calls the executable: a captured one copies the batch
 into its static inputs, replays and clones its outputs on a stream of its
 own, under its lock, so in bucket mode control returns while the device
 computes, whatever the bucket's window count; an eager one issues its
-window loop from Python.  ``rescue_mode='device'`` syncs once per later
-rung on the ladder's gate (``failed.any()``), so its dispatch blocks.
+window loop from Python.  A captured ``rescue_mode='device'`` executable
+launches its whole ladder as one graph whose gates run on the card, so
+its dispatch returns while the card computes too; the rungs after rung 0
+that ran are counted in ``genasm_dc.LAUNCHES`` when the dispatch retires,
+from its downloaded ``rounds_run``.  Eager device-mode executables
+(split, the CPU) and shards on several cards still sync once per later
+rung on the ladder's gate (``failed.any()``).
 Each CUDA dispatch records an event on the dispatching thread's stream;
 retire waits for that event on the session's own side stream and
 downloads there, so a download waits for its own dispatch and not for
@@ -293,6 +299,14 @@ class AlignExecutable:
         if self.graphs is not None:
             return self.graphs(*args)
         return self.step(*args)
+
+    def retired(self, rounds_run: int) -> None:
+        """A dispatch of this executable retired having run `rounds_run`
+        rungs: count the kernel launches of the rungs its ladder graph ran
+        after rung 0 (``serve.graphs.GraphedStep.count_rungs``; nothing to
+        count for an eager step, whose launches counted themselves)."""
+        if self.graphs is not None:
+            self.graphs.count_rungs(rounds_run)
 
 
 def build_executable(cfg: AlignerConfig, lanes: int, read_bucket: int,
@@ -596,6 +610,7 @@ class _Dispatch:
     out: dict              # device tensors from the executable
     ready: object = None   # CUDA events after the launch, one a device of
                            # the dispatch (None on the CPU)
+    exe: object = None     # the AlignExecutable that ran it
 
 
 _SHUTDOWN = object()       # retire-queue sentinel for close()
@@ -965,7 +980,7 @@ class AlignSession:
                             ready.append(torch.cuda.Event())
                             ready[-1].record(
                                 torch.cuda.current_stream(stream.device))
-        d = _Dispatch(futs, reads, refs, out, ready)
+        d = _Dispatch(futs, reads, refs, out, ready, exe)
         if threaded:
             self._enqueue_retire(d)
         else:
@@ -1129,8 +1144,14 @@ class AlignSession:
             keys = ("ops", "n_ops", "dist", "failed", "read_consumed",
                     "ref_consumed") + (("k_used",)
                                        if "k_used" in d.out else ())
+            # a ladder graph's rounds_run is on the card: it comes down
+            # with the lanes, in the dispatch's one download
+            if isinstance(d.out.get("rounds_run"), torch.Tensor):
+                keys += ("rounds_run",)
             with graphs.device_work():
                 host = transfer.to_host({k: d.out[k] for k in keys})
+            if "rounds_run" in host:
+                d.exe.retired(int(host["rounds_run"]))
             failed, dist, k_used, rcon, fcon, all_ops = \
                 decode_batch(host, n, self.cfg.k)
             if self.spec.rescue_mode == "bucket" and failed.any():

@@ -20,7 +20,8 @@ reference's versions model its Triton path, a register model):
 
   * K1 (``tb_fused_geometry``): the DENT band in the block's dynamic
     shared memory, (k+1) x ncols_band x nwb words a lane plus row and bank
-    pads (``gpu_store_words``).
+    pads, or at k >= 64 in device memory in the skewed (ncols_band + rows0
+    - 1) x L x nwb x rows0 layout (``gpu_store_words``).
   * K2 / K4 (``tail_geometry``): the tail's store in shared memory or in
     device memory, whichever ``TAIL_PLACEMENT`` names; in device memory
     the skewed (n_text + rows0 - 1) x L x nwb x rows0 layout
@@ -102,12 +103,14 @@ def tail_scratch_words(cfg: AlignerConfig, tile: int,
 
 
 def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
-    """Words of K1's DENT band for `tile` lanes, in the block's dynamic
-    shared memory: per lane k+1 rows of ncols_band x nwb words, with the
-    row and bank pads of ``tb_fused_geometry``.  The reference's Triton
-    path kept the same band unpadded in device memory
-    (``kernel_scratch_words``)."""
-    return tb_fused_geometry(cfg).band_words * tile
+    """Words of K1's DENT band for `tile` lanes, wherever
+    ``tb_fused_geometry`` places it: in the block's dynamic shared memory
+    per lane k+1 rows of ncols_band x nwb words, with the row and bank
+    pads; in device memory (KP = 128) the skewed (ncols_band + rows0 - 1)
+    x L x nwb x rows0 layout.  The reference's Triton path kept the same
+    band unpadded in device memory (``kernel_scratch_words``)."""
+    geo = tb_fused_geometry(cfg)
+    return (geo.band_words or geo.store_words) * tile
 
 
 def gpu_tail_store_words(cfg: AlignerConfig, tile: int,

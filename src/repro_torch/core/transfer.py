@@ -14,9 +14,9 @@ Two ways of counting, fed by the same calls:
   reference counts.  The session's transfers count only here;
 * per aligner, a ``TransferStats`` whose ``to_device`` / ``to_host``
   count on the object too (``GenASMAligner.transfers``), with
-  ``gate_syncs``: the rescue ladder's round gate is a host check of
+  ``gate_syncs``: the eager rescue ladder's round gate is a host check of
   ``failed.any()``, a device-to-host sync counted apart from the
-  downloads.
+  downloads (a session's device-mode graph on the card makes none).
 
 On a mesh a batch moves as one tensor a shard (``distributed.sharding``):
 an upload copies each shard's lanes from host memory straight to its

@@ -12,10 +12,12 @@ Three decisions of the port (see PERF.md):
 * the reference's ``lax.scan`` over the main windows is a Python loop with
   one DC launch per window (K1 on backend 'fused', K3 on 'split'); every
   intermediate stays on the device;
-* the reference's on-device round gate ``lax.cond(any(failed))`` is a host
-  check of ``failed.any()`` before each rescue round.  It is the one
-  device-to-host sync of the ladder, counted in the returned
-  ``gate_syncs``;
+* the reference's on-device round gate ``lax.cond(any(failed))`` is, in
+  this eager ladder, a host check of ``failed.any()`` before each rescue
+  round: the one device-to-host sync of the ladder, counted in the
+  returned ``gate_syncs``.  A session's device-mode executable on the card
+  runs the same rungs as one CUDA graph whose IF nodes a gate kernel sets
+  on the card (``serve.graphs``, ``kernels.ladder_graph``): no sync;
 * on a mesh (``mesh=``) the reference's ``shard_map`` is one pass a
   shard, each on its own device, driven by the host in lockstep, window
   by window; the gate reads every shard in one sync.
@@ -334,8 +336,9 @@ def align_pairs(reads, read_len, refs, ref_len, *, cfg: AlignerConfig,
 
 
 def any_failed(failed: list) -> bool:
-    """The round gate: whether any lane of any shard is still failed, read
-    in one device-to-host sync."""
+    """The eager ladder's round gate: whether any lane of any shard is
+    still failed, read in one device-to-host sync (a device-mode graph's
+    gate is ``kernels.ladder_graph``'s kernel instead)."""
     dev = failed[0].device
     return bool(torch.stack([f.any().to(dev) for f in failed]).any())
 
@@ -374,8 +377,9 @@ def align_pairs_rescued(reads, read_len, refs, ref_len, *,
     """Multi-round k-doubling rescue on the device: round 0 is plain
     ``align_pairs``; each later round re-runs the whole batch with doubled
     k, and a per-lane mask freezes lanes already solved (``ladder_merge``).
-    A round runs only while some lane is still failed (the host gate, one
-    sync per later round); a skipped round would change nothing, and
+    A round runs only while some lane is still failed (here the host gate,
+    one sync per later round; a session's device-mode graph gates on the
+    card, ``serve.graphs``); a skipped round would change nothing, and
     neither would any round after it.
 
     refs must be sentinel-padded for the FINAL round's tail width.  Returns

@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels (``csrc/*.cu``).
 
 At first use each source (``tb_fused.cu``: K1, ``tail_fused.cu``: K2 and
-K4, ``dc_band.cu``: K3; all include ``genasm_common.cuh``) is compiled by
+K4, ``dc_band.cu``: K3, all three including ``genasm_common.cuh``;
+``ladder_graph.cu``: the rescue ladder's gate kernel and its conditional
+graph) is compiled by
 its own ``nvcc``, all started together, and the objects are linked into one
 shared library with a plain C interface (no PyTorch headers, so the build
 takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
@@ -26,26 +28,40 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
-                for name in ("tb_fused", "tail_fused", "dc_band"))
+                for name in ("tb_fused", "tail_fused", "dc_band",
+                             "ladder_graph"))
 HEADERS = (CSRC / "genasm_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_U64 = ctypes.c_ulonglong
 #: argument types of each C entry point: pointers, then ints, then the
-#: block geometry (K1: lanes, threads, shared bytes; K2/K4: lanes,
-#: threads, placement, shared bytes; K3: lanes, threads, placement, chunk,
-#: shared bytes) and the stream; the occupancy
-#: queries: ints, then the results' pointers
+#: block geometry (K1, K2/K4: lanes, threads, placement, shared bytes; K3:
+#: lanes, threads, placement, chunk, shared bytes) and the stream; the
+#: occupancy queries: ints, then the results' pointers; the ladder graph's
+#: (``ladder_graph``): graphs, nodes, tensors and results as pointers, a
+#: conditional handle as an unsigned 64-bit integer
 _SIGNATURES = {
-    "genasm_tb_fused_launch": [_P] * 4 + [_I] * 10 + [_I] * 3 + [_P],
-    "genasm_tb_fused_occupancy": [_I] * 5 + [_P] * 2,
+    "genasm_tb_fused_launch": [_P] * 5 + [_I] * 10 + [_I] * 4 + [_P],
+    "genasm_tb_fused_occupancy": [_I] * 6 + [_P] * 2,
     "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
     "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
     "genasm_tail_occupancy": [_I] * 6 + [_P] * 2,
     "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I] * 5 + [_P],
     "genasm_dc_band_occupancy": [_I] * 6 + [_P] * 2,
+    "genasm_ladder_gate_launch": [_P, _I, _P, _P],
+    "genasm_graph_create": [_P],
+    "genasm_graph_destroy": [_P],
+    "genasm_graph_add_child": [_P, _P, _P, _P],
+    "genasm_graph_conditional": [_P, _P],
+    "genasm_graph_add_gate": [_P, _P, _P, _I, _P, _U64, _P],
+    "genasm_graph_add_if": [_P, _P, _U64, _P, _P],
+    "genasm_graph_instantiate": [_P, _P],
+    "genasm_graph_upload": [_P, _P],
+    "genasm_graph_launch": [_P, _P],
+    "genasm_graph_exec_destroy": [_P],
 }
 
 _library: ctypes.CDLL | None = None

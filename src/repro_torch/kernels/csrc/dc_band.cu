@@ -189,7 +189,7 @@ using K3Kernel = void (*)(const uint32_t*, const int32_t*, uint32_t*,
                           int, int);
 
 // K3's instantiation for (nw, k, nwb, place), or null: every (NW, KP, NWB)
-// that some W <= 128 and k <= 63 reach (K1's), in both placements.
+// that some W <= 128 and k < W reach (K1's), in both placements.
 K3Kernel k3_kernel(int nw, int k, int nwb, int place) {
   const int kp = levels_bucket(k);
 #define K3_CASE(NW_, KP_, NWB_)                                 \
@@ -204,6 +204,7 @@ K3Kernel k3_kernel(int nw, int k, int nwb, int place) {
   K3_CASE(3, 64, 3)
   K3_CASE(4, 16, 1) K3_CASE(4, 16, 2) K3_CASE(4, 32, 2) K3_CASE(4, 32, 3)
   K3_CASE(4, 64, 3) K3_CASE(4, 64, 4)
+  K3_CASE(3, 128, 3) K3_CASE(4, 128, 4)
 #undef K3_CASE
   return nullptr;
 }

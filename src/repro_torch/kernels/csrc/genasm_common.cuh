@@ -29,6 +29,10 @@ constexpr int32_t OP_NONE = 255;
 constexpr int META_DIST = 0, META_LVL = 1, META_NOPS = 2, META_RD = 3,
               META_RF = 4, META_DFIN = 5, META_OK = 6, META_ZERO = 7;
 constexpr int MAX_SHARED_BYTES = 232448;   // per block on an H100
+// where a fused kernel keeps a lane's store: the block's dynamic shared
+// memory, or device memory the wrapper allocates (K1's band, the tails'
+// store; kernels/genasm_dc.py PLACEMENTS)
+constexpr int PLACE_SHARED = 0, PLACE_GLOBAL = 1;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return min(max(x, lo), hi);
@@ -331,7 +335,8 @@ __device__ __forceinline__ int level_count(int dist, int k, int early_term) {
 
 // Live-column capacity: the smallest instantiated KP >= k + 1.
 int levels_bucket(int k) {
-  return k + 1 <= 16 ? 16 : k + 1 <= 32 ? 32 : k + 1 <= 64 ? 64 : 0;
+  return k + 1 <= 16 ? 16 : k + 1 <= 32 ? 32 : k + 1 <= 64 ? 64
+       : k + 1 <= 128 ? 128 : 0;
 }
 
 // The smallest count >= words that is 16 mod 32: a lane stride of 16 mod

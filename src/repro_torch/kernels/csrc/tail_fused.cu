@@ -61,8 +61,6 @@
 
 namespace {
 
-constexpr int PLACE_SHARED = 0, PLACE_GLOBAL = 1;
-
 struct TailLayout {
   int rows0, row_words, lane_words, text_stride, store_words;
   long long smem_bytes;
@@ -261,7 +259,9 @@ using TailKernel = void (*)(const uint32_t*, const int32_t*, const int32_t*,
 
 // The instantiation for (nw, k, nwb, place), or null: K4 at every (NW, KP)
 // with NWB = NW, K2 at every (NW, KP, NWB < NW) that some k <= 63 reaches
-// with nwb = min(NW, ceil((2k+3)/32)); each in both placements.
+// with nwb = min(NW, ceil((2k+3)/32)); each in both placements up to KP =
+// 64, in device memory at KP = 128 (K2 there only as tail_store='band',
+// whose band is the whole vector).
 TailKernel tail_kernel(int nw, int k, int nwb, int place) {
   const int kp = levels_bucket(k);
 #define TAIL_CASE(NW_, KP_, NWB_)                                   \
@@ -279,6 +279,12 @@ TailKernel tail_kernel(int nw, int k, int nwb, int place) {
   TAIL_CASE(4, 32, 2) TAIL_CASE(4, 32, 3) TAIL_CASE(4, 32, 4)
   TAIL_CASE(4, 64, 3) TAIL_CASE(4, 64, 4)
 #undef TAIL_CASE
+  // KP = 128 (k >= 64 at W = 96, 128): nwb = nw, and one lane's store
+  // fits no block's shared memory, so global only
+  if (kp == 128 && nwb == nw && place == PLACE_GLOBAL) {
+    if (nw == 3) return tail_fused_kernel<3, 128, 3, PLACE_GLOBAL>;
+    if (nw == 4) return tail_fused_kernel<4, 128, 4, PLACE_GLOBAL>;
+  }
   return nullptr;
 }
 

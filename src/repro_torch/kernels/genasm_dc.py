@@ -32,12 +32,14 @@ and both give ``min(max dist, k) + 1`` there, so the results agree.
 All four run a group of threads per lane over one wavefront fill;
 ``tb_fused_geometry``, ``tail_geometry`` and ``dc_band_geometry`` derive
 their blocks from the configuration (K1 keeps the DENT band in shared
-memory; the tails keep their store in shared or device memory, whichever
+memory, or in device memory where ``K1_PLACEMENT`` says so (k >= 64); the
+tails keep their store in shared or device memory, whichever
 ``TAIL_PLACEMENT`` names; K3 writes its band out through a ring in shared
 memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 ``cfg.lane_tile`` sets no block: it is only the batch pad unit
-(``kernels.ops``).  The kernels are instantiated for W <= 128 and
-k + 1 <= 64; any other configuration raises ValueError on the card.
+(``kernels.ops``).  The kernels are instantiated for W <= 128 and every
+k < W (level capacities KP = 16, 32, 64, 128); a wider window raises
+ValueError on the card.
 
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
 it runs the kernel's plain PyTorch version (vectorised over lanes, the
@@ -323,6 +325,13 @@ def _outputs(max_ops, B, device):
             torch.empty((META_ROWS, B), dtype=torch.int32, device=device))
 
 
+def _store(B: int, words: int, device):
+    """A kernel's store in device memory, `words` int32 a lane (none: an
+    empty tensor, whose pointer the kernel does not read)."""
+    return torch.empty((B, words) if words else 0, dtype=torch.int32,
+                       device=device)
+
+
 def _library():
     from .build import load_library
     return load_library()
@@ -358,7 +367,8 @@ K1_THREADS = 128                #: threads per K1 block (fewer where its
                                 #: shared memory does not fit)
 TAIL_THREADS = 128              #: threads per K2/K4 block (the same)
 MAX_SHARED_BYTES = 232_448      #: dynamic shared memory of one H100 block
-PLACEMENTS = ("shared", "global")   #: the tails' store, in C's numbering
+PLACEMENTS = ("shared", "global")   #: K1's band and the tails' store, in
+                                    #: C's numbering
 #: where the tails keep a lane's store, by (NW, KP): the placement that
 #: tools/torch_tail_sweep.py measured faster (the sum of its device ms at
 #: 2,048 and 4,096 lanes, 128 threads a block, W = 32 / 64 / 96 / 128 at
@@ -369,7 +379,13 @@ PLACEMENTS = ("shared", "global")   #: the tails' store, in C's numbering
 TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
                   (2, 16): "shared", (2, 32): "global", (2, 64): "global",
                   (3, 16): "global", (3, 32): "global", (3, 64): "global",
-                  (4, 16): "global", (4, 32): "global", (4, 64): "global"}
+                  (4, 16): "global", (4, 32): "global", (4, 64): "global",
+                  (3, 128): "global", (4, 128): "global"}
+#: where K1 keeps a lane's DENT band, by KP: in shared memory up to KP = 64;
+#: at KP = 128 (k >= 64, W = 96 or 128) one lane's band, (k+1) x ncols_band x
+#: nwb words, is 134,160 B at W = 128, k = 64 and 264,192 B at k = 127, so it
+#: goes to device memory, in the tails' skewed global layout (tb_fused.cu)
+K1_PLACEMENT = {16: "shared", 32: "shared", 64: "shared", 128: "global"}
 
 
 #: K3's band placements, in C's numbering: "staged" through a ring of
@@ -378,16 +394,18 @@ TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
 K3_PLACEMENTS = ("staged", "direct")
 #: K3's block, and its band placement and ring chunk by KP: what
 #: tools/torch_k3_sweep.py measured fastest (device ms summed over 2,048
-#: and 4,096 lanes, W = 32 / 64 / 96 / 128 at k = 12, 24, 48; NVIDIA H100
-#: 80GB HBM3, 700 W; PERF.md section 6), the same at every NW.  16 lanes a
-#: block (256 or 512 threads; a staged band row leaves it as 64 B) was
-#: best or within 3 % of it everywhere; direct wins at KP = 16 (staged is
-#: 18-53 % slower there: the band fits L2), staged at KP = 32 and 64
-#: (2.0x to 10x).  The chunk is the number of wavefront steps between two
-#: write-outs of the ring (a power of two).
+#: and 4,096 lanes, W = 32 / 64 / 96 / 128 at k = 12, 24, 48, and W = 96 /
+#: 128 at k = 64, 95, 96, 127 for KP = 128; NVIDIA H100 80GB HBM3, 700 W;
+#: PERF.md section 6), the same at every NW.  16 lanes a block (256 or 512
+#: threads; a staged band row leaves it as 64 B) was best or within 3 % of
+#: it everywhere; direct wins at KP = 16 (staged is 18-53 % slower there:
+#: the band fits L2), staged at KP = 32, 64 and 128 (2.0x to 12x).  The
+#: chunk is the number of wavefront steps between two write-outs of the
+#: ring (a power of two); at KP = 128, NW = 4 a ring of 2 x 4 steps does
+#: not fit a 16-lane block, and chunks 1 and 2 were within 0.3 %.
 K3_LANES = 16
-K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged"}
-K3_CHUNK = {16: 8, 32: 8, 64: 4}
+K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged", 128: "staged"}
+K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,7 +416,11 @@ class TbFusedGeometry:
     threads: int                #: threads per block
     shared_bytes: int           #: dynamic shared memory per block
     band_words: int             #: int32 words of a lane's DENT band in
-                                #: shared memory, pads included
+                                #: shared memory, pads included ("shared"),
+                                #: else 0
+    placement: str = "shared"   #: where a lane's band lives (PLACEMENTS)
+    store_words: int = 0        #: int32 words of a lane's band in device
+                                #: memory ("global"), else 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,19 +451,20 @@ class DcBandGeometry:
 
 def check_instantiated(cfg: AlignerConfig) -> None:
     """Raise ValueError unless the CUDA kernels are instantiated for
-    `cfg`: W <= 128 (four words a bitvector) and k + 1 <= 64 levels."""
-    if cfg.nw > 4 or cfg.k + 1 > 64:
+    `cfg`: W <= 128 (four words a bitvector); every k < W is."""
+    if cfg.nw > 4:
         raise ValueError(f"W={cfg.W} k={cfg.k}: the CUDA kernels are "
-                         f"instantiated for W <= 128 and k + 1 <= 64")
+                         f"instantiated for W <= 128")
 
 
 def levels_bucket(k: int) -> int:
-    """KP: the smallest instantiated level capacity (16, 32, 64) >= k+1."""
-    for kp in (16, 32, 64):
+    """KP: the smallest instantiated level capacity (16, 32, 64, 128) >=
+    k+1."""
+    for kp in (16, 32, 64, 128):
         if k + 1 <= kp:
             return kp
     raise ValueError(f"k={k}: the CUDA kernels are instantiated for "
-                     f"k + 1 <= 64")
+                     f"k + 1 <= 128")
 
 
 def _half_bank_pad(words: int) -> int:
@@ -492,14 +515,24 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     bytes exceed the card's 232,448 (W > 64), down to one warp; or
     ``threads / G`` for a given whole-warp block (the sweep tool; not
     checked against the limit).  The dynamic shared memory is the
-    kernel's layout: per lane the band, k+1 rows of ``ncb * nwb`` words
-    (plus one where that makes the row stride minus nwb even) padded to 16
-    mod 32 words, the text padded the same way, the staged ops and the
-    lane's dist.  Raises ValueError where one warp's lanes do not fit."""
+    kernel's layout: per lane the band where ``K1_PLACEMENT[KP]`` is
+    "shared", k+1 rows of ``ncb * nwb`` words (plus one where that makes
+    the row stride minus nwb even) padded to 16 mod 32 words, the text
+    padded the same way, the staged ops and the lane's dist.  "global":
+    the band in device memory instead, ``(ncb + rows0 - 1) * L * nwb *
+    rows0`` words a lane, rows0 = ceil((k+1)/L) (the skewed layout of
+    ``tb_fused.cu``).  Raises ValueError where one warp's lanes do not
+    fit."""
     check_instantiated(cfg)
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
     group, levels = _group(cfg.k)
-    band = _shared_store_words(cfg.k + 1, cfg.ncols_band, cfg.nwb)
+    placement = K1_PLACEMENT[levels_bucket(cfg.k)]
+    band = store = 0
+    if placement == "shared":
+        band = _shared_store_words(cfg.k + 1, cfg.ncols_band, cfg.nwb)
+    else:
+        rows0 = -(-(cfg.k + 1) // levels)
+        store = (cfg.ncols_band + rows0 - 1) * levels * cfg.nwb * rows0
     lane_words = band + _half_bank_pad(cfg.W) + max_ops + 1
     lanes = _lanes(threads, K1_THREADS, group,
                    lambda n: 4 * n * lane_words, "K1")
@@ -510,7 +543,8 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     return TbFusedGeometry(group=group, levels_per_thread=levels,
                            lanes=lanes, threads=lanes * group,
                            shared_bytes=4 * lanes * lane_words,
-                           band_words=band)
+                           band_words=band, placement=placement,
+                           store_words=store)
 
 
 def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
@@ -628,7 +662,8 @@ def tb_fused_occupancy(cfg: AlignerConfig,
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the
     instantiation's dynamic shared-memory limit as the card reports it once
     ``geo.shared_bytes`` is allowed (``cudaFuncGetAttributes``)."""
-    return _occupancy("tb_fused", cfg.nw, cfg.k, cfg.nwb, geo.threads,
+    return _occupancy("tb_fused", cfg.nw, cfg.k, cfg.nwb,
+                      PLACEMENTS.index(geo.placement), geo.threads,
                       geo.shared_bytes)
 
 
@@ -663,9 +698,11 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
     if B:
         geo = tb_fused_geometry(cfg, max_ops)
         _launch("tb_fused", pm, text, ops, meta,
+                _store(B, geo.store_words, pm.device),
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
                       int(cfg.early_term), commit_limit, max_ops, max_steps),
-                block=(geo.lanes, geo.threads, geo.shared_bytes))
+                block=(geo.lanes, geo.threads,
+                       PLACEMENTS.index(geo.placement), geo.shared_bytes))
     return ops, meta
 
 
@@ -704,9 +741,8 @@ def _tail(name, plain, banded, pm, text, m_len, n_len, *, cfg, n_text,
     ops, meta = _outputs(max_ops, B, pm.device)
     if B:
         geo = tail_geometry(cfg, n_text, max_ops, banded=banded)
-        store = torch.empty((B, geo.store_words) if geo.store_words else 0,
-                            dtype=torch.int32, device=pm.device)
-        _launch(name, pm, text, m_len, n_len, ops, meta, store,
+        _launch(name, pm, text, m_len, n_len, ops, meta,
+                _store(B, geo.store_words, pm.device),
                 ints=(B, n_text, cfg.W, cfg.nw, cfg.k,
                       cfg.nwb if banded else cfg.nw, int(cfg.early_term),
                       commit_limit, max_ops, max_steps),

@@ -69,8 +69,10 @@ def step_summary(out: dict, cfg: AlignerConfig, rescue_rounds: int | None,
         summary["n_rescued"] = total(
             lambda failed, k_used: ~failed & (k_used > cfg.k),
             "failed", "k_used")
-        summary["rounds_run"] = torch.full((), out["rounds_run"], dtype=i32,
-                                           device=dev)
+        rounds = out["rounds_run"]      # a 0-d tensor from the ladder graph
+        summary["rounds_run"] = (
+            rounds.to(i32) if isinstance(rounds, torch.Tensor)
+            else torch.full((), rounds, dtype=i32, device=dev))
     return summary
 
 

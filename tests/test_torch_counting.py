@@ -103,7 +103,27 @@ def test_gpu_store_words_is_k1_band_in_shared_memory(W, O, k):
     assert lane % 32 == 16 and 0 <= pads < 32 + (k + 1)
 
 
-@pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 24), (64, 24, 48)])
+@pytest.mark.parametrize("W,O,k", [(96, 36, 64), (128, 42, 120),
+                                   (128, 48, 127)])
+def test_gpu_store_words_is_k1_band_in_device_memory_at_kp_128(W, O, k):
+    """At KP = 128 K1's band is in device memory, in the skewed
+    (ncb + rows0 - 1) x L x nwb x rows0 layout: at least the reference's
+    unpadded band, and nothing of it in the block's shared memory."""
+    rc, pc = _cfgs(W, O, k)
+    geo = genasm_dc.tb_fused_geometry(pc)
+    rows0 = -(-(k + 1) // 4)
+    lane = port.gpu_store_words(pc, 1)
+    assert geo.placement == "global" and geo.store_words == lane
+    assert lane == (pc.ncols_band + rows0 - 1) * 4 * pc.nwb * rows0
+    assert lane >= ref.kernel_scratch_words(rc, 1)
+    assert geo.shared_bytes == 4 * geo.lanes * (
+        _half_bank_pad(W) + pc.tb_max_ops + 1)
+    for tile in TILES:
+        assert port.gpu_store_words(pc, tile) == lane * tile
+
+
+@pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 24), (64, 24, 48),
+                                             (96, 36, 64), (128, 48, 127)])
 @pytest.mark.parametrize("banded", [None, True, False])
 def test_gpu_tail_store_words_follow_the_placement(W, O, k, banded):
     """K2 / K4: in shared memory padded rows of n_text x nwb words (K4:
@@ -156,7 +176,8 @@ def test_gpu_split_store_words_is_k3_band_output(W, O, k):
     assert (ring == 0) == (geo.placement == "direct")
 
 
-@pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 48), (128, 48, 63)])
+@pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 48), (128, 48, 63),
+                                             (128, 48, 127)])
 def test_gpu_lane_state_words_are_a_threads_levels(W, O, k):
     """A fill thread carries L = KP / G levels and the shuffled level below
     (nw words each); the reference's model carried 2 x (k+1) levels."""
@@ -171,8 +192,8 @@ def test_gpu_lane_state_words_are_a_threads_levels(W, O, k):
 def test_gpu_functions_refuse_configs_without_kernels():
     for fn in (port.gpu_store_words, port.gpu_tail_store_words,
                port.gpu_split_store_words):
-        with pytest.raises(ValueError, match="k \\+ 1 <= 64"):
-            fn(AlignerConfig(W=96, O=32, k=64), 1)
+        with pytest.raises(ValueError, match="W=192 k=64"):
+            fn(AlignerConfig(W=192, O=64, k=64), 1)
     with pytest.raises(ValueError, match="W=160"):
         port.gpu_lane_state_words(AlignerConfig(W=160, O=48, k=12))
     assert np.isfinite(port.reduction_report(

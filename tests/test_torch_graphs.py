@@ -40,19 +40,22 @@ import torch
 from torch.utils import _pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+import jax.numpy as jnp
 from repro.api import AlignSession as RefAlignSession
 from repro.api import AlignSpec as RefAlignSpec
+from repro.core import windowing as ref_win
 from repro_torch.api import AlignSession, CompileCache, plan
 from repro_torch.api.session import build_executable
 from repro_torch.convert import spec_from_reference
 from repro_torch.core import transfer, windowing
 from repro_torch.core.aligner import GenASMAligner
 from repro_torch.core.config import AlignerConfig
-from repro_torch.kernels import genasm_dc
+from repro_torch.kernels import genasm_dc, ladder_graph
 from repro_torch.serve import graphs
 from repro_torch.serve.align_step import make_align_step
 from tests.test_differential import CFG as DCFG, ROUNDS
 from tests.test_torch_aligner import assert_results_equal
+from tests.test_torch_config import cfg_pair
 from tests.test_torch_mesh import CPU, cpu_mesh
 
 CFG = AlignerConfig(W=16, O=6, k=4, lane_tile=4)
@@ -109,10 +112,74 @@ class FakeGraph:
     def replay(self):
         assert self.instantiated
         self.replays += 1
+        self.run()
+
+    def run(self):
+        """The recording once (a replay, or a child node of a larger
+        graph)."""
         for kind, fn, args, kwargs, out in self.nodes:
             new = fn(*args, **kwargs)
             if kind == "kernel" or not _aliases(fn):
                 _write(out, new)
+
+
+class _FakeChain:
+    """A stand-in graph's nodes in order: children, gates, IF nodes (a
+    body is a chain of its own, which may branch again)."""
+
+    def __init__(self, root=None):
+        self.nodes = []
+        self.root = root or self
+        self.gates = 0
+
+    def child(self, graph):
+        assert graph.nodes is not None and not graph.instantiated
+        self.nodes.append(("child", graph))
+
+    def branch(self, failed, flags):
+        handle, body = self.root.handles, _FakeChain(self.root)
+        self.root.handles += 1
+        for f, out in zip(failed, flags):
+            self.nodes.append(("gate", f, out, handle))
+            self.gates += 1
+        self.nodes.append(("if", handle, body))
+        return body
+
+    def run(self, flags):
+        for kind, *node in self.nodes:
+            if kind == "child":
+                node[0].run()
+            elif kind == "gate":        # the gate's plain twin on a shard
+                failed, out, handle = node
+                out.copy_(ladder_graph.ladder_gate_plain(failed)[0])
+                if int(out.numpy()):    # the card's own read, no host sync
+                    flags[handle] = 1
+            else:                       # an IF node evaluates its flag
+                handle, body = node
+                if flags[handle]:
+                    body.run(flags)
+
+
+class FakeCondGraph(_FakeChain):
+    """The stand-in for ``ladder_graph.CondGraph``: a branch's gates run
+    the gate's plain twin when they are reached and raise the flag of
+    their IF node, which evaluates the flag; every flag starts at 0 at
+    each launch, as the card's conditional handles do.  A launch counts
+    the top chain's gates, as the real one does."""
+
+    def __init__(self, device):
+        super().__init__()
+        self.handles = self.launches = 0
+        self.instantiated = False
+
+    def instantiate(self):
+        self.instantiated = True
+
+    def launch(self):
+        assert self.instantiated
+        self.launches += 1
+        self.run([0] * self.handles)
+        ladder_graph.add_launches(self.gates)
 
 
 class _fake_graph:
@@ -148,8 +215,13 @@ def _kernel_node(name, plain):
         finally:
             rec.paused = False
         genasm_dc._count_launch(name)
-        rec.nodes.append(("kernel", plain, args, kwargs, out))
+        rec.nodes.append(("kernel", replay, args, kwargs, out))
         return out
+
+    def replay(*args, **kwargs):
+        """The twin as the module holds it at replay (the ``no_sync``
+        fixture lets its syncs through: one kernel on the card)."""
+        return getattr(genasm_dc, _KERNELS[name])(*args, **kwargs)
     return run
 
 
@@ -161,6 +233,7 @@ def graphed(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: (0, 1))
     monkeypatch.setattr(graphs, "captures",
                         lambda cfg, device: cfg.backend == "fused")
+    monkeypatch.setattr(ladder_graph, "CondGraph", FakeCondGraph)
     for name, attr in _KERNELS.items():
         monkeypatch.setattr(genasm_dc, attr,
                             _kernel_node(name, getattr(genasm_dc, attr)))
@@ -183,10 +256,15 @@ def _batch(seed, lanes, read_bucket, ref_bucket, cfg=CFG, rounds=0):
 
 
 def _assert_tree_equal(got, want):
+    """Captured (out, summary) against the eager step's, field for field;
+    a device-mode ladder graph gates on the card: its ``gate_syncs`` is 0
+    where the eager step counts its host syncs."""
     got_out, got_sum = got
     want_out, want_sum = want
     assert set(got_out) == set(want_out) and set(got_sum) == set(want_sum)
-    for key in want_out:
+    if "gate_syncs" in want_out:
+        assert got_out["gate_syncs"] == 0
+    for key in set(want_out) - {"gate_syncs"}:
         a, b = (torch.cat(v) if isinstance(v, tuple) else v
                 for v in (got_out[key], want_out[key]))
         if isinstance(b, torch.Tensor):
@@ -491,3 +569,144 @@ def test_staged_rows_equal_one_padding_and_survive_cancel(monkeypatch):
     res = GenASMAligner(CFG, rescue_rounds=0, device="cpu").align(
         [reads[i] for i in keep], [refs[i] for i in keep])
     assert [futs[i].result()["cigar"] for i in keep] == res.cigars
+
+
+# --------------------------------------------------------------------------
+# (d) device mode: one graph with conditional nodes a dispatch
+# --------------------------------------------------------------------------
+
+#: insertion burst of lane 1 -> rungs the ladder (k = 4, 8, 15) runs; 9
+#: leaves the lane failed, its partial progress merged by the last rung
+BURSTS = {0: 1, 3: 2, 6: 3, 9: 3}
+
+
+def _ladder_batch(burst, lanes=4, bucket=64, seed=0):
+    """Exact pairs of 48 bases, lane 1's read with `burst` random bases
+    inserted mid-way, padded for the ladder's last rung."""
+    rng = np.random.default_rng(seed)
+    Lr, Lf = windowing.pad_geometry(CFG, bucket, bucket, 2)
+    reads = np.full((lanes, Lr), windowing.SENTINEL_READ, np.uint8)
+    refs = np.full((lanes, Lf), windowing.SENTINEL_REF, np.uint8)
+    rl, fl = np.zeros(lanes, np.int32), np.zeros(lanes, np.int32)
+    for i in range(lanes):
+        f = rng.integers(0, 4, 48).astype(np.uint8)
+        r = f if i != 1 else np.concatenate(
+            [f[:24], rng.integers(0, 4, burst).astype(np.uint8), f[24:]])
+        reads[i, :len(r)], refs[i, :len(f)] = r, f
+        rl[i], fl[i] = len(r), len(f)
+    return tuple(map(torch.from_numpy, (reads, rl, refs, fl)))
+
+
+@pytest.mark.parametrize("burst", sorted(BURSTS))
+def test_device_mode_is_one_launch_without_a_host_sync(graphed, no_sync,
+                                                       burst):
+    """A device-mode dispatch launches its ladder graph once, whatever
+    rungs run: the gates decide on the card (the stand-in's IF nodes, rung
+    2's nested in rung 1's body), the call makes no host sync and reports
+    no gate sync, and rounds_run comes back as a tensor.  The launch counts
+    the top gate; the retire the nested one where rung 1 ran."""
+    exe = build_executable(CFG, 4, 64, 64, 2, "cpu")
+    ladder = exe.graphs.ladder
+    assert isinstance(ladder, FakeCondGraph) and ladder.gates == 1
+    [(_, _, body)] = [n for n in ladder.nodes if n[0] == "if"]
+    assert body.gates == 1 and [n[0] for n in body.nodes][-1] == "if"
+    ladder_graph.reset_counts()
+    out, summary = exe(*_ladder_batch(burst))
+    rounds = int(out["rounds_run"].numpy())
+    assert ladder.launches == 1
+    assert out["gate_syncs"] == 0 and out["n_rounds"] == 3
+    assert rounds == BURSTS[burst] == int(summary["rounds_run"].numpy())
+    assert ladder_graph.LAUNCHES["ladder_gate"] == 1
+    exe.retired(rounds)
+    assert ladder_graph.LAUNCHES["ladder_gate"] == min(rounds, 2)
+    assert list(exe.graphs.gate_flags[:, 0].numpy()) == \
+        [int(rounds > 1), int(rounds > 2)]
+
+
+@pytest.mark.parametrize("burst", sorted(BURSTS))
+def test_device_mode_equals_its_eager_step_and_counts_at_retire(graphed,
+                                                                burst):
+    """Every output equals the eager ladder's (which gates on the host);
+    a launch counts rung 0's kernels, and the retire the rungs that ran
+    after it, so LAUNCHES then equal the kernels the eager step calls (on
+    the CPU its plain twins, PLAIN_CALLS)."""
+    exe = build_executable(CFG, 4, 64, 64, 2, "cpu")
+    batch = _ladder_batch(burst)
+    genasm_dc.reset_counts()
+    got = exe(*batch)
+    rung0 = dict(genasm_dc.LAUNCHES)
+    exe.retired(int(got[0]["rounds_run"]))
+    launched = dict(genasm_dc.LAUNCHES)
+    genasm_dc.reset_counts()
+    want = exe.step(*batch)
+    assert want[0]["gate_syncs"] == min(BURSTS[burst], 2)
+    _assert_tree_equal(got, want)
+    assert launched == genasm_dc.PLAIN_CALLS
+    assert rung0 == exe.graphs.stats[0]["launches"]
+    assert (launched == rung0) == (BURSTS[burst] == 1)
+
+
+def test_device_mode_levels_and_rounds_equal_the_reference(graphed, corpus):
+    """On the differential corpus at a bucket's shapes: the ladder graph's
+    lanes, k_used, levels_run_total and rounds_run equal the reference's
+    align_pairs_rescued (Pallas, interpret mode) on the same arrays."""
+    reads, refs, _ = corpus
+    ref_cfg, cfg = cfg_pair(W=DCFG.W, O=DCFG.O, k=DCFG.k)
+    lanes, bucket = len(reads), 64
+    Lr, Lf = windowing.pad_geometry(cfg, bucket, bucket, ROUNDS)
+    arrays = (*GenASMAligner._pad(reads, Lr, windowing.SENTINEL_READ),
+              *GenASMAligner._pad(refs, Lf, windowing.SENTINEL_REF))
+    exe = build_executable(cfg, lanes, bucket, bucket, ROUNDS, "cpu")
+    out, _ = exe(*map(torch.from_numpy, arrays))
+    want = ref_win.align_pairs_rescued(*map(jnp.asarray, arrays), cfg=ref_cfg,
+                                       max_read_len=bucket,
+                                       rescue_rounds=ROUNDS)
+    assert int(out["rounds_run"]) == int(want["rounds_run"]) == ROUNDS + 1
+    assert int(out["levels_run_total"]) == int(want["levels_run_total"])
+    for key in windowing.LANE_KEYS + ("k_used",):
+        np.testing.assert_array_equal(out[key].numpy(), np.asarray(want[key]),
+                                      err_msg=key)
+
+
+def test_device_mode_on_a_one_device_mesh_is_one_graph(graphed):
+    """Shards on one device: one ladder graph holds every shard's rungs and
+    a gate a shard (the gate is global: the any over every shard), and
+    equals the unsharded eager ladder; the launches counted at retire
+    equal the sharded eager step's."""
+    mesh = cpu_mesh((2,), ("data",))
+    exe = build_executable(CFG, 8, 64, 64, 2, "cpu", mesh)
+    assert exe.graphs.ladder.gates == 2     # rung 1's, one a shard
+    batch = tuple(torch.cat([a, b]) for a, b in zip(_ladder_batch(6),
+                                                      _ladder_batch(0)))
+    sharded = [tuple(t[i * 4:(i + 1) * 4] for i in range(2)) for t in batch]
+    genasm_dc.reset_counts()
+    got = exe(*sharded)
+    exe.retired(int(got[0]["rounds_run"]))
+    launched = dict(genasm_dc.LAUNCHES)
+    assert int(got[0]["rounds_run"]) == 3       # shard 0's burst opens both
+    assert list(exe.graphs.gate_flags.numpy().ravel()) == [1, 0, 1, 0]
+    _assert_tree_equal(got, make_align_step(CFG, 64, rescue_rounds=2,
+                                            device="cpu")(*batch))
+    genasm_dc.reset_counts()
+    exe.step(*sharded)
+    assert launched == genasm_dc.PLAIN_CALLS
+
+
+def test_shards_on_several_devices_keep_the_host_gate(graphed, monkeypatch):
+    """Where the shards span devices the ladder's captures replay rung by
+    rung behind the host gate, counted in gate_syncs, as the eager step."""
+    monkeypatch.setattr(graphs, "gate_on_card", lambda devices: False)
+    mesh = cpu_mesh((2,), ("data",))
+    exe = build_executable(CFG, 8, 64, 64, 2, "cpu", mesh)
+    assert exe.graphs.ladder is None
+    batch = tuple(torch.cat([a, b]) for a, b in zip(_ladder_batch(3),
+                                                      _ladder_batch(0)))
+    sharded = [tuple(t[i * 4:(i + 1) * 4] for i in range(2)) for t in batch]
+    got = exe(*sharded)
+    want = exe.step(*sharded)
+    assert got[0]["gate_syncs"] == want[0]["gate_syncs"] == 2
+    assert got[0]["rounds_run"] == 2
+    for key in windowing.LANE_KEYS + ("k_used", "levels_run_total"):
+        a, b = got[0][key], want[0][key]
+        a, b = (torch.cat(a), torch.cat(b)) if isinstance(a, tuple) else (a, b)
+        assert torch.equal(a, b), key

@@ -1,7 +1,10 @@
 """K1's block geometry (``genasm_dc.tb_fused_geometry``) over every (W, k)
-the CUDA kernels take: W in {16, 32, 64}, 1 <= k < W, k + 1 <= 64.  The
-geometry is computed on the host, so it is checked here; the CUDA side
-refuses anything else (``chip_smoke.py`` phase ``k1_grid`` launches it)."""
+the CUDA kernels take: W in {16, 32, 64}, 1 <= k < W, with the band in
+shared memory; and at KP = 128 (k >= 64, W = 96 and 128) with the band in
+device memory, in the skewed layout of ``tb_fused.cu`` (emulated here
+word for word).  The geometry is computed on the host, so it is checked
+here; the CUDA side refuses anything else (``chip_smoke.py`` phase
+``k1_grid`` launches it)."""
 import pytest
 
 from repro_torch.core.config import AlignerConfig
@@ -25,9 +28,73 @@ def test_tb_fused_geometry(W, k):
     assert geo.shared_bytes >= geo.lanes * need
 
 
-def test_tb_fused_geometry_refuses_too_many_levels():
-    with pytest.raises(ValueError, match="k \\+ 1 <= 64"):
-        genasm_dc.tb_fused_geometry(AlignerConfig(W=96, O=32, k=64))
+@pytest.mark.parametrize("W,k", [(160, 12), (256, 100)])
+def test_tb_fused_geometry_refuses_w_over_128(W, k):
+    with pytest.raises(ValueError, match=f"W={W} k={k}: .* W <= 128"):
+        genasm_dc.tb_fused_geometry(AlignerConfig(W=W, O=W // 3, k=k))
+
+
+KP128 = [(96, 36, 64), (96, 36, 95), (128, 42, 64), (128, 42, 120),
+         (128, 48, 127)]
+
+
+def _half_bank_pad(words):
+    return words + (16 - words % 32) % 32
+
+
+@pytest.mark.parametrize("W,O,k", KP128)
+def test_tb_fused_geometry_at_kp_128_keeps_the_band_in_device_memory(W, O,
+                                                                      k):
+    """G = 32 threads of L = 4 levels; the band is one lane's
+    (ncb + rows0 - 1) x L x nwb x rows0 words of device memory, and the
+    block's shared memory holds only texts, staged ops and dists."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.tb_fused_geometry(cfg)
+    assert genasm_dc.levels_bucket(k) == 128
+    assert (geo.group, geo.levels_per_thread) == (32, 4)
+    assert geo.placement == genasm_dc.K1_PLACEMENT[128] == "global"
+    rows0 = -(-(k + 1) // 4)
+    assert geo.band_words == 0
+    assert geo.store_words == (cfg.ncols_band + rows0 - 1) * 4 * cfg.nwb * \
+        rows0 >= (k + 1) * cfg.ncols_band * cfg.nwb
+    assert geo.lanes == genasm_dc.K1_THREADS // 32
+    assert geo.shared_bytes == 4 * geo.lanes * (
+        _half_bank_pad(W) + cfg.tb_max_ops + 1)
+    # the band would not fit a block: why it lives in device memory
+    assert (k < 110) or 4 * (k + 1) * cfg.ncols_band * cfg.nwb > \
+        genasm_dc.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("W,O,k", KP128)
+def test_k1_device_band_layout_is_one_to_one_and_the_walk_reads_it(W, O, k):
+    """tb_fused.cu's PLACE_GLOBAL, emulated: thread g's level c of band
+    column q, word b, lands at ((q + g) * L + c) * nwb * rows0 + g + b *
+    rows0; every stored word is distinct and inside the lane's
+    store_words, a wavefront step's threads (q + g fixed) write one
+    contiguous row of each (level slot, word), and K1Band::word_at finds
+    what the fill stored."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.tb_fused_geometry(cfg)
+    L, nwb, ncb = geo.levels_per_thread, cfg.nwb, cfg.ncols_band
+    rows0 = -(-(k + 1) // L)
+    seen = {}
+    for g in range(rows0):
+        for c in range(L):
+            d = g * L + c
+            if d > k:
+                break
+            for q in range(ncb):
+                for b in range(nwb):
+                    at = ((q + g) * L + c) * nwb * rows0 + g + b * rows0
+                    assert at not in seen and 0 <= at < geo.store_words
+                    seen[at] = (d, q, b)
+                    word_at = ((q + d // L) * L + d % L) * nwb * rows0 + \
+                        d // L
+                    assert word_at + b * rows0 == at
+    for s in range(ncb + rows0 - 1):        # one step: q + g = s
+        row = sorted(at for at, (d, q, b) in seen.items()
+                     if q + d // L == s and d % L == 0 and b == 0)
+        assert row == list(range(row[0], row[0] + len(row)))
 
 
 @pytest.mark.parametrize("threads", [32, 64, 256, 512, 1024])

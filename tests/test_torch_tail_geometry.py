@@ -66,7 +66,7 @@ def test_tail_store_goes_global_where_a_lane_does_not_fit(W, O, banded):
     warps, within the shared limit); asked for shared memory it either
     fits or raises naming W, k and the bytes, and then the default puts
     the store in device memory."""
-    for k in range(1, min(W, 64)):
+    for k in range(1, W):
         cfg = AlignerConfig(W=W, O=O, k=k)
         geo = _tail(cfg, banded)
         assert geo.threads % 32 == 0 and 32 <= geo.threads <= 1024
@@ -83,6 +83,29 @@ def test_tail_store_goes_global_where_a_lane_does_not_fit(W, O, banded):
         if genasm_dc.TAIL_PLACEMENT[(cfg.nw, genasm_dc.levels_bucket(k))] \
                 == "shared":
             assert geo == shared
+
+
+@pytest.mark.parametrize("W,O,k", [(96, 36, 64), (96, 36, 95),
+                                   (128, 48, 127)])
+def test_tail_store_at_kp_128(W, O, k):
+    """What tail_store resolves to at KP = 128, where the band (2k+3 bits)
+    is the whole vector: 'auto' and 'full' take K4, 'band' K2 with nwb =
+    nw; each the (NW, 128, NW) instantiation, G = 32 threads of L = 4
+    levels, its store in device memory (a lane's fits no block)."""
+    for tail_store, banded in (("auto", False), ("full", False),
+                               ("band", True)):
+        cfg = AlignerConfig(W=W, O=O, k=k, tail_store=tail_store)
+        assert cfg.tail_banded == banded and cfg.nwb == cfg.nw
+        geo = _tail(cfg, None)
+        assert (geo.group, geo.levels_per_thread) == (32, 4)
+        assert geo.placement == "global" == \
+            genasm_dc.TAIL_PLACEMENT[(cfg.nw, 128)]
+        rows0 = -(-(k + 1) // 4)
+        assert geo.store_words == (W + 4 * k + rows0 - 1) * 4 * cfg.nw * \
+            rows0
+        assert geo == _tail(cfg, not banded)     # the same instantiation
+        with pytest.raises(ValueError, match=f"W={W} k={k}"):
+            _tail(cfg, None, "shared")
 
 
 @pytest.mark.parametrize("W,O,k,lanes", [
@@ -102,12 +125,12 @@ def test_tb_fused_geometry_lowers_lanes_per_block(W, O, k, lanes):
 
 @pytest.mark.parametrize("W", [96, 128])
 def test_tb_fused_geometry_fits_every_k_at_nw_3_and_4(W):
-    for k in range(1, 64):
+    for k in range(1, W):
         geo = genasm_dc.tb_fused_geometry(AlignerConfig(W=W, O=W // 3, k=k))
         assert geo.threads % 32 == 0 and geo.shared_bytes <= MAX
 
 
-@pytest.mark.parametrize("fields", [dict(W=96, O=32, k=64),
+@pytest.mark.parametrize("fields", [dict(W=256, O=96, k=64),
                                     dict(W=160, O=48, k=12)])
 def test_uninstantiated_configs_raise_naming_w_and_k(fields):
     cfg = AlignerConfig(**fields)

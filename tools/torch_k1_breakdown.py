@@ -98,10 +98,11 @@ def main() -> None:
             for name, fn in launches.items():
                 def call(fn=fn):
                     rc = fn(pm.data_ptr(), text.data_ptr(), ops.data_ptr(),
-                            meta.data_ptr(), lanes, cfg.W, cfg.nw, k,
+                            meta.data_ptr(), None, lanes, cfg.W, cfg.nw, k,
                             cfg.nwb, cfg.ncols_band, int(cfg.early_term),
                             kw["commit_limit"], kw["max_ops"],
                             kw["max_steps"], geo.lanes, geo.threads,
+                            genasm_dc.PLACEMENTS.index(geo.placement),
                             geo.shared_bytes,
                             torch.cuda.current_stream().cuda_stream)
                     if rc != 0:

@@ -37,14 +37,17 @@ def launcher(cfg: AlignerConfig, geo, inputs, kw):
                       device=pm.device)
     meta = torch.empty((genasm_dc.META_ROWS, lanes), dtype=torch.int32,
                        device=pm.device)
+    store = torch.empty((lanes, geo.store_words) if geo.store_words else 0,
+                        dtype=torch.int32, device=pm.device)
     lib = build.load_library()
 
     def call():
         rc = lib.genasm_tb_fused_launch(
             pm.data_ptr(), text.data_ptr(), ops.data_ptr(), meta.data_ptr(),
-            lanes, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
-            int(cfg.early_term), kw["commit_limit"], kw["max_ops"],
-            kw["max_steps"], geo.lanes, geo.threads, geo.shared_bytes,
+            store.data_ptr(), lanes, cfg.W, cfg.nw, cfg.k, cfg.nwb,
+            cfg.ncols_band, int(cfg.early_term), kw["commit_limit"],
+            kw["max_ops"], kw["max_steps"], geo.lanes, geo.threads,
+            genasm_dc.PLACEMENTS.index(geo.placement), geo.shared_bytes,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"K1 at {geo}: CUDA error {rc}")

@@ -3,15 +3,16 @@ over its band placement, block size and ring chunk.
 
     python3 tools/torch_k3_sweep.py [--threads 128,256,512,1024]
                                     [--chunks 4,8,16] [--reps 20]
+                                    [--widths 32,64,96,128] [--ks 12,24,48]
 
-For each W in {32, 64, 96, 128} (O = 3W/8) and each k of the default
-ladder (12, 24, 48) below W, at 2,048 and 4,096 lanes of the inputs
+For each W of ``--widths`` (O = 3W/8) and each k of ``--ks`` (default the
+ladder's 12, 24, 48) below W, at 2,048 and 4,096 lanes of the inputs
 ``chip_smoke.py`` gives K3: the kernel launched through its C entry point
 (``chip_smoke.k3_launcher``) in each band placement (``staged``: the ring
 in shared memory at each chunk; ``direct``) at each number of threads per
 block (``genasm_dc.dc_band_geometry(cfg, threads, placement=...,
-chunk=...)``; a block that does not fit, or a staged block of fewer than 8
-lanes, is skipped), held against ``dc_band_plain`` (max abs err 0 or it
+chunk=...)``; a block whose shared memory or registers do not fit, or a
+staged block of fewer than 8 lanes, is skipped), held against ``dc_band_plain`` (max abs err 0 or it
 raises), with its device ms per launch (``chip_smoke._device_ms``), its
 block, shared bytes and blocks per SM.  ``genasm_dc.K3_PLACEMENT``,
 ``K3_LANES`` and ``K3_CHUNK`` record what this sweep measured fastest.
@@ -40,6 +41,8 @@ def main() -> None:
     ap.add_argument("--threads", default="128,256,512,1024")
     ap.add_argument("--chunks", default="4,8,16")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--widths", default="32,64,96,128")
+    ap.add_argument("--ks", default="12,24,48")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_k3_sweep: no CUDA card")
@@ -47,8 +50,8 @@ def main() -> None:
     cs.phase_build()
     dev = torch.device("cuda")
     chunks = [int(c) for c in args.chunks.split(",")]
-    for W in (32, 64, 96, 128):
-        for k in (12, 24, 48):
+    for W in (int(w) for w in args.widths.split(",")):
+        for k in (int(k) for k in args.ks.split(",")):
             if k >= W:
                 continue
             cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
@@ -58,7 +61,7 @@ def main() -> None:
                 ref = genasm_dc.dc_band_plain(*inputs, **kw)
                 for placement in genasm_dc.K3_PLACEMENTS:
                     for chunk in (chunks if placement == "staged"
-                                  else [genasm_dc.K3_CHUNK]):
+                                  else [None]):
                         for threads in (int(t)
                                         for t in args.threads.split(",")):
                             try:
@@ -67,10 +70,12 @@ def main() -> None:
                                     chunk=chunk)
                             except ValueError:
                                 continue
+                            blocks, _ = genasm_dc.dc_band_occupancy(cfg, geo)
+                            if blocks == 0:     # its registers do not fit
+                                continue
                             call = cs.k3_launcher(cfg, geo, inputs)
                             err = cs._max_abs_err("dc_band", call(), ref,
                                                   f"{geo}")
-                            blocks, _ = genasm_dc.dc_band_occupancy(cfg, geo)
                             for _ in range(2):
                                 call()
                             print(json.dumps(dict(
