@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
+(one process a unit, the NW = 5..8 instantiations in units of their own),
 holds each kernel against its plain PyTorch version on the card (K1 also
 over a grid of its instantiations and block geometries, with its
 occupancy; K2 and K4 over every tail instantiation in both store
 placements; K3 over every instantiation in both band placements, with
-its occupancy), drives the aligner's main path (``GenASMAligner.align``) on
+its occupancy; at W = 129..256 every instantiation in its one placement),
+times K1, K2 / K4 and K3 on each rung of the W = 256 ladder at 2,048
+lanes, drives the aligner's main path (``GenASMAligner.align``) on
 PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
 split backend (K3 and the PyTorch traceback), holds the two results
 equal, and checks the kernel path against the CPU plain path end to end:
-on both backends, through all three rungs of the rescue ladder, and with
-the reference's ``lane_tile='auto'`` of 2,816, then shards the pair axis
+on both backends, through all three rungs of the rescue ladder, with the
+reference's ``lane_tile='auto'`` of 2,816, and on the W = 128 and W = 256
+ladders to k = 120 and k = 240 (the latter also through a session), then
+shards the pair axis
 over a mesh of the card listed four times (phase ``mesh``: the aligner,
 the split backend, a session and the engine, each equal to its unsharded
 run).  Then the front doors a user calls, each record held against
@@ -160,6 +165,11 @@ SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "tail_full": _CSRC + "tail_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
            "ladder_gate": _CSRC + "ladder_graph.cu"}
+#: each kernel's body and its instantiations at NW = 5..8
+WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
+                       SOURCES[name].replace(".cu", "_wide.cu")]
+                for name in ("tb_fused", "tail_banded", "tail_full",
+                             "dc_band")}
 #: what the device-mode ladder's gate kernel replaces (no Pallas kernel:
 #: the reference's on-device round gate)
 GATE_REPLACES = "src/repro/core/windowing.py:350 lax.cond(any(failed))"
@@ -221,9 +231,36 @@ def phase_build() -> dict:
     usage = _ptxas_usage(report)
     per_source = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^== (\S+): ([\d.]+) s$", report, re.M)}
+    over = _registers_over_table(usage)
     emit("build", seconds=seconds, nvcc_seconds=per_source,
-         library=lib.name, instantiations=len(usage), ptxas=usage)
+         library=lib.name, instantiations=len(usage),
+         registers_over_table=over, ptxas=usage)
+    if over:
+        raise AssertionError(f"ptxas counts more registers than "
+                             f"genasm_dc.REGISTERS, which caps the blocks: "
+                             f"{over}")
     return usage
+
+
+#: each kernel template's family in ``genasm_dc.REGISTERS``
+REGISTER_FAMILY = {"tb_fused": "tb_fused", "tail_fused": "tail",
+                   "dc_band": "dc_band"}
+
+
+def _registers_over_table(usage: dict) -> dict:
+    """{instantiation: (ptxas's registers, the table's)} wherever ptxas
+    counts more than ``genasm_dc.REGISTERS`` for its (NW, KP)."""
+    over = {}
+    for name, text in usage.items():
+        m = re.match(r"(\w+)<NW=(\d+),KP=(\d+),", name)
+        if m is None:
+            continue
+        regs = int(text.split()[0])
+        table = genasm_dc.REGISTERS[REGISTER_FAMILY[m.group(1)]][
+            (int(m.group(2)), int(m.group(3)))]
+        if regs > table:
+            over[name] = (regs, table)
+    return over
 
 
 def _kernel_name(template: str, args) -> str:
@@ -242,7 +279,7 @@ def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
     if name == "tb_fused":
         return _kernel_name("tb_fused_kernel", (
             cfg.nw, kp, cfg.nwb,
-            PLACEMENTS.index(genasm_dc.K1_PLACEMENT[kp])))
+            PLACEMENTS.index(genasm_dc.K1_PLACEMENT[(cfg.nw, kp)])))
     if name == "dc_band":
         return _kernel_name("dc_band_kernel", (cfg.nw, kp, cfg.nwb,
                                                K3_PLACEMENTS.index(placement)))
@@ -517,6 +554,9 @@ def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
                                  f"allows {limit} B of dynamic shared "
                                  f"memory, a block asks for "
                                  f"{geo.shared_bytes}")
+        if blocks == 0:
+            raise AssertionError(f"{name} W={cfg.W} k={cfg.k}: no block of "
+                                 f"{geo.threads} threads fits an SM")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
                    ptxas=usage.get(_instantiation(name, cfg,
                                                   geo.placement)))
@@ -567,6 +607,9 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
             raise AssertionError(f"K3 W={cfg.W} k={cfg.k}: the card allows "
                                  f"{limit} B of dynamic shared memory, a "
                                  f"block asks for {geo.shared_bytes}")
+        if blocks == 0:
+            raise AssertionError(f"K3 W={cfg.W} k={cfg.k}: no block of "
+                                 f"{geo.threads} threads fits an SM")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
                    ptxas=usage.get(_instantiation("dc_band", cfg,
                                                   geo.placement)))
@@ -579,10 +622,18 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
 K3_WIDE = [(40, 16, 12), (48, 16, 12), (96, 36, 24), (96, 36, 48),
            (128, 48, 24), (128, 48, 48), (128, 48, 96)]
 KP128_TIMED = K3_WIDE[-1]
+#: the W = 256 ladder's rungs (``W256_CFG``: W = 256, O = 96, k = 30 -> 60
+#: -> 120 -> 240, KP = 32, 64, 128, 256, NW = 8), each kernel timed alone
+#: at 2,048 lanes: K1, the tail the rung selects (K2 at k = 30, 60; K4 at
+#: 120, 240) and K3.  Their equality with the plain versions is held by the
+#: grids (``K1_WIDE_GRID``, ``TAIL_WIDE_GRID``) at 37 and 1 lanes: the
+#: plain K4 alone at 2,048 lanes, k = 240 would take minutes.
+W256_TIMED = (256, 96, (30, 60, 120, 240), 2048)
 
 
 def phase_kernels(device: torch.device, n_pairs: int = 4096,
-                  reps: int = 20, usage: dict | None = None) -> list[dict]:
+                  reps: int = 20, usage: dict | None = None,
+                  w256_lanes: int = W256_TIMED[3]) -> list[dict]:
     """Each kernel against its plain version at the main path's shapes
     (W=64), then K3 at the widths of ``K3_WIDE`` and K1 and K4 at
     ``KP128_TIMED``.  On the card ``ms`` is the device time per launch
@@ -610,20 +661,74 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
                           f"W={cfg.W} k={cfg.k}")
         if name == "tb_fused" and cfg.W == 64:
             row["one_thread_ms"] = K1_ONE_THREAD_MS[cfg.k]
-        if name == "tb_fused" and cfg.W != 64:
-            geo = genasm_dc.tb_fused_geometry(cfg)
-            row.update(_k1_geometry(cfg), placement=geo.placement,
-                       store_bytes_per_lane=4 * geo.store_words,
-                       ptxas=(usage or {}).get(_instantiation("tb_fused",
-                                                               cfg)))
-        if name.startswith("tail"):
-            row.update(_tail_geometry(name, cfg, usage=usage)[1])
-        if name == "dc_band":
-            row.update(_k3_geometry(cfg, usage=usage)[1])
+        row = {**_geometry_row(name, cfg, usage), **row}
         emit("kernel", **row)
         rows.append(row)
+    rows += _w256_rows(device, reps, usage, w256_lanes)
     rows.append(_gate_row(device, 1024, reps, usage))
     emit("kernel", **rows[-1])
+    return rows
+
+
+def _geometry_row(name: str, cfg: AlignerConfig, usage) -> dict:
+    """A kernel row's block, store and (with ``usage``, on the card)
+    occupancy and ptxas fields: K1 beyond W = 64 its geometry, band
+    placement, band bytes a lane in device memory, blocks per SM and
+    ptxas; the tails' and K3's rows as their grids give them."""
+    if name.startswith("tail"):
+        return _tail_geometry(name, cfg, usage=usage)[1]
+    if name == "dc_band":
+        return _k3_geometry(cfg, usage=usage)[1]
+    if cfg.W == 64:
+        return {}
+    geo = genasm_dc.tb_fused_geometry(cfg)
+    row = dict(_k1_geometry(cfg), placement=geo.placement,
+               store_bytes_per_lane=4 * geo.store_words,
+               ptxas=(usage or {}).get(_instantiation("tb_fused", cfg)))
+    if usage is not None:
+        row["blocks_per_sm"] = genasm_dc.tb_fused_occupancy(cfg, geo)[0]
+    return row
+
+
+def _w256_rows(device: torch.device, reps: int, usage,
+               lanes: int) -> list[dict]:
+    """K1, the rung's tail and K3 at each rung of ``W256_TIMED`` on
+    `lanes` lanes (K1 and K3 on the same windows), timed alone (device
+    ms, event ms, bound; no plain version: the grids hold these
+    instantiations equal to it), with block, store bytes a lane, ptxas
+    registers and spills, blocks per SM and its seconds (a rung's first
+    row with its inputs' making).  The stores and bands (up to 20 GB for
+    K4 at k = 240) are freed after each row."""
+    W, O, ks, _ = W256_TIMED
+    rng = np.random.default_rng(256)
+    rows = []
+    for k in ks:
+        t0 = time.perf_counter()
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        tail = "tail_banded" if cfg.tail_banded else "tail_full"
+        square = _case("tb_fused", cfg, lanes, rng, device)
+        cases = {"tb_fused": square,
+                 tail: _case(tail, cfg, lanes, rng, device),
+                 "dc_band": (square[0], dict(cfg=cfg), square[2])}
+        for name, (inputs, kw, cols) in cases.items():
+            call = lambda: KERNELS[name][0](*inputs, **kw)  # noqa: E731
+            got = call()
+            dist, _ = _dist_and_steps(name, got)
+            row = {**_geometry_row(name, cfg, usage),
+                   **dict(name=name, W=W, k=k, lanes=lanes,
+                          max_abs_err=None, plain_ms=None, plain_on=None,
+                          checked_by="grids",
+                          solved=int((dist <= cfg.k).sum())),
+                   **_timing(name, cfg, call, inputs, got, cols, reps,
+                             device)}
+            del got, call
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+            row["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            emit("kernel", **row)
+            rows.append(row)
     return rows
 
 
@@ -690,6 +795,29 @@ K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
            (128, 48, 96, False, 37), (128, 48, 127, True, 1),
            (64, 24, 12, True, 2048), (64, 24, 24, True, 2048),
            (64, 24, 48, True, 2048)]
+#: one width of each NW = 5..8 (W = 144 and 208 with m_pad > W), (W, O)
+WIDE_WIDTHS = {5: (144, 48), 6: (192, 64), 7: (208, 72), 8: (256, 96)}
+#: the k that reaches each wide (KP, NWB) at the least cost: NWB 1, 2 at
+#: KP = 16 (k = 12, 15); 2, 3 at KP = 32 (24, 31); 3, 4, 5 at KP = 64 (40,
+#: 48, 63); 5, 6, 7, 8 at KP = 128 (64, 80, 100, 120; NWB <= NW); NW at
+#: KP = 256 (128)
+WIDE_KS = (12, 15, 24, 31, 40, 48, 63, 64, 80, 100, 120, 128)
+
+
+def _wide_ks(nw: int):
+    """The ``WIDE_KS`` of NW's instantiations: at KP = 128 those whose
+    band, ceil((2k+3)/32) words, is no wider than the vector."""
+    return [k for k in WIDE_KS if not 64 < k < 128
+            or -(-(2 * k + 3) // 32) <= nw]
+
+
+#: K1's grid at NW = 5..8: every (NW, KP, NWB) instantiation of
+#: tb_fused_wide.cu at 37 lanes, and a few at 1 lane (W = 256, k = 240 and
+#: 255; no early termination at W = 192, k = 100)
+K1_WIDE_GRID = [(*WIDE_WIDTHS[nw], k, True, 37) for nw in WIDE_WIDTHS
+                for k in _wide_ks(nw)] + [
+    (256, 96, 240, True, 1), (256, 96, 255, True, 1), (144, 48, 12, True, 1),
+    (192, 64, 100, False, 1)]
 
 
 def _k1_geometry(cfg: AlignerConfig) -> dict:
@@ -701,8 +829,9 @@ def _k1_geometry(cfg: AlignerConfig) -> dict:
 
 
 def _k1_cases():
-    """(kernel, config, lanes) of ``K1_GRID``, in phase k1_grid's order."""
-    for W, O, k, early_term, lanes in K1_GRID:
+    """(kernel, config, lanes) of ``K1_GRID`` and ``K1_WIDE_GRID``, in
+    phase k1_grid's order."""
+    for W, O, k, early_term, lanes in K1_GRID + K1_WIDE_GRID:
         yield "tb_fused", AlignerConfig(W=W, O=O, k=k,
                                         early_term=early_term), lanes
 
@@ -730,15 +859,17 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
 
 def phase_k1_occupancy(usage: dict) -> dict:
     """Per K1 instantiation of the default ladder, of W = 96 and 128 at
-    k = 48 (fewer lanes a block) and of KP = 128 (W = 96, k = 64; W = 128,
-    k = 96: the band in device memory): its block, the dynamic shared bytes a
+    k = 48 (fewer lanes a block), of KP = 128 (W = 96, k = 64; W = 128,
+    k = 96: the band in device memory) and of NW = 5..8 (``K1_WIDE_GRID``'s
+    37-lane cases, one a (NW, KP, NWB)): its block, the dynamic shared bytes a
     block asks for and the instantiation's limit as the card reports it,
     active blocks per SM on this card, and ptxas's registers and spills.
     Returns the rows of the default ladder's k (12, 24, 48)."""
     out = {}
+    wide = [case[:3] for case in K1_WIDE_GRID if case[4] == 37]
     for W, O, k in ((32, 12, 5), (32, 12, 20), (64, 24, 12), (64, 24, 15),
                     (64, 24, 24), (64, 24, 48), (96, 36, 48),
-                    (128, 48, 48), (96, 36, 64), (128, 48, 96)):
+                    (128, 48, 48), (96, 36, 64), (128, 48, 96), *wide):
         cfg = AlignerConfig(W=W, O=O, k=k)
         row = _k1_geometry(cfg)
         blocks, limit = genasm_dc.tb_fused_occupancy(
@@ -747,6 +878,9 @@ def phase_k1_occupancy(usage: dict) -> dict:
             raise AssertionError(f"K1 W={W} k={k}: the card allows {limit} "
                                  f"B of dynamic shared memory, a block asks "
                                  f"for {row['shared_bytes']}")
+        if blocks == 0:
+            raise AssertionError(f"K1 W={W} k={k}: no block of "
+                                 f"{row['threads']} threads fits an SM")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
                    ptxas=usage.get(_instantiation("tb_fused", cfg)))
         emit("k1_occupancy", **row)
@@ -756,8 +890,9 @@ def phase_k1_occupancy(usage: dict) -> dict:
 
 
 #: K3's grid: K1's (K3 has K1's (NW, KP, NWB) instantiations), each in
-#: both band placements, at 37 and 1 lanes
-K3_GRID = [case for case in K1_GRID if case[4] < 2048]
+#: both band placements at NW <= 4 and in ``K3_PLACEMENT``'s at NW = 5..8,
+#: at 37 and 1 lanes
+K3_GRID = [case for case in K1_GRID + K1_WIDE_GRID if case[4] < 2048]
 
 
 def _k3_cases(timed_lanes=(2048, 4096)):
@@ -768,6 +903,14 @@ def _k3_cases(timed_lanes=(2048, 4096)):
     for W, O, k, early_term, lanes in K3_GRID + timed:
         yield "dc_band", AlignerConfig(W=W, O=O, k=k,
                                        early_term=early_term), lanes
+
+
+def _k3_placements(cfg: AlignerConfig) -> tuple:
+    """K3's band placements instantiated for `cfg`: both at NW <= 4, the
+    one ``K3_PLACEMENT`` names at NW = 5..8."""
+    if cfg.nw <= genasm_dc.NARROW_NW:
+        return K3_PLACEMENTS
+    return (genasm_dc.K3_PLACEMENT[genasm_dc.levels_bucket(cfg.k)],)
 
 
 def phase_k3_grid(device: torch.device, reps: int = 20,
@@ -789,7 +932,7 @@ def phase_k3_grid(device: torch.device, reps: int = 20,
         inputs, kw, cols = _case("dc_band", cfg, lanes, rng, device)
         ref, plain_ms, plain_on = _reference("dc_band", inputs, kw, device,
                                              refs, cfg, lanes)
-        for placement in K3_PLACEMENTS:
+        for placement in _k3_placements(cfg):
             geo, geo_row = _k3_geometry(cfg, placement, usage)
             call = k3_launcher(cfg, geo, inputs)
             got = call()
@@ -840,6 +983,23 @@ TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (96, 36, 64, "auto", "tail_full"),
              (128, 48, 64, "band", "tail_banded"),
              (128, 48, 96, "full", "tail_full")]
+#: the tails' grid at NW = 5..8: every (NW, KP, NWB) instantiation of
+#: tail_fused_wide.cu (device memory only): 'auto' at K1's ks (K2 where the
+#: band is narrower than the vector, else K4), 'full' for K4 at KP = 16,
+#: 32 and 64, and K2 with the whole vector as its band ('band', W = 144,
+#: k = 128); at 37 lanes, and a few at 1 lane
+TAIL_WIDE_GRID = [
+    (*WIDE_WIDTHS[nw], k, "auto") for nw in WIDE_WIDTHS
+    for k in _wide_ks(nw)] + [
+    (*WIDE_WIDTHS[nw], k, "full") for nw in WIDE_WIDTHS
+    for k in (12, 24, 48) if nw > 5 or k < 48] + [
+    (144, 48, 128, "band")]
+TAIL_WIDE_GRID = [(W, O, k, store, "tail_banded" if AlignerConfig(
+    W=W, O=O, k=k, tail_store=store).tail_banded else "tail_full")
+    for W, O, k, store in TAIL_WIDE_GRID]
+TAIL_WIDE_ONE = [(256, 96, 240, "auto", "tail_full"),
+                 (144, 48, 12, "auto", "tail_banded"),
+                 (208, 72, 80, "auto", "tail_banded")]
 #: the main path's tails, timed at 2,048 lanes in both placements
 TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
               (64, 24, 24, "auto", "tail_full"),
@@ -851,8 +1011,9 @@ def _tail_cases(lane_counts=(37, 1, 2048)):
     below 2,048 and ``TAIL_TIMED`` at the others, in phase tail_grid's
     order."""
     for lanes in lane_counts:
+        wide = TAIL_WIDE_GRID if lanes > 1 else TAIL_WIDE_ONE
         for W, O, k, tail_store, name in (TAIL_TIMED if lanes >= 2048
-                                          else TAIL_GRID):
+                                          else TAIL_GRID + wide):
             yield name, AlignerConfig(W=W, O=O, k=k,
                                       tail_store=tail_store), lanes
 
@@ -878,7 +1039,10 @@ def phase_tail_grid(device: torch.device, reps: int = 20,
         inputs, kw, cols = _case(name, cfg, lanes, rng, device)
         ref, plain_ms, plain_on = _reference(name, inputs, kw, device,
                                              refs, cfg, lanes)
-        for placement in PLACEMENTS:
+        places = (PLACEMENTS if cfg.nw <= genasm_dc.NARROW_NW else
+                  (genasm_dc.TAIL_PLACEMENT[(cfg.nw,
+                                             genasm_dc.levels_bucket(k))],))
+        for placement in places:
             try:
                 geo, geo_row = _tail_geometry(name, cfg, placement, usage)
             except ValueError as exc:       # the lane fits no block
@@ -1213,6 +1377,13 @@ def _cuda_equals_cpu(device, backend, reads, refs, cfg=None, what="",
 WIDE_CFG = AlignerConfig(W=128, O=42, k=15)
 WIDE_ROUNDS = 3
 WIDE_BATCH = (3, 200, 1, 64)
+#: the W = 256 ladder of phase end_to_end: k = 30 -> 60 -> 120 -> 240
+#: (KP = 32, 64, 128, 256; NW = 8), and its batch: 8 reads of 500 bp, the
+#: lane with a 128-base insertion that only k = 240 aligns; the same 8
+#: pairs then pass through a bucket-mode session
+W256_CFG = AlignerConfig(W=256, O=96, k=30)
+W256_ROUNDS = 3
+W256_BATCH = (8, 500, 1, 128)
 
 
 def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
@@ -1224,7 +1395,9 @@ def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
     ``lane_tile=2816`` (what the reference's ``lane_tile='auto'`` gives at
     the default geometry: a pad unit, no block size) on `tile_pairs`
     reads; each backend on the W = 128 ladder (``WIDE_CFG``,
-    ``WIDE_ROUNDS``, ``WIDE_BATCH``) with one read only k = 120 aligns."""
+    ``WIDE_ROUNDS``, ``WIDE_BATCH``) with one read only k = 120 aligns,
+    and on the W = 256 ladder (``W256_CFG``, ``W256_ROUNDS``,
+    ``W256_BATCH``) with one read only k = 240 aligns."""
     genome = synth_genome(1_000_000, seed=7)
     rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                        seed=7))
@@ -1243,6 +1416,12 @@ def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
     reads, refs = _with_burst(wide, lane, burst, seed=5)
     cases += [(f"w128_{backend}", backend, reads, refs, WIDE_CFG,
                WIDE_ROUNDS) for backend in PATH_KERNELS]
+    n_wide, wide_len, lane, burst = W256_BATCH
+    wide = simulate_reads(genome, n_wide, ReadSimConfig(read_len=wide_len,
+                                                        seed=11))
+    reads, refs = _with_burst(wide, lane, burst, seed=5)
+    cases += [(f"w256_{backend}", backend, reads, refs, W256_CFG,
+               W256_ROUNDS) for backend in PATH_KERNELS]
     return cases
 
 
@@ -1260,18 +1439,29 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
     """Every case of ``end_to_end_cases`` on `device` against the same on
     the CPU, every field equal, and the ladder counts: the burst read of
     ``three_rungs`` takes k = 48 (``rounds_run == 3``), that of the W =
-    128 cases k = 120 (``rounds_run == 4``).  `cpu`: a future of
-    ``end_to_end_cpu`` at these sizes, else the CPU runs here."""
+    128 cases k = 120 (``rounds_run == 4``), that of the W = 256 cases
+    k = 240 (``rounds_run == 4``, on the card K1 and K4, or K3, launched at
+    KP = 256: ``_launched_kps``).  After ``w256_fused`` the same pairs
+    pass through a bucket-mode session (``plan(W256_CFG,
+    rescue_rounds=3)``), every record equal to the card's aligner
+    (``_session_pass``).  `cpu`: a future of ``end_to_end_cpu`` at these
+    sizes, else the CPU runs here."""
     sizes = dict(n_pairs=n_pairs, read_len=read_len, tile_pairs=tile_pairs,
                  tile_read_len=tile_read_len)
     cpu = cpu.result() if cpu is not None else end_to_end_cpu(**sizes)
     want_k = {"three_rungs": (min(5, n_pairs - 1), 48, 3),
               "w128_fused": (WIDE_BATCH[2], 120, 4),
-              "w128_split": (WIDE_BATCH[2], 120, 4)}
+              "w128_split": (WIDE_BATCH[2], 120, 4),
+              "w256_fused": (W256_BATCH[2], 240, 4),
+              "w256_split": (W256_BATCH[2], 240, 4)}
+    #: the kernels each W = 256 case must launch at KP = 256
+    want_kp256 = {"w256_fused": ("tb_fused", "tail_full"),
+                  "w256_split": ("dc_band",)}
     for name, backend, reads, refs, cfg, rounds in end_to_end_cases(**sizes):
-        res, run, seconds = _cuda_equals_cpu(
-            device, backend, reads, refs, cfg, f", {name}", rounds,
-            cpu[name])
+        with _launched_kps() as kps:
+            res, run, seconds = _cuda_equals_cpu(
+                device, backend, reads, refs, cfg, f", {name}", rounds,
+                cpu[name])
         if name in want_k:
             lane, k, n_rounds = want_k[name]
             if (run["rounds_run"] != n_rounds or res.k_used[lane] != k
@@ -1279,12 +1469,46 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
                 raise AssertionError(f"{name}: the burst read did not take "
                                      f"the k={k} rung: {run}, k_used "
                                      f"{res.k_used[lane]}")
+        missing = [kernel for kernel in want_kp256.get(name, ())
+                   if device.type == "cuda" and (kernel, 256) not in kps]
+        if missing:
+            raise AssertionError(f"{name}: {missing} not launched at KP = "
+                                 f"256: {sorted(kps)}")
         emit("end_to_end", backend=backend, case=name, pairs=len(reads),
              read_len=len(reads[0]), equal=True, seconds=seconds,
              k_used=res.k_used.tolist(), failed_share=float(
                  res.failed.mean()),
              launches=run.get("launches"),
+             launches_by_kp={f"{kernel}@{kp}": n
+                             for (kernel, kp), n in sorted(kps.items())},
              **{key: run[key] for key in ("rounds_run", "levels_run_total")})
+        if name == "w256_fused":
+            _session_pass("w256", plan(W256_CFG, rescue_rounds=W256_ROUNDS,
+                                       batch_lanes=len(reads),
+                                       cache="private", device=device),
+                          reads, refs, res, device, phase="end_to_end")
+
+
+#: where each wrapper's C entry point takes k among its integer arguments
+_K_ARG = {"tb_fused": 3, "tail_banded": 4, "tail_full": 4, "dc_band": 3}
+
+
+@contextlib.contextmanager
+def _launched_kps():
+    """Within this context, count every kernel launch by (kernel, KP): a
+    spy on ``genasm_dc._launch``, through which every wrapper launches."""
+    counts = {}
+    inner = genasm_dc._launch
+
+    def spy(name, *tensors, ints, block=()):
+        key = (name, genasm_dc.levels_bucket(ints[_K_ARG[name]]))
+        counts[key] = counts.get(key, 0) + 1
+        return inner(name, *tensors, ints=ints, block=block)
+    genasm_dc._launch = spy
+    try:
+        yield counts
+    finally:
+        genasm_dc._launch = inner
 
 
 # ---- phase 5b: the pair axis sharded over a mesh ----
@@ -4466,17 +4690,17 @@ def main() -> None:
 
     smi = phase_device()
     cuda = torch.device("cuda")
-    # three worker processes simulate the main batch (~20 s of Python) and
-    # the pairs of phases session and graphs (~17 s), and run on the CPU
-    # the grids' untimed plain versions (~60 s of launches on the card)
-    # and the CPU sides of phases end_to_end, session and mapper (~80 s),
+    # three worker processes run on the CPU the grids' untimed plain
+    # versions first (the grids wait on them), simulate the main batch
+    # (~20 s of Python) and the pairs of phases session and graphs (~17
+    # s), and run the CPU sides of phases end_to_end, session and mapper,
     # and phase train_dp's leg (b) ranks start up (and then wait), while
     # the kernels build and the grids run
     sim = concurrent.futures.ProcessPoolExecutor(
         3, mp_context=multiprocessing.get_context("spawn"),
         initializer=_worker_init)
-    batch = sim.submit(_simulated, long_reads)
     refs = {grid: sim.submit(_plain_refs, grid) for grid in GRID_SEEDS}
+    batch = sim.submit(_simulated, long_reads)
     split_profile = sim.submit(long_reads, 512, read_len=300)
     e2e_cpu = sim.submit(end_to_end_cpu)
     streams = {"session": sim.submit(session_stream),
@@ -4502,16 +4726,37 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def _families(usage: dict, name: str) -> dict:
+    """Kernel `name`'s instantiations in the build, by family: "NW 1-4"
+    (W <= 128, the source in ``SOURCES``) and "NW 5-8" (W = 129..256,
+    its ``*_wide.cu``), as ptxas reports them (K2 and K4 share one
+    template)."""
+    template = {"tb_fused": "tb_fused", "dc_band": "dc_band"}.get(
+        name, "tail_fused")
+    out = {"NW 1-4": 0, "NW 5-8": 0}
+    for key in usage:
+        m = re.match(rf"{template}<NW=(\d+),", key)
+        if m:
+            out["NW 1-4" if int(m.group(1)) <= genasm_dc.NARROW_NW
+                else "NW 5-8"] += 1
+    return out
+
+
 def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
             e2e_cpu, streams, leg_b, leg_e) -> list:
     """Every phase after ``phase_device``, in order; returns the
     ``kernels`` line's entries."""
     usage = timed("build", phase_build)
     rows = timed("kernel", phase_kernels, cuda, usage=usage)
-    timed("k1_grid", phase_k1_grid, cuda, refs=refs["k1"])
+    grids = {"tb_fused": timed("k1_grid", phase_k1_grid, cuda,
+                               refs=refs["k1"])}
     occupancy = timed("k1_occupancy", phase_k1_occupancy, usage)
-    timed("tail_grid", phase_tail_grid, cuda, usage=usage, refs=refs["tail"])
-    timed("k3_grid", phase_k3_grid, cuda, usage=usage, refs=refs["k3"])
+    tails = timed("tail_grid", phase_tail_grid, cuda, usage=usage,
+                  refs=refs["tail"])
+    grids.update({name: [r for r in tails if r["name"] == name]
+                  for name in ("tail_banded", "tail_full")})
+    grids["dc_band"] = timed("k3_grid", phase_k3_grid, cuda, usage=usage,
+                             refs=refs["k3"])
     rs, sim_s = timed("batch", batch.result)
     emit("batch", pairs=len(rs.reads), read_len=len(rs.reads[0]),
          sim_s=sim_s, waited_s=phase_s["batch"])
@@ -4559,8 +4804,10 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
                     "blocks_per_sm", "lanes_per_block")})
         entry = dict(
             name=name, route="cuda", source=SOURCES[name], replaces=replaces,
+            sources=WIDE_SOURCES[name], instantiations=_families(usage, name),
             launches=launches[name],
-            max_abs_err=max(r["max_abs_err"] for r in own),
+            max_abs_err=max(r["max_abs_err"] for r in own + grids[name]
+                            if r["max_abs_err"] is not None),
             ms=base["ms"], plain_ms=base["plain_ms"],
             bound_ms=base["bound_ms"], bound_by=base["bound_by"],
             library_ms=None, W=base["W"], k=base["k"], lanes=base["lanes"],
@@ -4575,6 +4822,8 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
                                       placement=r.get("placement"),
                                       store_bytes_per_lane=r.get(
                                           "store_bytes_per_lane"),
+                                      blocks_per_sm=r.get("blocks_per_sm"),
+                                      lanes=r["lanes"],
                                       ptxas=r.get("ptxas")) for r in wide]
         kernels.append(entry)
     gate = next(r for r in rows if r["name"] == "ladder_gate")

@@ -20,8 +20,9 @@ reference's versions model its Triton path, a register model):
 
   * K1 (``tb_fused_geometry``): the DENT band in the block's dynamic
     shared memory, (k+1) x ncols_band x nwb words a lane plus row and bank
-    pads, or at k >= 64 in device memory in the skewed (ncols_band + rows0
-    - 1) x L x nwb x rows0 layout (``gpu_store_words``).
+    pads, or at k >= 64 or W > 128 in device memory in the skewed
+    (ncols_band + rows0 - 1) x L x nwb x rows0 layout
+    (``gpu_store_words``).
   * K2 / K4 (``tail_geometry``): the tail's store in shared memory or in
     device memory, whichever ``TAIL_PLACEMENT`` names; in device memory
     the skewed (n_text + rows0 - 1) x L x nwb x rows0 layout
@@ -106,8 +107,8 @@ def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
     """Words of K1's DENT band for `tile` lanes, wherever
     ``tb_fused_geometry`` places it: in the block's dynamic shared memory
     per lane k+1 rows of ncols_band x nwb words, with the row and bank
-    pads; in device memory (KP = 128) the skewed (ncols_band + rows0 - 1)
-    x L x nwb x rows0 layout.  The reference's Triton path kept the same
+    pads; in device memory (KP >= 128, or W > 128) the skewed
+    (ncols_band + rows0 - 1) x L x nwb x rows0 layout.  The reference's Triton path kept the same
     band unpadded in device memory (``kernel_scratch_words``)."""
     geo = tb_fused_geometry(cfg)
     return (geo.band_words or geo.store_words) * tile

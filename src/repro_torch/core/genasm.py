@@ -48,10 +48,13 @@ def _boundary_bits(j: int, d):
 
 
 def _lookup_pm(pm, codes_j):
-    """pm: (B, n_sym+1, NW); codes_j: (B,) -> (B, NW).  Out-of-alphabet
-    (sentinel) text chars map to the all-ones mask (row n_sym)."""
+    """pm: (B, n_sym+1, NW); codes_j: (B, ...) -> (B, ..., NW).
+    Out-of-alphabet (sentinel) text chars map to the all-ones mask (row
+    n_sym)."""
+    B, _, nw = pm.shape
     idx = torch.clamp(codes_j.long(), 0, pm.shape[1] - 1)
-    return torch.gather(pm, 1, idx[:, None, None].expand(-1, 1, pm.shape[2]))[:, 0]
+    return torch.gather(pm, 1, idx.reshape(B, -1, 1).expand(-1, -1, nw)
+                        ).reshape(*idx.shape, nw)
 
 
 def _dist_from_final(r_final, m_len, k: int):
@@ -67,39 +70,44 @@ def jmajor_columns(pm, text_codes, n_len, *, k: int, edges: bool = False):
     every level of column j from column j-1, columns past a problem's
     n_len frozen at their left neighbour.  pm: (B, n_sym+1, NW) words.
     Returns R (n+1, B, k+1, NW) and, with ``edges``, the M/S/D/I edge
-    vectors (n+1, B, k+1, NW, 4), all ones where not computed."""
+    vectors (n+1, B, k+1, NW, 4), all ones where not computed.
+
+    The cells run in wavefront order, the order of the kernels' systolic
+    fill: at step s level d computes column j = s - d from its own column
+    j-1 and level d-1's columns j and j-1 (one and two steps old), so a
+    step is every level at once and the fill takes n + k steps, not
+    n x k."""
     B, _, nw = pm.shape
     n = text_codes.shape[1]
     dev = pm.device
     d_ar = torch.arange(k + 1, device=dev)
-    r = ones_below(d_ar, nw, dev).expand(B, k + 1, nw)
-    full = torch.full((B, nw), 0xFFFFFFFF, dtype=torch.int64, device=dev)
-    cols, edge_cols = [r], []
-    for j in range(1, n + 1):
-        pm_j = _lookup_pm(pm, text_codes[:, j - 1])[:, None, :]   # (B,1,NW)
-        bM, bS, bI = _boundary_bits(j, d_ar)
-        M = shift1(r, bM[None, :, None]) | pm_j
-        S = shift1(r[:, :-1], bS[None, 1:, None])
-        D = r[:, :-1]
-        rows = [M[:, 0]]
-        Is = [full]
-        for d in range(1, k + 1):
-            Is.append(shift1(rows[d - 1], int(j - 1 >= d - 1)))
-            rows.append(M[:, d] & S[:, d - 1] & D[:, d - 1] & Is[d])
-        live = (j <= n_len)[:, None, None]
-        r = torch.where(live, torch.stack(rows, dim=1), r)
-        cols.append(r)
+    cur = ones_below(d_ar, nw, dev).expand(B, k + 1, nw).contiguous()
+    prev = cur
+    R = torch.empty((n + 1, B, k + 1, nw), dtype=torch.int64, device=dev)
+    R[0] = cur
+    E = (torch.full((n + 1, B, k + 1, nw, 4), 0xFFFFFFFF, dtype=torch.int64,
+                    device=dev) if edges else None)
+    ones = torch.full((B, 1, nw), 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    live_len = n_len.long()[:, None]
+    for s in range(1, n + k + 1):
+        j = s - d_ar                                   # (k+1,) columns
+        pm_j = _lookup_pm(pm, text_codes[:, torch.clamp(j - 1, 0, n - 1)])
+        bM, bS, bI = _boundary_bits(j[:, None], d_ar[:, None])
+        below_new = torch.cat([ones, cur[:, :-1]], 1)  # R_j[d-1]
+        below_old = torch.cat([ones, prev[:, :-1]], 1)  # R_{j-1}[d-1]
+        M = shift1(cur, bM) | pm_j
+        S = shift1(below_old, bS)
+        I = shift1(below_new, bI)
+        on = (j >= 1) & (j <= n)
+        live = (on & (j <= live_len))[..., None]       # (B, k+1, 1)
+        prev = cur
+        cur = torch.where(live, M & S & below_old & I, cur)
+        R[j[on], :, d_ar[on]] = cur[:, on].transpose(0, 1)
         if edges:
-            fill = full[:, None].expand(B, 1, nw)
-            e = torch.stack([M, torch.cat([fill, S], 1), torch.cat([fill, D], 1),
-                             torch.stack(Is, 1)], dim=-1)
-            edge_cols.append(torch.where(live[..., None], e, 0xFFFFFFFF))
-    R = torch.stack(cols)
-    if not edges:
-        return R, None
-    ones = torch.full((1, B, k + 1, nw, 4), 0xFFFFFFFF, dtype=torch.int64,
-                      device=dev)
-    return R, torch.cat([ones, torch.stack(edge_cols)])
+            e = torch.where(live[..., None],
+                            torch.stack([M, S, below_old, I], -1), 0xFFFFFFFF)
+            E[j[on], :, d_ar[on]] = e[:, on].transpose(0, 1)
+    return R, E
 
 
 def dc_jmajor(pat_codes, text_codes, m_len, n_len, *, k: int, n: int,

@@ -1,12 +1,17 @@
 """Build and load the CUDA kernels (``csrc/*.cu``).
 
-At first use each source (``tb_fused.cu``: K1, ``tail_fused.cu``: K2 and
-K4, ``dc_band.cu``: K3, all three including ``genasm_common.cuh``;
-``ladder_graph.cu``: the rescue ladder's gate kernel and its conditional
-graph) is compiled by
-its own ``nvcc``, all started together, and the objects are linked into one
-shared library with a plain C interface (no PyTorch headers, so the build
-takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
+At first use each source is compiled by its own ``nvcc``, all started
+together: ``tb_fused.cu`` (K1), ``tail_fused.cu`` (K2 and K4) and
+``dc_band.cu`` (K3), each with the C entry points and the kernel's
+instantiations at NW = 1..4 (W <= 128); ``tb_fused_wide.cu``,
+``tail_fused_wide.cu`` and ``dc_band_wide.cu``, the instantiations at NW =
+5..8 (W = 129..256), which the entry points reach through
+``k1_kernel_wide`` / ``tail_kernel_wide`` / ``k3_kernel_wide``; each pair
+includes its kernel's body (``tb_fused.cuh``, ``tail_fused.cuh``,
+``dc_band.cuh``, all three ``genasm_common.cuh``); and ``ladder_graph.cu``,
+the rescue ladder's gate kernel and its conditional graph.  The objects
+are linked into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a hash of the sources and the flags, so an edited
 source rebuilds.  The library is loaded with ``ctypes``; pointers and the
 stream pass as ``c_void_p``, integers as ``c_int``.  ``ptxas``'s report
@@ -17,6 +22,7 @@ Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -29,8 +35,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
                 for name in ("tb_fused", "tail_fused", "dc_band",
-                             "ladder_graph"))
-HEADERS = (CSRC / "genasm_common.cuh",)
+                             "tb_fused_wide", "tail_fused_wide",
+                             "dc_band_wide", "ladder_graph"))
+HEADERS = tuple(CSRC / f"{name}.cuh"
+                for name in ("genasm_common", "tb_fused", "tail_fused",
+                             "dc_band"))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
@@ -88,18 +97,26 @@ def library_path() -> Path:
 def compile_sources(sources, out_dir: Path, flags=NVCC_FLAGS) -> dict:
     """Compile each source into an object in `out_dir`, one ``nvcc`` each,
     all started together.  Returns {source name: (object, nvcc's output,
-    seconds)}; raises if any fails."""
+    seconds until that nvcc ended)}; raises if any fails."""
     out_dir.mkdir(parents=True, exist_ok=True)
+    start = time.perf_counter()
     procs = {}
     for src in sources:
         obj = out_dir / f"{Path(src).stem}.{os.getpid()}.o"
-        procs[Path(src).name] = (obj, time.perf_counter(), subprocess.Popen(
+        procs[Path(src).name] = (obj, subprocess.Popen(
             [_nvcc(), *flags, "-c", "-o", str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    done, failed = {}, []
-    for name, (obj, start, proc) in procs.items():
+
+    def wait(proc):         # one thread a process: each nvcc's own end
         log = proc.communicate()[0]
-        done[name] = (obj, log, time.perf_counter() - start)
+        return log, time.perf_counter() - start
+    with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+        ended = {name: pool.submit(wait, proc)
+                 for name, (_, proc) in procs.items()}
+    done, failed = {}, []
+    for name, (obj, proc) in procs.items():
+        log, seconds = ended[name].result()
+        done[name] = (obj, log, seconds)
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name} ({proc.returncode}):\n"
                           f"{log}")

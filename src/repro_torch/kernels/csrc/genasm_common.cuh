@@ -1,5 +1,5 @@
 // Device helpers shared by the GenASM kernels for Hopper (sm_90a):
-// tb_fused.cu (K1), tail_fused.cu (K2, K4) and dc_band.cu (K3), among
+// tb_fused.cuh (K1), tail_fused.cuh (K2, K4) and dc_band.cuh (K3), among
 // them the wavefront fill all four run (wavefront_fill).
 //
 // Layout: every global array is lane-innermost, element (r, lane) at
@@ -336,7 +336,7 @@ __device__ __forceinline__ int level_count(int dist, int k, int early_term) {
 // Live-column capacity: the smallest instantiated KP >= k + 1.
 int levels_bucket(int k) {
   return k + 1 <= 16 ? 16 : k + 1 <= 32 ? 32 : k + 1 <= 64 ? 64
-       : k + 1 <= 128 ? 128 : 0;
+       : k + 1 <= 128 ? 128 : k + 1 <= 256 ? 256 : 0;
 }
 
 // The smallest count >= words that is 16 mod 32: a lane stride of 16 mod

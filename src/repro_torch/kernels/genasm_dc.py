@@ -37,9 +37,12 @@ tails keep their store in shared or device memory, whichever
 ``TAIL_PLACEMENT`` names; K3 writes its band out through a ring in shared
 memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 ``cfg.lane_tile`` sets no block: it is only the batch pad unit
-(``kernels.ops``).  The kernels are instantiated for W <= 128 and every
-k < W (level capacities KP = 16, 32, 64, 128); a wider window raises
-ValueError on the card.
+(``kernels.ops``).  The kernels are instantiated for W <= 256 and every
+k < W (level capacities KP = 16, 32, 64, 128, 256; NW = 1..8 words a
+bitvector, NW = 5..8 in translation units of their own,
+``csrc/*_wide.cu``); a wider window raises ValueError on the card.  A
+block's threads are capped by its instantiation's registers
+(``REGISTERS``: ptxas's count, 65,536 a block).
 
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
 it runs the kernel's plain PyTorch version (vectorised over lanes, the
@@ -136,8 +139,8 @@ def _pm_words(pm):
 
 def _fill(pmw, text, n_len, k: int):
     """All columns of every level, (n+1, B, k+1, NW), columns past a
-    lane's n_len frozen: the same column-major SENE recurrence the kernels
-    run.  text: (n, B) kernel layout."""
+    lane's n_len frozen: the SENE recurrence the kernels run, in their
+    wavefront order.  text: (n, B) kernel layout."""
     return jmajor_columns(pmw, text.T.long(), n_len, k=k)[0]
 
 
@@ -376,16 +379,75 @@ PLACEMENTS = ("shared", "global")   #: K1's band and the tails' store, in
 #: and K4 share it.  Shared memory wins only where a lane's store is small
 #: (KP = 16 at NW <= 2, and NW = 1); global wherever one lane's store does
 #: not fit a block.
+#: At NW = 5..8 (W = 129..256) only "global" is instantiated: it won at
+#: every NW >= 3 of the sweep, and a lane's store there is 0.1-10 MB.
 TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
                   (2, 16): "shared", (2, 32): "global", (2, 64): "global",
                   (3, 16): "global", (3, 32): "global", (3, 64): "global",
                   (4, 16): "global", (4, 32): "global", (4, 64): "global",
-                  (3, 128): "global", (4, 128): "global"}
-#: where K1 keeps a lane's DENT band, by KP: in shared memory up to KP = 64;
-#: at KP = 128 (k >= 64, W = 96 or 128) one lane's band, (k+1) x ncols_band x
-#: nwb words, is 134,160 B at W = 128, k = 64 and 264,192 B at k = 127, so it
-#: goes to device memory, in the tails' skewed global layout (tb_fused.cu)
-K1_PLACEMENT = {16: "shared", 32: "shared", 64: "shared", 128: "global"}
+                  (3, 128): "global", (4, 128): "global",
+                  **{(nw, kp): "global" for nw in range(5, 9)
+                     for kp in (16, 32, 64, 128, 256)}}
+#: where K1 keeps a lane's DENT band, by (NW, KP): in shared memory up to
+#: KP = 64 at NW <= 4; at KP = 128 (k >= 64, W = 96 or 128) one lane's
+#: band, (k+1) x ncols_band x nwb words, is 134,160 B at W = 128, k = 64
+#: and 264,192 B at k = 127, so it goes to device memory, in the tails'
+#: skewed global layout (tb_fused.cu).  At NW = 5..8 (W = 129..256) device
+#: memory at every KP: at KP >= 64 one lane's band fits no block (289 KB at
+#: W = 256, O = 96, k = 63); at KP = 16 and 32 a shared band (22.8-74.5 KB
+#: a lane) would leave 2-8 lanes an SM in one block of 149-191 KB, where
+#: the tails' sweep found device memory faster at every NW >= 3 (PERF.md
+#: section 6); only "global" is instantiated there.
+K1_PLACEMENT = {**{(nw, kp): "shared" if kp <= 64 else "global"
+                   for nw in range(1, 5) for kp in (16, 32, 64, 128)},
+                **{(nw, kp): "global" for nw in range(5, 9)
+                   for kp in (16, 32, 64, 128, 256)}}
+#: the widest NW whose instantiations cover every placement (W <= 128);
+#: at NW = 5..8 only the placement the tables name is built
+NARROW_NW = 4
+#: the widest NW instantiated: W <= 256.  A fill thread holds L x NW words
+#: of its levels (L = KP / 32 at KP >= 32) plus the pattern masks' 4 x NW;
+#: at W = 512 that is 16 x 16 = 256 words, past a thread's 255 registers
+MAX_NW = 8
+
+#: registers of one block (and of one SM) on an H100
+MAX_BLOCK_REGISTERS = 65_536
+#: registers a thread of each kernel's instantiations takes, by (NW, KP):
+#: ptxas's count (``-Xptxas -v``, the build's report), the most over NWB
+#: and placement (CUDA 12.8, sm_90a; PERF.md section 6).  None spills; the
+#: most is 215 (K1 at NW = 8, KP = 256).
+#: A block's threads are capped so that they hold their registers
+#: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
+#: more than this table.
+REGISTERS = {
+    "tb_fused": {(1, 16): 32, (1, 32): 32, (2, 16): 40, (2, 32): 40,
+                 (2, 64): 45, (3, 16): 53, (3, 32): 53, (3, 64): 55,
+                 (3, 128): 70, (4, 16): 63, (4, 32): 63, (4, 64): 71,
+                 (4, 128): 96,
+                 (5, 16): 64, (5, 32): 64, (5, 64): 96, (5, 128): 94,
+                 (5, 256): 155, (6, 16): 69, (6, 32): 69, (6, 64): 109,
+                 (6, 128): 115, (6, 256): 162, (7, 16): 75, (7, 32): 77,
+                 (7, 64): 110, (7, 128): 128, (7, 256): 199, (8, 16): 89,
+                 (8, 32): 94, (8, 64): 117, (8, 128): 152, (8, 256): 215},
+    "tail": {(1, 16): 42, (1, 32): 42, (2, 16): 48, (2, 32): 48,
+             (2, 64): 47, (3, 16): 61, (3, 32): 61, (3, 64): 62,
+             (3, 128): 72, (4, 16): 71, (4, 32): 74, (4, 64): 80,
+             (4, 128): 96,
+             (5, 16): 68, (5, 32): 68, (5, 64): 78, (5, 128): 95,
+             (5, 256): 149, (6, 16): 72, (6, 32): 72, (6, 64): 98,
+             (6, 128): 118, (6, 256): 154, (7, 16): 80, (7, 32): 80,
+             (7, 64): 108, (7, 128): 123, (7, 256): 195, (8, 16): 93,
+             (8, 32): 93, (8, 64): 114, (8, 128): 146, (8, 256): 212},
+    "dc_band": {(1, 16): 37, (1, 32): 37, (2, 16): 37, (2, 32): 37,
+                (2, 64): 48, (3, 16): 52, (3, 32): 46, (3, 64): 56,
+                (3, 128): 64, (4, 16): 54, (4, 32): 57, (4, 64): 68,
+                (4, 128): 80,
+                (5, 16): 62, (5, 32): 64, (5, 64): 84, (5, 128): 107,
+                (5, 256): 149, (6, 16): 69, (6, 32): 69, (6, 64): 98,
+                (6, 128): 112, (6, 256): 168, (7, 16): 77, (7, 32): 86,
+                (7, 64): 110, (7, 128): 122, (7, 256): 195, (8, 16): 90,
+                (8, 32): 89, (8, 64): 112, (8, 128): 142, (8, 256): 213},
+}
 
 
 #: K3's band placements, in C's numbering: "staged" through a ring of
@@ -402,10 +464,18 @@ K3_PLACEMENTS = ("staged", "direct")
 #: the band fits L2), staged at KP = 32, 64 and 128 (2.0x to 12x).  The
 #: chunk is the number of wavefront steps between two write-outs of the
 #: ring (a power of two); at KP = 128, NW = 4 a ring of 2 x 4 steps does
-#: not fit a 16-lane block, and chunks 1 and 2 were within 0.3 %.
+#: not fit a 16-lane block, and chunks 1 and 2 were within 0.3 %.  KP =
+#: 256 (k >= 128, W = 129..256) is staged too, at chunk 1: there a ring
+#: slot is 2,052 words a lane (NWB = 8, 8 lanes), so two slots of one step
+#: for 8 lanes are 131 KB; 16 lanes, or a chunk of 2, would be 262 KB, past
+#: a block.  The lanes halve while the ring does not fit or the registers
+#: cap the block (``_lanes``), and at NW = 5..8 only the placement named
+#: here is instantiated.
 K3_LANES = 16
-K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged", 128: "staged"}
-K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2}
+K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged", 128: "staged",
+                256: "staged"}
+K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2, 256: 1}
+K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2, 256: 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -451,20 +521,37 @@ class DcBandGeometry:
 
 def check_instantiated(cfg: AlignerConfig) -> None:
     """Raise ValueError unless the CUDA kernels are instantiated for
-    `cfg`: W <= 128 (four words a bitvector); every k < W is."""
-    if cfg.nw > 4:
+    `cfg`: W <= 256 (``MAX_NW`` = eight words a bitvector); every k < W
+    is."""
+    if cfg.nw > MAX_NW:
         raise ValueError(f"W={cfg.W} k={cfg.k}: the CUDA kernels are "
-                         f"instantiated for W <= 128")
+                         f"instantiated for W <= 256")
 
 
 def levels_bucket(k: int) -> int:
-    """KP: the smallest instantiated level capacity (16, 32, 64, 128) >=
-    k+1."""
-    for kp in (16, 32, 64, 128):
+    """KP: the smallest instantiated level capacity (16, 32, 64, 128, 256)
+    >= k+1."""
+    for kp in (16, 32, 64, 128, 256):
         if k + 1 <= kp:
             return kp
     raise ValueError(f"k={k}: the CUDA kernels are instantiated for "
-                     f"k + 1 <= 128")
+                     f"k + 1 <= 256")
+
+
+def registers(kernel: str, cfg: AlignerConfig) -> int:
+    """The registers a thread of `kernel`'s ("tb_fused", "tail" or
+    "dc_band") instantiation for `cfg` takes (``REGISTERS``)."""
+    check_instantiated(cfg)
+    return REGISTERS[kernel][(cfg.nw, levels_bucket(cfg.k))]
+
+
+def max_threads(kernel: str, cfg: AlignerConfig) -> int:
+    """The most threads (whole warps, <= 1,024) a block of `kernel`'s
+    instantiation for `cfg` may have: a warp's registers are allocated in
+    units of 256 (8 a thread), a block holds 65,536.  At 255 registers a
+    thread that is 256 threads, never less than a warp."""
+    per_warp = 32 * -(-registers(kernel, cfg) // 8) * 8
+    return min(1024, MAX_BLOCK_REGISTERS // per_warp * 32)
 
 
 def _half_bank_pad(words: int) -> int:
@@ -492,19 +579,31 @@ def _group(k: int) -> tuple[int, int]:
 
 
 def _lanes(threads: int | None, default: int, group: int, block_bytes,
-           what: str) -> int:
-    """Lanes per block: ``threads / G`` for the given whole-warp block,
-    else ``default / G`` halved while ``block_bytes(lanes)`` (the block's
-    shared bytes) exceeds the card's limit, down to one warp."""
+           what: str, cap: int) -> int:
+    """Lanes per block: ``threads / G`` for the given whole-warp block
+    (``_fit_registers`` checks it against `cap` once its other checks
+    pass), else ``default / G`` halved while the block exceeds `cap`, the
+    threads the instantiation's registers allow, or ``block_bytes(lanes)``
+    (the block's shared bytes) exceeds the card's limit, down to one warp
+    (`cap` is never less than a warp)."""
     if threads is not None:
         if threads % 32 or not 32 <= threads <= 1024:
             raise ValueError(f"threads={threads}: {what}'s block is whole "
                              f"warps, 32..1024 threads")
         return threads // group
     lanes = default // group
-    while block_bytes(lanes) > MAX_SHARED_BYTES and lanes * group > 32:
+    while lanes * group > cap or (block_bytes(lanes) > MAX_SHARED_BYTES
+                                  and lanes * group > 32):
         lanes //= 2
     return lanes
+
+
+def _fit_registers(threads: int, cap: int, what: str) -> None:
+    """Raise ValueError where a given block of `threads` exceeds `cap`,
+    the threads its instantiation's registers allow."""
+    if threads > cap:
+        raise ValueError(f"threads={threads}: {what}'s registers allow "
+                         f"{cap} threads a block (65,536 registers)")
 
 
 def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
@@ -515,18 +614,19 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     bytes exceed the card's 232,448 (W > 64), down to one warp; or
     ``threads / G`` for a given whole-warp block (the sweep tool; not
     checked against the limit).  The dynamic shared memory is the
-    kernel's layout: per lane the band where ``K1_PLACEMENT[KP]`` is
+    kernel's layout: per lane the band where ``K1_PLACEMENT[(NW, KP)]`` is
     "shared", k+1 rows of ``ncb * nwb`` words (plus one where that makes
     the row stride minus nwb even) padded to 16 mod 32 words, the text
     padded the same way, the staged ops and the lane's dist.  "global":
     the band in device memory instead, ``(ncb + rows0 - 1) * L * nwb *
     rows0`` words a lane, rows0 = ceil((k+1)/L) (the skewed layout of
     ``tb_fused.cu``).  Raises ValueError where one warp's lanes do not
-    fit."""
+    fit.  The block's threads are capped by the instantiation's registers
+    (``max_threads``)."""
     check_instantiated(cfg)
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
     group, levels = _group(cfg.k)
-    placement = K1_PLACEMENT[levels_bucket(cfg.k)]
+    placement = K1_PLACEMENT[(cfg.nw, levels_bucket(cfg.k))]
     band = store = 0
     if placement == "shared":
         band = _shared_store_words(cfg.k + 1, cfg.ncols_band, cfg.nwb)
@@ -534,12 +634,14 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
         rows0 = -(-(cfg.k + 1) // levels)
         store = (cfg.ncols_band + rows0 - 1) * levels * cfg.nwb * rows0
     lane_words = band + _half_bank_pad(cfg.W) + max_ops + 1
+    cap = max_threads("tb_fused", cfg)
     lanes = _lanes(threads, K1_THREADS, group,
-                   lambda n: 4 * n * lane_words, "K1")
+                   lambda n: 4 * n * lane_words, "K1", cap)
     if threads is None and 4 * lanes * lane_words > MAX_SHARED_BYTES:
         raise ValueError(f"W={cfg.W} k={cfg.k}: K1's {lanes} lane(s) of "
                          f"{4 * lane_words} B exceed a block's "
                          f"{MAX_SHARED_BYTES} B of shared memory")
+    _fit_registers(lanes * group, cap, "K1")
     return TbFusedGeometry(group=group, levels_per_thread=levels,
                            lanes=lanes, threads=lanes * group,
                            shared_bytes=4 * lanes * lane_words,
@@ -547,17 +649,29 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
                            store_words=store)
 
 
+def _uninstantiated_placement(cfg: AlignerConfig, placement: str,
+                              named: str, what: str) -> None:
+    """Raise ValueError where `placement` is not `named` (the table's) at
+    NW > ``NARROW_NW``, which instantiates only the table's placement."""
+    if cfg.nw > NARROW_NW and placement != named:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: {what} is instantiated "
+                         f"{named!r} only at W > 128, not {placement!r}")
+
+
 def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
                      placement: str | None = None,
                      chunk: int | None = None) -> DcBandGeometry:
     """K3's block for `cfg`: G = min(KP, 32) threads per lane with L = KP /
-    G levels each, ``K3_LANES`` lanes per block, or ``threads / G`` for a
-    given whole-warp block (the sweep tool), and the band's way out,
-    `placement` (default ``K3_PLACEMENT[KP]``).  The block's shared
-    memory holds per lane the text (W codes padded to 16 mod 32 words) and,
-    "staged", a ring of 2 x `chunk` (default ``K3_CHUNK[KP]``, a power of
-    two) wavefront steps, each lanes x lane_stride words, lane_stride =
-    KP * nwb rounded up to an odd multiple of 32 / min(lanes, 32) (the
+    G levels each, ``K3_LANES`` lanes per block (fewer where the
+    instantiation's registers cap the block, ``max_threads``, or its ring
+    does not fit the shared memory: halved, down to one warp), or
+    ``threads / G`` for a given whole-warp block (the sweep tool), and the
+    band's way out, `placement` (default ``K3_PLACEMENT[KP]``; at W > 128
+    only that one is instantiated).  The block's shared memory holds per
+    lane the text (W codes padded to 16 mod 32 words) and, "staged", a
+    ring of 2 x `chunk` (default ``K3_CHUNK[KP]``, a power of two)
+    wavefront steps, each lanes x lane_stride words, lane_stride = KP *
+    nwb rounded up to an odd multiple of 32 / min(lanes, 32) (the
     write-out's reads then fall in distinct banks).  "staged" needs 8 lanes a block
     or more, so that a band row leaves the block as a 32 B sector at
     least.  Raises ValueError for a block that does not fit."""
@@ -567,25 +681,34 @@ def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
                          f"{K3_PLACEMENTS}")
     group, levels = _group(cfg.k)
     kp = levels_bucket(cfg.k)
-    lanes = _lanes(threads, K3_LANES * group, group, lambda n: 0, "K3")
     placement = placement or K3_PLACEMENT[kp]
+    _uninstantiated_placement(cfg, placement, K3_PLACEMENT[kp], "K3")
     chunk = K3_CHUNK[kp] if chunk is None else chunk
     if not 1 <= chunk <= 64 or chunk & (chunk - 1):
         raise ValueError(f"chunk={chunk}: K3's ring takes a power of two "
                          f"steps, 1..64")
-    lane_stride = 0
-    if placement == "staged":
-        if lanes < 8:
-            raise ValueError(f"W={cfg.W} k={cfg.k}: K3's staged band needs "
-                             f"8 lanes a block or more (a row of 32 B), not "
-                             f"{lanes}")
-        lane_stride = _odd_multiple(kp * cfg.nwb, 32 // min(lanes, 32))
-    shared = 4 * (lanes * _half_bank_pad(cfg.W)
-                  + 2 * chunk * lanes * lane_stride)
+
+    def stride(lanes):
+        if placement != "staged":
+            return 0
+        return _odd_multiple(kp * cfg.nwb, 32 // min(lanes, 32))
+
+    def block_bytes(lanes):
+        return 4 * (lanes * _half_bank_pad(cfg.W)
+                    + 2 * chunk * lanes * stride(lanes))
+
+    cap = max_threads("dc_band", cfg)
+    lanes = _lanes(threads, K3_LANES * group, group, block_bytes, "K3", cap)
+    if placement == "staged" and lanes < 8:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: K3's staged band needs "
+                         f"8 lanes a block or more (a row of 32 B), not "
+                         f"{lanes}")
+    lane_stride, shared = stride(lanes), block_bytes(lanes)
     if shared > MAX_SHARED_BYTES:
         raise ValueError(f"W={cfg.W} k={cfg.k}: K3's block of {lanes} "
                          f"lanes needs {shared} B of shared memory, more "
                          f"than a block's {MAX_SHARED_BYTES} B")
+    _fit_registers(lanes * group, cap, "K3")
     return DcBandGeometry(group, levels, lanes, lanes * group, placement,
                           chunk, lane_stride, shared)
 
@@ -607,7 +730,9 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
     memory a lane, rows0 = ceil((k+1)/L) (the skewed layout of
     ``tail_fused.cu``).  Either way the block's shared memory also holds
     per lane the text (padded to 16 mod 32 words), the staged ops and
-    dist, and one word for the block.  `threads` (whole warps) is for the
+    dist, and one word for the block.  At W > 128 only "global" is
+    instantiated.  The block's threads are capped by the instantiation's
+    registers (``max_threads``).  `threads` (whole warps) is for the
     sweep tool."""
     check_instantiated(cfg)
     if placement not in (None, *PLACEMENTS):
@@ -618,16 +743,20 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
     group, levels = _group(k)
     rows0 = -(-(k + 1) // levels)
     common = _half_bank_pad(n_text) + max_ops + 1
+    cap = max_threads("tail", cfg)
 
     def block_bytes(lanes, store_lane_words):
         return 4 * (lanes * (store_lane_words + common) + 1)
 
-    want = placement or TAIL_PLACEMENT[(cfg.nw, levels_bucket(k))]
+    named = TAIL_PLACEMENT[(cfg.nw, levels_bucket(k))]
+    want = placement or named
+    _uninstantiated_placement(cfg, want, named, "the tail")
     if want == "shared":
         store_lane = _shared_store_words(k + 1, n_text, nwb)
         lanes = _lanes(threads, TAIL_THREADS, group,
-                       lambda n: block_bytes(n, store_lane), "the tail")
+                       lambda n: block_bytes(n, store_lane), "the tail", cap)
         if block_bytes(lanes, store_lane) <= MAX_SHARED_BYTES:
+            _fit_registers(lanes * group, cap, "the tail")
             return TailGeometry(group, levels, lanes, lanes * group,
                                 "shared", block_bytes(lanes, store_lane), 0,
                                 store_lane)
@@ -636,11 +765,12 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
                              f"of {4 * store_lane} B exceeds a block's "
                              f"{MAX_SHARED_BYTES} B of shared memory")
     lanes = _lanes(threads, TAIL_THREADS, group,
-                   lambda n: block_bytes(n, 0), "the tail")
+                   lambda n: block_bytes(n, 0), "the tail", cap)
     if block_bytes(lanes, 0) > MAX_SHARED_BYTES:
         raise ValueError(f"W={cfg.W} k={cfg.k}: the tail's {lanes} lane(s) "
                          f"need {block_bytes(lanes, 0)} B of shared memory, "
                          f"more than a block's {MAX_SHARED_BYTES} B")
+    _fit_registers(lanes * group, cap, "the tail")
     return TailGeometry(group, levels, lanes, lanes * group, "global",
                         block_bytes(lanes, 0),
                         (n_text + rows0 - 1) * levels * nwb * rows0, 0)

@@ -122,8 +122,13 @@ def test_gpu_store_words_is_k1_band_in_device_memory_at_kp_128(W, O, k):
         assert port.gpu_store_words(pc, tile) == lane * tile
 
 
+#: NW = 5..8 (W = 129..256): KP = 16, 64, 128, 256
+WIDE = [(144, 48, 12), (160, 48, 63), (192, 64, 100), (256, 96, 240)]
+
+
 @pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 24), (64, 24, 48),
-                                             (96, 36, 64), (128, 48, 127)])
+                                             (96, 36, 64), (128, 48, 127)]
+                         + WIDE)
 @pytest.mark.parametrize("banded", [None, True, False])
 def test_gpu_tail_store_words_follow_the_placement(W, O, k, banded):
     """K2 / K4: in shared memory padded rows of n_text x nwb words (K4:
@@ -177,7 +182,7 @@ def test_gpu_split_store_words_is_k3_band_output(W, O, k):
 
 
 @pytest.mark.parametrize("W,O,k", CONFIGS + [(64, 24, 48), (128, 48, 63),
-                                             (128, 48, 127)])
+                                             (128, 48, 127)] + WIDE)
 def test_gpu_lane_state_words_are_a_threads_levels(W, O, k):
     """A fill thread carries L = KP / G levels and the shuffled level below
     (nw words each); the reference's model carried 2 x (k+1) levels."""
@@ -189,12 +194,31 @@ def test_gpu_lane_state_words_are_a_threads_levels(W, O, k):
     assert port.gpu_lane_state_words(pc) < ref.gpu_lane_state_words(rc)
 
 
+@pytest.mark.parametrize("W,O,k", WIDE)
+def test_gpu_store_words_at_nw_5_to_8_are_k1_band_in_device_memory(W, O, k):
+    """At NW = 5..8 K1's band is in device memory at every KP, the skewed
+    (ncb + rows0 - 1) x L x nwb x rows0 layout; K3's band output equals
+    the reference's scratch model."""
+    rc, pc = _cfgs(W, O, k)
+    geo = genasm_dc.tb_fused_geometry(pc)
+    L = geo.levels_per_thread
+    rows0 = -(-(k + 1) // L)
+    lane = port.gpu_store_words(pc, 1)
+    assert geo.placement == "global" and geo.store_words == lane
+    assert lane == (pc.ncols_band + rows0 - 1) * L * pc.nwb * rows0 >= \
+        ref.kernel_scratch_words(rc, 1)
+    for tile in TILES:
+        assert port.gpu_store_words(pc, tile) == lane * tile
+        assert port.gpu_split_store_words(pc, tile) == \
+            ref.kernel_scratch_words(rc, tile)
+
+
 def test_gpu_functions_refuse_configs_without_kernels():
     for fn in (port.gpu_store_words, port.gpu_tail_store_words,
                port.gpu_split_store_words):
-        with pytest.raises(ValueError, match="W=192 k=64"):
-            fn(AlignerConfig(W=192, O=64, k=64), 1)
-    with pytest.raises(ValueError, match="W=160"):
-        port.gpu_lane_state_words(AlignerConfig(W=160, O=48, k=12))
+        with pytest.raises(ValueError, match="W=288 k=64"):
+            fn(AlignerConfig(W=288, O=64, k=64), 1)
+    with pytest.raises(ValueError, match="W=288"):
+        port.gpu_lane_state_words(AlignerConfig(W=288, O=48, k=12))
     assert np.isfinite(port.reduction_report(
         AlignerConfig(W=160, O=48, k=70), 9.0)["access_reduction"])

@@ -170,8 +170,8 @@ def test_cuda_build_failure_raises_never_falls_back(monkeypatch):
     configuration the kernels are not instantiated for raises naming W
     and k before any build; a failed library build raises as it is (a
     session poisons on it, above) and no plain version runs."""
-    with pytest.raises(ValueError, match="W=256 k=12"):
-        launch_plan(AlignerConfig(W=256, O=24), 1000, None, "cuda")
+    with pytest.raises(ValueError, match="W=288 k=12"):
+        launch_plan(AlignerConfig(W=288, O=24), 1000, None, "cuda")
 
     def failed_build():
         raise RuntimeError("nvcc failed for tb_fused.cu")

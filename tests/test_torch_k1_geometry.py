@@ -1,8 +1,9 @@
 """K1's block geometry (``genasm_dc.tb_fused_geometry``) over every (W, k)
 the CUDA kernels take: W in {16, 32, 64}, 1 <= k < W, with the band in
-shared memory; and at KP = 128 (k >= 64, W = 96 and 128) with the band in
-device memory, in the skewed layout of ``tb_fused.cu`` (emulated here
-word for word).  The geometry is computed on the host, so it is checked
+shared memory; at KP = 128 (k >= 64, W = 96 and 128) and at NW = 5..8
+(W = 129..256, every k, KP up to 256) with the band in device memory, in
+the skewed layout of ``tb_fused.cuh`` (emulated here word for word); and
+the block's threads capped by the instantiation's registers.  The geometry is computed on the host, so it is checked
 here; the CUDA side refuses anything else (``chip_smoke.py`` phase
 ``k1_grid`` launches it)."""
 import pytest
@@ -28,9 +29,10 @@ def test_tb_fused_geometry(W, k):
     assert geo.shared_bytes >= geo.lanes * need
 
 
-@pytest.mark.parametrize("W,k", [(160, 12), (256, 100)])
+@pytest.mark.parametrize("W,k", [(288, 12), (320, 100)])
 def test_tb_fused_geometry_refuses_w_over_128(W, k):
-    with pytest.raises(ValueError, match=f"W={W} k={k}: .* W <= 128"):
+    """Since the NW = 5..8 instantiations, what is refused is W > 256."""
+    with pytest.raises(ValueError, match=f"W={W} k={k}: .* W <= 256"):
         genasm_dc.tb_fused_geometry(AlignerConfig(W=W, O=W // 3, k=k))
 
 
@@ -52,7 +54,8 @@ def test_tb_fused_geometry_at_kp_128_keeps_the_band_in_device_memory(W, O,
     geo = genasm_dc.tb_fused_geometry(cfg)
     assert genasm_dc.levels_bucket(k) == 128
     assert (geo.group, geo.levels_per_thread) == (32, 4)
-    assert geo.placement == genasm_dc.K1_PLACEMENT[128] == "global"
+    assert geo.placement == genasm_dc.K1_PLACEMENT[(cfg.nw, 128)] == \
+        "global"
     rows0 = -(-(k + 1) // 4)
     assert geo.band_words == 0
     assert geo.store_words == (cfg.ncols_band + rows0 - 1) * 4 * cfg.nwb * \
@@ -65,7 +68,11 @@ def test_tb_fused_geometry_at_kp_128_keeps_the_band_in_device_memory(W, O,
         genasm_dc.MAX_SHARED_BYTES
 
 
-@pytest.mark.parametrize("W,O,k", KP128)
+#: NW = 5..8: L = 1 (KP = 32), 2 (KP = 64) and 8 (KP = 256, W = 256)
+WIDE_BAND = [(160, 48, 30), (192, 64, 63), (256, 96, 240)]
+
+
+@pytest.mark.parametrize("W,O,k", KP128 + WIDE_BAND)
 def test_k1_device_band_layout_is_one_to_one_and_the_walk_reads_it(W, O, k):
     """tb_fused.cu's PLACE_GLOBAL, emulated: thread g's level c of band
     column q, word b, lands at ((q + g) * L + c) * nwb * rows0 + g + b *
@@ -114,3 +121,54 @@ def test_tb_fused_geometry_block_sizes(k, threads):
 def test_tb_fused_geometry_refuses_partial_warps(threads):
     with pytest.raises(ValueError, match="whole warps"):
         genasm_dc.tb_fused_geometry(AlignerConfig(), threads=threads)
+
+
+WIDE_WIDTHS = [(144, 48), (160, 48), (192, 64), (208, 72), (224, 80),
+               (256, 96)]
+
+
+@pytest.mark.parametrize("W,O", WIDE_WIDTHS)
+def test_tb_fused_geometry_at_nw_5_to_8(W, O):
+    """Every k < W at NW = 5..8: the band in device memory at every KP
+    (``K1_PLACEMENT``), (ncb + rows0 - 1) x L x nwb x rows0 words a lane;
+    G = min(KP, 32) threads of L = KP / G levels (L = 8 at KP = 256);
+    ``K1_THREADS`` threads a block, within the registers' cap; the block's
+    shared memory holds only texts, staged ops and dists."""
+    for k in range(1, W):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        geo = genasm_dc.tb_fused_geometry(cfg)
+        kp = genasm_dc.levels_bucket(k)
+        assert 5 <= cfg.nw <= 8 and kp <= 256
+        assert geo.placement == "global" == \
+            genasm_dc.K1_PLACEMENT[(cfg.nw, kp)]
+        assert (geo.group, geo.levels_per_thread) == (min(kp, 32),
+                                                      kp // min(kp, 32))
+        L = geo.levels_per_thread
+        rows0 = -(-(k + 1) // L)
+        assert geo.band_words == 0
+        assert geo.store_words == (cfg.ncols_band + rows0 - 1) * L * \
+            cfg.nwb * rows0 >= (k + 1) * cfg.ncols_band * cfg.nwb
+        assert geo.threads == genasm_dc.K1_THREADS <= \
+            genasm_dc.max_threads("tb_fused", cfg)
+        assert geo.shared_bytes == 4 * geo.lanes * (
+            _half_bank_pad(W) + cfg.tb_max_ops + 1) <= \
+            genasm_dc.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("W,O,k,regs,cap", [
+    (64, 24, 12, 40, 1024), (128, 48, 96, 96, 672), (192, 64, 100, 115, 544),
+    (256, 96, 120, 152, 416), (256, 96, 240, 215, 288)])
+def test_k1_threads_are_capped_by_registers(W, O, k, regs, cap):
+    """A warp's registers are allocated 8 a thread at a time, a block holds
+    65,536: 215 registers (K1 at NW = 8, KP = 256) allow 288 threads.  A
+    block past the cap is refused naming the registers; the default block
+    (128 threads) is within it everywhere."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    assert genasm_dc.registers("tb_fused", cfg) == regs
+    assert genasm_dc.max_threads("tb_fused", cfg) == cap
+    per_warp = 32 * -(-regs // 8) * 8
+    assert cap == min(1024, 65_536 // per_warp * 32)
+    assert genasm_dc.tb_fused_geometry(cfg, threads=cap).threads == cap
+    if cap < 1024:
+        with pytest.raises(ValueError, match="registers"):
+            genasm_dc.tb_fused_geometry(cfg, threads=cap + 32)

@@ -1,6 +1,7 @@
 """K3's block geometry (``genasm_dc.dc_band_geometry``) over every (W, k)
 the CUDA kernels take: W <= 128, 1 <= k < W (KP up to 128), in both band
-placements.  The geometry is computed on the host, so it is checked here;
+placements; W = 129..256 (NW = 5..8, KP up to 256) in the one placement
+instantiated there; and the block capped by its registers.  The geometry is computed on the host, so it is checked here;
 the CUDA side recomputes the shared bytes (``k3_layout``) and refuses any
 other (``chip_smoke.py`` phase ``k3_grid`` launches it)."""
 import pytest
@@ -104,8 +105,8 @@ def test_dc_band_geometry_refuses_what_does_not_fit_or_exist():
     with pytest.raises(ValueError, match="shared memory"):
         genasm_dc.dc_band_geometry(AlignerConfig(W=128, O=48, k=48), 1024,
                                    placement="staged", chunk=16)
-    with pytest.raises(ValueError, match="W=160 k=12"):
-        genasm_dc.dc_band_geometry(AlignerConfig(W=160, O=48, k=12))
+    with pytest.raises(ValueError, match="W=288 k=12"):
+        genasm_dc.dc_band_geometry(AlignerConfig(W=288, O=48, k=12))
     with pytest.raises(ValueError, match="placement"):
         genasm_dc.dc_band_geometry(AlignerConfig(), placement="shared")
 
@@ -113,3 +114,78 @@ def test_dc_band_geometry_refuses_what_does_not_fit_or_exist():
 def test_k3_takes_no_block_from_lane_tile():
     base = genasm_dc.dc_band_geometry(AlignerConfig())
     assert genasm_dc.dc_band_geometry(AlignerConfig(lane_tile=2816)) == base
+
+
+WIDE_WIDTHS = [(144, 48), (160, 48), (192, 64), (208, 72), (224, 80),
+               (256, 96)]
+
+
+@pytest.mark.parametrize("W,O", WIDE_WIDTHS)
+def test_dc_band_geometry_at_nw_5_to_8(W, O):
+    """Every k < W at NW = 5..8: the placement ``K3_PLACEMENT`` names
+    (the other one is not instantiated: ValueError), a power of two lanes
+    a block (at most ``K3_LANES``), within the registers' cap and the
+    shared memory, 8 lanes or more staged, and the layout's bytes."""
+    for k in range(1, W):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        kp = genasm_dc.levels_bucket(k)
+        geo = genasm_dc.dc_band_geometry(cfg)
+        assert geo.placement == genasm_dc.K3_PLACEMENT[kp]
+        assert geo.chunk == genasm_dc.K3_CHUNK[kp]
+        assert geo.group == min(kp, 32) and geo.lanes * geo.group == \
+            geo.threads <= genasm_dc.max_threads("dc_band", cfg)
+        assert geo.lanes & (geo.lanes - 1) == 0 and \
+            geo.lanes <= genasm_dc.K3_LANES
+        assert geo.shared_bytes <= MAX
+        assert (geo.shared_bytes, geo.lane_stride) == _hand_bytes(
+            cfg, geo.lanes, geo.placement, geo.chunk)
+        if geo.placement == "staged":
+            assert geo.lanes >= 8
+        other = next(p for p in genasm_dc.K3_PLACEMENTS
+                     if p != geo.placement)
+        with pytest.raises(ValueError, match="instantiated"):
+            genasm_dc.dc_band_geometry(cfg, placement=other)
+
+
+@pytest.mark.parametrize("W,O,k,lanes,stride,shared,why", [
+    # NW = 8: a slot of 2,048 words a lane -> 2,052 (an odd multiple of 4
+    # at 8 lanes); two slots of one step for 8 lanes + 8 texts of 272; 16
+    # lanes would need 262 KB of shared memory
+    (256, 96, 240, 8, 2052, 4 * (8 * 272 + 2 * 8 * 2052), "shared memory"),
+    (256, 96, 128, 8, 2052, 4 * (8 * 272 + 2 * 8 * 2052), "shared memory"),
+    # NW = 5: 1,280 -> 1,284; 16 lanes would fit the shared memory (173
+    # KB) but not the registers (149: 416 threads a block)
+    (144, 48, 128, 8, 1284, 4 * (8 * 144 + 2 * 8 * 1284), "registers")])
+def test_dc_band_geometry_at_kp_256_takes_8_lanes_and_chunk_1(
+        W, O, k, lanes, stride, shared, why):
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.dc_band_geometry(cfg)
+    assert (geo.group, geo.levels_per_thread) == (32, 8)
+    assert (geo.placement, geo.chunk, geo.lanes, geo.threads) == \
+        ("staged", 1, lanes, 32 * lanes)
+    assert (geo.lane_stride, geo.shared_bytes) == (stride, shared)
+    with pytest.raises(ValueError, match=why):      # K3_LANES' 16 lanes
+        genasm_dc.dc_band_geometry(cfg, 512)
+    with pytest.raises(ValueError, match="shared memory"):
+        genasm_dc.dc_band_geometry(cfg, 256, chunk=2 if W == 256 else 8)
+
+
+@pytest.mark.parametrize("W,O,k,lanes", [
+    (128, 48, 96, 16),       # 80 registers: 800 threads, 16 lanes
+    (192, 64, 100, 16),      # 112: 576
+    (208, 72, 100, 8),       # 122: 512 -- the ring (197 KB) halves it
+    (256, 96, 120, 8),       # 142: 448
+    (256, 96, 30, 16)])      # 89: 704
+def test_dc_band_geometry_caps_lanes_by_registers(W, O, k, lanes):
+    """``K3_LANES`` (16) is a 512-thread block at G = 32; the lanes halve
+    while the block's threads exceed what its registers allow (65,536 a
+    block, 8 a thread at a time) or its ring the shared memory."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.dc_band_geometry(cfg)
+    cap = genasm_dc.max_threads("dc_band", cfg)
+    assert geo.lanes == lanes and geo.threads <= cap < 1024
+    # one warp past the cap, its ring one step a slot so that the shared
+    # memory fits: refused for its registers
+    with pytest.raises(ValueError, match="registers"):
+        genasm_dc.dc_band_geometry(cfg, cap + 32, chunk=1)
+    assert genasm_dc.dc_band_geometry(cfg, cap, chunk=1).threads == cap

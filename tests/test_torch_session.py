@@ -299,8 +299,8 @@ def test_plan_lane_tile_hopper_model():
                           lane_tile="auto").lane_tile == 2112
     with pytest.raises(ValueError, match=r"W=64 k=12.*29,408 bytes"):
         windowing.plan_lane_tile(AlignerConfig(), sm_shared_bytes=20_000)
-    with pytest.raises(ValueError, match="W=256 k=12"):   # no kernel
-        windowing.plan_lane_tile(AlignerConfig(W=256, O=24, k=12))
+    with pytest.raises(ValueError, match="W=288 k=12"):   # no kernel
+        windowing.plan_lane_tile(AlignerConfig(W=288, O=24, k=12))
 
 
 def test_launch_plan_on_the_cpu():
@@ -319,7 +319,7 @@ def test_launch_plan_on_the_cpu():
     assert launch_plan(AlignerConfig(backend="fused"), 40, None, "cpu")[0][
         "kernel"] == "tail_banded"          # no main window: no K1
     assert launch_plan(AlignerConfig(backend="plain"), 1000, 2, "cpu") == ()
-    wide = launch_plan(AlignerConfig(W=256, O=24, backend="split"), 1000,
+    wide = launch_plan(AlignerConfig(W=288, O=24, backend="split"), 1000,
                        None, "cpu")
     assert wide[0]["geometry"] is None     # the CPU runs it, no kernel
     assert set(genasm_dc.PLAIN_CALLS.values()) == {0}

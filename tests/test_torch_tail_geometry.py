@@ -130,8 +130,8 @@ def test_tb_fused_geometry_fits_every_k_at_nw_3_and_4(W):
         assert geo.threads % 32 == 0 and geo.shared_bytes <= MAX
 
 
-@pytest.mark.parametrize("fields", [dict(W=256, O=96, k=64),
-                                    dict(W=160, O=48, k=12)])
+@pytest.mark.parametrize("fields", [dict(W=288, O=96, k=64),
+                                    dict(W=320, O=48, k=12)])
 def test_uninstantiated_configs_raise_naming_w_and_k(fields):
     cfg = AlignerConfig(**fields)
     want = f"W={cfg.W} k={cfg.k}"
@@ -158,3 +158,50 @@ def test_no_block_comes_from_lane_tile(k):
                 continue
             got = _tail(tiled, banded, placement)
             assert got == want and got.threads <= 1024
+
+
+WIDE_WIDTHS = [(144, 48), (160, 48), (192, 64), (208, 72), (224, 80),
+               (256, 96)]
+
+
+@pytest.mark.parametrize("W,O", WIDE_WIDTHS)
+@pytest.mark.parametrize("banded", [True, False])
+def test_tail_store_at_nw_5_to_8_is_global_only(W, O, banded):
+    """Every k < W at NW = 5..8: the store in device memory (the only
+    placement instantiated there; asked for shared memory, a ValueError
+    naming W and k), whole warps within the registers' cap and the shared
+    memory, the skewed layout's words a lane."""
+    for k in range(1, W):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        geo = _tail(cfg, banded)
+        kp = genasm_dc.levels_bucket(k)
+        assert geo.placement == "global" == \
+            genasm_dc.TAIL_PLACEMENT[(cfg.nw, kp)]
+        assert geo.threads % 32 == 0 and geo.lanes * geo.group == \
+            geo.threads <= genasm_dc.max_threads("tail", cfg)
+        assert geo.shared_bytes <= MAX
+        L, nwb = geo.levels_per_thread, cfg.nwb if banded else cfg.nw
+        rows0 = -(-(k + 1) // L)
+        assert geo.store_words == (W + 4 * k + rows0 - 1) * L * nwb * rows0
+        with pytest.raises(ValueError, match=f"W={W} k={k}: .*instantiated"):
+            _tail(cfg, banded, "shared")
+
+
+@pytest.mark.parametrize("W,O,k", [(144, 48, 128), (256, 96, 240)])
+def test_tail_store_at_kp_256(W, O, k):
+    """KP = 256 (k >= 128): the band (2k+3 bits) is the whole vector, so
+    'auto' and 'full' take K4 and 'band' K2 with nwb = nw, one
+    instantiation; G = 32 threads of L = 8 levels; 9.9 MB a lane at
+    W = 256, k = 240 (n_text = 1,216)."""
+    for tail_store, banded in (("auto", False), ("full", False),
+                               ("band", True)):
+        cfg = AlignerConfig(W=W, O=O, k=k, tail_store=tail_store)
+        assert cfg.tail_banded == banded and cfg.nwb == cfg.nw
+        geo = _tail(cfg, None)
+        assert (geo.group, geo.levels_per_thread) == (32, 8)
+        rows0 = -(-(k + 1) // 8)
+        assert geo.store_words == (W + 4 * k + rows0 - 1) * 8 * cfg.nw * \
+            rows0
+        assert geo == _tail(cfg, not banded)
+    if W == 256:
+        assert 4 * geo.store_words == 9_888_256

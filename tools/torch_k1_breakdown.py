@@ -1,15 +1,18 @@
 """Where a K1 launch's time goes: K1 built three ways and timed.
 
-    python3 tools/torch_k1_breakdown.py [--reps 50]
+    python3 tools/torch_k1_breakdown.py [--reps 50] [--widths 64]
+                                        [--ks 12,24,48]
 
-Builds K1's source ``csrc/tb_fused.cu`` three times into
+Builds K1 (its body ``csrc/tb_fused.cuh`` and the two units that
+instantiate it, ``tb_fused.cu`` and ``tb_fused_wide.cu``) three times into
 ``build/k1_breakdown/`` (one ``nvcc`` each, all started together): as it
 is (``full``); with the walk switched off (``no_walk``); and with the walk
 and the fill's band stores switched off (``no_walk_no_store``).  The
 switches are two preprocessor macros that this script writes into a copy
-of the source.
+of ``tb_fused.cuh``; it refuses to run if either line it patches has moved.
 Then it times each build's K1 on the inputs ``chip_smoke.py`` gives it,
-at 2,048 and 4,096 lanes for k = 12, 24, 48 (device ms per launch,
+at 2,048 and 4,096 lanes for each W of ``--widths`` (O = 3W/8) and each k
+of ``--ks`` below W (device ms per launch,
 ``chip_smoke._device_ms``).  ``full - no_walk`` is the walk's share, and
 ``no_walk - no_walk_no_store`` the band stores'.  The variants' outputs
 are not checked: they compute less.  One JSON line per (k, lanes), and the
@@ -20,6 +23,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -43,17 +47,20 @@ VARIANTS = {"full": (1, 1), "no_walk": (0, 1), "no_walk_no_store": (0, 0)}
 
 def build_variants(out_dir: Path) -> dict:
     """{variant: its genasm_tb_fused_launch}, built in parallel."""
-    src = (build.CSRC / "tb_fused.cu").read_text()
+    src = (build.CSRC / "tb_fused.cuh").read_text()
     for line, switched in SWITCHES:
         if src.count(line) != 1:
             raise RuntimeError(f"source line not found once: {line!r}")
         src = src.replace(line, switched)
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "k1.cu").write_text(src)
+    (out_dir / "tb_fused.cuh").write_text(src)
+    units = ("tb_fused.cu", "tb_fused_wide.cu")
+    for name in (*units, "genasm_common.cuh"):   # beside the patched body
+        shutil.copy(build.CSRC / name, out_dir / name)
     procs = {name: subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-shared", f"-DK1_WALK={walk}",
          f"-DK1_STORE={store}", "-o", str(out_dir / f"lib_{name}.so"),
-         str(out_dir / "k1.cu")], stdout=subprocess.PIPE,
+         *(str(out_dir / unit) for unit in units)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True)
         for name, (walk, store) in VARIANTS.items()}
     launches = {}
@@ -77,6 +84,8 @@ def clocks() -> str:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--widths", default="64")
+    ap.add_argument("--ks", default="12,24,48")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_k1_breakdown: no CUDA card")
@@ -84,8 +93,10 @@ def main() -> None:
     launches = build_variants(ROOT / "build" / "k1_breakdown")
     print(json.dumps(dict(clocks_before=clocks())), flush=True)
     dev = torch.device("cuda")
-    for k in (12, 24, 48):
-        cfg = AlignerConfig(k=k)
+    cases = [(W, k) for W in (int(w) for w in args.widths.split(","))
+             for k in (int(k) for k in args.ks.split(",")) if k < W]
+    for W, k in cases:
+        cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
         geo = genasm_dc.tb_fused_geometry(cfg)
         for lanes in (2048, 4096):
             (pm, text), kw, _ = cs._case("tb_fused", cfg, lanes,
@@ -94,11 +105,14 @@ def main() -> None:
                               device=dev)
             meta = torch.empty((genasm_dc.META_ROWS, lanes),
                                dtype=torch.int32, device=dev)
-            row = dict(k=k, lanes=lanes)
+            store = torch.empty((lanes, geo.store_words) if geo.store_words
+                                else 0, dtype=torch.int32, device=dev)
+            row = dict(W=W, k=k, lanes=lanes, placement=geo.placement)
             for name, fn in launches.items():
                 def call(fn=fn):
                     rc = fn(pm.data_ptr(), text.data_ptr(), ops.data_ptr(),
-                            meta.data_ptr(), None, lanes, cfg.W, cfg.nw, k,
+                            meta.data_ptr(), store.data_ptr(), lanes, cfg.W,
+                            cfg.nw, k,
                             cfg.nwb, cfg.ncols_band, int(cfg.early_term),
                             kw["commit_limit"], kw["max_ops"],
                             kw["max_steps"], geo.lanes, geo.threads,

@@ -5,15 +5,17 @@ over its band placement, block size and ring chunk.
                                     [--chunks 4,8,16] [--reps 20]
                                     [--widths 32,64,96,128] [--ks 12,24,48]
 
-For each W of ``--widths`` (O = 3W/8) and each k of ``--ks`` (default the
+For each W of ``--widths`` (O = 3W/8; up to 256, whose NW = 5..8
+instantiations live in ``dc_band_wide.cu``, one placement each) and each k of ``--ks`` (default the
 ladder's 12, 24, 48) below W, at 2,048 and 4,096 lanes of the inputs
 ``chip_smoke.py`` gives K3: the kernel launched through its C entry point
 (``chip_smoke.k3_launcher``) in each band placement (``staged``: the ring
 in shared memory at each chunk; ``direct``) at each number of threads per
 block (``genasm_dc.dc_band_geometry(cfg, threads, placement=...,
-chunk=...)``; a block whose shared memory or registers do not fit, or a
-staged block of fewer than 8 lanes, is skipped), held against ``dc_band_plain`` (max abs err 0 or it
-raises), with its device ms per launch (``chip_smoke._device_ms``), its
+chunk=...)``; a block whose shared memory or registers do not fit
+(``genasm_dc.max_threads``, then the card's occupancy query), a staged
+block of fewer than 8 lanes, or a placement not instantiated, is
+skipped), held against ``dc_band_plain`` (max abs err 0 or it raises), with its device ms per launch (``chip_smoke._device_ms``), its
 block, shared bytes and blocks per SM.  ``genasm_dc.K3_PLACEMENT``,
 ``K3_LANES`` and ``K3_CHUNK`` record what this sweep measured fastest.
 One JSON line per case; needs a CUDA card.

@@ -2,15 +2,19 @@
 placement and block size.
 
     python3 tools/torch_tail_sweep.py [--threads 32,64,128,256] [--reps 20]
+                                      [--widths 32,64,96,128] [--ks 12,24,48]
 
-For each W in {32, 64, 96, 128} (O = 3W/8) and each k of the default
-ladder (12, 24, 48) below W, the tail kernel that configuration selects
+For each W of ``--widths`` (O = 3W/8; up to 256, whose NW = 5..8
+instantiations live in ``tail_fused_wide.cu``) and each k of ``--ks``
+(default the ladder's 12, 24, 48) below W, the tail kernel that configuration selects
 (K2 ``tail_banded`` where the band is narrower than the vector, else K4
 ``tail_full``), at 2,048 and 4,096 lanes of the inputs ``chip_smoke.py``
 gives it: the kernel launched through its C entry point in each store
 placement (``shared``, ``global``) at each number of threads per block
 (``genasm_dc.tail_geometry(cfg, ..., placement=..., threads=...)``; a
-block whose lanes' stores do not fit shared memory is skipped), held
+block whose lanes' stores do not fit shared memory, whose registers do not
+fit the block (``genasm_dc.max_threads``) or an SM, or a placement not
+instantiated (shared at W > 128) is skipped), held
 against its plain version (max abs err 0 or it raises), with its device
 ms per launch (``chip_smoke._device_ms``), its block, shared bytes and
 blocks per SM.  ``genasm_dc.TAIL_PLACEMENT`` records, per (NW, KP), the
@@ -39,14 +43,16 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--threads", default="32,64,128,256")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--widths", default="32,64,96,128")
+    ap.add_argument("--ks", default="12,24,48")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("torch_tail_sweep: no CUDA card")
     cs.phase_device()
     cs.phase_build()
     dev = torch.device("cuda")
-    for W in (32, 64, 96, 128):
-        for k in (12, 24, 48):
+    for W in (int(w) for w in args.widths.split(",")):
+        for k in (int(k) for k in args.ks.split(",")):
             if k >= W:
                 continue
             cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
@@ -69,11 +75,13 @@ def main() -> None:
                             continue
                         if geo.shared_bytes > genasm_dc.MAX_SHARED_BYTES:
                             continue
+                        blocks, _ = genasm_dc.tail_occupancy(
+                            cfg, geo, name == "tail_banded")
+                        if blocks == 0:     # its registers do not fit
+                            continue
                         call = cs.tail_launcher(name, cfg, geo, inputs, kw)
                         err = cs._max_abs_err(name, call(), ref,
                                               f"{geo}")
-                        blocks, _ = genasm_dc.tail_occupancy(
-                            cfg, geo, name == "tail_banded")
                         for _ in range(2):
                             call()
                         print(json.dumps(dict(
