@@ -3,20 +3,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-(one process a unit, the NW = 5..8 instantiations in units of their own),
-holds each kernel against its plain PyTorch version on the card (K1 also
-over a grid of its instantiations and block geometries, with its
-occupancy; K2 and K4 over every tail instantiation in both store
-placements; K3 over every instantiation in both band placements, with
-its occupancy; at W = 129..256 every instantiation in its one placement),
-times K1, K2 / K4 and K3 on each rung of the W = 256 ladder at 2,048
-lanes, drives the aligner's main path (``GenASMAligner.align``) on
+(one process a unit, the NW = 5..8 instantiations and the wide family at
+NW >= 9 in units of their own), holds each kernel against its plain
+PyTorch version on the card (K1 also over a grid of its instantiations
+and block geometries, with its occupancy; K2 and K4 over every tail
+instantiation in both store placements; K3 over every instantiation in
+both band placements, with its occupancy; at W = 129..256 every
+instantiation in its one placement; at W = 288, 320, 512 and 1024 the
+wide family over every level capacity to 1,024), times K1, K2 / K4 and
+K3 on each rung of the W = 256 and W = 512 ladders at 2,048 lanes (with
+the peak of device memory each takes), drives the aligner's main path (``GenASMAligner.align``) on
 PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
 split backend (K3 and the PyTorch traceback), holds the two results
 equal, and checks the kernel path against the CPU plain path end to end:
 on both backends, through all three rungs of the rescue ladder, with the
-reference's ``lane_tile='auto'`` of 2,816, and on the W = 128 and W = 256
-ladders to k = 120 and k = 240 (the latter also through a session), then
+reference's ``lane_tile='auto'`` of 2,816, and on the W = 128, W = 256
+and W = 512 ladders to k = 120, 240 and 480 (the latter two also
+through sessions), then
 shards the pair axis
 over a mesh of the card listed four times (phase ``mesh``: the aligner,
 the split backend, a session and the engine, each equal to its unsharded
@@ -99,14 +102,14 @@ from repro_torch.core.config import AlignerConfig              # noqa: E402
 from repro_torch.core.genasm import dc_dmajor                  # noqa: E402
 from repro_torch.core.windowing import (H100_SMS,              # noqa: E402
                                         n_main_windows, pad_geometry,
-                                        plan_lane_tile)
+                                        plan_lane_tile, total_op_budget)
 from repro_torch.core.oracle import validate_cigar             # noqa: E402
 from repro_torch.data.dedup import near_duplicates             # noqa: E402
 from repro_torch.data.genome import (ReadSimConfig,            # noqa: E402
                                      plant_decoys, simulate_reads,
                                      synth_genome)
 from repro_torch.kernels import (build, genasm_dc,             # noqa: E402
-                                 ladder_graph)
+                                 ladder_graph, window_step)
 from repro_torch.kernels.genasm_dc import (K3_PLACEMENTS,      # noqa: E402
                                            PLACEMENTS)
 from repro_torch.distributed.sharding import pair_shards      # noqa: E402
@@ -156,20 +159,42 @@ KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
     "dc_band": (genasm_dc.genasm_dc, genasm_dc.dc_band_plain,
                 "src/repro/kernels/genasm_dc.py:324 _kernel"),
 }
+#: the main-window loop's kernels around K1 (``window_step``): name ->
+#: (wrapper, plain version, the reference's code they replace, which XLA
+#: fuses on the TPU: no Pallas kernel)
+STEP_KERNELS = {
+    "window_prep": (window_step.window_prep, window_step.window_prep_plain,
+                    "src/repro/core/windowing.py:204 append_main: "
+                    "_slice_rev + ops._to_kernel_layout"),
+    "window_commit": (window_step.window_commit,
+                      window_step.window_commit_plain,
+                      "src/repro/core/windowing.py:224 append_main: "
+                      "_append_ops + the state's jnp.where"),
+}
 #: the kernels each backend's main path launches, and no other
-PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full"),
+PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full",
+                          *STEP_KERNELS),
                 "split": ("dc_band",)}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "tail_banded": _CSRC + "tail_fused.cu",
            "tail_full": _CSRC + "tail_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
-           "ladder_gate": _CSRC + "ladder_graph.cu"}
-#: each kernel's body and its instantiations at NW = 5..8
+           "ladder_gate": _CSRC + "ladder_graph.cu",
+           **dict.fromkeys(STEP_KERNELS, _CSRC + "window_step.cu")}
+#: each kernel's body, its instantiations at NW = 5..8 and its wide
+#: family at NW >= 9 (with the family's header)
 WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
-                       SOURCES[name].replace(".cu", "_wide.cu")]
+                       SOURCES[name].replace(".cu", "_wide.cu"),
+                       SOURCES[name].replace(".cu", "_xwide.cu"),
+                       _CSRC + "genasm_xwide.cuh"]
                 for name in ("tb_fused", "tail_banded", "tail_full",
                              "dc_band")}
+#: the wide family's kernels (NW >= 9), each one kernel, by its name in
+#: ptxas's report and in ``genasm_dc.REGISTERS``
+XWIDE_KERNELS = {"tb_fused_xwide_kernel": ("tb_fused_xwide", "tb_fused"),
+                 "tail_fused_xwide_kernel": ("tail_fused_xwide", "tail"),
+                 "dc_band_xwide_kernel": ("dc_band_xwide", "dc_band")}
 #: what the device-mode ladder's gate kernel replaces (no Pallas kernel:
 #: the reference's on-device round gate)
 GATE_REPLACES = "src/repro/core/windowing.py:350 lax.cond(any(failed))"
@@ -196,9 +221,9 @@ def _counts(device: torch.device):
     """(counts of the path `device` should take, counts of the other):
     kernel launches on the card, plain-version calls on the CPU (the CPU
     only ever serves a rehearsal of this script at a small size)."""
-    if device.type == "cuda":
-        return genasm_dc.LAUNCHES, genasm_dc.PLAIN_CALLS
-    return genasm_dc.PLAIN_CALLS, genasm_dc.LAUNCHES
+    launches = {**genasm_dc.LAUNCHES, **window_step.LAUNCHES}
+    plain = {**genasm_dc.PLAIN_CALLS, **window_step.PLAIN_CALLS}
+    return (launches, plain) if device.type == "cuda" else (plain, launches)
 
 
 def _smi() -> str:
@@ -249,13 +274,24 @@ REGISTER_FAMILY = {"tb_fused": "tb_fused", "tail_fused": "tail",
 
 def _registers_over_table(usage: dict) -> dict:
     """{instantiation: (ptxas's registers, the table's)} wherever ptxas
-    counts more than ``genasm_dc.REGISTERS`` for its (NW, KP)."""
+    counts more than ``genasm_dc.REGISTERS`` for its (NW, KP), or for the
+    wide family's kernels ("xwide") more or any spill."""
     over = {}
+    families = dict(XWIDE_KERNELS.values())
     for name, text in usage.items():
+        regs = int(text.split()[0])
+        if name in families:
+            table = genasm_dc.REGISTERS[families[name]]["xwide"]
+            spilled = re.search(r"spill stores (\d+) B", text)
+            if regs > table or (spilled and int(spilled.group(1))):
+                over[name] = (text, table)
+            continue
         m = re.match(r"(\w+)<NW=(\d+),KP=(\d+),", name)
         if m is None:
+            spilled = re.search(r"spill stores (\d+) B", text)
+            if name in STEP_KERNELS and spilled and int(spilled.group(1)):
+                over[name] = (text, None)
             continue
-        regs = int(text.split()[0])
         table = genasm_dc.REGISTERS[REGISTER_FAMILY[m.group(1)]][
             (int(m.group(2)), int(m.group(3)))]
         if regs > table:
@@ -274,7 +310,11 @@ def _kernel_name(template: str, args) -> str:
 
 
 def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
-    """The usage key of the instantiation kernel `name` runs for `cfg`."""
+    """The usage key of the instantiation kernel `name` runs for `cfg`
+    (at NW >= 9 the wide family's one kernel)."""
+    if cfg.nw > genasm_dc.TEMPLATE_NW:
+        return {"tb_fused": "tb_fused_xwide", "dc_band": "dc_band_xwide"}.get(
+            name, "tail_fused_xwide")
     kp = genasm_dc.levels_bucket(cfg.k)
     if name == "tb_fused":
         return _kernel_name("tb_fused_kernel", (
@@ -297,7 +337,10 @@ def _ptxas_usage(report: str) -> dict:
         if "Function properties for" in line:
             mangled = line.split()[-1]
             template = next((t for t in TEMPLATES if t in mangled), None)
-            name = "ladder_gate" if "ladder_gate_kernel" in mangled else None
+            name = next((x for x in ("ladder_gate", *STEP_KERNELS)
+                         if f"{x}_kernel" in mangled), None)
+            name = next((x for kernel, (x, _) in XWIDE_KERNELS.items()
+                         if kernel in mangled), name)
             if template is not None:
                 args = re.search(r"_kernelI((?:Li\d+E)+)E", mangled).group(1)
                 name = _kernel_name(template, re.findall(r"Li(\d+)E", args))
@@ -462,25 +505,31 @@ def _done(refs) -> None:
                              "phase's cases")
 
 
-def _timing(name: str, cfg, call, inputs, got, cols, reps: int,
-            device) -> dict:
+def _timing(name: str, cfg, call, reps: int, device, inputs=None,
+            got=None, cols=None, warm: int = 2) -> dict:
     """Times of `call` (device ms from a CUDA graph, event ms of
-    back-to-back calls) and the bound of its work."""
-    for _ in range(2):
+    back-to-back calls, after `warm` calls) and, given its outputs `got`,
+    the bound of its work."""
+    for _ in range(warm):
         call()
     event_ms = _time_ms(call, reps, device)
     device_ms = _device_ms(call, reps, device)
-    dist, steps = _dist_and_steps(name, got)
-    bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
-    return dict(ms=event_ms if device_ms is None else device_ms,
-                event_ms=event_ms, bound_ms=bound_ms, bound_by=bound_by)
+    out = dict(ms=event_ms if device_ms is None else device_ms,
+               event_ms=event_ms)
+    if got is not None:
+        dist, steps = _dist_and_steps(name, got)
+        out["bound_ms"], out["bound_by"] = _bound(cfg, inputs, got, cols,
+                                                  dist, steps)
+    return out
 
 
 def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
-                reps: int, what: str, refs=None) -> dict:
+                reps: int, what: str, refs=None, loop: bool = False) -> dict:
     """One kernel call against its plain version on the same inputs (max
     abs err 0 or raise; the plain outputs from `refs` where they hold
-    them, ``_reference``); with reps > 0 also its times and bound."""
+    them, ``_reference``); with reps > 0 also its times and bound; with
+    `loop`, a wide case also on a grid of fewer blocks than its lane
+    groups (``_loop_check``)."""
     wrapper = KERNELS[name][0]
     inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
     call = lambda: wrapper(*inputs, **kw)               # noqa: E731
@@ -492,9 +541,62 @@ def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
     row = dict(name=name, W=cfg.W, k=cfg.k, lanes=n_pairs, max_abs_err=err,
                plain_ms=plain_ms, plain_on=plain_on,
                solved=int((dist <= cfg.k).sum()))
+    if loop and _xwide(cfg):
+        row.update(_loop_check(name, cfg, call, ref, n_pairs,
+                               _k1_block(cfg).lanes, device, what))
     if reps:
-        row.update(_timing(name, cfg, call, inputs, got, cols, reps, device))
+        row.update(_timing(name, cfg, call, reps, device, inputs, got, cols))
     return row
+
+
+def _xwide(cfg: AlignerConfig) -> bool:
+    """Whether `cfg` runs the wide family (NW >= 9)."""
+    return cfg.nw > genasm_dc.TEMPLATE_NW
+
+
+@contextlib.contextmanager
+def _grid_of(blocks: int):
+    """Within this context the wide family's persistent grid holds at most
+    `blocks` blocks (the resident count ``genasm_dc._xwide_launch``
+    reads), so that each block walks several lane groups and reuses its
+    scratch, masks and ring for each."""
+    resident = genasm_dc.xwide_resident
+    genasm_dc.xwide_resident = lambda name, geo, device: blocks
+    try:
+        yield
+    finally:
+        genasm_dc.xwide_resident = resident
+
+
+def _loop_check(name: str, cfg: AlignerConfig, call, ref, lanes: int,
+                block_lanes: int, device, what: str) -> dict:
+    """The wide kernel `call` once more on a grid of ``groups // 8`` blocks
+    (at least one), so that each block handles several of the case's lane
+    groups in turn, against the plain outputs `ref` (max abs err 0 or
+    raise): the persistent grid's loop, which the cases' own grids (fewer
+    groups than the card's resident blocks) do not run.  {} where the
+    case is not wide or has one group, or off the card."""
+    groups = -(-lanes // block_lanes)
+    if not _xwide(cfg) or groups < 2 or device.type != "cuda":
+        return {}
+    blocks = max(1, groups // 8)
+    with _grid_of(blocks):
+        got = call()
+    return dict(loop_blocks=blocks, loop_groups=groups,
+                loop_max_abs_err=_max_abs_err(
+                    name, got, ref, f"{what} on {blocks} block(s)"))
+
+
+def _block_row(cfg: AlignerConfig, geo) -> dict:
+    """A block's fields in a row: a template's G threads a lane and L
+    levels a thread, or the wide family's word and level roles (WT, DG)
+    and where its ring lies; lanes, threads and shared bytes."""
+    if _xwide(cfg):
+        own = dict(family="xwide", WT=geo.words, DG=geo.depth, ring=geo.ring)
+    else:
+        own = dict(G=geo.group, L=geo.levels_per_thread)
+    return dict(own, lanes_per_block=geo.lanes, threads=geo.threads,
+                shared_bytes=geo.shared_bytes)
 
 
 def tail_launcher(name: str, cfg: AlignerConfig, geo, inputs, kw):
@@ -502,10 +604,11 @@ def tail_launcher(name: str, cfg: AlignerConfig, geo, inputs, kw):
     ``tail_full``) at block `geo` (any ``genasm_dc.tail_geometry``, in
     either placement) on CUDA `inputs`, through its C entry point, and its
     (ops, meta); the wrapper launches only the geometry's default.  On
-    CPU inputs: the plain version."""
+    CPU inputs, and for the wide family (one block, the wrapper's): the
+    wrapper."""
     pm, text, m_len, n_len = inputs
-    if pm.device.type != "cuda":
-        return lambda: KERNELS[name][1](*inputs, **kw)
+    if pm.device.type != "cuda" or _xwide(cfg):
+        return lambda: KERNELS[name][0](*inputs, **kw)
     lanes, dev = pm.shape[-1], pm.device
     ops = torch.empty((kw["max_ops"], lanes), dtype=torch.int32, device=dev)
     meta = torch.empty((genasm_dc.META_ROWS, lanes), dtype=torch.int32,
@@ -532,23 +635,28 @@ def tail_launcher(name: str, cfg: AlignerConfig, geo, inputs, kw):
 def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
                    usage=None):
     """The geometry of the tail kernel `name` for `cfg` at its main-path
-    shapes, in `placement` (default: the geometry's own choice), and a row
-    of its block, store and (with ``usage``, on the card) occupancy and
-    ptxas report."""
+    shapes, in `placement` (default: the geometry's own choice; the wide
+    family's block at NW >= 9, placement "xwide"), and a row of its
+    block, store and (with ``usage``, on the card) occupancy and ptxas
+    report."""
     n_text = cfg.W + 4 * cfg.k
     banded = name == "tail_banded"
-    geo = genasm_dc.tail_geometry(cfg, n_text, cfg.W + n_text, banded=banded,
-                                  placement=placement)
     nwb = cfg.nwb if banded else cfg.nw
+    if _xwide(cfg):
+        geo = genasm_dc.xwide_geometry(cfg, name, n_text)
+        placement = "xwide"
+    else:
+        geo = genasm_dc.tail_geometry(cfg, n_text, cfg.W + n_text,
+                                      banded=banded, placement=placement)
+        placement = geo.placement
     row = dict(NW=cfg.nw, KP=genasm_dc.levels_bucket(cfg.k), NWB=nwb,
-               G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
-               threads=geo.threads, placement=geo.placement,
-               shared_bytes=geo.shared_bytes,
+               **_block_row(cfg, geo), placement=placement,
                store_bytes_per_lane=4 * ((cfg.k + 1) * n_text * nwb
-                                         if geo.placement == "shared"
+                                         if placement == "shared"
                                          else geo.store_words))
     if usage is not None:
-        blocks, limit = genasm_dc.tail_occupancy(cfg, geo, banded)
+        blocks, limit = (genasm_dc.xwide_occupancy(name, geo) if _xwide(cfg)
+                         else genasm_dc.tail_occupancy(cfg, geo, banded))
         if limit < geo.shared_bytes:
             raise AssertionError(f"{name} W={cfg.W} k={cfg.k}: the card "
                                  f"allows {limit} B of dynamic shared "
@@ -558,8 +666,7 @@ def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
             raise AssertionError(f"{name} W={cfg.W} k={cfg.k}: no block of "
                                  f"{geo.threads} threads fits an SM")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
-                   ptxas=usage.get(_instantiation(name, cfg,
-                                                  geo.placement)))
+                   ptxas=usage.get(_instantiation(name, cfg, placement)))
     return geo, row
 
 
@@ -567,10 +674,11 @@ def k3_launcher(cfg: AlignerConfig, geo, inputs):
     """A call of K3 at block `geo` (any ``genasm_dc.dc_band_geometry``, in
     either placement) on CUDA `inputs`, through its C entry point, and its
     (dist, band, levels); the wrapper launches only the geometry's
-    default.  On CPU inputs: the plain version."""
+    default.  On CPU inputs, and for the wide family (one block, the
+    wrapper's): the wrapper."""
     pm, text = inputs
-    if pm.device.type != "cuda":
-        return lambda: genasm_dc.dc_band_plain(pm, text, cfg=cfg)
+    if pm.device.type != "cuda" or _xwide(cfg):
+        return lambda: genasm_dc.genasm_dc(pm, text, cfg=cfg)
     lanes, dev = pm.shape[-1], pm.device
     dist, levels = (torch.empty(lanes, dtype=torch.int32, device=dev)
                     for _ in range(2))
@@ -594,15 +702,21 @@ def k3_launcher(cfg: AlignerConfig, geo, inputs):
 def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
                  threads=None):
     """K3's geometry for `cfg` in `placement` (default: the geometry's
-    own), and a row of its block and (with ``usage``, on the card) the
+    own; the wide family's block at NW >= 9, placement "xwide", no
+    chunk), and a row of its block and (with ``usage``, on the card) the
     shared bytes the card allows, blocks per SM and ptxas's report."""
-    geo = genasm_dc.dc_band_geometry(cfg, threads, placement=placement)
+    if _xwide(cfg):
+        geo = genasm_dc.xwide_geometry(cfg, "dc_band")
+        placement, chunk = "xwide", None
+    else:
+        geo = genasm_dc.dc_band_geometry(cfg, threads, placement=placement)
+        placement, chunk = geo.placement, geo.chunk
     row = dict(NW=cfg.nw, KP=genasm_dc.levels_bucket(cfg.k), NWB=cfg.nwb,
-               G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
-               threads=geo.threads, placement=geo.placement, chunk=geo.chunk,
-               shared_bytes=geo.shared_bytes)
+               **_block_row(cfg, geo), placement=placement, chunk=chunk)
     if usage is not None:
-        blocks, limit = genasm_dc.dc_band_occupancy(cfg, geo)
+        blocks, limit = (genasm_dc.xwide_occupancy("dc_band", geo)
+                         if _xwide(cfg)
+                         else genasm_dc.dc_band_occupancy(cfg, geo))
         if limit < geo.shared_bytes:
             raise AssertionError(f"K3 W={cfg.W} k={cfg.k}: the card allows "
                                  f"{limit} B of dynamic shared memory, a "
@@ -612,7 +726,7 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
                                  f"{geo.threads} threads fits an SM")
         row.update(blocks_per_sm=blocks, card_shared_bytes=limit,
                    ptxas=usage.get(_instantiation("dc_band", cfg,
-                                                  geo.placement)))
+                                                  placement)))
     return geo, row
 
 
@@ -629,11 +743,25 @@ KP128_TIMED = K3_WIDE[-1]
 #: grids (``K1_WIDE_GRID``, ``TAIL_WIDE_GRID``) at 37 and 1 lanes: the
 #: plain K4 alone at 2,048 lanes, k = 240 would take minutes.
 W256_TIMED = (256, 96, (30, 60, 120, 240), 2048)
+#: the W = 512 ladder's rungs (``W512_CFG``: k = 60 -> 120 -> 240 -> 480,
+#: KP = 64, 128, 256, 512, NW = 16: the wide family), each kernel timed
+#: alone at 2,048 lanes as ``W256_TIMED``'s, one call a timing and no
+#: warm-up call past the first (a call takes 8-580 ms; K3 at k = 480
+#: writes a 32 GB band); held equal to the plain versions by the grids
+#: (``XWIDE_GRID``, ``TAIL_XWIDE_GRID``) and a few of their lanes to the
+#: kernel on those lanes alone (``_later_lanes``)
+W512_TIMED = (512, 192, (60, 120, 240, 480), 2048)
+W512_REPS = 1
+#: distinct lanes of the W = 512 rows' inputs, repeated to the 2,048 (a
+#: lane's work is its own, so the time is the same; drawing 2,048 lanes
+#: of ~1 kbp texts with k edits each in Python took ~13 s)
+W512_DISTINCT = 256
 
 
 def phase_kernels(device: torch.device, n_pairs: int = 4096,
                   reps: int = 20, usage: dict | None = None,
-                  w256_lanes: int = W256_TIMED[3]) -> list[dict]:
+                  w256_lanes: int = W256_TIMED[3],
+                  w512_lanes: int = W512_TIMED[3]) -> list[dict]:
     """Each kernel against its plain version at the main path's shapes
     (W=64), then K3 at the widths of ``K3_WIDE`` and K1 and K4 at
     ``KP128_TIMED``.  On the card ``ms`` is the device time per launch
@@ -642,7 +770,8 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
     The tail rows carry their block, store placement and (with ``usage``,
     ptxas's) registers, spills and blocks per SM; the K3 rows their block,
     band placement and occupancy; the K1 rows at KP = 128 their band's
-    placement, bytes a lane and ptxas.  Last the ladder's gate kernel
+    placement, bytes a lane and ptxas.  Then each rung of the W = 256 and
+    W = 512 ladders (``_ladder_rows``), last the ladder's gate kernel
     (``_gate_row``)."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
@@ -664,10 +793,133 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
         row = {**_geometry_row(name, cfg, usage), **row}
         emit("kernel", **row)
         rows.append(row)
-    rows += _w256_rows(device, reps, usage, w256_lanes)
+    rows += _ladder_rows(device, reps, usage, W256_TIMED[:3], w256_lanes)
+    rows += _ladder_rows(device, W512_REPS, usage, W512_TIMED[:3],
+                         w512_lanes, distinct=W512_DISTINCT, warm=0)
     rows.append(_gate_row(device, 1024, reps, usage))
     emit("kernel", **rows[-1])
+    for row in _window_rows(device, reps, usage):
+        emit("kernel", **row)
+        rows.append(row)
     return rows
+
+
+def _window_batch(device, cfg: AlignerConfig, lanes: int, read_len: int,
+                  seed: int):
+    """One main window's inputs as the fused loop meets them: `lanes`
+    reads of up to `read_len` bases (sentinel-padded as ``pad_geometry``
+    pads them), references within ~2 % substitutions, each lane at its
+    own window start, one in 20 already failed and a read length that
+    leaves some lanes inactive; and a state for the commit."""
+    rng = np.random.default_rng(seed)
+    Lr, Lf = pad_geometry(cfg, read_len, read_len, 0)
+    bases = rng.integers(0, 4, (lanes, read_len)).astype(np.uint8)
+    refs = np.full((lanes, Lf), 9, np.uint8)
+    refs[:, :read_len] = np.where(rng.random(bases.shape) < 0.02,
+                                  rng.integers(0, 4, bases.shape), bases)
+    reads = np.full((lanes, Lr), 255, np.uint8)
+    reads[:, :read_len] = bases
+    lens = rng.integers(read_len // 2, read_len + 1, lanes).astype(np.int32)
+    start = rng.integers(0, read_len - cfg.W, lanes).astype(np.int32)
+    windows = n_main_windows(read_len, cfg)
+    budget = total_op_budget(read_len, cfg)
+    dev = lambda a: torch.from_numpy(a).to(device)       # noqa: E731
+    state = {"read_pos": dev(start), "ref_pos": dev(start.copy()),
+             "off": dev(rng.integers(0, budget // 2, lanes).astype(np.int32)),
+             "dist": dev(rng.integers(0, 40, lanes).astype(np.int32)),
+             "failed": dev(rng.random(lanes) < 0.05),
+             "buf": dev(np.full((lanes, budget + 1), 4, np.uint8)),
+             "levels": torch.full((windows,), window_step.LEVELS_FLOOR,
+                                  dtype=torch.int32, device=device)}
+    return dev(reads), dev(refs), dev(lens), state
+
+
+def _window_rows(device: torch.device, reps: int, usage: dict | None = None,
+                 lanes: int = 2048, read_len: int = 10_000) -> list[dict]:
+    """The main-window loop's two kernels (``window_step``) against their
+    plain versions on one window of the main path's shapes (W = 64,
+    `lanes` lanes of `read_len` reads, K1's real outputs in between), and
+    at W = 512 (NW = 16) on 37 lanes padded to the lane tile: max abs err
+    0 over every output (the op buffer without its drop column) or raise.
+    On the first, each one's device ms (the commit's state advances from
+    call to call), its plain version's ms and the bound: the bytes this
+    window moves (the prep: its slices read, positions, masks and text;
+    the commit: every lane's level, dist, length, position and failure,
+    and a committing lane's meta, state and ops read and written) over
+    HBM bandwidth, against the integer operations (the prep: four
+    compares and four shifts a pattern position and symbol set, the
+    commit: 20 a lane and two an op) over the INT32 rate.  No single
+    PyTorch call computes either (``library_ms`` null)."""
+    rows = {name: dict(name=name, max_abs_err=0, library_ms=None,
+                       ptxas=(usage or {}).get(name)) for name in STEP_KERNELS}
+    cases = ((AlignerConfig(), lanes, read_len),
+             (AlignerConfig(W=512, O=192, k=60), 37, 2_000))
+    for i, (cfg, B, L) in enumerate(cases):
+        reads, refs, read_len_t, state = _window_batch(device, cfg, B, L,
+                                                       seed=77 + i)
+        pos = (state["read_pos"], state["ref_pos"])
+        got = window_step.window_prep(reads, refs, *pos, cfg=cfg)
+        _sync(device)
+        t0 = time.perf_counter()
+        ref = window_step.window_prep_plain(reads, refs, *pos, cfg=cfg)
+        _sync(device)
+        prep_plain_ms = (time.perf_counter() - t0) * 1e3
+        _max_abs_err("window_prep", got, ref, f"W={cfg.W}, {B} lanes")
+        pm, text = got
+        ops, meta = genasm_dc.genasm_tb_fused(
+            pm, text, cfg=cfg, commit_limit=cfg.stride,
+            max_ops=cfg.tb_max_ops, max_steps=cfg.tb_max_steps)
+        plain_state = {k: v.clone() for k, v in state.items()}
+        before = {k: v.clone() for k, v in state.items()}
+        window_step.window_commit(ops, meta, state, read_len_t, cfg=cfg,
+                                  window=0)
+        _sync(device)
+        t0 = time.perf_counter()
+        window_step.window_commit_plain(ops, meta, plain_state, read_len_t,
+                                        cfg=cfg, window=0)
+        _sync(device)
+        commit_plain_ms = (time.perf_counter() - t0) * 1e3
+        _max_abs_err("window_commit",
+                     [state[k][:, :-1] if k == "buf" else state[k]
+                      for k in state],
+                     [plain_state[k][:, :-1] if k == "buf" else plain_state[k]
+                      for k in state], f"W={cfg.W}, {B} lanes")
+        if i:
+            continue
+        # the bound of this window's work
+        Bp = pm.shape[-1]
+        prep_bytes = (2 * cfg.W * B + 8 * B
+                      + 4 * Bp * (5 * cfg.nw + cfg.W))
+        prep_ops = Bp * 32 * cfg.nw * 8
+        active = ((read_len_t - before["read_pos"] > cfg.W)
+                  & ~before["failed"])
+        commit = active & (meta[genasm_dc.META_DIST, :B] <= cfg.k)
+        n_ops = torch.clamp(meta[genasm_dc.META_NOPS, :B], max=ops.shape[0])
+        committed_ops = int(n_ops[commit].sum())
+        n_commit = int(commit.sum())
+        commit_bytes = (B * (4 * 4 + 2) + n_commit * (4 * 4 + 3 * 4 * 2)
+                        + committed_ops * (4 + 1))
+        commit_ops = B * 20 + 2 * committed_ops
+        for name, nbytes, nops, plain_ms, call in (
+                ("window_prep", prep_bytes, prep_ops, prep_plain_ms,
+                 lambda: window_step.window_prep(reads, refs, *pos,
+                                                 cfg=cfg)),
+                ("window_commit", commit_bytes, commit_ops, commit_plain_ms,
+                 lambda: window_step.window_commit(
+                     ops, meta, state, read_len_t, cfg=cfg, window=0))):
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            t_ops = nops / INT32_OPS_PER_S
+            rows[name].update(
+                W=cfg.W, k=cfg.k, lanes=B, plain_ms=plain_ms,
+                ms=_device_ms(call, reps, device) or _time_ms(call, reps,
+                                                              device),
+                event_ms=_time_ms(call, reps, device),
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                committed_lanes=n_commit, committed_ops=committed_ops)
+    for row in rows.values():
+        row["wide_checked"] = dict(W=512, k=60, lanes=37)
+    return list(rows.values())
 
 
 def _geometry_row(name: str, cfg: AlignerConfig, usage) -> dict:
@@ -681,49 +933,94 @@ def _geometry_row(name: str, cfg: AlignerConfig, usage) -> dict:
         return _k3_geometry(cfg, usage=usage)[1]
     if cfg.W == 64:
         return {}
-    geo = genasm_dc.tb_fused_geometry(cfg)
-    row = dict(_k1_geometry(cfg), placement=geo.placement,
+    geo = _k1_block(cfg)
+    row = dict(_k1_geometry(cfg),
+               placement="xwide" if _xwide(cfg) else geo.placement,
                store_bytes_per_lane=4 * geo.store_words,
                ptxas=(usage or {}).get(_instantiation("tb_fused", cfg)))
     if usage is not None:
-        row["blocks_per_sm"] = genasm_dc.tb_fused_occupancy(cfg, geo)[0]
+        row["blocks_per_sm"] = (
+            genasm_dc.xwide_occupancy("tb_fused", geo) if _xwide(cfg)
+            else genasm_dc.tb_fused_occupancy(cfg, geo))[0]
     return row
 
 
-def _w256_rows(device: torch.device, reps: int, usage,
-               lanes: int) -> list[dict]:
-    """K1, the rung's tail and K3 at each rung of ``W256_TIMED`` on
-    `lanes` lanes (K1 and K3 on the same windows), timed alone (device
-    ms, event ms, bound; no plain version: the grids hold these
-    instantiations equal to it), with block, store bytes a lane, ptxas
-    registers and spills, blocks per SM and its seconds (a rung's first
-    row with its inputs' making).  The stores and bands (up to 20 GB for
-    K4 at k = 240) are freed after each row."""
-    W, O, ks, _ = W256_TIMED
-    rng = np.random.default_rng(256)
+def _repeated(case, times: int):
+    """A ``_case`` whose lanes (the last axis of every input, and the
+    columns) are repeated `times` times."""
+    inputs, kw, cols = case
+    return (tuple(t.repeat(*[1] * (t.dim() - 1), times) for t in inputs),
+            kw, np.tile(cols, times))
+
+
+def _later_lanes(name: str, cfg: AlignerConfig, inputs, kw, got,
+                 device) -> dict:
+    """A wide kernel's outputs at a few lanes of a big call (the first
+    two, the middle and the last: past the card's resident blocks, the
+    later ones fall to a block's later lane groups) against the kernel
+    run on those lanes alone (each in a block's first group): max abs
+    err 0 or raise.  {} below NW = 9 or off the card."""
+    if not _xwide(cfg) or device.type != "cuda":
+        return {}
+    B = inputs[0].shape[-1]
+    lanes = sorted({0, 1, B // 2, B - 1})
+    idx = torch.tensor(lanes, device=device)
+    alone = KERNELS[name][0](*(t.index_select(-1, idx).contiguous()
+                               for t in inputs), **kw)
+    return dict(later_lanes=lanes, later_lanes_max_abs_err=_max_abs_err(
+        name, alone, [o.index_select(-1, idx) for o in got],
+        f"W={cfg.W} k={cfg.k}: lanes {lanes} of {B}"))
+
+
+def _ladder_rows(device: torch.device, reps: int, usage, ladder,
+                 lanes: int, distinct: int | None = None,
+                 warm: int = 2) -> list[dict]:
+    """K1, the rung's tail and K3 at each rung of `ladder` ((W, O, ks):
+    ``W256_TIMED``, ``W512_TIMED``) on `lanes` lanes (K1 and K3 on the
+    same windows; `distinct` of them drawn and repeated, where given),
+    timed alone (device ms, event ms, bound, after `warm` calls; no plain
+    version: the grids hold these kernels equal to it, and at NW >= 9 a
+    few lanes that blocks reach on later groups are held to the kernel
+    on those lanes alone, ``_later_lanes``), with block, store bytes a
+    lane, ptxas registers and spills, blocks per SM, the peak of device
+    memory the row allocated (``peak_bytes``) and its seconds (a rung's
+    first row with its inputs' making).  Each call's outputs are freed
+    before the next (K3's band is 32 GB at W = 512, k = 480, K4's store
+    in flight 20 GB)."""
+    W, O, ks = ladder
+    rng = np.random.default_rng(W)
+    drawn = distinct or lanes
     rows = []
     for k in ks:
         t0 = time.perf_counter()
         cfg = AlignerConfig(W=W, O=O, k=k)
         tail = "tail_banded" if cfg.tail_banded else "tail_full"
-        square = _case("tb_fused", cfg, lanes, rng, device)
+        square = _repeated(_case("tb_fused", cfg, drawn, rng, device),
+                           lanes // drawn)
         cases = {"tb_fused": square,
-                 tail: _case(tail, cfg, lanes, rng, device),
+                 tail: _repeated(_case(tail, cfg, drawn, rng, device),
+                                 lanes // drawn),
                  "dc_band": (square[0], dict(cfg=cfg), square[2])}
         for name, (inputs, kw, cols) in cases.items():
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
             call = lambda: KERNELS[name][0](*inputs, **kw)  # noqa: E731
             got = call()
-            dist, _ = _dist_and_steps(name, got)
+            dist, steps = _dist_and_steps(name, got)
+            bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
+            later = _later_lanes(name, cfg, inputs, kw, got, device)
+            del got
             row = {**_geometry_row(name, cfg, usage),
                    **dict(name=name, W=W, k=k, lanes=lanes,
                           max_abs_err=None, plain_ms=None, plain_on=None,
-                          checked_by="grids",
-                          solved=int((dist <= cfg.k).sum())),
-                   **_timing(name, cfg, call, inputs, got, cols, reps,
-                             device)}
-            del got, call
+                          checked_by="grids", distinct_lanes=drawn,
+                          solved=int((dist <= cfg.k).sum())), **later,
+                   **_timing(name, cfg, call, reps, device, warm=warm),
+                   "bound_ms": bound_ms, "bound_by": bound_by}
+            del call
             gc.collect()
             if device.type == "cuda":
+                row["peak_bytes"] = torch.cuda.max_memory_allocated(device)
                 torch.cuda.empty_cache()
             row["seconds"] = time.perf_counter() - t0
             t0 = time.perf_counter()
@@ -820,18 +1117,36 @@ K1_WIDE_GRID = [(*WIDE_WIDTHS[nw], k, True, 37) for nw in WIDE_WIDTHS
     (192, 64, 100, False, 1)]
 
 
+#: the wide family's grid (NW >= 9): (W, O, k, early_term, lanes) of K1
+#: and K3.  One kernel serves every (NW, KP, NWB) at run time, so one case
+#: a width class and ring placement: W = 288 (NW 9, KP 32, nwb 2), W = 320
+#: (NW 10, KP 256, the whole vector, no early termination) and W = 512 at
+#: KP 64 and 512 at 37 lanes, each also on a grid of fewer blocks than
+#: lane groups (``_loop_check``); at 1 lane W = 512, k = 511 and W = 1024,
+#: k = 700 (NW 32, KP 1,024, the ring in device memory).  The plain version
+#: takes ~1 s a case on the card: with the tails' about 25 s
+XWIDE_GRID = [(288, 96, 20, True, 37), (320, 96, 200, False, 37),
+              (512, 192, 60, True, 37), (512, 192, 480, True, 37),
+              (512, 192, 511, True, 1), (1024, 300, 700, True, 1)]
+
+
+def _k1_block(cfg: AlignerConfig):
+    """K1's block for `cfg`: its template's, or the wide family's."""
+    if _xwide(cfg):
+        return genasm_dc.xwide_geometry(cfg, "tb_fused")
+    return genasm_dc.tb_fused_geometry(cfg)
+
+
 def _k1_geometry(cfg: AlignerConfig) -> dict:
-    geo = genasm_dc.tb_fused_geometry(cfg)
     return dict(W=cfg.W, k=cfg.k, NW=cfg.nw,
                 KP=genasm_dc.levels_bucket(cfg.k), NWB=cfg.nwb,
-                G=geo.group, L=geo.levels_per_thread, lanes_per_block=geo.lanes,
-                threads=geo.threads, shared_bytes=geo.shared_bytes)
+                **_block_row(cfg, _k1_block(cfg)))
 
 
 def _k1_cases():
     """(kernel, config, lanes) of ``K1_GRID`` and ``K1_WIDE_GRID``, in
     phase k1_grid's order."""
-    for W, O, k, early_term, lanes in K1_GRID + K1_WIDE_GRID:
+    for W, O, k, early_term, lanes in K1_GRID + K1_WIDE_GRID + XWIDE_GRID:
         yield "tb_fused", AlignerConfig(W=W, O=O, k=k,
                                         early_term=early_term), lanes
 
@@ -846,10 +1161,11 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
     refs = None if refs is None else iter(refs.result())
     rows = []
     for name, cfg, lanes in _k1_cases():
+        what = (f"W={cfg.W} k={cfg.k} early_term={cfg.early_term} "
+                f"lanes={lanes}")
         row = _check_case(name, cfg, lanes, rng, device,
-                          reps if lanes >= 2048 else 0,
-                          f"W={cfg.W} k={cfg.k} early_term={cfg.early_term} "
-                          f"lanes={lanes}", refs)
+                          reps if lanes >= 2048 else 0, what, refs,
+                          loop=True)
         row.update(_k1_geometry(cfg), early_term=cfg.early_term)
         emit("k1_grid", **row)
         rows.append(row)
@@ -892,7 +1208,8 @@ def phase_k1_occupancy(usage: dict) -> dict:
 #: K3's grid: K1's (K3 has K1's (NW, KP, NWB) instantiations), each in
 #: both band placements at NW <= 4 and in ``K3_PLACEMENT``'s at NW = 5..8,
 #: at 37 and 1 lanes
-K3_GRID = [case for case in K1_GRID + K1_WIDE_GRID if case[4] < 2048]
+K3_GRID = [case for case in K1_GRID + K1_WIDE_GRID + XWIDE_GRID
+           if case[4] < 2048]
 
 
 def _k3_cases(timed_lanes=(2048, 4096)):
@@ -907,7 +1224,10 @@ def _k3_cases(timed_lanes=(2048, 4096)):
 
 def _k3_placements(cfg: AlignerConfig) -> tuple:
     """K3's band placements instantiated for `cfg`: both at NW <= 4, the
-    one ``K3_PLACEMENT`` names at NW = 5..8."""
+    one ``K3_PLACEMENT`` names at NW = 5..8, the wide family's own at NW
+    >= 9."""
+    if cfg.nw > genasm_dc.TEMPLATE_NW:
+        return ("xwide",)
     if cfg.nw <= genasm_dc.NARROW_NW:
         return K3_PLACEMENTS
     return (genasm_dc.K3_PLACEMENT[genasm_dc.levels_bucket(cfg.k)],)
@@ -936,14 +1256,17 @@ def phase_k3_grid(device: torch.device, reps: int = 20,
             geo, geo_row = _k3_geometry(cfg, placement, usage)
             call = k3_launcher(cfg, geo, inputs)
             got = call()
+            what = (f"W={W} k={k} early_term={early_term} lanes={lanes} "
+                    f"{placement}")
             row = dict(name="dc_band", W=W, k=k, early_term=early_term,
                        lanes=lanes, max_abs_err=_max_abs_err(
-                           "dc_band", got, ref, f"W={W} k={k} early_term="
-                           f"{early_term} lanes={lanes} {placement}"),
-                       plain_ms=plain_ms, plain_on=plain_on, **geo_row)
+                           "dc_band", got, ref, what),
+                       plain_ms=plain_ms, plain_on=plain_on, **geo_row,
+                       **_loop_check("dc_band", cfg, call, ref, lanes,
+                                     geo.lanes, device, what))
             if lanes >= 2048:
-                row.update(_timing("dc_band", cfg, call, inputs, got, cols,
-                                   reps, device))
+                row.update(_timing("dc_band", cfg, call, reps, device, inputs,
+                                   got, cols))
             emit("k3_grid", **row)
             rows.append(row)
     _done(refs)
@@ -1000,6 +1323,16 @@ TAIL_WIDE_GRID = [(W, O, k, store, "tail_banded" if AlignerConfig(
 TAIL_WIDE_ONE = [(256, 96, 240, "auto", "tail_full"),
                  (144, 48, 12, "auto", "tail_banded"),
                  (208, 72, 80, "auto", "tail_banded")]
+#: the tails' grid at NW >= 9 (the wide family, K2 and K4 one kernel): K2
+#: ('auto' where the band is narrower: W = 288, k = 20 and W = 512, k =
+#: 120) and K4 (W = 512, k = 480) at 37 lanes, each also on a grid of
+#: fewer blocks than lane groups (``_loop_check``); at 1 lane W = 1024,
+#: k = 700 (KP = 1,024)
+TAIL_XWIDE_GRID = [(W, O, k, store, "tail_banded" if AlignerConfig(
+    W=W, O=O, k=k, tail_store=store).tail_banded else "tail_full")
+    for W, O, k, store in ((288, 96, 20, "auto"), (512, 192, 120, "auto"),
+                           (512, 192, 480, "auto"))]
+TAIL_XWIDE_ONE = [(1024, 300, 700, "auto", "tail_full")]
 #: the main path's tails, timed at 2,048 lanes in both placements
 TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
               (64, 24, 24, "auto", "tail_full"),
@@ -1011,7 +1344,8 @@ def _tail_cases(lane_counts=(37, 1, 2048)):
     below 2,048 and ``TAIL_TIMED`` at the others, in phase tail_grid's
     order."""
     for lanes in lane_counts:
-        wide = TAIL_WIDE_GRID if lanes > 1 else TAIL_WIDE_ONE
+        wide = (TAIL_WIDE_GRID + TAIL_XWIDE_GRID if lanes > 1
+                else TAIL_WIDE_ONE + TAIL_XWIDE_ONE)
         for W, O, k, tail_store, name in (TAIL_TIMED if lanes >= 2048
                                           else TAIL_GRID + wide):
             yield name, AlignerConfig(W=W, O=O, k=k,
@@ -1040,6 +1374,7 @@ def phase_tail_grid(device: torch.device, reps: int = 20,
         ref, plain_ms, plain_on = _reference(name, inputs, kw, device,
                                              refs, cfg, lanes)
         places = (PLACEMENTS if cfg.nw <= genasm_dc.NARROW_NW else
+                  ("xwide",) if cfg.nw > genasm_dc.TEMPLATE_NW else
                   (genasm_dc.TAIL_PLACEMENT[(cfg.nw,
                                              genasm_dc.levels_bucket(k))],))
         for placement in places:
@@ -1051,14 +1386,16 @@ def phase_tail_grid(device: torch.device, reps: int = 20,
                 continue
             call = tail_launcher(name, cfg, geo, inputs, kw)
             got = call()
+            what = f"W={W} k={k} lanes={lanes} {placement}"
             row = dict(name=name, W=W, k=k, tail_store=tail_store,
                        lanes=lanes, max_abs_err=_max_abs_err(
-                           name, got, ref, f"W={W} k={k} lanes={lanes} "
-                           f"{placement}"),
-                       plain_ms=plain_ms, plain_on=plain_on, **geo_row)
+                           name, got, ref, what),
+                       plain_ms=plain_ms, plain_on=plain_on, **geo_row,
+                       **_loop_check(name, cfg, call, ref, lanes, geo.lanes,
+                                     device, what))
             if lanes >= 2048:
-                row.update(_timing(name, cfg, call, inputs, got, cols,
-                                   reps, device))
+                row.update(_timing(name, cfg, call, reps, device, inputs, got,
+                                   cols))
             emit("tail_grid", **row)
             rows.append(row)
     _done(refs)
@@ -1075,7 +1412,8 @@ def _plain_refs(grid: str) -> list:
     ``"tail"`` or ``"k3"``: its phase's cases at their default lanes, in
     its order, inputs drawn from its seed): for the untimed cases (fewer
     than 2,048 lanes) the plain version's outputs on the CPU, as numpy
-    arrays, and its host ms; None for the timed ones, whose plain version
+    arrays, and its host ms; None for the timed ones and the wide
+    family's (NW >= 9: their plain fills take GBs), whose plain version
     runs on the card.  A worker process computes them while the kernels
     build; the phase holds its kernels to them (``_reference``)."""
     rng = np.random.default_rng(GRID_SEEDS[grid])
@@ -1084,7 +1422,7 @@ def _plain_refs(grid: str) -> list:
     for name, cfg, lanes in GRID_CASES[grid]():
         inputs, kw, _ = _case(name, cfg, lanes, rng, cpu)
         ref, ms = (None, None)
-        if lanes < 2048:
+        if lanes < 2048 and cfg.nw <= genasm_dc.TEMPLATE_NW:
             ref, ms = _plain(name, inputs, kw, cpu)
             ref = tuple(t.numpy() for t in ref)
         out.append(((name, repr(cfg), lanes), ref, ms))
@@ -1143,7 +1481,7 @@ def _path_counts(device: torch.device, backend: str, what: str):
     taken, other = (dict(c) for c in _counts(device))
     expected = PATH_KERNELS[backend]
     if (min(taken[n] for n in expected) == 0 or max(other.values()) != 0
-            or any(taken[n] for n in KERNELS if n not in expected)):
+            or any(taken[n] for n in taken if n not in expected)):
         raise AssertionError(f"{what} did not run on the {device} path "
                              f"alone: {taken}, other path {other}")
     return taken, other
@@ -1155,6 +1493,10 @@ def phase_main_path(device: torch.device, rs, sample: int = 64):
     aligner, res, align_s, taken, other = _drive(device, "fused", rs)
     if aligner.last_run["rounds_run"] < 2:
         raise AssertionError(f"rescue ladder did not run: {aligner.last_run}")
+    if not taken["window_prep"] == taken["window_commit"] == \
+            taken["tb_fused"]:
+        raise AssertionError(f"not one window_prep and one window_commit a "
+                             f"K1 launch: {taken}")
     checked = 0
     for i in range(min(sample, len(rs.reads))):
         if not res.failed[i]:
@@ -1234,7 +1576,8 @@ def _profiled_kernel(key: str) -> str:
     if tail:
         return ("tail_banded" if int(tail.group(3)) < int(tail.group(1))
                 else "tail_full")
-    return next((k for k in KERNELS if f"{k}_kernel" in key),
+    return next((k for k in (*KERNELS, *STEP_KERNELS)
+                 if f"{k}_kernel" in key),
                 "memcpy" if "memcpy" in key.lower() else "torch_kernels")
 
 
@@ -1279,7 +1622,8 @@ def _device_breakdown(run, top: int = 0) -> dict:
         run()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
+    ms = dict.fromkeys([*KERNELS, *STEP_KERNELS, "torch_kernels", "memcpy"],
+                       0.0)
     launches = dict.fromkeys(ms, 0)
     by_name = {}
     spans = []
@@ -1384,6 +1728,21 @@ WIDE_BATCH = (3, 200, 1, 64)
 W256_CFG = AlignerConfig(W=256, O=96, k=30)
 W256_ROUNDS = 3
 W256_BATCH = (8, 500, 1, 128)
+#: the W = 512 ladder of phase end_to_end: k = 60 -> 120 -> 240 -> 480
+#: (KP = 64, 128, 256, 512; NW = 16, the wide family), and its batch: 8
+#: reads of 1,000 bp, the lane with a 256-base insertion that only k = 480
+#: aligns; the same 8 pairs then pass through a bucket-mode and a
+#: device-mode session
+W512_CFG = AlignerConfig(W=512, O=192, k=60)
+W512_ROUNDS = 3
+W512_BATCH = (8, 1_000, 1, 256)
+#: the W = 512 device-mode session at a batch whose scratch is GBs: this
+#: many pairs of 1 kbp (lane 1 with ``W512_BATCH``'s burst), so that every
+#: rung's kernels run on more lane groups than the card holds blocks (K4
+#: at k = 480: 264 one-lane blocks, 19.8 GB) and each captured rung keeps
+#: its scratch in its graph's own pool: the captures that come later size
+#: their grids by what the earlier ones left (``genasm_dc.free_bytes``)
+W512_SCALE = 320
 
 
 def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
@@ -1396,8 +1755,10 @@ def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
     the default geometry: a pad unit, no block size) on `tile_pairs`
     reads; each backend on the W = 128 ladder (``WIDE_CFG``,
     ``WIDE_ROUNDS``, ``WIDE_BATCH``) with one read only k = 120 aligns,
-    and on the W = 256 ladder (``W256_CFG``, ``W256_ROUNDS``,
-    ``W256_BATCH``) with one read only k = 240 aligns."""
+    on the W = 256 ladder (``W256_CFG``, ``W256_ROUNDS``, ``W256_BATCH``)
+    with one read only k = 240 aligns, and on the W = 512 ladder
+    (``W512_CFG``, ``W512_ROUNDS``, ``W512_BATCH``) with one read only
+    k = 480 aligns."""
     genome = synth_genome(1_000_000, seed=7)
     rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
                                                        seed=7))
@@ -1422,6 +1783,12 @@ def end_to_end_cases(n_pairs: int = 8, read_len: int = 600,
     reads, refs = _with_burst(wide, lane, burst, seed=5)
     cases += [(f"w256_{backend}", backend, reads, refs, W256_CFG,
                W256_ROUNDS) for backend in PATH_KERNELS]
+    n_wide, wide_len, lane, burst = W512_BATCH
+    wide = simulate_reads(genome, n_wide, ReadSimConfig(read_len=wide_len,
+                                                        seed=12))
+    reads, refs = _with_burst(wide, lane, burst, seed=5)
+    cases += [(f"w512_{backend}", backend, reads, refs, W512_CFG,
+               W512_ROUNDS) for backend in PATH_KERNELS]
     return cases
 
 
@@ -1440,12 +1807,14 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
     the CPU, every field equal, and the ladder counts: the burst read of
     ``three_rungs`` takes k = 48 (``rounds_run == 3``), that of the W =
     128 cases k = 120 (``rounds_run == 4``), that of the W = 256 cases
-    k = 240 (``rounds_run == 4``, on the card K1 and K4, or K3, launched at
-    KP = 256: ``_launched_kps``).  After ``w256_fused`` the same pairs
-    pass through a bucket-mode session (``plan(W256_CFG,
-    rescue_rounds=3)``), every record equal to the card's aligner
-    (``_session_pass``).  `cpu`: a future of ``end_to_end_cpu`` at these
-    sizes, else the CPU runs here."""
+    k = 240 and of the W = 512 cases k = 480 (``rounds_run == 4``, on the
+    card K1 and K4, or K3, launched at KP = 256 and 512:
+    ``_launched_kps``).  After ``w256_fused`` the same pairs pass through
+    a bucket-mode session (``plan(W256_CFG, rescue_rounds=3)``), after
+    ``w512_fused`` through a bucket-mode and a device-mode session, every
+    record equal to the card's aligner (``_session_pass``).  `cpu`: a
+    future of ``end_to_end_cpu`` at these sizes, else the CPU runs
+    here."""
     sizes = dict(n_pairs=n_pairs, read_len=read_len, tile_pairs=tile_pairs,
                  tile_read_len=tile_read_len)
     cpu = cpu.result() if cpu is not None else end_to_end_cpu(**sizes)
@@ -1453,10 +1822,14 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
               "w128_fused": (WIDE_BATCH[2], 120, 4),
               "w128_split": (WIDE_BATCH[2], 120, 4),
               "w256_fused": (W256_BATCH[2], 240, 4),
-              "w256_split": (W256_BATCH[2], 240, 4)}
-    #: the kernels each W = 256 case must launch at KP = 256
-    want_kp256 = {"w256_fused": ("tb_fused", "tail_full"),
-                  "w256_split": ("dc_band",)}
+              "w256_split": (W256_BATCH[2], 240, 4),
+              "w512_fused": (W512_BATCH[2], 480, 4),
+              "w512_split": (W512_BATCH[2], 480, 4)}
+    #: the kernels each W = 256 / 512 case must launch at KP = 256 / 512
+    want_kp = {"w256_fused": (256, ("tb_fused", "tail_full")),
+               "w256_split": (256, ("dc_band",)),
+               "w512_fused": (512, ("tb_fused", "tail_full")),
+               "w512_split": (512, ("dc_band",))}
     for name, backend, reads, refs, cfg, rounds in end_to_end_cases(**sizes):
         with _launched_kps() as kps:
             res, run, seconds = _cuda_equals_cpu(
@@ -1469,11 +1842,12 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
                 raise AssertionError(f"{name}: the burst read did not take "
                                      f"the k={k} rung: {run}, k_used "
                                      f"{res.k_used[lane]}")
-        missing = [kernel for kernel in want_kp256.get(name, ())
-                   if device.type == "cuda" and (kernel, 256) not in kps]
+        kp, kernels = want_kp.get(name, (None, ()))
+        missing = [kernel for kernel in kernels
+                   if device.type == "cuda" and (kernel, kp) not in kps]
         if missing:
             raise AssertionError(f"{name}: {missing} not launched at KP = "
-                                 f"256: {sorted(kps)}")
+                                 f"{kp}: {sorted(kps)}")
         emit("end_to_end", backend=backend, case=name, pairs=len(reads),
              read_len=len(reads[0]), equal=True, seconds=seconds,
              k_used=res.k_used.tolist(), failed_share=float(
@@ -1487,6 +1861,64 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
                                        batch_lanes=len(reads),
                                        cache="private", device=device),
                           reads, refs, res, device, phase="end_to_end")
+        if name == "w512_fused":
+            for mode in ("bucket", "device"):
+                _session_pass(f"w512_{mode}", plan(
+                    W512_CFG, rescue_rounds=W512_ROUNDS, rescue_mode=mode,
+                    batch_lanes=len(reads), cache="private", device=device),
+                    reads, refs, res, device, phase="end_to_end")
+            if device.type == "cuda":
+                _w512_scale_pass(device)
+
+
+def _w512_scale_pass(device: torch.device, n_pairs: int = W512_SCALE) -> None:
+    """``W512_SCALE`` pairs through a device-mode session (``plan(W512_CFG,
+    rescue_mode='device')``, every rung captured), every record equal to
+    the card's aligner on the same pairs (``_session_pass``), the burst
+    read aligned at k = 480.  Each wide launch's grid is read off
+    ``genasm_dc.xwide_blocks`` (lane groups, blocks, scratch bytes, the
+    free bytes it was sized by, whether it was captured); the pass fails
+    unless some launch's scratch is 1 GiB or more and some captured
+    launch has more lane groups than blocks."""
+    genome = synth_genome(1_000_000, seed=7)
+    _, read_len, lane, burst = W512_BATCH
+    rs = simulate_reads(genome, n_pairs, ReadSimConfig(read_len=read_len,
+                                                       seed=13))
+    reads, refs = _with_burst(rs, lane, burst, seed=5)
+    _, want, aligner_s, _, _ = _drive(
+        device, "fused", SimpleNamespace(reads=reads, ref_segments=refs),
+        W512_CFG, rescue_rounds=W512_ROUNDS)
+    if want.k_used[lane] != 480 or want.failed[lane]:
+        raise AssertionError(f"w512 scale: the burst read took k = "
+                             f"{want.k_used[lane]}, not 480")
+    grids = []
+    pick = genasm_dc.xwide_blocks
+
+    def spy(geo, B, resident, free=None):
+        blocks = pick(geo, B, resident, free)
+        grids.append(dict(groups=-(-B // geo.lanes), blocks=blocks,
+                          scratch_bytes=4 * geo.block_words * blocks,
+                          free_bytes=free, captured=bool(
+                              torch.cuda.is_current_stream_capturing())))
+        return blocks
+    torch.cuda.reset_peak_memory_stats(device)
+    genasm_dc.xwide_blocks = spy
+    try:
+        _session_pass("w512_device_scale", plan(
+            W512_CFG, rescue_rounds=W512_ROUNDS, rescue_mode="device",
+            batch_lanes=n_pairs, cache="private", device=device),
+            reads, refs, want, device, phase="end_to_end")
+    finally:
+        genasm_dc.xwide_blocks = pick
+    captured = [g for g in grids if g["captured"]]
+    if max(g["scratch_bytes"] for g in grids) < 2 ** 30 or not any(
+            g["groups"] > g["blocks"] for g in captured):
+        raise AssertionError(f"w512 scale: no launch of 1 GiB of scratch, "
+                             f"or no captured launch looped: {grids}")
+    emit("end_to_end", pass_="w512_device_scale_grids", pairs=n_pairs,
+         aligner_s=aligner_s, grids=grids,
+         captured_scratch_bytes=sum(g["scratch_bytes"] for g in captured),
+         peak_bytes=torch.cuda.max_memory_allocated(device))
 
 
 #: where each wrapper's C entry point takes k among its integer arguments
@@ -1500,10 +1932,10 @@ def _launched_kps():
     counts = {}
     inner = genasm_dc._launch
 
-    def spy(name, *tensors, ints, block=()):
+    def spy(name, *tensors, ints, block=(), entry=None):
         key = (name, genasm_dc.levels_bucket(ints[_K_ARG[name]]))
         counts[key] = counts.get(key, 0) + 1
-        return inner(name, *tensors, ints=ints, block=block)
+        return inner(name, *tensors, ints=ints, block=block, entry=entry)
     genasm_dc._launch = spy
     try:
         yield counts
@@ -4728,12 +5160,14 @@ def main() -> None:
 
 def _families(usage: dict, name: str) -> dict:
     """Kernel `name`'s instantiations in the build, by family: "NW 1-4"
-    (W <= 128, the source in ``SOURCES``) and "NW 5-8" (W = 129..256,
-    its ``*_wide.cu``), as ptxas reports them (K2 and K4 share one
-    template)."""
+    (W <= 128, the source in ``SOURCES``), "NW 5-8" (W = 129..256, its
+    ``*_wide.cu``) and "NW 9+" (the wide family's one kernel, its
+    ``*_xwide.cu``), as ptxas reports them (K2 and K4 share one
+    template, and one wide kernel)."""
     template = {"tb_fused": "tb_fused", "dc_band": "dc_band"}.get(
         name, "tail_fused")
-    out = {"NW 1-4": 0, "NW 5-8": 0}
+    out = {"NW 1-4": 0, "NW 5-8": 0,
+           "NW 9+": int(f"{template}_xwide" in usage)}
     for key in usage:
         m = re.match(rf"{template}<NW=(\d+),", key)
         if m:
@@ -4824,7 +5258,9 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
                                           "store_bytes_per_lane"),
                                       blocks_per_sm=r.get("blocks_per_sm"),
                                       lanes=r["lanes"],
-                                      ptxas=r.get("ptxas")) for r in wide]
+                                      ptxas=r.get("ptxas"),
+                                      peak_bytes=r.get("peak_bytes"))
+                                 for r in wide]
         kernels.append(entry)
     gate = next(r for r in rows if r["name"] == "ladder_gate")
     kernels.append(dict(
@@ -4833,6 +5269,13 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
         **{key: gate[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "event_ms", "lanes", "ptxas")}))
+    for name, (_, _, replaces) in STEP_KERNELS.items():
+        row = next(r for r in rows if r["name"] == name)
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=replaces,
+            launches=launches[name], **{key: row[key] for key in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "event_ms", "W", "k", "lanes", "ptxas")}))
     return kernels
 
 

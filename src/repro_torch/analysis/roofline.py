@@ -37,6 +37,13 @@ def roofline_terms(flops_global: float, bytes_global: float,
     return terms
 
 
+def store_write_s(store_bytes_per_lane: int, lanes: int) -> float:
+    """Least seconds to write `lanes` lanes' kernel stores (K1's band,
+    the tails' store, K3's band) once over HBM3: the store term of a
+    kernel whose DP stays on chip (the wide family's ring included)."""
+    return store_bytes_per_lane * lanes / HBM_BW
+
+
 def model_flops(n_active_params: float, tokens: float, train: bool) -> float:
     return (TRAIN_FACTOR if train else INFER_FACTOR) * n_active_params * tokens
 

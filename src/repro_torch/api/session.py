@@ -31,9 +31,10 @@ per (spec, bucket, lanes, rung, device) in a **process-shared**
 counterpart is an :class:`AlignExecutable`, keyed by the reference's key
 plus the device: ``(spec.key(), cfg.fingerprint(), lanes, read_bucket,
 ref_bucket, rescue_rounds, mesh_fingerprint, str(device))``.  Its build
-does the one-time work of a shape: on CUDA it checks that the kernels are
-instantiated for every rung's configuration (so an unsupported W or k
-raises in ``warmup()`` or the first dispatch, never mid-ladder), loads the
+does the one-time work of a shape: on CUDA it checks that one block of
+every rung's kernels fits the card's free memory (the one refusal, of the
+wide family at W > 256: it raises in ``warmup()`` or the first dispatch,
+never mid-ladder), loads the
 kernel library (building it at first use), derives the K1 / K2 / K4 / K3
 blocks the step will launch and queries each instantiation's occupancy,
 which also raises its dynamic shared-memory limit

@@ -33,14 +33,22 @@ reference's versions model its Triton path, a register model):
     (``gpu_split_store_words``).
   * The fill: each of a lane's G threads carries L = KP / G levels from
     one wavefront step to the next, not k+1 (``gpu_lane_state_words``).
+  * At NW >= 9 (W >= 257) the wide family (``xwide_geometry``): K1's band
+    (k+1) x ncols_band x nwb words a lane and the tails' store (k+1) x
+    n_text x nwb (K4: nw) in the scratch of a persistent block, reused
+    for each lane group it walks; a lane's fill state is a ring of three
+    wavefront steps, 3 x (k+1) x nw words, in the block's shared memory
+    or its scratch.  ``gpu_scratch_in_flight`` gives the scratch of the
+    blocks the card holds at once.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..kernels.genasm_dc import (check_instantiated, tail_geometry,
-                                 tb_fused_geometry)
+from ..kernels.genasm_dc import (MEMORY_SHARE, TEMPLATE_NW, tail_geometry,
+                                 tb_fused_geometry, xwide_geometry)
 from .config import AlignerConfig
+from .windowing import H100_SMS, sm_blocks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,8 +116,12 @@ def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
     ``tb_fused_geometry`` places it: in the block's dynamic shared memory
     per lane k+1 rows of ncols_band x nwb words, with the row and bank
     pads; in device memory (KP >= 128, or W > 128) the skewed
-    (ncols_band + rows0 - 1) x L x nwb x rows0 layout.  The reference's Triton path kept the same
-    band unpadded in device memory (``kernel_scratch_words``)."""
+    (ncols_band + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the
+    wide family's, (k+1) x ncols_band x nwb unpadded in its block's
+    scratch.  The reference's Triton path kept the same band unpadded in
+    device memory (``kernel_scratch_words``)."""
+    if cfg.nw > TEMPLATE_NW:
+        return xwide_geometry(cfg, "tb_fused").store_words * tile
     geo = tb_fused_geometry(cfg)
     return (geo.band_words or geo.store_words) * tile
 
@@ -122,11 +134,16 @@ def gpu_tail_store_words(cfg: AlignerConfig, tile: int,
     columns, default W + 4k, with the aligner's op budget W + n_text),
     wherever ``tail_geometry`` places it: in shared memory k+1 padded rows
     of n_text x nwb words (K4: nw), in device memory the skewed
-    (n_text + rows0 - 1) x L x nwb x rows0 layout.  The reference's
-    Triton path kept (k+1) x n_text x nwb (K4: (k+1) x (n_text+1) x nw)
-    words in device memory (``tail_scratch_words``)."""
+    (n_text + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the wide
+    family's (k+1) x n_text x nwb (K4: nw) in its block's scratch.  The
+    reference's Triton path kept (k+1) x n_text x nwb (K4: (k+1) x
+    (n_text+1) x nw) words in device memory (``tail_scratch_words``)."""
     if n_text is None:
         n_text = cfg.W + 4 * cfg.k
+    if cfg.nw > TEMPLATE_NW:
+        banded = cfg.tail_banded if banded is None else banded
+        return xwide_geometry(cfg, "tail_banded" if banded else "tail_full",
+                              n_text).store_words * tile
     geo = tail_geometry(cfg, n_text, cfg.W + n_text, banded=banded)
     return (geo.shared_store_words or geo.store_words) * tile
 
@@ -136,9 +153,8 @@ def gpu_split_store_words(cfg: AlignerConfig, tile: int) -> int:
     ncols_band x nwb words a lane in device memory
     (``kernel_scratch_words``).  It leaves the block through a ring of
     wavefront steps in shared memory (``dc_band_geometry``'s "staged") or
-    straight from the fill's registers ("direct"); the ring is staging,
-    not store."""
-    check_instantiated(cfg)
+    straight from the fill's registers ("direct"), at NW >= 9 straight
+    from the wide family's ring; the ring is staging, not store."""
     return kernel_scratch_words(cfg, tile)
 
 
@@ -146,11 +162,45 @@ def gpu_lane_state_words(cfg: AlignerConfig) -> int:
     """Live DP words one fill thread carries from one wavefront step to
     the next: its L = KP / G levels of the current column and the column
     before of the level below its lowest (the word its neighbour shuffles
-    up), nw words each.  A lane's G threads hold G times that.  The
-    reference's lane-per-thread model carried 2 x (k+1) columns of nw
-    words in one thread."""
-    levels = tb_fused_geometry(cfg).levels_per_thread
-    return (levels + 1) * cfg.nw
+    up), nw words each.  A lane's G threads hold G times that.  At NW >= 9
+    no thread carries state: a lane's is the wide family's ring of three
+    wavefront steps, 3 x (k+1) x nw words in its block's shared memory
+    (or scratch), and that is what this returns.  The reference's
+    lane-per-thread model carried 2 x (k+1) columns of nw words in one
+    thread."""
+    if cfg.nw > TEMPLATE_NW:
+        geo = xwide_geometry(cfg, "tb_fused")
+        return geo.ring_words // geo.lanes
+    geo = tb_fused_geometry(cfg)
+    return (geo.levels_per_thread + 1) * cfg.nw
+
+
+def gpu_scratch_in_flight(cfg: AlignerConfig, kernel: str,
+                          n_text: int | None = None,
+                          free_bytes: int | None = None,
+                          sms: int = H100_SMS) -> dict:
+    """The wide family's scratch (NW >= 9) of `kernel` ("tb_fused",
+    "tail_banded", "tail_full" or "dc_band"; tails at `n_text` columns,
+    default W + 4k): bytes a lane (its store, and its ring where the ring
+    lies in device memory), a block, and in flight: the blocks ``sms``
+    SMs hold at once (``windowing.sm_blocks`` of the block's shared
+    bytes and threads), no more than fit ``MEMORY_SHARE`` of
+    `free_bytes` where given.  K3's band is its output, sized by the
+    batch, not scratch.  Below NW = 9 the templates' stores are a
+    lane's each (``gpu_store_words``, ``gpu_tail_store_words``): None."""
+    if cfg.nw <= TEMPLATE_NW:
+        return None
+    geo = xwide_geometry(cfg, kernel, n_text, free_bytes)
+    block = 4 * geo.block_words
+    blocks = sms * sm_blocks(geo.shared_bytes, geo.threads)
+    if free_bytes is not None and block:
+        blocks = min(blocks, int(MEMORY_SHARE * free_bytes) // block)
+    return {"lanes_per_block": geo.lanes, "threads": geo.threads,
+            "ring": geo.ring, "shared_bytes": geo.shared_bytes,
+            "store_bytes_per_lane": 4 * geo.store_words,
+            "scratch_bytes_per_block": block, "blocks_in_flight": blocks,
+            "lanes_in_flight": blocks * geo.lanes,
+            "scratch_bytes_in_flight": blocks * block}
 
 
 def reduction_report(cfg: AlignerConfig, avg_levels: float,

@@ -11,7 +11,10 @@ Three decisions of the port (see PERF.md):
 
 * the reference's ``lax.scan`` over the main windows is a Python loop with
   one DC launch per window (K1 on backend 'fused', K3 on 'split'); every
-  intermediate stays on the device;
+  intermediate stays on the device.  On 'fused' the rest of the scan body
+  is two kernels of its own (``kernels.window_step``: the window's inputs
+  before K1, the commit after), so a window is three launches and a
+  session's CUDA graph three nodes a window;
 * the reference's on-device round gate ``lax.cond(any(failed))`` is, in
   this eager ladder, a host check of ``failed.any()`` before each rescue
   round: the one device-to-host sync of the ladder, counted in the
@@ -29,8 +32,13 @@ import dataclasses
 import torch
 
 from ..distributed.sharding import check_shards
-from ..kernels.genasm_dc import tb_fused_geometry
-from ..kernels.ops import genasm_tail_fused_op, genasm_tb_fused_op
+from ..kernels.genasm_dc import (TEMPLATE_NW, genasm_tb_fused,
+                                 tb_fused_geometry, xwide_geometry)
+from ..kernels.ops import genasm_tail_fused_op
+from ..kernels.window_step import (LEVELS_FLOOR, advance, window_commit,
+                                   window_prep)
+from ..kernels.window_step import (append_ops as _append_ops,
+                                   slice_rev as _slice_rev)
 from .bitops import SENTINEL_PAT, SENTINEL_TEXT
 from .config import AlignerConfig
 from .genasm import dc, dc_jmajor
@@ -123,43 +131,35 @@ def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
     shared memory binds first, 7 blocks of 8 lanes, 7,392 lanes.  Plain
     arithmetic, the same on the CPU and the card.
 
+    At NW >= 9 the block is the wide family's (``xwide_geometry``: the
+    lanes' levels and words in shared memory, 1-16 lanes a block), whose
+    persistent grid holds the same wave.
+
     ``plan(..., lane_tile='auto')`` resolves to this (``resolve_config``);
     in the port ``lane_tile`` is only the batch pad unit.  Raises
-    ValueError, naming W, k and the bytes, where K1 fits no block (and
-    where the kernels are not instantiated for `cfg`)."""
-    geo = tb_fused_geometry(cfg)
-    per_block = geo.shared_bytes + BLOCK_RESERVED_SHARED_BYTES
-    blocks = min(sm_shared_bytes // per_block, sm_threads // geo.threads,
-                 SM_MAX_BLOCKS)
+    ValueError, naming W, k and the bytes, where K1 fits no block."""
+    geo = (xwide_geometry(cfg, "tb_fused") if cfg.nw > TEMPLATE_NW
+           else tb_fused_geometry(cfg))
+    blocks = sm_blocks(geo.shared_bytes, geo.threads, sm_shared_bytes,
+                       sm_threads)
     if blocks == 0:
         raise ValueError(
             f"W={cfg.W} k={cfg.k}: one K1 block of {geo.lanes} lane(s) "
-            f"needs {per_block:,} bytes of shared memory (reserve "
-            f"included) but an SM has sm_shared_bytes={sm_shared_bytes:,}")
+            f"needs {geo.shared_bytes + BLOCK_RESERVED_SHARED_BYTES:,} "
+            f"bytes of shared memory (reserve included) but an SM has "
+            f"sm_shared_bytes={sm_shared_bytes:,}")
     return sms * blocks * geo.lanes
 
 
-def _slice_rev(seq, pos, width: int, length):
-    """Per row: seq[pos:pos+width] reversed, with the `length` real chars
-    packed at the front (sentinel padding after).  The start clamps into
-    the row like the reference's ``dynamic_slice``."""
-    p = torch.clamp(pos.long(), 0, seq.shape[1] - width)
-    t = torch.arange(width, device=seq.device)
-    src = (t[None, :] + (width - length.long())[:, None]) % width
-    return torch.gather(seq, 1, p[:, None] + width - 1 - src)
-
-
-def _append_ops(buf, off, ops, nops, active):
-    """Scatter window ops into the per-row op buffer at offset `off`, in
-    place.  ``buf``'s last column is a drop slot for ops that fall outside
-    (the reference's ``mode='drop'``); callers slice it off."""
-    max_w = ops.shape[1]
-    ar = torch.arange(max_w, device=buf.device)
-    pos = off.long()[:, None] + ar[None, :]
-    drop = buf.shape[1] - 1
-    valid = (ar[None, :] < nops[:, None]) & active[:, None] & (pos < drop)
-    buf.scatter_(1, torch.where(valid, pos, drop), ops)
-    return buf
+def sm_blocks(shared_bytes: int, threads: int,
+              sm_shared_bytes: int = SM_SHARED_BYTES,
+              sm_threads: int = SM_THREADS) -> int:
+    """Blocks of `shared_bytes` dynamic shared memory and `threads`
+    threads one SM holds by its shared memory (plus the 1 KB reserved a
+    block), its threads and its 32 blocks; registers not modelled."""
+    per_block = shared_bytes + BLOCK_RESERVED_SHARED_BYTES
+    return min(sm_shared_bytes // per_block, sm_threads // threads,
+               SM_MAX_BLOCKS)
 
 
 def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
@@ -182,38 +182,38 @@ def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
     def zeros():
         return torch.zeros(B, dtype=torch.int32, device=dev)
 
-    read_pos, ref_pos, off, dist = zeros(), zeros(), zeros(), zeros()
-    failed = torch.zeros(B, dtype=torch.bool, device=dev)
-    levels = []
-    buf = torch.full((B, op_budget + 1), OP_NONE, dtype=torch.uint8,
-                     device=dev)
+    st = {"read_pos": zeros(), "ref_pos": zeros(), "off": zeros(),
+          "dist": zeros(),
+          "failed": torch.zeros(B, dtype=torch.bool, device=dev),
+          "buf": torch.full((B, op_budget + 1), OP_NONE, dtype=torch.uint8,
+                            device=dev),
+          "levels": torch.full((nm,), LEVELS_FLOOR, dtype=torch.int32,
+                               device=dev)}
     wfull = torch.full((B,), W, dtype=torch.int32, device=dev)
-    for _ in range(nm):
-        active = (read_len - read_pos > W) & ~failed
-        pat = _slice_rev(reads, read_pos, W, wfull)
-        txt = _slice_rev(refs, ref_pos, W, wfull)
+    for w in range(nm):
         if cfg.backend == "fused":
-            tb = genasm_tb_fused_op(pat, txt, cfg=cfg, commit_limit=stride,
-                                    max_ops=cfg.tb_max_ops,
-                                    max_steps=cfg.tb_max_steps)
-            solved, levels_run = tb["solved"], tb["levels"]
+            # three launches a window on the card: the inputs, K1, the
+            # commit (kernels/window_step.py)
+            pm, text = window_prep(reads, refs, st["read_pos"], st["ref_pos"],
+                                   cfg=cfg)
+            ops, meta = genasm_tb_fused(pm, text, cfg=cfg,
+                                        commit_limit=stride,
+                                        max_ops=cfg.tb_max_ops,
+                                        max_steps=cfg.tb_max_steps)
+            window_commit(ops, meta, st, read_len, cfg=cfg, window=w)
         else:
+            pat = _slice_rev(reads, st["read_pos"], W, wfull)
+            txt = _slice_rev(refs, st["ref_pos"], W, wfull)
             res = dc(pat, txt, wfull, wfull, cfg)
             tb = traceback(res.store, pat, txt, wfull, wfull, res.dist,
                            stride, cfg=cfg, mode=cfg.store,
                            max_ops=cfg.tb_max_ops,
                            max_steps=cfg.tb_max_steps)
-            solved, levels_run = res.solved, res.levels_run
-        commit = active & solved
-        _append_ops(buf, off, tb["ops"], torch.where(commit, tb["n_ops"], 0),
-                    commit)
-        read_pos = torch.where(commit, read_pos + tb["read_adv"], read_pos)
-        ref_pos = torch.where(commit, ref_pos + tb["ref_adv"], ref_pos)
-        off = torch.where(commit, off + tb["n_ops"], off)
-        dist = torch.where(commit, dist + tb["cost"], dist)
-        failed = failed | (active & ~solved)
-        levels.append(levels_run.to(torch.int32))
+            advance(st, tb, res.solved, res.levels_run, read_len, W, w)
         yield
+    read_pos, ref_pos, off, dist, failed, buf = (
+        st[key] for key in ("read_pos", "ref_pos", "off", "dist", "failed",
+                            "buf"))
 
     # ---- tail window: remaining read (in (O, W]) vs remaining ref ----
     m_tail = torch.clamp(read_len - read_pos, 0, W)
@@ -247,8 +247,7 @@ def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
         "read_consumed": torch.where(t_ok, read_pos + tb_t["read_adv"],
                                      read_pos),
         "ref_consumed": torch.where(t_ok, ref_pos + tb_t["ref_adv"], ref_pos),
-        "levels": (torch.stack(levels) if levels else
-                   torch.zeros(0, dtype=torch.int32, device=dev)),
+        "levels": st["levels"],
     }
 
 

@@ -8,8 +8,12 @@ instantiations at NW = 1..4 (W <= 128); ``tb_fused_wide.cu``,
 5..8 (W = 129..256), which the entry points reach through
 ``k1_kernel_wide`` / ``tail_kernel_wide`` / ``k3_kernel_wide``; each pair
 includes its kernel's body (``tb_fused.cuh``, ``tail_fused.cuh``,
-``dc_band.cuh``, all three ``genasm_common.cuh``); and ``ladder_graph.cu``,
-the rescue ladder's gate kernel and its conditional graph.  The objects
+``dc_band.cuh``, all three ``genasm_common.cuh``); ``tb_fused_xwide.cu``,
+``tail_fused_xwide.cu`` and ``dc_band_xwide.cu``, the wide family at NW >=
+9 (one kernel each, with entry points of their own, over
+``genasm_xwide.cuh``); ``ladder_graph.cu``, the rescue ladder's gate
+kernel and its conditional graph; and ``window_step.cu``, the main-window
+loop's inputs and commit around K1.  The objects
 are linked into one shared library with a plain C interface (no
 PyTorch headers, so the build takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a hash of the sources and the flags, so an edited
@@ -36,19 +40,26 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(CSRC / f"{name}.cu"
                 for name in ("tb_fused", "tail_fused", "dc_band",
                              "tb_fused_wide", "tail_fused_wide",
-                             "dc_band_wide", "ladder_graph"))
+                             "dc_band_wide", "tb_fused_xwide",
+                             "tail_fused_xwide", "dc_band_xwide",
+                             "ladder_graph", "window_step"))
 HEADERS = tuple(CSRC / f"{name}.cuh"
                 for name in ("genasm_common", "tb_fused", "tail_fused",
-                             "dc_band"))
+                             "dc_band", "genasm_xwide"))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_U64 = ctypes.c_ulonglong
+_U64, _L = ctypes.c_ulonglong, ctypes.c_longlong
+#: the wide family's block: lanes, word roles, level roles, threads, ring
+#: placement, shared bytes, ring words (then the store words a lane where
+#: the kernel has a store, the grid's blocks and the stream)
+_XW_BLOCK = [_I] * 6 + [_L]
 #: argument types of each C entry point: pointers, then ints, then the
 #: block geometry (K1, K2/K4: lanes, threads, placement, shared bytes; K3:
-#: lanes, threads, placement, chunk, shared bytes) and the stream; the
+#: lanes, threads, placement, chunk, shared bytes; the wide family's
+#: ``_XW_BLOCK``) and the stream; the
 #: occupancy queries: ints, then the results' pointers; the ladder graph's
 #: (``ladder_graph``): graphs, nodes, tensors and results as pointers, a
 #: conditional handle as an unsigned 64-bit integer
@@ -60,6 +71,17 @@ _SIGNATURES = {
     "genasm_tail_occupancy": [_I] * 6 + [_P] * 2,
     "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I] * 5 + [_P],
     "genasm_dc_band_occupancy": [_I] * 6 + [_P] * 2,
+    "genasm_tb_fused_xwide_launch": [_P] * 5 + [_I] * 10 + _XW_BLOCK
+    + [_L, _I, _P],
+    "genasm_tail_banded_xwide_launch": [_P] * 7 + [_I] * 10 + _XW_BLOCK
+    + [_L, _I, _P],
+    "genasm_tail_full_xwide_launch": [_P] * 7 + [_I] * 10 + _XW_BLOCK
+    + [_L, _I, _P],
+    "genasm_dc_band_xwide_launch": [_P] * 6 + [_I] * 7 + _XW_BLOCK
+    + [_I, _P],
+    "genasm_tb_fused_xwide_occupancy": [_I] * 2 + [_P] * 2,
+    "genasm_tail_xwide_occupancy": [_I] * 2 + [_P] * 2,
+    "genasm_dc_band_xwide_occupancy": [_I] * 2 + [_P] * 2,
     "genasm_ladder_gate_launch": [_P, _I, _P, _P],
     "genasm_graph_create": [_P],
     "genasm_graph_destroy": [_P],
@@ -71,6 +93,9 @@ _SIGNATURES = {
     "genasm_graph_upload": [_P, _P],
     "genasm_graph_launch": [_P, _P],
     "genasm_graph_exec_destroy": [_P],
+    "genasm_mem_free": [_P],
+    "genasm_window_prep_launch": [_P] * 6 + [_I] * 6 + [_P],
+    "genasm_window_commit_launch": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _library: ctypes.CDLL | None = None

@@ -272,8 +272,10 @@ __device__ __forceinline__ void stage_text(const int32_t* __restrict__ text_g,
 // the four bit tests at cursor (d, j, i): R_{j-1}[d] at i-1 (match),
 // R_{j-1}[d-1] at i-1 (substitution) and at i (deletion), R_j[d-1] at i-1
 // (insertion), each with the reference's clamps and analytic edges.
-template <int NW, class Store>
-__device__ void tb_walk(const Store& st, const PatternMasks<NW>& pm,
+// pm.peq(c, ii) is P[ii] == c for the lane's pattern masks (PatternMasks
+// in registers, XwMasks in shared memory).
+template <class Masks, class Store>
+__device__ void tb_walk(const Store& st, const Masks& pm,
                         Rows<const int32_t> text, int n_text, int k, int dist,
                         int d_end, int init_i, int init_j, int commit_limit,
                         int max_ops, int max_steps, Rows<int32_t> ops,

@@ -170,4 +170,19 @@ int genasm_graph_exec_destroy(void* exec) {
       cudaGraphExecDestroy(static_cast<cudaGraphExec_t>(exec)));
 }
 
+// cudaMemGetInfo's free bytes of the current device into *free_bytes, also
+// while this thread captures a graph: the call runs in relaxed capture
+// mode, as PyTorch's allocator runs its cudaMalloc during a capture (the
+// wide family sizes a captured launch's scratch by it).
+int genasm_mem_free(void* free_bytes) {
+  cudaStreamCaptureMode mode = cudaStreamCaptureModeRelaxed;
+  cudaError_t err = cudaThreadExchangeStreamCaptureMode(&mode);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t free = 0, total = 0;
+  err = cudaMemGetInfo(&free, &total);
+  const cudaError_t back = cudaThreadExchangeStreamCaptureMode(&mode);
+  *static_cast<unsigned long long*>(free_bytes) = free;
+  return static_cast<int>(err != cudaSuccess ? err : back);
+}
+
 }  // extern "C"

@@ -229,7 +229,7 @@ __global__ void tail_fused_kernel(const uint32_t* __restrict__ pm_g,
     const TailStore<G, L, NWB, PLACE> st{
         lane_store(w), k, n_text, wm_len - 1 - wn_len, band_hi, rows0,
         row_words, banded != 0};
-    tb_walk<NW>(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1},
+    tb_walk(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1},
                 n_text, k, wdist, level_count(wdist, k, early_term),
                 wm_len - 1, wn_len, commit_limit, max_ops, max_steps,
                 Rows<int32_t>{ops_s + w, lanes}, Rows<int32_t>{meta + wlane, B});

@@ -211,7 +211,7 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
     const int w = threadIdx.x, wdist = dist_s[w];
     const K1Band<L, NWB, PLACE> st{lane_band(w), k, ncb, col0, band_hi,
                                    row_words, rows0};
-    tb_walk<NW>(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1}, W,
+    tb_walk(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1}, W,
                 k, wdist, level_count(wdist, k, early_term), W - 1, W,
                 commit_limit, max_ops, max_steps,
                 Rows<int32_t>{ops_s + w, lanes}, Rows<int32_t>{meta + wlane, B});

@@ -2,7 +2,8 @@
 
 Four kernels, each a port of a Pallas TPU kernel of
 ``repro/kernels/genasm_dc.py`` and written by hand in CUDA C++ in
-``csrc/`` (``tb_fused.cu``, ``tail_fused.cu``, ``dc_band.cu``):
+``csrc/`` (``tb_fused.cu``, ``tail_fused.cu``, ``dc_band.cu``; at NW >= 9
+the wide family ``*_xwide.cu``):
 
   * K1 ``genasm_tb_fused``    <- ``_kernel_fused``: improved GenASM-DC
     (SENE + DENT + ET) of a square W x W window, then the traceback walked
@@ -37,12 +38,20 @@ tails keep their store in shared or device memory, whichever
 ``TAIL_PLACEMENT`` names; K3 writes its band out through a ring in shared
 memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 ``cfg.lane_tile`` sets no block: it is only the batch pad unit
-(``kernels.ops``).  The kernels are instantiated for W <= 256 and every
+(``kernels.ops``).  Templates are instantiated for W <= 256 and every
 k < W (level capacities KP = 16, 32, 64, 128, 256; NW = 1..8 words a
 bitvector, NW = 5..8 in translation units of their own,
-``csrc/*_wide.cu``); a wider window raises ValueError on the card.  A
-block's threads are capped by its instantiation's registers
-(``REGISTERS``: ptxas's count, 65,536 a block).
+``csrc/*_wide.cu``).  Wider windows (NW >= 9) run the wide family
+(``csrc/genasm_xwide.cuh``, ``xwide_geometry``): one kernel each for K1,
+K2/K4 and K3 with NW, k and NWB at run time, a lane's levels and words
+in shared memory (device memory where they do not fit), on a persistent
+grid whose scratch is sized by the blocks in flight; the one refusal is
+a block whose scratch exceeds the card's free memory (``check_scratch_fits``).
+The wrappers choose the family (``cfg.nw > TEMPLATE_NW``); the templates'
+geometries (``tb_fused_geometry``, ...) and occupancy queries serve NW <=
+8 only, ``xwide_geometry`` and ``xwide_occupancy`` the wide family.
+A block's threads are capped by its kernel's registers (``REGISTERS``:
+ptxas's count, 65,536 a block).
 
 Each wrapper checks device, dtype, shape and contiguity.  For a CPU tensor
 it runs the kernel's plain PyTorch version (vectorised over lanes, the
@@ -91,11 +100,26 @@ def _bump(counts: dict, name: str) -> None:
 _RECORDING = threading.local()
 
 
+#: the launch and plain-call counts of kernels whose wrappers live in
+#: other modules (``window_step``), by kernel name: launched inside a
+#: capture, they are recorded and counted at replay with the four above
+_OTHER_COUNTS: dict = {}
+
+
+def register_counts(launches: dict, plain_calls: dict) -> None:
+    """Count the kernels of `launches` (name -> count) here as well: their
+    launches within ``recording_launches`` are recorded, ``add_launches``
+    and ``reset_counts`` reach them.  Their dicts stay their module's."""
+    for name in launches:
+        _OTHER_COUNTS[name] = (launches, plain_calls)
+
+
 @contextlib.contextmanager
 def recording_launches():
     """Within this context the calling thread's kernel launches are
-    recorded into the dict it yields, not counted in LAUNCHES: the
-    launches of a CUDA graph captured here, which run at its replays."""
+    recorded into the dict it yields, not counted in LAUNCHES (or the
+    registered counts): the launches of a CUDA graph captured here, which
+    run at its replays."""
     rec = dict.fromkeys(KERNELS, 0)
     outer = getattr(_RECORDING, "launches", None)
     _RECORDING.launches = rec
@@ -109,20 +133,23 @@ def add_launches(launches: dict) -> None:
     """Count the launches one replay of a captured graph holds."""
     with _COUNTS_LOCK:
         for name, n in launches.items():
-            LAUNCHES[name] += n
+            (_OTHER_COUNTS[name][0] if name in _OTHER_COUNTS
+             else LAUNCHES)[name] += n
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, counts: dict = LAUNCHES) -> None:
     rec = getattr(_RECORDING, "launches", None)
     if rec is None:
-        _bump(LAUNCHES, name)
+        _bump(counts, name)
     else:
-        rec[name] += 1
+        rec[name] = rec.get(name, 0) + 1
 
 
 def reset_counts() -> None:
+    """Every count to 0: these four kernels' and the registered ones'."""
     with _COUNTS_LOCK:
-        for counts in (LAUNCHES, PLAIN_CALLS):
+        for counts in (LAUNCHES, PLAIN_CALLS,
+                       *(c for pair in _OTHER_COUNTS.values() for c in pair)):
             for name in counts:
                 counts[name] = 0
 
@@ -329,8 +356,9 @@ def _outputs(max_ops, B, device):
 
 
 def _store(B: int, words: int, device):
-    """A kernel's store in device memory, `words` int32 a lane (none: an
-    empty tensor, whose pointer the kernel does not read)."""
+    """A kernel's store in device memory, `words` int32 a lane (or a
+    block, for the wide family's scratch; none: an empty tensor, whose
+    pointer the kernel does not read)."""
     return torch.empty((B, words) if words else 0, dtype=torch.int32,
                        device=device)
 
@@ -346,12 +374,13 @@ def _check_rc(lib, what: str, rc: int) -> None:
                            f"({lib.genasm_error_string(rc).decode()})")
 
 
-def _launch(name, *tensors, ints, block=()):
+def _launch(name, *tensors, ints, block=(), entry=None):
     """Launch kernel `name` of the CUDA library on the current stream of
     the tensors' device, with the block geometry ``block`` its entry point
-    takes; raise if the launch is refused."""
+    (``genasm_<entry>_launch``, `entry` default `name`) takes; raise if
+    the launch is refused."""
     lib = _library()
-    fn = getattr(lib, f"genasm_{name}_launch")
+    fn = getattr(lib, f"genasm_{entry or name}_launch")
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -405,17 +434,19 @@ K1_PLACEMENT = {**{(nw, kp): "shared" if kp <= 64 else "global"
 #: the widest NW whose instantiations cover every placement (W <= 128);
 #: at NW = 5..8 only the placement the tables name is built
 NARROW_NW = 4
-#: the widest NW instantiated: W <= 256.  A fill thread holds L x NW words
-#: of its levels (L = KP / 32 at KP >= 32) plus the pattern masks' 4 x NW;
-#: at W = 512 that is 16 x 16 = 256 words, past a thread's 255 registers
-MAX_NW = 8
+#: the widest NW of the templates (W <= 256).  A fill thread there holds
+#: L x NW words of its levels (L = KP / 32 at KP >= 32) plus the pattern
+#: masks' 4 x NW; at W = 512 that would be 16 x 16 = 256 words, past a
+#: thread's 255 registers, so NW > TEMPLATE_NW runs the wide family
+TEMPLATE_NW = 8
 
 #: registers of one block (and of one SM) on an H100
 MAX_BLOCK_REGISTERS = 65_536
 #: registers a thread of each kernel's instantiations takes, by (NW, KP):
 #: ptxas's count (``-Xptxas -v``, the build's report), the most over NWB
 #: and placement (CUDA 12.8, sm_90a; PERF.md section 6).  None spills; the
-#: most is 215 (K1 at NW = 8, KP = 256).
+#: most is 215 (K1 at NW = 8, KP = 256).  "xwide": the wide family's one
+#: kernel each (NW >= 9; no spill, CUDA 12.8 on an H100).
 #: A block's threads are capped so that they hold their registers
 #: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
 #: more than this table.
@@ -428,7 +459,8 @@ REGISTERS = {
                  (5, 256): 155, (6, 16): 69, (6, 32): 69, (6, 64): 109,
                  (6, 128): 115, (6, 256): 162, (7, 16): 75, (7, 32): 77,
                  (7, 64): 110, (7, 128): 128, (7, 256): 199, (8, 16): 89,
-                 (8, 32): 94, (8, 64): 117, (8, 128): 152, (8, 256): 215},
+                 (8, 32): 94, (8, 64): 117, (8, 128): 152, (8, 256): 215,
+                 "xwide": 48},
     "tail": {(1, 16): 42, (1, 32): 42, (2, 16): 48, (2, 32): 48,
              (2, 64): 47, (3, 16): 61, (3, 32): 61, (3, 64): 62,
              (3, 128): 72, (4, 16): 71, (4, 32): 74, (4, 64): 80,
@@ -437,7 +469,8 @@ REGISTERS = {
              (5, 256): 149, (6, 16): 72, (6, 32): 72, (6, 64): 98,
              (6, 128): 118, (6, 256): 154, (7, 16): 80, (7, 32): 80,
              (7, 64): 108, (7, 128): 123, (7, 256): 195, (8, 16): 93,
-             (8, 32): 93, (8, 64): 114, (8, 128): 146, (8, 256): 212},
+             (8, 32): 93, (8, 64): 114, (8, 128): 146, (8, 256): 212,
+             "xwide": 48},
     "dc_band": {(1, 16): 37, (1, 32): 37, (2, 16): 37, (2, 32): 37,
                 (2, 64): 48, (3, 16): 52, (3, 32): 46, (3, 64): 56,
                 (3, 128): 64, (4, 16): 54, (4, 32): 57, (4, 64): 68,
@@ -446,7 +479,8 @@ REGISTERS = {
                 (5, 256): 149, (6, 16): 69, (6, 32): 69, (6, 64): 98,
                 (6, 128): 112, (6, 256): 168, (7, 16): 77, (7, 32): 86,
                 (7, 64): 110, (7, 128): 122, (7, 256): 195, (8, 16): 90,
-                (8, 32): 89, (8, 64): 112, (8, 128): 142, (8, 256): 213},
+                (8, 32): 89, (8, 64): 112, (8, 128): 142, (8, 256): 213,
+                "xwide": 36},
 }
 
 
@@ -474,7 +508,6 @@ K3_PLACEMENTS = ("staged", "direct")
 K3_LANES = 16
 K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged", 128: "staged",
                 256: "staged"}
-K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2, 256: 1}
 K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2, 256: 1}
 
 
@@ -519,29 +552,36 @@ class DcBandGeometry:
     shared_bytes: int           #: dynamic shared memory per block
 
 
-def check_instantiated(cfg: AlignerConfig) -> None:
-    """Raise ValueError unless the CUDA kernels are instantiated for
-    `cfg`: W <= 256 (``MAX_NW`` = eight words a bitvector); every k < W
-    is."""
-    if cfg.nw > MAX_NW:
-        raise ValueError(f"W={cfg.W} k={cfg.k}: the CUDA kernels are "
-                         f"instantiated for W <= 256")
+def check_scratch_fits(cfg: AlignerConfig, free_bytes: int) -> None:
+    """Raise ValueError where one block of a wide kernel (NW >= 9) cannot
+    hold its scratch: every W and k < W has a kernel (templates at W <=
+    256, the wide family above), so the one refusal is a block of one lane
+    whose scratch (K1's band, the tail's store at the aligner's W + 4k
+    text columns in K4's and K2's width, and the ring where it lies in
+    device memory) exceeds ``MEMORY_SHARE`` of the card's `free_bytes`.
+    The error names W, k and the bytes (``xwide_geometry``).  Below NW = 9
+    nothing is checked: the templates' stores are a lane's each."""
+    if cfg.nw <= TEMPLATE_NW:
+        return
+    for name in ("tb_fused", "dc_band", "tail_full", "tail_banded"):
+        xwide_geometry(cfg, name, free_bytes=free_bytes)
 
 
 def levels_bucket(k: int) -> int:
-    """KP: the smallest instantiated level capacity (16, 32, 64, 128, 256)
-    >= k+1."""
-    for kp in (16, 32, 64, 128, 256):
-        if k + 1 <= kp:
-            return kp
-    raise ValueError(f"k={k}: the CUDA kernels are instantiated for "
-                     f"k + 1 <= 256")
+    """KP: the smallest level capacity (a power of two, 16 or more) >=
+    k+1; the templates are instantiated at KP = 16 .. 256."""
+    kp = 16
+    while kp < k + 1:
+        kp *= 2
+    return kp
 
 
 def registers(kernel: str, cfg: AlignerConfig) -> int:
     """The registers a thread of `kernel`'s ("tb_fused", "tail" or
-    "dc_band") instantiation for `cfg` takes (``REGISTERS``)."""
-    check_instantiated(cfg)
+    "dc_band") instantiation for `cfg` takes (``REGISTERS``; the wide
+    family's one kernel at NW >= 9)."""
+    if cfg.nw > TEMPLATE_NW:
+        return REGISTERS[kernel]["xwide"]
     return REGISTERS[kernel][(cfg.nw, levels_bucket(cfg.k))]
 
 
@@ -606,6 +646,158 @@ def _fit_registers(threads: int, cap: int, what: str) -> None:
                          f"{cap} threads a block (65,536 registers)")
 
 
+# --------------------------------------------------------------------------
+# the wide family (NW >= 9: csrc/genasm_xwide.cuh and *_xwide.cu): one
+# kernel each for K1, K2/K4 and K3, NW, k and NWB at run time, on a
+# persistent grid; xw_layout in C computes the same sizes
+# --------------------------------------------------------------------------
+
+#: where a wide block keeps its ring of three wavefront steps (3 x (k+1) x
+#: NW words a lane), in C's numbering: its dynamic shared memory, or its
+#: slice of the scratch in device memory where one lane's ring fits no
+#: block
+XW_RINGS = ("shared", "global")
+#: most lanes a wide block holds (halved while its shared memory exceeds
+#: half an SM's, so that two blocks share an SM), lanes a block where the
+#: ring lies in device memory, and the threads a block aims at
+XW_LANES = 16
+XW_GLOBAL_LANES = 4
+XW_THREADS = 512
+#: per-lane words of a wide block's shared memory besides masks and ring
+#: (dist, last column, m_len, n_len)
+XW_LANE_WORDS = 4
+#: the share of the card's free memory the wide family's scratch may take
+#: (the rest is the batch's tensors and the other kernels')
+MEMORY_SHARE = 0.5
+
+
+@dataclasses.dataclass(frozen=True)
+class XwideGeometry:
+    lanes: int                  #: lanes a block (a lane group)
+    words: int                  #: WT: word roles (a thread takes words
+                                #: wt, wt + WT, ...)
+    depth: int                  #: DG: level roles (levels dg, dg + DG, ...)
+    threads: int                #: lanes x WT x DG
+    ring: str                   #: where the ring lies (XW_RINGS)
+    ring_words: int             #: words of a block's ring, 3 x (k+1) x nw
+                                #: x lanes
+    shared_bytes: int           #: dynamic shared memory per block
+    store_words: int            #: int32 words of a lane's store in the
+                                #: block's scratch (K1's band, the tails'
+                                #: store; K3: 0, its band is the output)
+    nwb: int                    #: words of a stored window
+
+    @property
+    def block_words(self) -> int:
+        """int32 words of one block's scratch in device memory: its lanes'
+        stores, then the ring where it lies there."""
+        return self.store_words * self.lanes + (
+            self.ring_words if self.ring == "global" else 0)
+
+
+def _xw_shared(nw: int, k: int, lanes: int, ring: str) -> tuple[int, int]:
+    """(ring words, dynamic shared bytes) of a wide block: the masks (4 x
+    nw a lane), XW_LANE_WORDS a lane, and the ring where it is shared."""
+    ring_words = 3 * (k + 1) * nw * lanes
+    return ring_words, 4 * (4 * nw * lanes + XW_LANE_WORDS * lanes
+                            + (ring_words if ring == "shared" else 0))
+
+
+#: the register family (``REGISTERS``) and the name in errors of each
+#: kernel of ``KERNELS``
+_XW_FAMILY = {"tb_fused": "tb_fused", "tail_banded": "tail",
+              "tail_full": "tail", "dc_band": "dc_band"}
+_XW_LABEL = {"tb_fused": "K1", "tail_banded": "K2", "tail_full": "K4",
+             "dc_band": "K3"}
+
+
+def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
+                   free_bytes: int | None = None) -> XwideGeometry:
+    """The wide block (NW >= 9) of kernel `name` (``KERNELS``: its
+    registers cap the threads) for `cfg`.  A lane's store in the block's
+    scratch: K1's band, (k+1) x ncols_band x nwb words; the tail's, (k+1)
+    x `n_text` (default W + 4k) x nwb words (K4: nw); K3 none (its band
+    is the output).  Lanes: ``XW_LANES``, halved while the shared memory
+    with the ring in it exceeds half the card's 232,448 B a block (two
+    blocks an SM); where one lane's ring does not fit a block even alone,
+    the ring goes to the block's scratch in device memory with
+    ``XW_GLOBAL_LANES`` lanes.  With the card's `free_bytes`, the lanes
+    halve further while one block's scratch exceeds ``MEMORY_SHARE`` of
+    them, and a block of one lane that still does not fit raises
+    ValueError naming W, k and the bytes: the one refusal of the family.
+    Threads: every lane x WT = min(nw, cap / lanes) word roles x DG level
+    roles, DG = XW_THREADS / (lanes x WT) within the cap and k + 1."""
+    if cfg.nw <= TEMPLATE_NW:
+        raise ValueError(f"W={cfg.W}: the wide family runs NW >= "
+                         f"{TEMPLATE_NW + 1}, not {cfg.nw}")
+    nw, k = cfg.nw, cfg.k
+    nwb = cfg.nw if name == "tail_full" else cfg.nwb
+    if name == "tb_fused":
+        store_words = (k + 1) * cfg.ncols_band * nwb
+    elif name == "dc_band":
+        store_words = 0
+    else:
+        store_words = (k + 1) * (cfg.W + 4 * k if n_text is None
+                                 else n_text) * nwb
+    lanes, ring = XW_LANES, "shared"
+    while lanes > 1 and _xw_shared(nw, k, lanes, ring)[1] > \
+            MAX_SHARED_BYTES // 2:
+        lanes //= 2
+    if _xw_shared(nw, k, lanes, ring)[1] > MAX_SHARED_BYTES:
+        lanes, ring = XW_GLOBAL_LANES, "global"
+
+    def block_bytes(n):
+        ring_words = _xw_shared(nw, k, n, ring)[0]
+        return 4 * (store_words * n + (ring_words if ring == "global" else 0))
+    if free_bytes is not None:
+        room = int(MEMORY_SHARE * free_bytes)
+        while lanes > 1 and block_bytes(lanes) > room:
+            lanes //= 2
+        if block_bytes(lanes) > room:
+            raise ValueError(
+                f"W={cfg.W} k={k}: one block of the wide {_XW_LABEL[name]} "
+                f"needs {block_bytes(lanes):,} B of scratch, more than "
+                f"{MEMORY_SHARE:g} of the card's {free_bytes:,} B free")
+    cap = max_threads(_XW_FAMILY[name], cfg)
+    words = min(nw, cap // lanes)
+    depth = max(1, min(k + 1, XW_THREADS // (lanes * words),
+                       cap // (lanes * words)))
+    ring_words, shared = _xw_shared(nw, k, lanes, ring)
+    return XwideGeometry(lanes=lanes, words=words, depth=depth,
+                         threads=lanes * words * depth, ring=ring,
+                         ring_words=ring_words, shared_bytes=shared,
+                         store_words=store_words, nwb=nwb)
+
+
+def xwide_occupancy(name: str, geo: XwideGeometry) -> tuple[int, int]:
+    """``tb_fused_occupancy`` for the wide kernel that runs `name`
+    (``KERNELS``; K2 and K4 share one) at `geo`."""
+    return _occupancy(f"{_XW_FAMILY[name]}_xwide", geo.threads,
+                      geo.shared_bytes)
+
+
+def xwide_blocks(geo: XwideGeometry, B: int, resident: int,
+                 free_bytes: int | None = None) -> int:
+    """Blocks of a wide kernel's persistent grid for B lanes: one a lane
+    group, at most the `resident` blocks the card holds at once, and no
+    more than fit ``MEMORY_SHARE`` of `free_bytes` (each block walks
+    lane groups blockIdx, blockIdx + blocks, ... and reuses its scratch)."""
+    blocks = min(-(-B // geo.lanes), resident)
+    if free_bytes is not None and geo.block_words:
+        blocks = min(blocks, int(MEMORY_SHARE * free_bytes)
+                     // (4 * geo.block_words))
+    return max(blocks, 1)
+
+
+def _templates_only(cfg: AlignerConfig, what: str) -> None:
+    """Raise ValueError for NW >= 9, which no template covers: the wide
+    family derives its own block (``xwide_geometry``)."""
+    if cfg.nw > TEMPLATE_NW:
+        raise ValueError(f"W={cfg.W} k={cfg.k}: {what}'s templates stop at "
+                         f"NW = {TEMPLATE_NW}; NW = {cfg.nw} runs the wide "
+                         f"family (xwide_geometry)")
+
+
 def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
                       threads: int | None = None) -> TbFusedGeometry:
     """K1's block for `cfg` and an op budget (default ``cfg.tb_max_ops``):
@@ -622,8 +814,8 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     rows0`` words a lane, rows0 = ceil((k+1)/L) (the skewed layout of
     ``tb_fused.cu``).  Raises ValueError where one warp's lanes do not
     fit.  The block's threads are capped by the instantiation's registers
-    (``max_threads``)."""
-    check_instantiated(cfg)
+    (``max_threads``).  NW <= 8 only (``_templates_only``)."""
+    _templates_only(cfg, "K1")
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
     group, levels = _group(cfg.k)
     placement = K1_PLACEMENT[(cfg.nw, levels_bucket(cfg.k))]
@@ -674,8 +866,9 @@ def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
     nwb rounded up to an odd multiple of 32 / min(lanes, 32) (the
     write-out's reads then fall in distinct banks).  "staged" needs 8 lanes a block
     or more, so that a band row leaves the block as a 32 B sector at
-    least.  Raises ValueError for a block that does not fit."""
-    check_instantiated(cfg)
+    least.  Raises ValueError for a block that does not fit.  NW <= 8
+    only (``_templates_only``)."""
+    _templates_only(cfg, "K3")
     if placement not in (None, *K3_PLACEMENTS):
         raise ValueError(f"placement={placement!r} is not one of "
                          f"{K3_PLACEMENTS}")
@@ -733,13 +926,13 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
     dist, and one word for the block.  At W > 128 only "global" is
     instantiated.  The block's threads are capped by the instantiation's
     registers (``max_threads``).  `threads` (whole warps) is for the
-    sweep tool."""
-    check_instantiated(cfg)
+    sweep tool.  NW <= 8 only (``_templates_only``)."""
+    _templates_only(cfg, "the tail")
+    banded = cfg.tail_banded if banded is None else banded
+    k, nwb = cfg.k, cfg.nwb if banded else cfg.nw
     if placement not in (None, *PLACEMENTS):
         raise ValueError(f"placement={placement!r} is not one of "
                          f"{PLACEMENTS}")
-    banded = cfg.tail_banded if banded is None else banded
-    k, nwb = cfg.k, cfg.nwb if banded else cfg.nw
     group, levels = _group(k)
     rows0 = -(-(k + 1) // levels)
     common = _half_bank_pad(n_text) + max_ops + 1
@@ -815,6 +1008,71 @@ def dc_band_occupancy(cfg: AlignerConfig,
                       geo.shared_bytes)
 
 
+#: blocks one SM holds of a wide kernel, by (family, threads, shared
+#: bytes, device): the occupancy query runs once each
+_RESIDENT = {}
+
+
+def free_bytes(device) -> int:
+    """Bytes of `device`'s memory a wide launch's scratch can take now:
+    cudaMemGetInfo's free (read in relaxed capture mode, so also during a
+    capture, where every earlier capture's pool is already taken off it),
+    plus, outside a capture, the free blocks PyTorch's caching allocator
+    holds in its default pool on the current stream (the pools of
+    captured graphs, and other streams' blocks, are not the allocation's
+    to use; a capture allocates from its own pool)."""
+    device = torch.device(device)
+    lib = _library()
+    free = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        _check_rc(lib, "genasm_mem_free",
+                  lib.genasm_mem_free(ctypes.byref(free)))
+        if torch.cuda.is_current_stream_capturing():
+            return free.value
+        stream = torch.cuda.current_stream(device).cuda_stream
+        index = device.index if device.index is not None else \
+            torch.cuda.current_device()
+        cached = sum(
+            seg["total_size"] - seg["active_size"]
+            for seg in torch.cuda.memory_snapshot()
+            if seg.get("device") == index and seg.get("stream") == stream
+            and tuple(seg.get("segment_pool_id", ())) == (0, 0))
+    return free.value + cached
+
+
+def xwide_resident(name: str, geo: XwideGeometry, device) -> int:
+    """Blocks of the wide kernel that runs `name` at `geo` the card holds
+    at once: blocks an SM x SMs."""
+    device = torch.device(device)
+    key = (_XW_FAMILY[name], geo.threads, geo.shared_bytes, device)
+    if key not in _RESIDENT:
+        with torch.cuda.device(device):
+            per_sm = xwide_occupancy(name, geo)[0]
+        _RESIDENT[key] = per_sm * torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _RESIDENT[key]
+
+
+def _xwide_launch(name: str, cfg: AlignerConfig, tensors, ints,
+                  n_text: int | None = None) -> None:
+    """Launch the wide kernel of `name` (its count) at the block
+    ``xwide_geometry`` gives for the card's free memory now, on a
+    persistent grid (``xwide_blocks``) with the scratch its blocks
+    reuse."""
+    device = tensors[0].device
+    B = tensors[0].shape[-1]
+    free = free_bytes(device)
+    geo = xwide_geometry(cfg, name, n_text, free)
+    blocks = xwide_blocks(geo, B, xwide_resident(name, geo, device), free)
+    scratch = _store(blocks, geo.block_words, device)
+    block = (geo.lanes, geo.words, geo.depth, geo.threads,
+             XW_RINGS.index(geo.ring), geo.shared_bytes, geo.ring_words)
+    if name != "dc_band":
+        block += (geo.store_words,)
+    _launch(name, *tensors, scratch, ints=ints, block=(*block, blocks),
+            entry=f"{name}_xwide")
+
+
 def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
                     max_ops: int, max_steps: int):
     """K1: fused DC+TB of square W x W windows.  Returns (ops, meta)."""
@@ -825,12 +1083,14 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
                               max_ops=max_ops, max_steps=max_steps)
     B = pm.shape[-1]
     ops, meta = _outputs(max_ops, B, pm.device)
-    if B:
+    ints = (B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
+            int(cfg.early_term), commit_limit, max_ops, max_steps)
+    if B and cfg.nw > TEMPLATE_NW:
+        _xwide_launch("tb_fused", cfg, (pm, text, ops, meta), ints)
+    elif B:
         geo = tb_fused_geometry(cfg, max_ops)
         _launch("tb_fused", pm, text, ops, meta,
-                _store(B, geo.store_words, pm.device),
-                ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
-                      int(cfg.early_term), commit_limit, max_ops, max_steps),
+                _store(B, geo.store_words, pm.device), ints=ints,
                 block=(geo.lanes, geo.threads,
                        PLACEMENTS.index(geo.placement), geo.shared_bytes))
     return ops, meta
@@ -848,7 +1108,11 @@ def genasm_dc(pm, text, *, cfg: AlignerConfig):
                     for _ in range(2))
     band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, B),
                        dtype=torch.int32, device=pm.device)
-    if B:
+    if B and cfg.nw > TEMPLATE_NW:
+        _xwide_launch("dc_band", cfg, (pm, text, band, dist, levels),
+                      (B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
+                       int(cfg.early_term)))
+    elif B:
         geo = dc_band_geometry(cfg)
         _launch("dc_band", pm, text, band, dist, levels,
                 ints=(B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
@@ -869,13 +1133,16 @@ def _tail(name, plain, banded, pm, text, m_len, n_len, *, cfg, n_text,
                      max_steps=max_steps)
     B = pm.shape[-1]
     ops, meta = _outputs(max_ops, B, pm.device)
-    if B:
+    ints = (B, n_text, cfg.W, cfg.nw, cfg.k, cfg.nwb if banded else cfg.nw,
+            int(cfg.early_term), commit_limit, max_ops, max_steps)
+    if B and cfg.nw > TEMPLATE_NW:
+        _xwide_launch(name, cfg, (pm, text, m_len, n_len, ops, meta), ints,
+                      n_text)
+    elif B:
         geo = tail_geometry(cfg, n_text, max_ops, banded=banded)
         _launch(name, pm, text, m_len, n_len, ops, meta,
                 _store(B, geo.store_words, pm.device),
-                ints=(B, n_text, cfg.W, cfg.nw, cfg.k,
-                      cfg.nwb if banded else cfg.nw, int(cfg.early_term),
-                      commit_limit, max_ops, max_steps),
+                ints=ints,
                 block=(geo.lanes, geo.threads,
                        PLACEMENTS.index(geo.placement), geo.shared_bytes))
     return ops, meta

@@ -2,7 +2,8 @@
 ``repro/launch/dryrun_aligner.py``).
 
     python -m repro_torch.launch.dryrun_aligner [--banded-compute]
-        [--batch 512] [--read-len 10000] [--out build/dryrun]
+        [--batch 512] [--read-len 10000] [--W 64 --O 24 --k 12]
+        [--out build/dryrun]
 
 The reference lowers and compiles the step for 131,072 pairs of 10 kbp
 on its production mesh of 256 chips (512 pairs a chip) and reads XLA's
@@ -22,7 +23,12 @@ It reports
   or, with ``--banded-compute``, the DENT band's, over the H100's INT32
   rate; a memory term over HBM3: the step's inputs read once and outputs
   written once (the kernels keep the DP on chip; XLA's "bytes accessed"
-  has no PyTorch counterpart); and ``collective_s`` = 0 on one card.
+  has no PyTorch counterpart); and ``collective_s`` = 0 on one card;
+* ``kernels``: each kernel the step's first rung launches, its block,
+  its store's bytes a lane and the least time to write the batch's
+  stores (``roofline.store_write_s``), and at NW >= 9 (``--W`` > 256)
+  the wide family's scratch a block and in flight
+  (``counting.gpu_scratch_in_flight``).
 
 The production mesh (``make_production_mesh``, multi-pod) has no
 counterpart: the port's mesh is the cards of one host (docs/port.md).
@@ -36,10 +42,12 @@ import pathlib
 
 import torch
 
-from ..analysis.roofline import HBM_BW, INT32_OPS
+from ..analysis.roofline import HBM_BW, INT32_OPS, store_write_s
+from ..core import counting
 from ..core.config import AlignerConfig
 from ..core.windowing import n_main_windows, total_op_budget
-from ..serve.align_step import align_input_specs
+from ..kernels.genasm_dc import TEMPLATE_NW
+from ..serve.align_step import align_input_specs, launch_plan
 
 OPS_PER_CELL = 14      # shifts/ands/ors/selects per (level, column, word)
 REFERENCE_CHIPS = 256  # the reference's production mesh
@@ -79,6 +87,35 @@ def analytic_terms(batch: int, read_len: int, cfg: AlignerConfig,
             "windows_per_pair": n_win, "avg_levels": avg_levels}
 
 
+def kernel_rows(batch: int, read_len: int, cfg: AlignerConfig,
+                free_bytes: int | None = None) -> list:
+    """Each kernel of the step's first rung (``launch_plan`` on the CPU,
+    which derives the blocks the card launches): its block, its store's
+    bytes a lane and the least seconds to write `batch` lanes' stores,
+    and at NW >= 9 the wide family's scratch
+    (``counting.gpu_scratch_in_flight``, at `free_bytes`)."""
+    rows = []
+    for entry in launch_plan(cfg, read_len, None, "cpu"):
+        name, geo = entry["kernel"], entry["geometry"]
+        if name == "dc_band":
+            lane_bytes = 4 * counting.gpu_split_store_words(cfg, 1)
+        elif name == "tb_fused":
+            lane_bytes = 4 * counting.gpu_store_words(cfg, 1)
+        else:
+            lane_bytes = 4 * counting.gpu_tail_store_words(
+                cfg, 1, banded=name == "tail_banded")
+        rows.append({"kernel": name, "k": entry["k"],
+                     "block": {"lanes": geo.lanes, "threads": geo.threads,
+                               "shared_bytes": geo.shared_bytes,
+                               "placement": ("xwide" if cfg.nw > TEMPLATE_NW
+                                             else geo.placement)},
+                     "store_bytes_per_lane": lane_bytes,
+                     "store_write_s": store_write_s(lane_bytes, batch),
+                     "scratch": counting.gpu_scratch_in_flight(
+                         cfg, name, free_bytes=free_bytes)})
+    return rows
+
+
 def aligner_cell(batch: int = REFERENCE_BATCH // REFERENCE_CHIPS,
                  read_len: int = 10_000, cfg: AlignerConfig | None = None,
                  banded_compute: bool = False, device="cuda") -> dict:
@@ -103,6 +140,9 @@ def aligner_cell(batch: int = REFERENCE_BATCH // REFERENCE_CHIPS,
         "graph_nodes": None if graphs is None
         else sum(st["nodes"] or 0 for st in graphs.stats),
         "roofline": analytic_terms(batch, read_len, cfg, banded_compute),
+        "kernels": kernel_rows(batch, read_len, cfg,
+                               torch.cuda.mem_get_info(device)[0]
+                               if device.type == "cuda" else None),
         "compile_s": None if graphs is None else graphs.compile_s,
     }
     return record
@@ -117,15 +157,21 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) captures the executable; cpu "
                          "builds it eagerly (no graph, no memory figures)")
+    ap.add_argument("--W", type=int, default=AlignerConfig.W)
+    ap.add_argument("--O", type=int, default=AlignerConfig.O)
+    ap.add_argument("--k", type=int, default=AlignerConfig.k)
     ap.add_argument("--out", default="build/dryrun")
     args = ap.parse_args(argv)
+    cfg = AlignerConfig(W=args.W, O=args.O, k=args.k)
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    rec = aligner_cell(args.batch, args.read_len,
+    rec = aligner_cell(args.batch, args.read_len, cfg,
                        banded_compute=args.banded_compute,
                        device=args.device)
     bc = "_banded" if args.banded_compute else ""
-    path = out / f"genasm-aligner__{torch.device(args.device).type}{bc}.json"
+    wk = "" if args.W == AlignerConfig.W else f"_W{args.W}_k{args.k}"
+    path = out / (f"genasm-aligner__{torch.device(args.device).type}{bc}"
+                  f"{wk}.json")
     path.write_text(json.dumps(rec, indent=1))
     r, mem = rec["roofline"], rec["memory"]
     print(f"[ok] aligner {rec['shape']}{bc} on {rec['device']}: "
@@ -133,6 +179,15 @@ def main(argv=None) -> None:
           f"coll={r['collective_s']:.3f}s dominant={r['dominant']} "
           f"argument={mem['argument_bytes']} temp={mem['temp_bytes']} "
           f"compile={rec['compile_s']} -> {path}")
+    for row in rec["kernels"]:
+        sc = row["scratch"] or {}
+        print(f"  {row['kernel']} k={row['k']} lanes/block="
+              f"{row['block']['lanes']} threads={row['block']['threads']} "
+              f"store/lane={row['store_bytes_per_lane']} B "
+              f"write>={row['store_write_s']:.6f}s"
+              + (f" scratch/block={sc['scratch_bytes_per_block']} B "
+                 f"in flight={sc['scratch_bytes_in_flight']} B "
+                 f"({sc['lanes_in_flight']} lanes)" if sc else ""))
 
 
 if __name__ == "__main__":

@@ -127,14 +127,6 @@ def align_input_specs(batch: int, read_len: int, cfg: AlignerConfig,
                         rescue_rounds)
 
 
-def _instantiated(cfg: AlignerConfig) -> bool:
-    try:
-        genasm_dc.check_instantiated(cfg)
-    except ValueError:
-        return False
-    return True
-
-
 def _rung_kernels(cfg: AlignerConfig, windows: bool) -> list:
     """The kernels one rung of the ladder launches: K1 (if any main
     window) and the tail kernel on 'fused'; K3 (if any main window) on
@@ -146,6 +138,10 @@ def _rung_kernels(cfg: AlignerConfig, windows: bool) -> list:
 
 
 def _geometry(name: str, cfg: AlignerConfig):
+    """Kernel `name`'s block at `cfg`: the wide family's at NW >= 9, else
+    its template's."""
+    if cfg.nw > genasm_dc.TEMPLATE_NW:
+        return genasm_dc.xwide_geometry(cfg, name, self_tail_width(cfg))
     if name == "tb_fused":
         return genasm_dc.tb_fused_geometry(cfg)
     if name == "dc_band":
@@ -160,42 +156,50 @@ _OCCUPANCY = {"tb_fused": genasm_dc.tb_fused_occupancy,
               "dc_band": genasm_dc.dc_band_occupancy}
 
 
+def _occupancy(name: str, cfg: AlignerConfig, geo) -> tuple:
+    if cfg.nw > genasm_dc.TEMPLATE_NW:
+        return genasm_dc.xwide_occupancy(name, geo)
+    return _OCCUPANCY[name](cfg, geo)
+
+
 def launch_plan(cfg: AlignerConfig, max_read_len: int,
                 rescue_rounds: int | None, device, mesh=None) -> tuple:
     """The kernel launches of one step, shard by shard and rung by rung: a
     dict per (shard, rung, kernel) with the shard's index and device, the
-    kernel's name, the rung's k, its block (``genasm_dc``'s geometry, None
-    where the CPU runs a configuration the kernels are not instantiated
-    for) and, on CUDA, the blocks one SM holds and the instantiation's
-    dynamic shared-memory limit (``genasm_dc.*_occupancy``; the query also
-    allows the block's shared memory, once per instantiation and device,
-    so the first launch pays no setup).  Without a mesh the one shard is
-    `device`.  On CUDA it raises ValueError for a configuration the
-    kernels are not instantiated for, and builds (at first use) and loads
-    the kernel library.  Launches nothing, transfers nothing.  Backend
-    'plain' launches no kernel."""
+    kernel's name, the rung's k, its block (``genasm_dc``'s geometry: a
+    template's, or at NW >= 9 the wide family's) and, on CUDA, the blocks
+    one SM holds and the kernel's dynamic shared-memory limit
+    (``genasm_dc.*_occupancy``; the query also allows the block's shared
+    memory, once per kernel and device, so the first launch pays no
+    setup).  Without a mesh the one shard is `device`.  On CUDA it raises
+    ValueError where one block's scratch exceeds the card's free memory
+    (``genasm_dc.check_scratch_fits``: the wide family's one refusal),
+    and builds (at first use) and loads the kernel library.  Launches
+    nothing, transfers nothing.  Backend 'plain' launches no kernel."""
     if cfg.backend not in KERNEL_BACKENDS:
         return ()
     devices = (torch.device(device),) if mesh is None else pair_devices(mesh)
     cuda = devices[0].type == "cuda"
     rungs = rescue_schedule(cfg, rescue_rounds or 0)
     if cuda:
-        for c in rungs:
-            genasm_dc.check_instantiated(c)
+        if cfg.nw > genasm_dc.TEMPLATE_NW:     # the wide family's scratch
+            for dev in devices:
+                free = genasm_dc.free_bytes(dev)
+                for c in rungs:
+                    genasm_dc.check_scratch_fits(c, free)
         build.load_library()
     windows = n_main_windows(max_read_len, cfg) > 0
     plan = []
     for shard, dev in enumerate(devices):
         for c in rungs:
             for name in _rung_kernels(c, windows):
+                geo = _geometry(name, c)
                 entry = {"shard": shard, "device": dev, "kernel": name,
-                         "k": c.k, "geometry": None, "blocks_per_sm": None,
+                         "k": c.k, "geometry": geo, "blocks_per_sm": None,
                          "shared_limit": None}
-                if _instantiated(c):
-                    entry["geometry"] = geo = _geometry(name, c)
-                    if cuda:
-                        with torch.cuda.device(dev):
-                            entry["blocks_per_sm"], entry["shared_limit"] = \
-                                _OCCUPANCY[name](c, geo)
+                if cuda:
+                    with torch.cuda.device(dev):
+                        entry["blocks_per_sm"], entry["shared_limit"] = \
+                            _occupancy(name, c, geo)
                 plan.append(entry)
     return tuple(plan)

@@ -167,11 +167,14 @@ def test_sync_dispatch_failure_poisons_outstanding_futures(rng):
 
 def test_cuda_build_failure_raises_never_falls_back(monkeypatch):
     """What an executable's build does on the card, without one: a
-    configuration the kernels are not instantiated for raises naming W
-    and k before any build; a failed library build raises as it is (a
-    session poisons on it, above) and no plain version runs."""
-    with pytest.raises(ValueError, match="W=288 k=12"):
-        launch_plan(AlignerConfig(W=288, O=24), 1000, None, "cuda")
+    configuration one of whose blocks needs more scratch than the card's
+    free memory allows (the wide family's one refusal; here 100 MB free
+    against K4's 74.9 MB a lane at W = 512, k = 480) raises naming W, k
+    and the bytes before any build; a failed library build raises as it
+    is (a session poisons on it, above) and no plain version runs."""
+    monkeypatch.setattr(genasm_dc, "free_bytes", lambda device: 10 ** 8)
+    with pytest.raises(ValueError, match=r"W=512 k=480: .* 74,866,688 B"):
+        launch_plan(AlignerConfig(W=512, O=192, k=480), 1000, None, "cuda")
 
     def failed_build():
         raise RuntimeError("nvcc failed for tb_fused.cu")

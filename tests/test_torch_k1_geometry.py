@@ -31,9 +31,17 @@ def test_tb_fused_geometry(W, k):
 
 @pytest.mark.parametrize("W,k", [(288, 12), (320, 100)])
 def test_tb_fused_geometry_refuses_w_over_128(W, k):
-    """Since the NW = 5..8 instantiations, what is refused is W > 256."""
-    with pytest.raises(ValueError, match=f"W={W} k={k}: .* W <= 256"):
-        genasm_dc.tb_fused_geometry(AlignerConfig(W=W, O=W // 3, k=k))
+    """Since the wide family (NW >= 9) no width is refused: the templates'
+    geometry points to the wide family's, and what is refused is a block
+    whose band exceeds the card's free memory (here 10,000 B)."""
+    cfg = AlignerConfig(W=W, O=W // 3, k=k)
+    with pytest.raises(ValueError, match=f"W={W} k={k}: K1's templates "
+                       f"stop at NW = 8"):
+        genasm_dc.tb_fused_geometry(cfg)
+    assert isinstance(genasm_dc.xwide_geometry(cfg, "tb_fused"),
+                      genasm_dc.XwideGeometry)
+    with pytest.raises(ValueError, match=f"W={W} k={k}: .* B of scratch"):
+        genasm_dc.xwide_geometry(cfg, "tb_fused", free_bytes=10_000)
 
 
 KP128 = [(96, 36, 64), (96, 36, 95), (128, 42, 64), (128, 42, 120),

@@ -299,8 +299,12 @@ def test_plan_lane_tile_hopper_model():
                           lane_tile="auto").lane_tile == 2112
     with pytest.raises(ValueError, match=r"W=64 k=12.*29,408 bytes"):
         windowing.plan_lane_tile(AlignerConfig(), sm_shared_bytes=20_000)
-    with pytest.raises(ValueError, match="W=288 k=12"):   # no kernel
-        windowing.plan_lane_tile(AlignerConfig(W=288, O=24, k=12))
+    for W in (288, 320):              # NW >= 9: the wide family's block
+        cfg = AlignerConfig(W=W, O=24, k=12)
+        geo = genasm_dc.xwide_geometry(cfg, "tb_fused")
+        blocks = min(233_472 // (geo.shared_bytes + 1024),
+                     2048 // geo.threads, 32)
+        assert windowing.plan_lane_tile(cfg) == 132 * blocks * geo.lanes
 
 
 def test_launch_plan_on_the_cpu():
@@ -319,9 +323,12 @@ def test_launch_plan_on_the_cpu():
     assert launch_plan(AlignerConfig(backend="fused"), 40, None, "cpu")[0][
         "kernel"] == "tail_banded"          # no main window: no K1
     assert launch_plan(AlignerConfig(backend="plain"), 1000, 2, "cpu") == ()
-    wide = launch_plan(AlignerConfig(W=288, O=24, backend="split"), 1000,
-                       None, "cpu")
-    assert wide[0]["geometry"] is None     # the CPU runs it, no kernel
+    for W in (288, 320):               # NW >= 9: the wide family's blocks
+        cfg = AlignerConfig(W=W, O=24, backend="split")
+        wide = launch_plan(cfg, 1000, None, "cpu")
+        assert [e["geometry"] for e in wide] == \
+            [genasm_dc.xwide_geometry(cfg, "dc_band")]
+        assert isinstance(wide[0]["geometry"], genasm_dc.XwideGeometry)
     assert set(genasm_dc.PLAIN_CALLS.values()) == {0}
     assert set(genasm_dc.LAUNCHES.values()) == {0}
 

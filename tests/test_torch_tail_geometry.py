@@ -133,14 +133,21 @@ def test_tb_fused_geometry_fits_every_k_at_nw_3_and_4(W):
 @pytest.mark.parametrize("fields", [dict(W=288, O=96, k=64),
                                     dict(W=320, O=48, k=12)])
 def test_uninstantiated_configs_raise_naming_w_and_k(fields):
+    """Every W has a kernel (at NW >= 9 the wide family); what is refused
+    is a block whose scratch exceeds the card's free memory (here 1,000
+    B), naming W, k and the bytes."""
     cfg = AlignerConfig(**fields)
-    want = f"W={cfg.W} k={cfg.k}"
+    want = f"W={cfg.W} k={cfg.k}: one block of the wide .* B of scratch"
+    n_text = cfg.W + 4 * cfg.k
     with pytest.raises(ValueError, match=want):
-        genasm_dc.tb_fused_geometry(cfg)
+        genasm_dc.xwide_geometry(cfg, "tb_fused", free_bytes=1_000)
     with pytest.raises(ValueError, match=want):
+        genasm_dc.xwide_geometry(cfg, "tail_banded", n_text, 1_000)
+    with pytest.raises(ValueError, match=want):
+        genasm_dc.check_scratch_fits(cfg, 1_000)
+    genasm_dc.check_scratch_fits(cfg, 80 * 10 ** 9)
+    with pytest.raises(ValueError, match="the tail's templates stop"):
         _tail(cfg, True)
-    with pytest.raises(ValueError, match=want):
-        genasm_dc.check_instantiated(cfg)
 
 
 @pytest.mark.parametrize("k", [12, 24, 48])

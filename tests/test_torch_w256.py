@@ -12,16 +12,12 @@ so K1 and K3 are held to its square-window ``dc_dmajor`` (+ the band
 ``traceback`` for K1) and K2 / K4 to its tail's ``dc_jmajor`` + 'and'
 ``traceback``, which its own tests hold equal to the kernels.  The
 reference runs once, in a subprocess whose XLA skips its ``fusion``
-pass (``REF_XLA_FLAGS``): with it, compiling ``dc_jmajor``'s scan (k
-levels unrolled in its body) grows steeply with k, to minutes at
+pass (``test_torch_kp128.REF_XLA_FLAGS``): with it, compiling
+``dc_jmajor``'s scan (k levels unrolled in its body) grows steeply with
+k, to minutes at
 k >= 140; without it, seconds; the integer results are the same.  The
 port pads to 8 lanes, not 128.  About 55 s on one idle worker, most of
 it the reference's subprocess."""
-import os
-import subprocess
-import sys
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
@@ -30,86 +26,34 @@ from repro_torch.kernels import genasm_dc
 from repro_torch.kernels.ops import (genasm_dc_op, genasm_tail_fused_op,
                                      genasm_tb_fused_op)
 from tests.test_torch_config import cfg_pair
-from tests.test_torch_kp128 import B, TB_FIELDS, _count_plain, _square, _tails
+from tests.test_torch_kp128 import (B, LANE_TILE, TB_FIELDS, _count_plain,
+                                    _square, _tail_case,
+                                    few_torch_threads,  # noqa: F401
+                                    run_reference, square_reference,
+                                    tail_reference)
 
-ROOT = Path(__file__).resolve().parents[1]
-#: XLA flags of the reference's subprocess (this module's docstring)
-REF_XLA_FLAGS = "--xla_disable_hlo_passes=fusion"
-REF_TIMEOUT_S = 600
 SQUARE = [(160, 48, 63), (192, 64, 100), (224, 80, 40), (256, 96, 140),
           (144, 48, 12), (208, 72, 24)]
 TAILS = [(160, 48, 63), (192, 64, 100), (224, 80, 40), (256, 96, 140)]
-#: the port's pad unit here (the default 128 lanes would multiply its
-#: plain fills' work by 25)
-LANE_TILE = 8
 
 
 def _square_case(W, k):
     return _square(np.random.default_rng(W + k), W, k)
 
 
-def _tail_case(W, k):
-    pat, txt, m_len, n_len = _tails(np.random.default_rng(3 * k + W), W, k)
-    n_text = W + 4 * k
-    kw = dict(commit_limit=2 * (W + n_text), max_ops=W + n_text,
-              max_steps=W + n_text + 4)
-    return pat, txt, m_len, n_len, n_text, kw
-
-
 def reference_outputs(out: str) -> None:
     """Every reference output of this module's cases, into the npz `out`
     (run in the subprocess of the ``ref`` fixture)."""
-    import jax.numpy as jnp
-
-    from repro.core.genasm import dc_dmajor, dc_jmajor
-    from repro.core.traceback import traceback
     arrays = {}
     for W, O, k in SQUARE:
         ref_cfg, cfg = cfg_pair(W=W, O=O, k=k)
-        pat, txt = _square_case(W, k)
-        res = dc_dmajor(jnp.asarray(pat), jnp.asarray(txt), cfg=ref_cfg)
-        wl = jnp.full((B,), W, jnp.int32)
-        ref = traceback(res.store, jnp.asarray(pat), jnp.asarray(txt), wl,
-                        wl, res.dist, jnp.int32(cfg.stride), cfg=ref_cfg,
-                        mode="band", max_ops=cfg.tb_max_ops,
-                        max_steps=cfg.tb_max_steps)
-        tag = f"sq{W}_{k}"
-        arrays.update({f"{tag}_{key}": np.asarray(ref[key])
-                       for key in TB_FIELDS})
-        arrays[f"{tag}_dist"] = np.asarray(res.dist)
-        arrays[f"{tag}_levels"] = np.asarray(res.levels_run)
-        L = int(res.levels_run)
-        arrays[f"{tag}_band"] = np.asarray(res.store["Rb"])[:L].astype(
-            np.int64)
+        square_reference(arrays, f"sq{W}_{k}", *_square_case(W, k), ref_cfg,
+                         cfg)
     for W, O, k in TAILS:
-        ref_cfg, _ = cfg_pair(W=W, O=O, k=k)
         pat, txt, m_len, n_len, n_text, kw = _tail_case(W, k)
-        res = dc_jmajor(jnp.asarray(pat), jnp.asarray(txt),
-                        jnp.asarray(m_len), jnp.asarray(n_len), k=k,
-                        n=n_text, nw=ref_cfg.nw, store="and")
-        ref = traceback(res.store, jnp.asarray(pat), jnp.asarray(txt),
-                        jnp.asarray(m_len), jnp.asarray(n_len), res.dist,
-                        jnp.int32(kw["commit_limit"]), cfg=ref_cfg,
-                        mode="and", max_ops=kw["max_ops"],
-                        max_steps=kw["max_steps"])
-        ref = {**ref, "dist": res.dist, "solved": res.solved}
-        arrays.update({f"tail{W}_{k}_{key}": np.asarray(ref[key])
-                       for key in TB_FIELDS + ("dist", "solved")})
+        tail_reference(arrays, f"tail{W}_{k}", pat, txt, m_len, n_len,
+                       n_text, kw, cfg_pair(W=W, O=O, k=k)[0])
     np.savez(out, **arrays)
-
-
-def run_reference(target: str, out: Path) -> None:
-    """Run ``tests.<module>.<target>(out)`` in a subprocess on the CPU
-    with ``REF_XLA_FLAGS``; raises with its output if it fails."""
-    module, fn = target.rsplit(".", 1)
-    env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
-    env.update(XLA_FLAGS=REF_XLA_FLAGS, JAX_PLATFORMS="cpu",
-               PYTHONPATH=str(ROOT / "src"))
-    r = subprocess.run(
-        [sys.executable, "-c", f"import sys; from {module} import {fn}; "
-         f"{fn}(sys.argv[1])", str(out)], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=REF_TIMEOUT_S)
-    assert r.returncode == 0, r.stdout[-3000:] + r.stderr[-3000:]
 
 
 @pytest.fixture(scope="module")
