@@ -159,29 +159,21 @@ KERNELS = {      # name -> (wrapper, plain version, TPU kernel it replaces)
     "dc_band": (genasm_dc.genasm_dc, genasm_dc.dc_band_plain,
                 "src/repro/kernels/genasm_dc.py:324 _kernel"),
 }
-#: the main-window loop's kernels around K1 (``window_step``): name ->
-#: (wrapper, plain version, the reference's code they replace, which XLA
-#: fuses on the TPU: no Pallas kernel)
-STEP_KERNELS = {
-    "window_prep": (window_step.window_prep, window_step.window_prep_plain,
-                    "src/repro/core/windowing.py:204 append_main: "
-                    "_slice_rev + ops._to_kernel_layout"),
-    "window_commit": (window_step.window_commit,
-                      window_step.window_commit_plain,
-                      "src/repro/core/windowing.py:224 append_main: "
-                      "_append_ops + the state's jnp.where"),
-}
+#: what K1's window form (``window_step.genasm_tb_window``, one launch a
+#: main window) also replaces: the reference's scan body around its Pallas
+#: call, which XLA fuses on the TPU (no Pallas kernel)
+WINDOW_REPLACES = ("src/repro/core/windowing.py:200 append_main: "
+                   "_slice_rev, ops._to_kernel_layout, _append_ops and the "
+                   "state's jnp.where")
 #: the kernels each backend's main path launches, and no other
-PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full",
-                          *STEP_KERNELS),
+PATH_KERNELS = {"fused": ("tb_fused", "tail_banded", "tail_full"),
                 "split": ("dc_band",)}
 _CSRC = "src/repro_torch/kernels/csrc/"
 SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "tail_banded": _CSRC + "tail_fused.cu",
            "tail_full": _CSRC + "tail_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
-           "ladder_gate": _CSRC + "ladder_graph.cu",
-           **dict.fromkeys(STEP_KERNELS, _CSRC + "window_step.cu")}
+           "ladder_gate": _CSRC + "ladder_graph.cu"}
 #: each kernel's body, its instantiations at NW = 5..8 and its wide
 #: family at NW >= 9 (with the family's header)
 WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
@@ -221,8 +213,7 @@ def _counts(device: torch.device):
     """(counts of the path `device` should take, counts of the other):
     kernel launches on the card, plain-version calls on the CPU (the CPU
     only ever serves a rehearsal of this script at a small size)."""
-    launches = {**genasm_dc.LAUNCHES, **window_step.LAUNCHES}
-    plain = {**genasm_dc.PLAIN_CALLS, **window_step.PLAIN_CALLS}
+    launches, plain = dict(genasm_dc.LAUNCHES), dict(genasm_dc.PLAIN_CALLS)
     return (launches, plain) if device.type == "cuda" else (plain, launches)
 
 
@@ -288,9 +279,6 @@ def _registers_over_table(usage: dict) -> dict:
             continue
         m = re.match(r"(\w+)<NW=(\d+),KP=(\d+),", name)
         if m is None:
-            spilled = re.search(r"spill stores (\d+) B", text)
-            if name in STEP_KERNELS and spilled and int(spilled.group(1)):
-                over[name] = (text, None)
             continue
         table = genasm_dc.REGISTERS[REGISTER_FAMILY[m.group(1)]][
             (int(m.group(2)), int(m.group(3)))]
@@ -337,8 +325,8 @@ def _ptxas_usage(report: str) -> dict:
         if "Function properties for" in line:
             mangled = line.split()[-1]
             template = next((t for t in TEMPLATES if t in mangled), None)
-            name = next((x for x in ("ladder_gate", *STEP_KERNELS)
-                         if f"{x}_kernel" in mangled), None)
+            name = "ladder_gate" if "ladder_gate_kernel" in mangled \
+                else None
             name = next((x for kernel, (x, _) in XWIDE_KERNELS.items()
                          if kernel in mangled), name)
             if template is not None:
@@ -771,8 +759,9 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
     ptxas's) registers, spills and blocks per SM; the K3 rows their block,
     band placement and occupancy; the K1 rows at KP = 128 their band's
     placement, bytes a lane and ptxas.  Then each rung of the W = 256 and
-    W = 512 ladders (``_ladder_rows``), last the ladder's gate kernel
-    (``_gate_row``)."""
+    W = 512 ladders (``_ladder_rows``), the ladder's gate kernel
+    (``_gate_row``), last K1's window form beside its standalone form
+    (``_tb_window_rows``)."""
     rng = np.random.default_rng(2022)
     cases = [("tb_fused", 12), ("tb_fused", 24), ("tb_fused", 48),
              ("tail_banded", 12), ("tail_full", 24), ("tail_full", 48),
@@ -798,19 +787,42 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
                          w512_lanes, distinct=W512_DISTINCT, warm=0)
     rows.append(_gate_row(device, 1024, reps, usage))
     emit("kernel", **rows[-1])
-    for row in _window_rows(device, reps, usage):
-        emit("kernel", **row)
-        rows.append(row)
+    rows += _tb_window_rows(device, reps)
     return rows
+
+
+#: K1's window form (``window_step.genasm_tb_window``) is held to its
+#: plain version (``tb_window_plain``) and timed at these (W, O, ks): the
+#: main path's rungs, W = 128 at KP = 128, and the first and last rungs of
+#: the W = 256 and W = 512 ladders (NW = 8, and the wide family); checked
+#: on ``TB_WINDOW_LANES`` lanes over ``TB_WINDOW_WINDOWS`` windows in a row
+#: (phase k1_grid), timed at ``TB_WINDOW_TIMED`` lanes beside K1's
+#: standalone form on the same slices (phase kernel)
+TB_WINDOW_CASES = ((64, 24, (12, 24, 48)), (128, 48, (96,)),
+                   (256, 96, (30, 240)), (512, 192, (60, 480)))
+TB_WINDOW_LANES = 37
+TB_WINDOW_WINDOWS = 3
+TB_WINDOW_TIMED = (2048, 4096)
+
+
+def _window_read_len(W: int) -> int:
+    """Read length of a window batch: the main path's 10 kbp at W = 64,
+    elsewhere 4 kbp, long enough for every timed call to find most lanes
+    active."""
+    return 10_000 if W == 64 else 4_000
 
 
 def _window_batch(device, cfg: AlignerConfig, lanes: int, read_len: int,
                   seed: int):
     """One main window's inputs as the fused loop meets them: `lanes`
-    reads of up to `read_len` bases (sentinel-padded as ``pad_geometry``
-    pads them), references within ~2 % substitutions, each lane at its
-    own window start, one in 20 already failed and a read length that
-    leaves some lanes inactive; and a state for the commit."""
+    reads of `read_len` / 2 to `read_len` bases (sentinel-padded as
+    ``pad_geometry`` pads them), references within ~2 % substitutions,
+    one in ten shifted by up to 3 bases, each lane at its own window
+    start; one in 16 lanes starting past its row's end (the start clamps),
+    one in 16 within W of its read's end (inactive), one in 16 with its
+    reference 2 W further on (its window fails), one in 20 already failed;
+    offsets of which some run into the op buffer's drop column; and a
+    state for the commit (``TB_WINDOW_WINDOWS`` level counts or more)."""
     rng = np.random.default_rng(seed)
     Lr, Lf = pad_geometry(cfg, read_len, read_len, 0)
     bases = rng.integers(0, 4, (lanes, read_len)).astype(np.uint8)
@@ -820,12 +832,19 @@ def _window_batch(device, cfg: AlignerConfig, lanes: int, read_len: int,
     reads = np.full((lanes, Lr), 255, np.uint8)
     reads[:, :read_len] = bases
     lens = rng.integers(read_len // 2, read_len + 1, lanes).astype(np.int32)
-    start = rng.integers(0, read_len - cfg.W, lanes).astype(np.int32)
-    windows = n_main_windows(read_len, cfg)
+    start = rng.integers(0, read_len // 2, lanes).astype(np.int32)
+    shift = rng.integers(-3, 4, lanes) * (rng.random(lanes) < 0.1)
+    kind = rng.random(lanes) * 16
+    start[kind < 1] = Lr
+    tail = (kind >= 1) & (kind < 2)
+    start[tail] = lens[tail] - rng.integers(0, cfg.W, int(tail.sum()))
+    shift[(kind >= 2) & (kind < 3)] = 2 * cfg.W
+    windows = max(n_main_windows(read_len, cfg), TB_WINDOW_WINDOWS)
     budget = total_op_budget(read_len, cfg)
     dev = lambda a: torch.from_numpy(a).to(device)       # noqa: E731
-    state = {"read_pos": dev(start), "ref_pos": dev(start.copy()),
-             "off": dev(rng.integers(0, budget // 2, lanes).astype(np.int32)),
+    state = {"read_pos": dev(start),
+             "ref_pos": dev(np.maximum(start + shift, 0).astype(np.int32)),
+             "off": dev(rng.integers(0, budget, lanes).astype(np.int32)),
              "dist": dev(rng.integers(0, 40, lanes).astype(np.int32)),
              "failed": dev(rng.random(lanes) < 0.05),
              "buf": dev(np.full((lanes, budget + 1), 4, np.uint8)),
@@ -834,92 +853,149 @@ def _window_batch(device, cfg: AlignerConfig, lanes: int, read_len: int,
     return dev(reads), dev(refs), dev(lens), state
 
 
-def _window_rows(device: torch.device, reps: int, usage: dict | None = None,
-                 lanes: int = 2048, read_len: int = 10_000) -> list[dict]:
-    """The main-window loop's two kernels (``window_step``) against their
-    plain versions on one window of the main path's shapes (W = 64,
-    `lanes` lanes of `read_len` reads, K1's real outputs in between), and
-    at W = 512 (NW = 16) on 37 lanes padded to the lane tile: max abs err
-    0 over every output (the op buffer without its drop column) or raise.
-    On the first, each one's device ms (the commit's state advances from
-    call to call), its plain version's ms and the bound: the bytes this
-    window moves (the prep: its slices read, positions, masks and text;
-    the commit: every lane's level, dist, length, position and failure,
-    and a committing lane's meta, state and ops read and written) over
-    HBM bandwidth, against the integer operations (the prep: four
-    compares and four shifts a pattern position and symbol set, the
-    commit: 20 a lane and two an op) over the INT32 rate.  No single
-    PyTorch call computes either (``library_ms`` null)."""
-    rows = {name: dict(name=name, max_abs_err=0, library_ms=None,
-                       ptxas=(usage or {}).get(name)) for name in STEP_KERNELS}
-    cases = ((AlignerConfig(), lanes, read_len),
-             (AlignerConfig(W=512, O=192, k=60), 37, 2_000))
-    for i, (cfg, B, L) in enumerate(cases):
-        reads, refs, read_len_t, state = _window_batch(device, cfg, B, L,
-                                                       seed=77 + i)
-        pos = (state["read_pos"], state["ref_pos"])
-        got = window_step.window_prep(reads, refs, *pos, cfg=cfg)
+def _state_fields(state: dict) -> list:
+    """A window state's fields as the window form is held to its plain
+    version: every field, the op buffer without its drop column."""
+    return [state[k][:, :-1] if k == "buf" else state[k] for k in state]
+
+
+def _tb_window_check(device, cfg: AlignerConfig, lanes: int, seed: int,
+                     windows: int = TB_WINDOW_WINDOWS) -> dict:
+    """K1's window form against ``tb_window_plain`` (run on `device`)
+    over `windows` windows in a row on a ``_window_batch`` of `lanes`
+    lanes, each window's state carried to the next: max abs err 0 over
+    every state field, the level counts and the op buffer less its drop
+    column, or raise.  The row counts the lanes the batch holds of each
+    kind at the first window."""
+    reads, refs, read_len, state = _window_batch(
+        device, cfg, lanes, _window_read_len(cfg.W), seed)
+    plain = {k: v.clone() for k, v in state.items()}
+    rp, lr = state["read_pos"], reads.shape[1]
+    kinds = dict(clamped=int((rp > lr - cfg.W).sum()),
+                 inactive=int((read_len - rp <= cfg.W).sum()),
+                 failed_before=int(state["failed"].sum()))
+    plain_ms = []
+    groups = -(-lanes // _k1_block(cfg).lanes)
+    for w in range(windows):
+        # a wide case's window 1 on one block, which walks every lane group
+        one = _xwide(cfg) and w == 1
+        with _grid_of(1) if one else contextlib.nullcontext():
+            window_step.genasm_tb_window(reads, refs, read_len, state,
+                                         cfg=cfg, window=w)
         _sync(device)
         t0 = time.perf_counter()
-        ref = window_step.window_prep_plain(reads, refs, *pos, cfg=cfg)
+        window_step.tb_window_plain(reads, refs, read_len, plain, cfg=cfg,
+                                    window=w)
         _sync(device)
-        prep_plain_ms = (time.perf_counter() - t0) * 1e3
-        _max_abs_err("window_prep", got, ref, f"W={cfg.W}, {B} lanes")
-        pm, text = got
-        ops, meta = genasm_dc.genasm_tb_fused(
-            pm, text, cfg=cfg, commit_limit=cfg.stride,
-            max_ops=cfg.tb_max_ops, max_steps=cfg.tb_max_steps)
-        plain_state = {k: v.clone() for k, v in state.items()}
-        before = {k: v.clone() for k, v in state.items()}
-        window_step.window_commit(ops, meta, state, read_len_t, cfg=cfg,
-                                  window=0)
-        _sync(device)
-        t0 = time.perf_counter()
-        window_step.window_commit_plain(ops, meta, plain_state, read_len_t,
-                                        cfg=cfg, window=0)
-        _sync(device)
-        commit_plain_ms = (time.perf_counter() - t0) * 1e3
-        _max_abs_err("window_commit",
-                     [state[k][:, :-1] if k == "buf" else state[k]
-                      for k in state],
-                     [plain_state[k][:, :-1] if k == "buf" else plain_state[k]
-                      for k in state], f"W={cfg.W}, {B} lanes")
-        if i:
-            continue
-        # the bound of this window's work
-        Bp = pm.shape[-1]
-        prep_bytes = (2 * cfg.W * B + 8 * B
-                      + 4 * Bp * (5 * cfg.nw + cfg.W))
-        prep_ops = Bp * 32 * cfg.nw * 8
-        active = ((read_len_t - before["read_pos"] > cfg.W)
-                  & ~before["failed"])
-        commit = active & (meta[genasm_dc.META_DIST, :B] <= cfg.k)
-        n_ops = torch.clamp(meta[genasm_dc.META_NOPS, :B], max=ops.shape[0])
-        committed_ops = int(n_ops[commit].sum())
-        n_commit = int(commit.sum())
-        commit_bytes = (B * (4 * 4 + 2) + n_commit * (4 * 4 + 3 * 4 * 2)
-                        + committed_ops * (4 + 1))
-        commit_ops = B * 20 + 2 * committed_ops
-        for name, nbytes, nops, plain_ms, call in (
-                ("window_prep", prep_bytes, prep_ops, prep_plain_ms,
-                 lambda: window_step.window_prep(reads, refs, *pos,
-                                                 cfg=cfg)),
-                ("window_commit", commit_bytes, commit_ops, commit_plain_ms,
-                 lambda: window_step.window_commit(
-                     ops, meta, state, read_len_t, cfg=cfg, window=0))):
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = nops / INT32_OPS_PER_S
-            rows[name].update(
-                W=cfg.W, k=cfg.k, lanes=B, plain_ms=plain_ms,
-                ms=_device_ms(call, reps, device) or _time_ms(call, reps,
-                                                              device),
-                event_ms=_time_ms(call, reps, device),
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                committed_lanes=n_commit, committed_ops=committed_ops)
-    for row in rows.values():
-        row["wide_checked"] = dict(W=512, k=60, lanes=37)
-    return list(rows.values())
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        err = _max_abs_err("tb_window", _state_fields(state),
+                           _state_fields(plain),
+                           f"W={cfg.W} k={cfg.k} {lanes} lanes window {w}")
+    return dict(name="tb_window", W=cfg.W, k=cfg.k, lanes=lanes,
+                windows=windows, max_abs_err=err, plain_ms=plain_ms[0],
+                plain_on=device.type, **kinds, groups=groups,
+                loop_window=1 if _xwide(cfg) and groups > 1 else None,
+                failed_after=int(state["failed"].sum()),
+                levels=state["levels"][:windows].tolist())
+
+
+def _tb_window_bound(cfg: AlignerConfig, reads, state, read_len, meta):
+    """Least time on an H100 for one window of K1's window form, and what
+    bounds it: the bytes it must move (each lane's two W-base slices, its
+    length and state read, a committing lane's state and ops written, a
+    failing lane's flag) over HBM bandwidth, against the integer
+    operations of the fill (each lane's W columns to its level count) and
+    of the walks the committing lanes take (their op counts, from K1's
+    standalone form on the same slices, `meta`) over the INT32 rate."""
+    B = reads.shape[0]
+    dist = meta[genasm_dc.META_DIST, :B].long().cpu()
+    nops = meta[genasm_dc.META_NOPS, :B].long().cpu()
+    active = ((read_len - state["read_pos"] > cfg.W)
+              & ~state["failed"]).cpu()
+    commit = active & (dist <= cfg.k)
+    ops_written = int(torch.clamp(nops[commit], max=cfg.tb_max_ops).sum())
+    nbytes = (B * (2 * cfg.W + 5 * 4 + 1) + int(commit.sum()) * 4 * 4
+              + ops_written + int((active & ~commit).sum()))
+    levels = torch.clamp(dist, max=cfg.k) + 1
+    fill_ops = int(levels.sum()) * cfg.W * cfg.nw * OPS_PER_CELL_WORD
+    walk_ops = int(nops[commit].sum()) * OPS_PER_WALK_STEP
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (fill_ops + walk_ops) / INT32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            int(commit.sum()), ops_written)
+
+
+def _tb_window_rows(device: torch.device, reps: int,
+                    lane_counts=TB_WINDOW_TIMED,
+                    cases=TB_WINDOW_CASES) -> list[dict]:
+    """K1's window form timed at each of ``TB_WINDOW_CASES``' (W, k) and
+    `lane_counts` on a ``_window_batch`` (the W = 64 rows at the main
+    path's 10 kbp reads), beside K1's standalone form on the same slices
+    (``window_prep_plain``'s pm and text): device ms of each (a CUDA graph
+    of `reps` calls; at W = 512 one call a timing, ``W512_REPS``), event
+    ms, and the window form's bound (``_tb_window_bound``).  Each call
+    commits into the batch's state, so later calls find lanes further on
+    (the reads are long enough that most stay active).  At W = 64 the
+    first window is also held to ``tb_window_plain`` on the card (max abs
+    err 0); elsewhere the checks of phase k1_grid hold the form to it.  No
+    single PyTorch call computes a window (``library_ms`` null)."""
+    rows = []
+    for W, O, ks in cases:
+        for k in ks:
+            cfg = AlignerConfig(W=W, O=O, k=k)
+            n = W512_REPS if _xwide(cfg) else reps
+            for lanes in lane_counts:
+                reads, refs, read_len, state = _window_batch(
+                    device, cfg, lanes, _window_read_len(W), seed=W + k)
+                pm, text = window_step.window_prep_plain(
+                    reads, refs, state["read_pos"], state["ref_pos"],
+                    cfg=cfg)
+                kw = dict(cfg=cfg, commit_limit=cfg.stride,
+                          max_ops=cfg.tb_max_ops, max_steps=cfg.tb_max_steps)
+                ops, meta = genasm_dc.genasm_tb_fused(pm, text, **kw)
+                bound_ms, bound_by, n_commit, ops_written = _tb_window_bound(
+                    cfg, reads, state, read_len, meta)
+                del ops, meta
+                row = dict(name="tb_window", W=W, k=k, lanes=lanes,
+                           library_ms=None, committed_lanes=n_commit,
+                           committed_ops=ops_written, bound_ms=bound_ms,
+                           bound_by=bound_by, max_abs_err=None,
+                           plain_ms=None, checked_by="k1_grid")
+                if W == 64:
+                    plain = {key: v.clone() for key, v in state.items()}
+                    window_step.genasm_tb_window(reads, refs, read_len,
+                                                 state, cfg=cfg, window=0)
+                    _sync(device)
+                    t0 = time.perf_counter()
+                    window_step.tb_window_plain(reads, refs, read_len,
+                                                plain, cfg=cfg, window=0)
+                    _sync(device)
+                    row.update(plain_ms=(time.perf_counter() - t0) * 1e3,
+                               checked_by="plain", max_abs_err=_max_abs_err(
+                                   "tb_window", _state_fields(state),
+                                   _state_fields(plain),
+                                   f"W=64 k={k} {lanes} lanes"))
+                    del plain
+
+                def window_call():
+                    window_step.genasm_tb_window(reads, refs, read_len,
+                                                 state, cfg=cfg, window=0)
+                alone = _timing("tb_fused", cfg,
+                                lambda: genasm_dc.genasm_tb_fused(pm, text,
+                                                                  **kw),
+                                n, device, warm=0 if _xwide(cfg) else 2)
+                row.update(_timing("tb_window", cfg, window_call, n, device,
+                                   warm=0 if _xwide(cfg) else 2),
+                           standalone_ms=alone["ms"],
+                           standalone_event_ms=alone["event_ms"])
+                del reads, refs, read_len, state, pm, text
+                if device.type == "cuda":
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                emit("kernel", **row)
+                rows.append(row)
+    return rows
 
 
 def _geometry_row(name: str, cfg: AlignerConfig, usage) -> dict:
@@ -1156,7 +1232,9 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
     """K1 over its geometry grid, each case held against tb_fused_plain
     with max abs err 0 (the untimed cases' plain outputs from `refs`, a
     future of ``_plain_refs("k1")``, where given); the 2,048-lane cases
-    timed."""
+    timed.  Then K1's window form at each of ``TB_WINDOW_CASES``
+    (``_tb_window_check``: ``TB_WINDOW_LANES`` lanes, ``TB_WINDOW_WINDOWS``
+    windows in a row), with its block."""
     rng = np.random.default_rng(GRID_SEEDS["k1"])
     refs = None if refs is None else iter(refs.result())
     rows = []
@@ -1170,6 +1248,17 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
         emit("k1_grid", **row)
         rows.append(row)
     _done(refs)
+    for W, O, ks in TB_WINDOW_CASES:
+        for k in ks:
+            cfg = AlignerConfig(W=W, O=O, k=k)
+            geo = (_k1_block(cfg) if _xwide(cfg)
+                   else genasm_dc.tb_fused_geometry(cfg, window=True))
+            row = _tb_window_check(device, cfg, TB_WINDOW_LANES,
+                                   seed=GRID_SEEDS["k1"] + W + k)
+            row.update(NW=cfg.nw, KP=genasm_dc.levels_bucket(k),
+                       NWB=cfg.nwb, **_block_row(cfg, geo))
+            emit("k1_grid", **row)
+            rows.append(row)
     return rows
 
 
@@ -1493,10 +1582,11 @@ def phase_main_path(device: torch.device, rs, sample: int = 64):
     aligner, res, align_s, taken, other = _drive(device, "fused", rs)
     if aligner.last_run["rounds_run"] < 2:
         raise AssertionError(f"rescue ladder did not run: {aligner.last_run}")
-    if not taken["window_prep"] == taken["window_commit"] == \
-            taken["tb_fused"]:
-        raise AssertionError(f"not one window_prep and one window_commit a "
-                             f"K1 launch: {taken}")
+    nm = n_main_windows(max(len(r) for r in rs.reads), aligner.cfg)
+    if taken["tb_fused"] != aligner.last_run["rounds_run"] * nm or \
+            set(taken) != set(genasm_dc.KERNELS):
+        raise AssertionError(f"not one K1 launch a main window ({nm} a "
+                             f"rung) and no other kernel's: {taken}")
     checked = 0
     for i in range(min(sample, len(rs.reads))):
         if not res.failed[i]:
@@ -1576,8 +1666,7 @@ def _profiled_kernel(key: str) -> str:
     if tail:
         return ("tail_banded" if int(tail.group(3)) < int(tail.group(1))
                 else "tail_full")
-    return next((k for k in (*KERNELS, *STEP_KERNELS)
-                 if f"{k}_kernel" in key),
+    return next((k for k in KERNELS if f"{k}_kernel" in key),
                 "memcpy" if "memcpy" in key.lower() else "torch_kernels")
 
 
@@ -1622,8 +1711,7 @@ def _device_breakdown(run, top: int = 0) -> dict:
         run()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-    ms = dict.fromkeys([*KERNELS, *STEP_KERNELS, "torch_kernels", "memcpy"],
-                       0.0)
+    ms = dict.fromkeys([*KERNELS, "torch_kernels", "memcpy"], 0.0)
     launches = dict.fromkeys(ms, 0)
     by_name = {}
     spans = []
@@ -1922,7 +2010,8 @@ def _w512_scale_pass(device: torch.device, n_pairs: int = W512_SCALE) -> None:
 
 
 #: where each wrapper's C entry point takes k among its integer arguments
-_K_ARG = {"tb_fused": 3, "tail_banded": 4, "tail_full": 4, "dc_band": 3}
+_K_ARG = {"tb_fused": 3, "tb_window": 6, "tail_banded": 4, "tail_full": 4,
+          "dc_band": 3}
 
 
 @contextlib.contextmanager
@@ -1933,7 +2022,8 @@ def _launched_kps():
     inner = genasm_dc._launch
 
     def spy(name, *tensors, ints, block=(), entry=None):
-        key = (name, genasm_dc.levels_bucket(ints[_K_ARG[name]]))
+        k = ints[_K_ARG[(entry or name).removesuffix("_xwide")]]
+        key = (name, genasm_dc.levels_bucket(k))
         counts[key] = counts.get(key, 0) + 1
         return inner(name, *tensors, ints=ints, block=block, entry=entry)
     genasm_dc._launch = spy
@@ -2315,7 +2405,8 @@ def phase_session(device: torch.device, n_pairs: int = 1024,
                  for e in launch_plan(cfg, 16_384, 2, device)
                  if e["kernel"] == "tb_fused"}
     model = {k: plan_lane_tile(cfg.replace(k=k)) // (
-        H100_SMS * genasm_dc.tb_fused_geometry(cfg.replace(k=k)).lanes)
+        H100_SMS * genasm_dc.tb_fused_geometry(cfg.replace(k=k),
+                                               window=True).lanes)
         for k in occupancy}
     sms = (torch.cuda.get_device_properties(device).multi_processor_count
            if device.type == "cuda" else None)
@@ -5246,6 +5337,15 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
             bound_ms=base["bound_ms"], bound_by=base["bound_by"],
             library_ms=None, W=base["W"], k=base["k"], lanes=base["lanes"],
             by_k=by_k)
+        if name == "tb_fused":
+            # the main path launches K1's window form: its rows beside the
+            # standalone form on the same slices
+            entry["window_form"] = dict(replaces=WINDOW_REPLACES, rows=[
+                {key: r[key] for key in (
+                    "W", "k", "lanes", "ms", "event_ms", "standalone_ms",
+                    "bound_ms", "bound_by", "plain_ms", "max_abs_err",
+                    "checked_by", "committed_lanes", "library_ms")}
+                for r in rows if r["name"] == "tb_window"])
         wide = [r for r in own if r["W"] != 64]
         if wide:
             entry["by_width"] = [dict(W=r["W"], k=r["k"], ms=r["ms"],
@@ -5269,13 +5369,6 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
         **{key: gate[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "event_ms", "lanes", "ptxas")}))
-    for name, (_, _, replaces) in STEP_KERNELS.items():
-        row = next(r for r in rows if r["name"] == name)
-        kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name], replaces=replaces,
-            launches=launches[name], **{key: row[key] for key in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "event_ms", "W", "k", "lanes", "ptxas")}))
     return kernels
 
 

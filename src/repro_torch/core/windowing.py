@@ -11,10 +11,11 @@ Three decisions of the port (see PERF.md):
 
 * the reference's ``lax.scan`` over the main windows is a Python loop with
   one DC launch per window (K1 on backend 'fused', K3 on 'split'); every
-  intermediate stays on the device.  On 'fused' the rest of the scan body
-  is two kernels of its own (``kernels.window_step``: the window's inputs
-  before K1, the commit after), so a window is three launches and a
-  session's CUDA graph three nodes a window;
+  intermediate stays on the device.  On 'fused' the whole scan body is
+  that launch: K1's window form (``kernels.window_step.genasm_tb_window``)
+  reads each lane's slices at its positions and commits its ops and
+  state itself, so a window is one launch and a session's CUDA graph one
+  node a window;
 * the reference's on-device round gate ``lax.cond(any(failed))`` is, in
   this eager ladder, a host check of ``failed.any()`` before each rescue
   round: the one device-to-host sync of the ladder, counted in the
@@ -32,11 +33,10 @@ import dataclasses
 import torch
 
 from ..distributed.sharding import check_shards
-from ..kernels.genasm_dc import (TEMPLATE_NW, genasm_tb_fused,
-                                 tb_fused_geometry, xwide_geometry)
+from ..kernels.genasm_dc import (TEMPLATE_NW, tb_fused_geometry,
+                                 xwide_geometry)
 from ..kernels.ops import genasm_tail_fused_op
-from ..kernels.window_step import (LEVELS_FLOOR, advance, window_commit,
-                                   window_prep)
+from ..kernels.window_step import LEVELS_FLOOR, advance, genasm_tb_window
 from ..kernels.window_step import (append_ops as _append_ops,
                                    slice_rev as _slice_rev)
 from .bitops import SENTINEL_PAT, SENTINEL_TEXT
@@ -123,8 +123,9 @@ def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
                    sm_shared_bytes: int = SM_SHARED_BYTES,
                    sm_threads: int = SM_THREADS) -> int:
     """The lanes one wave of K1 holds at `cfg`'s geometry: ``sms`` SMs x
-    K1 blocks per SM x lanes per block, with the block from
-    ``kernels.genasm_dc.tb_fused_geometry``.  Blocks per SM: as many as
+    K1 blocks per SM x lanes per block, with the block of K1's window form
+    (``kernels.genasm_dc.tb_fused_geometry(cfg, window=True)``, what the
+    fused loop launches).  Blocks per SM: as many as
     the SM's shared memory holds at the block's dynamic shared bytes plus
     the 1 KB the card reserves per block, and its threads, at most 32.
     Registers are not modelled: at the default geometry (W=64, k=12)
@@ -139,7 +140,7 @@ def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
     in the port ``lane_tile`` is only the batch pad unit.  Raises
     ValueError, naming W, k and the bytes, where K1 fits no block."""
     geo = (xwide_geometry(cfg, "tb_fused") if cfg.nw > TEMPLATE_NW
-           else tb_fused_geometry(cfg))
+           else tb_fused_geometry(cfg, window=True))
     blocks = sm_blocks(geo.shared_bytes, geo.threads, sm_shared_bytes,
                        sm_threads)
     if blocks == 0:
@@ -192,15 +193,8 @@ def _shard_pass(reads, read_len, refs, ref_len, cfg: AlignerConfig,
     wfull = torch.full((B,), W, dtype=torch.int32, device=dev)
     for w in range(nm):
         if cfg.backend == "fused":
-            # three launches a window on the card: the inputs, K1, the
-            # commit (kernels/window_step.py)
-            pm, text = window_prep(reads, refs, st["read_pos"], st["ref_pos"],
-                                   cfg=cfg)
-            ops, meta = genasm_tb_fused(pm, text, cfg=cfg,
-                                        commit_limit=stride,
-                                        max_ops=cfg.tb_max_ops,
-                                        max_steps=cfg.tb_max_steps)
-            window_commit(ops, meta, st, read_len, cfg=cfg, window=w)
+            # one launch a window on the card: K1's window form
+            genasm_tb_window(reads, refs, read_len, st, cfg=cfg, window=w)
         else:
             pat = _slice_rev(reads, st["read_pos"], W, wfull)
             txt = _slice_rev(refs, st["ref_pos"], W, wfull)

@@ -12,8 +12,7 @@ includes its kernel's body (``tb_fused.cuh``, ``tail_fused.cuh``,
 ``tail_fused_xwide.cu`` and ``dc_band_xwide.cu``, the wide family at NW >=
 9 (one kernel each, with entry points of their own, over
 ``genasm_xwide.cuh``); ``ladder_graph.cu``, the rescue ladder's gate
-kernel and its conditional graph; and ``window_step.cu``, the main-window
-loop's inputs and commit around K1.  The objects
+kernel and its conditional graph.  The objects
 are linked into one shared library with a plain C interface (no
 PyTorch headers, so the build takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
 of the checkout, named by a hash of the sources and the flags, so an edited
@@ -42,7 +41,7 @@ SOURCES = tuple(CSRC / f"{name}.cu"
                              "tb_fused_wide", "tail_fused_wide",
                              "dc_band_wide", "tb_fused_xwide",
                              "tail_fused_xwide", "dc_band_xwide",
-                             "ladder_graph", "window_step"))
+                             "ladder_graph"))
 HEADERS = tuple(CSRC / f"{name}.cuh"
                 for name in ("genasm_common", "tb_fused", "tail_fused",
                              "dc_band", "genasm_xwide"))
@@ -65,6 +64,7 @@ _XW_BLOCK = [_I] * 6 + [_L]
 #: conditional handle as an unsigned 64-bit integer
 _SIGNATURES = {
     "genasm_tb_fused_launch": [_P] * 5 + [_I] * 10 + [_I] * 4 + [_P],
+    "genasm_tb_window_launch": [_P] * 11 + [_I] * 13 + [_I] * 4 + [_P],
     "genasm_tb_fused_occupancy": [_I] * 6 + [_P] * 2,
     "genasm_tail_banded_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
     "genasm_tail_full_launch": [_P] * 7 + [_I] * 10 + [_I] * 4 + [_P],
@@ -72,6 +72,8 @@ _SIGNATURES = {
     "genasm_dc_band_launch": [_P] * 5 + [_I] * 7 + [_I] * 5 + [_P],
     "genasm_dc_band_occupancy": [_I] * 6 + [_P] * 2,
     "genasm_tb_fused_xwide_launch": [_P] * 5 + [_I] * 10 + _XW_BLOCK
+    + [_L, _I, _P],
+    "genasm_tb_window_xwide_launch": [_P] * 11 + [_I] * 13 + _XW_BLOCK
     + [_L, _I, _P],
     "genasm_tail_banded_xwide_launch": [_P] * 7 + [_I] * 10 + _XW_BLOCK
     + [_L, _I, _P],
@@ -94,8 +96,6 @@ _SIGNATURES = {
     "genasm_graph_launch": [_P, _P],
     "genasm_graph_exec_destroy": [_P],
     "genasm_mem_free": [_P],
-    "genasm_window_prep_launch": [_P] * 6 + [_I] * 6 + [_P],
-    "genasm_window_commit_launch": [_P] * 10 + [_I] * 6 + [_P],
 }
 
 _library: ctypes.CDLL | None = None

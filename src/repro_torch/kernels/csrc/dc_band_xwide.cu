@@ -43,8 +43,9 @@ __global__ void dc_band_xwide_kernel(
       sh.last[x] = lane0 + x < B ? W : 0;
     }
     __syncthreads();
-    const XwFill f{ring, XwMasks{sh.pm, nw, lanes}, text_g, sh.last, nw, k,
-                   lanes, W, B, lane0, r.ll, r.wt, WT, r.dg, DG};
+    const XwFill<XwGridText> f{ring, XwMasks{sh.pm, nw, lanes},
+                               XwGridText{text_g}, sh.last, nw, k, lanes, W,
+                               B, lane0, r.ll, r.wt, WT, r.dg, DG};
     auto put = [&](int d, int j, int b, uint32_t v) {
       band[((static_cast<long long>(d) * ncb + (j - col0)) * nwb + b) * B +
            lane0 + r.ll] = v;

@@ -26,6 +26,7 @@ constexpr int WORD = 32;
 constexpr uint32_t ONES = 0xFFFFFFFFu;
 constexpr int32_t OP_MATCH = 0, OP_SUBST = 1, OP_INS = 2, OP_DEL = 3;
 constexpr int32_t OP_NONE = 255;
+constexpr int SENTINEL_PAT = 255;   // pattern padding: matches no base
 constexpr int META_DIST = 0, META_LVL = 1, META_NOPS = 2, META_RD = 3,
               META_RF = 4, META_DFIN = 5, META_OK = 6, META_ZERO = 7;
 constexpr int MAX_SHARED_BYTES = 232448;   // per block on an H100
@@ -52,6 +53,57 @@ struct Rows {
     return p[static_cast<size_t>(r) * stride];
   }
 };
+
+// A lane's window slice reversed, as K1's window form reads a reference:
+// element r at p[-r] (p: the slice's last byte).
+struct RevBytes {
+  const uint8_t* p;
+  __device__ __forceinline__ int operator[](int r) const { return p[-r]; }
+};
+
+}  // namespace
+
+// K1's window form: one main window of the fused loop in K1's own launch
+// (the reference's scan body, append_main in repro/core/windowing.py).
+// K1 reads each lane's reversed W-base slices of `reads` and `refs` at
+// clamp(pos, 0, cols - W), as _slice_rev does, and commits its walk into
+// the pass's state in place: a lane is active while more than W bases of
+// its read are left and it has not failed; an active lane whose window
+// solved (dist <= k) writes min(n_ops, max_ops) ops at `off` into its row
+// of `buf` (never into the last column, the reference's drop slot) and
+// advances read_pos, ref_pos, off and dist; an active lane that did not
+// solve fails; `level` takes the max of the lanes' level counts.  A null
+// `reads` is the standalone form (pm, text in; ops, meta out).
+struct K1Window {
+  const uint8_t* reads;      // (B, read_cols) base codes
+  const uint8_t* refs;       // (B, ref_cols)
+  const int32_t* read_len;   // (B,)
+  int32_t *read_pos, *ref_pos, *off, *dist;   // (B,), in place
+  uint8_t* failed;           // (B,) bool, in place
+  uint8_t* buf;              // (B, buf_cols) op buffer, in place
+  int32_t* level;            // the window's entry of the level counts
+  int read_cols, ref_cols, buf_cols;
+};
+// (outside the anonymous namespace: K1's kernels take it, and the
+// translation units hand their instantiations to each other)
+
+namespace {
+
+// The last byte of lane `lane`'s window slice of `seq` (B, cols): its
+// start clamped into the row, as the reference's dynamic_slice clamps.
+__device__ __forceinline__ const uint8_t* window_end(const uint8_t* seq,
+                                                     int cols, int lane,
+                                                     int pos, int W) {
+  return seq + static_cast<size_t>(lane) * cols +
+         min(max(pos, 0), cols - W) + W - 1;
+}
+
+// Whether lane `lane`'s window is active: more than W read bases left and
+// not failed.
+__device__ __forceinline__ bool window_active(const K1Window& win, int lane,
+                                              int W) {
+  return win.read_len[lane] - win.read_pos[lane] > W && !win.failed[lane];
+}
 
 // The lane's four pattern masks, held in registers for the whole kernel.
 template <int NW>
@@ -265,21 +317,28 @@ __device__ __forceinline__ void stage_text(const int32_t* __restrict__ text_g,
   }
 }
 
-// _tb_walk for one lane, then the meta rows.  The TPU's whole-tile early
-// exit is a per-thread exit here: a done lane's state never changes again.
-// `ops` must hold OP_NONE in rows 0..max_ops-1 already; the walk writes
-// the ops it emits over them.  The store reader's tests(d, j, i, z) gives
-// the four bit tests at cursor (d, j, i): R_{j-1}[d] at i-1 (match),
-// R_{j-1}[d-1] at i-1 (substitution) and at i (deletion), R_j[d-1] at i-1
-// (insertion), each with the reference's clamps and analytic edges.
-// pm.peq(c, ii) is P[ii] == c for the lane's pattern masks (PatternMasks
-// in registers, XwMasks in shared memory).
-template <class Masks, class Store>
-__device__ void tb_walk(const Store& st, const Masks& pm,
-                        Rows<const int32_t> text, int n_text, int k, int dist,
-                        int d_end, int init_i, int init_j, int commit_limit,
-                        int max_ops, int max_steps, Rows<int32_t> ops,
-                        Rows<int32_t> meta) {
+// What one lane's walk leaves: the meta rows' values.
+struct WalkMeta {
+  int dist, d_end, nops, rd, rf, d;
+  bool ok;
+};
+
+// _tb_walk for one lane.  The TPU's whole-tile early exit is a per-thread
+// exit here: a done lane's state never changes again.  `ops` must hold
+// OP_NONE in rows 0..max_ops-1 already (or the caller reads only the
+// first min(nops, max_ops)); the walk writes the ops it emits over them.
+// The store reader's tests(d, j, i, z) gives the four bit tests at cursor
+// (d, j, i): R_{j-1}[d] at i-1 (match), R_{j-1}[d-1] at i-1
+// (substitution) and at i (deletion), R_j[d-1] at i-1 (insertion), each
+// with the reference's clamps and analytic edges.  pm.peq(c, ii) is
+// P[ii] == c for the lane's pattern masks (PatternMasks in registers,
+// XwMasks in shared memory); text[r] the lane's text code r (Rows, or
+// RevBytes in K1's window form), ops[r] = op its op rows.
+template <class Masks, class Store, class Text, class Ops>
+__device__ WalkMeta tb_walk_ops(const Store& st, const Masks& pm, Text text,
+                                int n_text, int k, int dist, int d_end,
+                                int init_i, int init_j, int commit_limit,
+                                int max_ops, int max_steps, Ops ops) {
   int i = init_i, j = init_j, d = dist, nops = 0, rd = 0, rf = 0;
   bool done = dist > k, ok = true;
   for (int step = 0; step < max_steps && !done; ++step) {
@@ -319,14 +378,44 @@ __device__ void tb_walk(const Store& st, const Masks& pm,
     rf += takes_ref;
     done = finished;
   }
-  meta[META_DIST] = dist;
-  meta[META_LVL] = d_end;
-  meta[META_NOPS] = nops;
-  meta[META_RD] = rd;
-  meta[META_RF] = rf;
-  meta[META_DFIN] = d;
-  meta[META_OK] = ok ? 1 : 0;
+  return WalkMeta{dist, d_end, nops, rd, rf, d, ok};
+}
+
+// tb_walk_ops, then the meta rows.
+template <class Masks, class Store>
+__device__ __forceinline__ void tb_walk(const Store& st, const Masks& pm,
+                                        Rows<const int32_t> text, int n_text,
+                                        int k, int dist, int d_end,
+                                        int init_i, int init_j,
+                                        int commit_limit, int max_ops,
+                                        int max_steps, Rows<int32_t> ops,
+                                        Rows<int32_t> meta) {
+  const WalkMeta r = tb_walk_ops(st, pm, text, n_text, k, dist, d_end,
+                                 init_i, init_j, commit_limit, max_ops,
+                                 max_steps, ops);
+  meta[META_DIST] = r.dist;
+  meta[META_LVL] = r.d_end;
+  meta[META_NOPS] = r.nops;
+  meta[META_RD] = r.rd;
+  meta[META_RF] = r.rf;
+  meta[META_DFIN] = r.d;
+  meta[META_OK] = r.ok ? 1 : 0;
   meta[META_ZERO] = 0;
+}
+
+// K1's window form's commit of one lane's walk `r` (its window active and
+// solved) into the pass's state; returns the ops it writes into the
+// lane's row of `buf` at its old offset, min(n_ops, max_ops), and none
+// into the drop column.
+__device__ __forceinline__ int window_advance(const K1Window& win, int lane,
+                                              const WalkMeta& r,
+                                              int max_ops) {
+  const int off = win.off[lane];
+  win.read_pos[lane] += r.rd;
+  win.ref_pos[lane] += r.rf;
+  win.off[lane] = off + r.nops;
+  win.dist[lane] += r.dist - r.d;
+  return max(0, min(min(r.nops, max_ops), win.buf_cols - 1 - off));
 }
 
 // The level count of the reference's whole-tile early termination, per

@@ -119,11 +119,34 @@ __device__ __forceinline__ uint32_t xw_window_word(const Get& get, int nw,
   return (lo >> sh) | (hi << (WORD - sh));
 }
 
+// The text XwFill reads: code t of lane `lane` (the block's lane ll).
+// XwGridText: (n_text, B) int32 in device memory.  XwWindowText (K1's
+// window form, K1Window): the lane's reversed window slice of the refs
+// (B, cols) uint8, its start clamped into the row, kept in start[ll].
+struct XwGridText {
+  const int32_t* p;
+  __device__ __forceinline__ int operator()(int t, int B, int lane,
+                                            int) const {
+    return p[at(t, B, lane)];
+  }
+};
+
+struct XwWindowText {
+  const uint8_t* refs;
+  int cols, W;
+  const int* start;
+  __device__ __forceinline__ int operator()(int t, int, int lane,
+                                            int ll) const {
+    return refs[static_cast<size_t>(lane) * cols + start[ll] + W - 1 - t];
+  }
+};
+
 // A block's fill state for one lane group.
+template <class Text>
 struct XwFill {
   uint32_t* ring;        // 3 x (k+1) x nw x lanes, shared or device memory
   XwMasks pm;
-  const int32_t* text;   // (n_text, B) device memory
+  Text text;             // XwGridText or XwWindowText
   const int32_t* last;   // the lanes' last columns (shared)
   int nw, k, lanes, n_text, B, lane0;
   int ll, wt, WT, dg, DG;  // this thread's role
@@ -157,7 +180,7 @@ struct XwFill {
       const int j = s - d + 1;
       if (j < 1 || j > lst) continue;
       const int t = j - 1;
-      const int c = text[at(clampi(t, 0, n_text - 1), B, lane0 + ll)];
+      const int c = text(clampi(t, 0, n_text - 1), B, lane0 + ll, ll);
       for (int w = wt; w < nw; w += WT) {
         uint32_t p, pl, bo, bol, bn, bnl;
         if (j == 1) {
@@ -239,6 +262,30 @@ __device__ void xw_load_masks(const uint32_t* __restrict__ pm_g,
   for (int x = threadIdx.x; x < 4 * nw * lanes; x += blockDim.x) {
     const int ll = x % lanes, row = x / lanes;
     pm_s[x] = lane0 + ll < B ? pm_g[at(row, B, lane0 + ll)] : ONES;
+  }
+}
+
+// K1's window form (K1Window): the masks of the group's lanes, as
+// xw_load_masks lays them out, from their reversed window slices of the
+// reads, one thread a (lane, word): bit j of word w of symbol c clear where
+// base 32w + j of the slice is c, set past W; lanes past B all ones.
+__device__ void xw_window_masks(const K1Window& win, uint32_t* pm_s, int nw,
+                                int W, int lanes, int lane0, int B) {
+  for (int x = threadIdx.x; x < nw * lanes; x += blockDim.x) {
+    const int ll = x % lanes, w = x / lanes, lane = lane0 + ll;
+    uint32_t m[4] = {ONES, ONES, ONES, ONES};
+    if (lane < B) {
+      const uint8_t* p = window_end(win.reads, win.read_cols, lane,
+                                    win.read_pos[lane], W);
+      for (int c = 0; c < 4; ++c) m[c] = 0u;
+      for (int j = 0; j < WORD; ++j) {
+        const int i = w * WORD + j;
+        const int code = i < W ? p[-i] : SENTINEL_PAT;
+        for (int c = 0; c < 4; ++c)
+          m[c] |= static_cast<uint32_t>(code != c) << j;
+      }
+    }
+    for (int c = 0; c < 4; ++c) pm_s[(c * nw + w) * lanes + ll] = m[c];
   }
 }
 

@@ -54,8 +54,9 @@ __global__ void tail_fused_xwide_kernel(
     }
     __syncthreads();
     const int max_last = xw_max_last(sh.last, lanes);
-    const XwFill f{ring, masks, text_g, sh.last, nw, k, lanes, n_text, B,
-                   lane0, r.ll, r.wt, WT, r.dg, DG};
+    const XwFill<XwGridText> f{ring, masks, XwGridText{text_g}, sh.last, nw,
+                               k, lanes, n_text, B, lane0, r.ll, r.wt, WT,
+                               r.dg, DG};
     const int m_len = sh.m_len[r.ll], diag = m_len - 1 - sh.n_len[r.ll];
     auto put = [&](int d, int j, int b, uint32_t v) {
       store[((static_cast<long long>(d) * n_text + (j - 1)) * nwb + b) *

@@ -14,7 +14,9 @@ namespace {
 // change both together): per lane (PLACE_SHARED), the band of k+1 rows of
 // row_words words, row (d % L) * ceil((k+1)/L) + d / L for level d,
 // column jj at (jj - col0) * nwb; then per lane text_stride text codes;
-// then ops (max_ops, lanes); then dist (lanes).  PLACE_GLOBAL: per lane
+// then ops (max_ops, lanes); then dist (lanes); then, in the window form
+// (K1Window), the lanes' pattern masks (4 x nw words a lane) and their
+// commits (2 words a lane).  PLACE_GLOBAL: per lane
 // store_words = (ncb + rows0 - 1) * L * nwb * rows0 words of device
 // memory, and no band in shared memory.  row_words is
 // ncb * nwb, plus one where that makes row_words - nwb even: a step's
@@ -25,8 +27,8 @@ struct K1Layout {
   int rows0, row_words, lane_words, text_stride, store_words, smem_bytes;
 };
 
-K1Layout k1_layout(int W, int k, int kp, int nwb, int ncb, int max_ops,
-                   int lanes, int place) {
+K1Layout k1_layout(int W, int nw, int k, int kp, int nwb, int ncb,
+                   int max_ops, int lanes, int place, bool window) {
   const int G = kp < WORD ? kp : WORD, L = kp / G;
   K1Layout g;
   g.rows0 = (k + L) / L;
@@ -37,7 +39,8 @@ K1Layout k1_layout(int W, int k, int kp, int nwb, int ncb, int max_ops,
   else
     g.store_words = (ncb + g.rows0 - 1) * L * nwb * g.rows0;
   g.text_stride = half_bank_pad(W);
-  g.smem_bytes = 4 * lanes * (g.lane_words + g.text_stride + max_ops + 1);
+  g.smem_bytes = 4 * lanes * (g.lane_words + g.text_stride + max_ops + 1 +
+                              (window ? 4 * nw + 2 : 0));
   return g;
 }
 
@@ -70,7 +73,7 @@ K1Kernel k1_kernel(int nw, int k, int nwb, int place) {
 // card's limit, a band in device memory for PLACE_GLOBAL.
 bool k1_geometry_ok(int W, int nw, int k, int nwb, int ncb, int max_ops,
                     int lanes, int threads, int place, int smem,
-                    const void* store) {
+                    const void* store, bool window) {
   const int kp = levels_bucket(k);
   const int G = kp < WORD ? kp : WORD;
   return kp > 0 && W >= 1 && W <= nw * WORD && nwb >= 1 && nwb <= nw &&
@@ -78,8 +81,34 @@ bool k1_geometry_ok(int W, int nw, int k, int nwb, int ncb, int max_ops,
          threads == lanes * G && threads % WORD == 0 && threads <= 1024 &&
          (place == PLACE_SHARED || (place == PLACE_GLOBAL && store)) &&
          smem <= MAX_SHARED_BYTES &&
-         smem == k1_layout(W, k, kp, nwb, ncb, max_ops, lanes, place)
-                     .smem_bytes;
+         smem == k1_layout(W, nw, k, kp, nwb, ncb, max_ops, lanes, place,
+                           window).smem_bytes;
+}
+
+// K1 in either form (win.reads null: the standalone form) on `stream`.
+int launch_k1(const void* pm, const void* text, void* ops, void* meta,
+              void* store, const K1Window& win, int B, int W, int nw, int k,
+              int nwb, int ncb, int early_term, int commit_limit,
+              int max_ops, int max_steps, int lanes, int threads, int place,
+              int smem, void* stream) {
+  const bool window = win.reads != nullptr;
+  const K1Kernel kernel = k1_kernel(nw, k, nwb, place);
+  if (kernel == nullptr || B < 1 ||
+      !k1_geometry_ok(W, nw, k, nwb, ncb, max_ops, lanes, threads, place,
+                      smem, store, window))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const K1Layout lay = k1_layout(W, nw, k, levels_bucket(k), nwb, ncb,
+                                 max_ops, lanes, place, window);
+  const cudaError_t err = allow_shared(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(B + lanes - 1) / lanes, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
+      static_cast<int32_t*>(ops), static_cast<int32_t*>(meta),
+      static_cast<uint32_t*>(store), B, W, k, ncb, early_term, commit_limit,
+      max_ops, max_steps, lay.row_words, lay.lane_words, lay.text_stride,
+      lay.store_words, win);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -92,23 +121,37 @@ int genasm_tb_fused_launch(const void* pm, const void* text, void* ops,
                            int commit_limit, int max_ops, int max_steps,
                            int lanes, int threads, int place, int smem,
                            void* stream) {
-  const K1Kernel kernel = k1_kernel(nw, k, nwb, place);
-  if (kernel == nullptr || B < 1 ||
-      !k1_geometry_ok(W, nw, k, nwb, ncb, max_ops, lanes, threads, place,
-                      smem, store))
+  return launch_k1(pm, text, ops, meta, store, K1Window{}, B, W, nw, k, nwb,
+                   ncb, early_term, commit_limit, max_ops, max_steps, lanes,
+                   threads, place, smem, stream);
+}
+
+// K1's window form (K1Window): one main window of the fused loop, the
+// lanes' slices of `reads` (B, read_cols) and `refs` (B, ref_cols) uint8
+// at read_pos / ref_pos, committed into the pass's state (read_pos,
+// ref_pos, off, dist int32, failed bool, all (B,)), its op buffer `buf`
+// (B, buf_cols) uint8 and the window's level count `level`, in place.
+int genasm_tb_window_launch(const void* reads, const void* refs,
+                            const void* read_len, void* read_pos,
+                            void* ref_pos, void* off, void* dist,
+                            void* failed, void* buf, void* level,
+                            void* store, int B, int read_cols, int ref_cols,
+                            int buf_cols, int W, int nw, int k, int nwb,
+                            int ncb, int early_term, int commit_limit,
+                            int max_ops, int max_steps, int lanes,
+                            int threads, int place, int smem, void* stream) {
+  if (reads == nullptr || W > read_cols || W > ref_cols || buf_cols < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const K1Layout lay = k1_layout(W, k, levels_bucket(k), nwb, ncb, max_ops,
-                                 lanes, place);
-  const cudaError_t err = allow_shared(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<(B + lanes - 1) / lanes, threads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
-      static_cast<int32_t*>(ops), static_cast<int32_t*>(meta),
-      static_cast<uint32_t*>(store), B, W, k, ncb, early_term, commit_limit,
-      max_ops, max_steps, lay.row_words, lay.lane_words, lay.text_stride,
-      lay.store_words);
-  return static_cast<int>(cudaGetLastError());
+  const K1Window win{
+      static_cast<const uint8_t*>(reads), static_cast<const uint8_t*>(refs),
+      static_cast<const int32_t*>(read_len), static_cast<int32_t*>(read_pos),
+      static_cast<int32_t*>(ref_pos), static_cast<int32_t*>(off),
+      static_cast<int32_t*>(dist), static_cast<uint8_t*>(failed),
+      static_cast<uint8_t*>(buf), static_cast<int32_t*>(level), read_cols,
+      ref_cols, buf_cols};
+  return launch_k1(nullptr, nullptr, nullptr, nullptr, store, win, B, W, nw,
+                   k, nwb, ncb, early_term, commit_limit, max_ops, max_steps,
+                   lanes, threads, place, smem, stream);
 }
 
 // Blocks of K1's instantiation for (nw, k, nwb, place) that one SM holds at

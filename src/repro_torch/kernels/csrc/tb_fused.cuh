@@ -67,6 +67,42 @@ struct K1Band {
   }
 };
 
+// K1's window form's prologue (K1Window): the block's lanes' pattern
+// masks, word w of symbol c of lane ll at pm_s[(c * NW + w) * lanes + ll],
+// and their text, from each lane's reversed window slices of the reads
+// and refs (window_end).  One warp a (lane, word): thread t takes pattern
+// position 32w + t, and one ballot a symbol makes the word (bit clear
+// where the base is the symbol; set past W, where the pattern pads with a
+// code no base has).  The text as stage_text lays it out, consecutive
+// threads on consecutive bases of a lane.  Lanes past B: all 'A'.
+template <int NW>
+__device__ void stage_window(const K1Window& win, uint32_t* pm_s,
+                             int32_t* text_s, int W, int stride, int lanes,
+                             int lane0, int B) {
+  constexpr unsigned FULL = 0xFFFFFFFFu;
+  const int t = threadIdx.x % WORD;
+  for (int u = threadIdx.x / WORD; u < lanes * NW;
+       u += blockDim.x / WORD) {           // uniform over the warp
+    const int ll = u / NW, w = u % NW, lane = lane0 + ll, i = w * WORD + t;
+    int code = i < W ? 0 : SENTINEL_PAT;
+    if (lane < B && i < W)
+      code = window_end(win.reads, win.read_cols, lane, win.read_pos[lane],
+                        W)[-i];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint32_t m = __ballot_sync(FULL, code != c);
+      if (t == 0) pm_s[(c * NW + w) * lanes + ll] = m;
+    }
+  }
+  for (int x = threadIdx.x; x < W * lanes; x += blockDim.x) {
+    const int ll = x / W, j = x % W, lane = lane0 + ll;
+    text_s[ll * stride + j] =
+        lane < B ? window_end(win.refs, win.ref_cols, lane,
+                              win.ref_pos[lane], W)[-j]
+                 : 0;
+  }
+}
+
 // ---- K1 ---------------------------------------------------------------
 // Replaces repro/kernels/genasm_dc.py:_kernel_fused (TPU).
 //
@@ -124,6 +160,20 @@ struct K1Band {
 // the pattern masks' 4 x NW: up to 64 + 32 at L = 8, NW = 8.  So the walkers load their lane's masks after the
 // fill there (wpm), not before it: held through the fill they would cost
 // every thread 4 x NW more registers.
+//
+// The window form (K1Window, a uniform runtime argument: one build serves
+// both forms) is one main window of the fused loop in this one launch.
+// In place of pm_g / text_g the block reads each lane's reversed W-base
+// slices of the reads and refs at its positions (stage_window: the masks,
+// one ballot a symbol, into pm_s, and the text into text_s), so the fill
+// and walk threads load their masks from shared memory.  The fill, dist
+// and walk are the standalone form's; only a lane whose window is active
+// and solved walks.  Then the block commits: each walker advances its
+// lane's state, the block writes each committing lane's ops from ops_s
+// into its row of the op buffer as one run of bytes (no further than the
+// drop column), and one atomicMax a block takes the window's level
+// count.  The standalone form is the port of _kernel_fused (ops, meta
+// out), which tools and the grids call alone.
 template <int NW, int KP, int NWB, int PLACE>
 __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
                                 const int32_t* __restrict__ text_g,
@@ -133,7 +183,7 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
                                 int ncb, int early_term, int commit_limit,
                                 int max_ops, int max_steps, int row_words,
                                 int lane_words, int text_stride,
-                                int store_words) {
+                                int store_words, K1Window win) {
   constexpr int G = KP < WORD ? KP : WORD;   // threads per lane
   constexpr int L = KP / G;                  // levels per thread
   extern __shared__ uint32_t smem[];
@@ -150,19 +200,31 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
   int32_t* text_s = reinterpret_cast<int32_t*>(smem + lanes * lane_words);
   int32_t* ops_s = text_s + lanes * text_stride;
   int32_t* dist_s = ops_s + max_ops * lanes;
+  // the window form's masks (4 x NW words a lane) and each lane's commit:
+  // its offset, then the ops it writes (2 words a lane)
+  const bool window = win.reads != nullptr;
+  uint32_t* pm_s = reinterpret_cast<uint32_t*>(dist_s + lanes);
+  int32_t* commit_s = reinterpret_cast<int32_t*>(pm_s + 4 * NW * lanes);
   // thread w < lanes walks lane lane0 + w after the fill
   const int wlane = lane0 + static_cast<int>(threadIdx.x);
   const bool walker = static_cast<int>(threadIdx.x) < lanes && wlane < B;
-  PatternMasks<NW> wpm{};
-  if constexpr (NW <= 4)           // W <= 128: before the fill (as timed)
-    if (walker) wpm.load(pm_g, B, wlane);
-
-  stage_text(text_g, text_s, W, text_stride, lanes, lane0, B);
+  PatternMasks<NW> wpm{}, pm{};
+  if (window) {
+    stage_window<NW>(win, pm_s, text_s, W, text_stride, lanes, lane0, B);
+  } else {
+    if constexpr (NW <= 4)         // W <= 128: before the fill (as timed)
+      if (walker) wpm.load(pm_g, B, wlane);
+    stage_text(text_g, text_s, W, text_stride, lanes, lane0, B);
+  }
   for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x)
     ops_s[x] = OP_NONE;
-  PatternMasks<NW> pm{};
-  if (live) pm.load(pm_g, B, lane);
+  if (!window && live) pm.load(pm_g, B, lane);
   __syncthreads();
+  if (window) {
+    if (live) pm.load(pm_s, lanes, l);
+    if constexpr (NW <= 4)
+      if (walker) wpm.load(pm_s, lanes, threadIdx.x);
+  }
 
   // ---- fill: the wavefront (wavefront_fill), the band to its store ----
   constexpr int band_hi = NW * WORD - WORD * NWB;
@@ -206,20 +268,60 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
 
   // ---- walk: one thread per lane over the band ----
   if constexpr (NW > 4)            // W > 128: after the fill
-    if (walker) wpm.load(pm_g, B, wlane);
+    if (walker) {
+      if (window) wpm.load(pm_s, lanes, threadIdx.x);
+      else wpm.load(pm_g, B, wlane);
+    }
   if (walker) {
     const int w = threadIdx.x, wdist = dist_s[w];
     const K1Band<L, NWB, PLACE> st{lane_band(w), k, ncb, col0, band_hi,
                                    row_words, rows0};
-    tb_walk(st, wpm, Rows<const int32_t>{text_s + w * text_stride, 1}, W,
-                k, wdist, level_count(wdist, k, early_term), W - 1, W,
-                commit_limit, max_ops, max_steps,
-                Rows<int32_t>{ops_s + w, lanes}, Rows<int32_t>{meta + wlane, B});
+    const Rows<const int32_t> text{text_s + w * text_stride, 1};
+    const Rows<int32_t> ops_w{ops_s + w, lanes};
+    const int d_end = level_count(wdist, k, early_term);
+    if (!window) {
+      tb_walk(st, wpm, text, W, k, wdist, d_end, W - 1, W, commit_limit,
+              max_ops, max_steps, ops_w, Rows<int32_t>{meta + wlane, B});
+    } else {
+      // only a committing lane walks: the others keep their state
+      const bool active = window_active(win, wlane, W);
+      int off = 0, n = 0;
+      if (active && wdist <= k) {
+        off = win.off[wlane];
+        n = window_advance(win, wlane,
+                           tb_walk_ops(st, wpm, text, W, k, wdist, d_end,
+                                       W - 1, W, commit_limit, max_ops,
+                                       max_steps, ops_w),
+                           max_ops);
+      } else if (active) {
+        win.failed[wlane] = 1;
+      }
+      commit_s[w] = off;
+      commit_s[lanes + w] = n;
+    }
   }
   __syncthreads();
+  if (!window) {
+    for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x) {
+      const int r = x / lanes, ll = x % lanes;
+      if (lane0 + ll < B) ops[at(r, B, lane0 + ll)] = ops_s[x];
+    }
+    return;
+  }
+  // the window form's commit: each committing lane's ops as one run of
+  // bytes into its row of buf, the runs one after another, each spread
+  // over the block's threads; the window's level count by one atomic
   for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x) {
-    const int r = x / lanes, ll = x % lanes;
-    if (lane0 + ll < B) ops[at(r, B, lane0 + ll)] = ops_s[x];
+    const int ll = x / max_ops, i = x % max_ops;
+    if (lane0 + ll < B && i < commit_s[lanes + ll])
+      win.buf[static_cast<size_t>(lane0 + ll) * win.buf_cols +
+              commit_s[ll] + i] = static_cast<uint8_t>(ops_s[i * lanes + ll]);
+  }
+  if (threadIdx.x == 0) {
+    int most = level_count(dist_s[0], k, early_term);
+    for (int ll = 1; ll < lanes && lane0 + ll < B; ++ll)
+      most = max(most, level_count(dist_s[ll], k, early_term));
+    atomicMax(win.level, most);
   }
 }
 
@@ -227,7 +329,7 @@ __global__ void tb_fused_kernel(const uint32_t* __restrict__ pm_g,
 
 using K1Kernel = void (*)(const uint32_t*, const int32_t*, int32_t*,
                           int32_t*, uint32_t*, int, int, int, int, int, int,
-                          int, int, int, int, int, int);
+                          int, int, int, int, int, int, K1Window);
 
 // K1's instantiation at NW = 5..8 for (nw, kp, nwb, place), or null
 // (tb_fused_wide.cu).

@@ -7,7 +7,10 @@ the wide family ``*_xwide.cu``):
 
   * K1 ``genasm_tb_fused``    <- ``_kernel_fused``: improved GenASM-DC
     (SENE + DENT + ET) of a square W x W window, then the traceback walked
-    in the same kernel over the stored DENT band.
+    in the same kernel over the stored DENT band.  Its window form
+    (``window_step.genasm_tb_window``, counted as K1) is one main window
+    of the fused loop: the slices read and the ops and state committed in
+    the same launch.
   * K2 ``genasm_tail_banded`` <- ``_kernel_tail_banded``: the ragged
     rectangular tail (m_len <= W pattern chars against n_len <= n_text
     text chars) with a per-lane diagonal band store.
@@ -100,26 +103,11 @@ def _bump(counts: dict, name: str) -> None:
 _RECORDING = threading.local()
 
 
-#: the launch and plain-call counts of kernels whose wrappers live in
-#: other modules (``window_step``), by kernel name: launched inside a
-#: capture, they are recorded and counted at replay with the four above
-_OTHER_COUNTS: dict = {}
-
-
-def register_counts(launches: dict, plain_calls: dict) -> None:
-    """Count the kernels of `launches` (name -> count) here as well: their
-    launches within ``recording_launches`` are recorded, ``add_launches``
-    and ``reset_counts`` reach them.  Their dicts stay their module's."""
-    for name in launches:
-        _OTHER_COUNTS[name] = (launches, plain_calls)
-
-
 @contextlib.contextmanager
 def recording_launches():
     """Within this context the calling thread's kernel launches are
-    recorded into the dict it yields, not counted in LAUNCHES (or the
-    registered counts): the launches of a CUDA graph captured here, which
-    run at its replays."""
+    recorded into the dict it yields, not counted in LAUNCHES: the
+    launches of a CUDA graph captured here, which run at its replays."""
     rec = dict.fromkeys(KERNELS, 0)
     outer = getattr(_RECORDING, "launches", None)
     _RECORDING.launches = rec
@@ -133,23 +121,21 @@ def add_launches(launches: dict) -> None:
     """Count the launches one replay of a captured graph holds."""
     with _COUNTS_LOCK:
         for name, n in launches.items():
-            (_OTHER_COUNTS[name][0] if name in _OTHER_COUNTS
-             else LAUNCHES)[name] += n
+            LAUNCHES[name] += n
 
 
-def _count_launch(name: str, counts: dict = LAUNCHES) -> None:
+def _count_launch(name: str) -> None:
     rec = getattr(_RECORDING, "launches", None)
     if rec is None:
-        _bump(counts, name)
+        _bump(LAUNCHES, name)
     else:
         rec[name] = rec.get(name, 0) + 1
 
 
 def reset_counts() -> None:
-    """Every count to 0: these four kernels' and the registered ones'."""
+    """Every count to 0."""
     with _COUNTS_LOCK:
-        for counts in (LAUNCHES, PLAIN_CALLS,
-                       *(c for pair in _OTHER_COUNTS.values() for c in pair)):
+        for counts in (LAUNCHES, PLAIN_CALLS):
             for name in counts:
                 counts[name] = 0
 
@@ -445,21 +431,23 @@ MAX_BLOCK_REGISTERS = 65_536
 #: registers a thread of each kernel's instantiations takes, by (NW, KP):
 #: ptxas's count (``-Xptxas -v``, the build's report), the most over NWB
 #: and placement (CUDA 12.8, sm_90a; PERF.md section 6).  None spills; the
-#: most is 215 (K1 at NW = 8, KP = 256).  "xwide": the wide family's one
-#: kernel each (NW >= 9; no spill, CUDA 12.8 on an H100).
+#: most is 217 (K1 at NW = 8, KP = 256; K1's counts are those of its one
+#: build with the window form, ``window_step.genasm_tb_window``).
+#: "xwide": the wide family's one kernel each (NW >= 9; no spill, CUDA
+#: 12.8 on an H100).
 #: A block's threads are capped so that they hold their registers
 #: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
 #: more than this table.
 REGISTERS = {
-    "tb_fused": {(1, 16): 32, (1, 32): 32, (2, 16): 40, (2, 32): 40,
-                 (2, 64): 45, (3, 16): 53, (3, 32): 53, (3, 64): 55,
-                 (3, 128): 70, (4, 16): 63, (4, 32): 63, (4, 64): 71,
-                 (4, 128): 96,
-                 (5, 16): 64, (5, 32): 64, (5, 64): 96, (5, 128): 94,
-                 (5, 256): 155, (6, 16): 69, (6, 32): 69, (6, 64): 109,
-                 (6, 128): 115, (6, 256): 162, (7, 16): 75, (7, 32): 77,
-                 (7, 64): 110, (7, 128): 128, (7, 256): 199, (8, 16): 89,
-                 (8, 32): 94, (8, 64): 117, (8, 128): 152, (8, 256): 215,
+    "tb_fused": {(1, 16): 39, (1, 32): 39, (2, 16): 48, (2, 32): 48,
+                 (2, 64): 48, (3, 16): 56, (3, 32): 56, (3, 64): 55,
+                 (3, 128): 72, (4, 16): 71, (4, 32): 71, (4, 64): 77,
+                 (4, 128): 112,
+                 (5, 16): 71, (5, 32): 72, (5, 64): 96, (5, 128): 109,
+                 (5, 256): 157, (6, 16): 72, (6, 32): 72, (6, 64): 115,
+                 (6, 128): 118, (6, 256): 160, (7, 16): 92, (7, 32): 92,
+                 (7, 64): 108, (7, 128): 126, (7, 256): 199, (8, 16): 93,
+                 (8, 32): 95, (8, 64): 114, (8, 128): 150, (8, 256): 217,
                  "xwide": 48},
     "tail": {(1, 16): 42, (1, 32): 42, (2, 16): 48, (2, 32): 48,
              (2, 64): 47, (3, 16): 61, (3, 32): 61, (3, 64): 62,
@@ -799,7 +787,8 @@ def _templates_only(cfg: AlignerConfig, what: str) -> None:
 
 
 def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
-                      threads: int | None = None) -> TbFusedGeometry:
+                      threads: int | None = None, *,
+                      window: bool = False) -> TbFusedGeometry:
     """K1's block for `cfg` and an op budget (default ``cfg.tb_max_ops``):
     G = min(KP, 32) threads per lane with L = KP / G levels each,
     ``K1_THREADS / G`` lanes per block, halved while the block's shared
@@ -809,7 +798,9 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     kernel's layout: per lane the band where ``K1_PLACEMENT[(NW, KP)]`` is
     "shared", k+1 rows of ``ncb * nwb`` words (plus one where that makes
     the row stride minus nwb even) padded to 16 mod 32 words, the text
-    padded the same way, the staged ops and the lane's dist.  "global":
+    padded the same way, the staged ops and the lane's dist, and in K1's
+    window form (`window`, ``window_step.genasm_tb_window``) the lane's
+    pattern masks and its commit, ``k1_window_words(nw)``.  "global":
     the band in device memory instead, ``(ncb + rows0 - 1) * L * nwb *
     rows0`` words a lane, rows0 = ceil((k+1)/L) (the skewed layout of
     ``tb_fused.cu``).  Raises ValueError where one warp's lanes do not
@@ -825,7 +816,8 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     else:
         rows0 = -(-(cfg.k + 1) // levels)
         store = (cfg.ncols_band + rows0 - 1) * levels * cfg.nwb * rows0
-    lane_words = band + _half_bank_pad(cfg.W) + max_ops + 1
+    lane_words = band + _half_bank_pad(cfg.W) + max_ops + 1 + (
+        k1_window_words(cfg.nw) if window else 0)
     cap = max_threads("tb_fused", cfg)
     lanes = _lanes(threads, K1_THREADS, group,
                    lambda n: 4 * n * lane_words, "K1", cap)
@@ -839,6 +831,12 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
                            shared_bytes=4 * lanes * lane_words,
                            band_words=band, placement=placement,
                            store_words=store)
+
+
+def k1_window_words(nw: int) -> int:
+    """Shared words a lane K1's window form adds to its block: the lane's
+    four pattern masks (nw words each) and its commit (offset, ops)."""
+    return 4 * nw + 2
 
 
 def _uninstantiated_placement(cfg: AlignerConfig, placement: str,
@@ -1054,13 +1052,15 @@ def xwide_resident(name: str, geo: XwideGeometry, device) -> int:
 
 
 def _xwide_launch(name: str, cfg: AlignerConfig, tensors, ints,
-                  n_text: int | None = None) -> None:
-    """Launch the wide kernel of `name` (its count) at the block
+                  n_text: int | None = None, *, B: int | None = None,
+                  entry: str | None = None) -> None:
+    """Launch the wide kernel of `name` (its count; entry point
+    ``genasm_<entry>_launch``, default ``<name>_xwide``) at the block
     ``xwide_geometry`` gives for the card's free memory now, on a
-    persistent grid (``xwide_blocks``) with the scratch its blocks
-    reuse."""
+    persistent grid (``xwide_blocks``) of B lanes (default the last axis
+    of the first tensor) with the scratch its blocks reuse."""
     device = tensors[0].device
-    B = tensors[0].shape[-1]
+    B = tensors[0].shape[-1] if B is None else B
     free = free_bytes(device)
     geo = xwide_geometry(cfg, name, n_text, free)
     blocks = xwide_blocks(geo, B, xwide_resident(name, geo, device), free)
@@ -1070,7 +1070,7 @@ def _xwide_launch(name: str, cfg: AlignerConfig, tensors, ints,
     if name != "dc_band":
         block += (geo.store_words,)
     _launch(name, *tensors, scratch, ints=ints, block=(*block, blocks),
-            entry=f"{name}_xwide")
+            entry=entry or f"{name}_xwide")
 
 
 def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,

@@ -1,24 +1,23 @@
-"""The main-window loop's own work around K1 (``csrc/window_step.cu``).
+"""One main window of backend 'fused' in one launch: K1's window form.
 
-Each main window of backend 'fused' is three launches: ``window_prep``
-(the window's reversed read and reference slices as K1's pattern masks and
-text), K1 (``genasm_dc.genasm_tb_fused``) and ``window_commit`` (K1's ops
-appended to the pass's op buffer, the lanes' positions, offsets,
-distances and failures advanced, the window's level count kept).  They
-port the body of the reference's main-window scan around its Pallas call
-(``append_main`` in ``repro/core/windowing.py``): ``_slice_rev``, the ops
-layer's ``_pad_to_tile`` / ``_to_kernel_layout``, ``_append_ops`` and the
-state's ``jnp.where`` updates, which XLA fuses.  In plain PyTorch those
-are some 75 small ops a window; a session's CUDA graph holds each as a
-node, and a graph's launch costs host time by its nodes.
+``genasm_tb_window`` runs the body of the reference's main-window scan
+(``append_main`` in ``repro/core/windowing.py``) as one launch of K1
+(``csrc/tb_fused.cuh``; at NW >= 9 ``csrc/tb_fused_xwide.cu``): K1 reads
+each lane's reversed W-base slices of the reads and references at its
+positions (the reference's ``_slice_rev``), builds the pattern masks and
+text in shared memory (the ops layer's ``_pad_to_tile`` /
+``_to_kernel_layout``), fills, walks, and commits its ops and state into
+the pass's op buffer and state in place (``_append_ops`` and the state's
+``jnp.where`` updates, which XLA fuses on the TPU).  So a main window is
+one launch, and one node of a session's CUDA graph.
 
-``window_prep_plain`` and ``window_commit_plain`` are the plain PyTorch
-versions.  On CPU tensors the wrappers run them; on CUDA tensors they
-launch the kernels or raise.  ``LAUNCHES`` counts the kernels' launches
-(through ``genasm_dc``'s counting, so a captured graph's replays count
-them), ``PLAIN_CALLS`` the plain versions' calls.  The commit updates the
-state in place, in both versions.  Nothing here builds or loads the
-library at import.
+``tb_window_plain`` is its plain PyTorch version: ``window_prep_plain``,
+``genasm_dc.tb_fused_plain`` and ``window_commit_plain`` composed.  On CPU
+tensors the entry runs it; on CUDA tensors it launches the kernel or
+raises.  It counts under K1's name: one ``genasm_dc.LAUNCHES["tb_fused"]``
+or ``genasm_dc.PLAIN_CALLS["tb_fused"]`` a window.  The split and plain
+backends use the plain pieces here (``slice_rev``, ``advance``,
+``append_ops``).  Nothing here builds or loads the library at import.
 """
 from __future__ import annotations
 
@@ -28,10 +27,6 @@ from ..core.config import AlignerConfig
 from . import genasm_dc
 from .ops import _pad_to_tile, _to_kernel_layout, _unpack_meta
 
-KERNELS = ("window_prep", "window_commit")
-LAUNCHES = dict.fromkeys(KERNELS, 0)
-PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
-genasm_dc.register_counts(LAUNCHES, PLAIN_CALLS)
 #: where a pass's per-window level counts start: below any count, so the
 #: kernel's running max over lanes equals the plain version's max
 LEVELS_FLOOR = -(2 ** 31)
@@ -82,7 +77,10 @@ def advance(state: dict, tb: dict, solved, levels_run, read_len, W: int,
 
 def window_prep_plain(reads, refs, read_pos, ref_pos, *,
                       cfg: AlignerConfig):
-    """The plain version of ``window_prep``."""
+    """One main window's K1 inputs: the (B, W) reversed slices of `reads`
+    (B, Lr) and `refs` (B, Lf) uint8 at `read_pos` / `ref_pos` (B,) int32
+    (each start clamped into its row), as pm (5, NW, Bp) and text (W, Bp)
+    int32, Bp = B padded to ``cfg.lane_tile`` with all-'A' lanes."""
     B = reads.shape[0]
     wfull = torch.full((B,), cfg.W, dtype=torch.int32, device=reads.device)
     pat = slice_rev(reads, read_pos, cfg.W, wfull)
@@ -92,10 +90,25 @@ def window_prep_plain(reads, refs, read_pos, ref_pos, *,
 
 def window_commit_plain(ops_k, meta, state: dict, read_len, *,
                         cfg: AlignerConfig, window: int) -> None:
-    """The plain version of ``window_commit``."""
+    """Commit K1's outputs of main window `window` (ops (max_ops, Bp),
+    meta (META_ROWS, Bp) int32, Bp >= B) into the pass's `state`, in
+    place (``advance``); ``levels[window]`` becomes the max of the first
+    B lanes' level counts."""
     B = read_len.shape[0]
     tb = _unpack_meta(ops_k.T[:B].to(torch.uint8), meta[:, :B], cfg)
     advance(state, tb, tb["solved"], tb["levels"], read_len, cfg.W, window)
+
+
+def tb_window_plain(reads, refs, read_len, state: dict, *,
+                    cfg: AlignerConfig, window: int) -> None:
+    """The plain version of ``genasm_tb_window``: ``window_prep_plain``,
+    K1's plain version and ``window_commit_plain``."""
+    pm, text = window_prep_plain(reads, refs, state["read_pos"],
+                                 state["ref_pos"], cfg=cfg)
+    ops, meta = genasm_dc.tb_fused_plain(
+        pm, text, cfg=cfg, commit_limit=cfg.stride, max_ops=cfg.tb_max_ops,
+        max_steps=cfg.tb_max_steps)
+    window_commit_plain(ops, meta, state, read_len, cfg=cfg, window=window)
 
 
 def _check(name: str, t, dtype, shape, device) -> None:
@@ -110,61 +123,23 @@ def _check(name: str, t, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _cuda(device) -> bool:
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel and no plain version for device "
-                         f"{device}: pass CPU or CUDA tensors")
-    return device.type == "cuda"
-
-
-def _launch(name: str, *args) -> None:
-    lib = genasm_dc._library()
-    device = args[0].device
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        genasm_dc._count_launch(name, LAUNCHES)
-        rc = getattr(lib, f"genasm_{name}_launch")(
-            *[a.data_ptr() if isinstance(a, torch.Tensor) else a
-              for a in args], stream)
-    genasm_dc._check_rc(lib, f"genasm_{name} kernel launch", rc)
-
-
-def window_prep(reads, refs, read_pos, ref_pos, *, cfg: AlignerConfig):
-    """One main window's K1 inputs: the (B, W) reversed slices of `reads`
-    (B, Lr) and `refs` (B, Lf) uint8 at `read_pos` / `ref_pos` (B,) int32
-    (each start clamped into its row), as pm (5, NW, Bp) and text (W, Bp)
-    int32, Bp = B padded to ``cfg.lane_tile`` with all-'A' lanes."""
+def genasm_tb_window(reads, refs, read_len, state: dict, *,
+                     cfg: AlignerConfig, window: int) -> None:
+    """Main window `window` of the fused loop in one launch of K1: the
+    (B, W) reversed slices of `reads` (B, Lr) and `refs` (B, Lf) uint8 at
+    the state's ``read_pos`` / ``ref_pos`` (each start clamped into its
+    row), K1's fill and walk, and the commit into the pass's `state`, in
+    place: ``read_pos``, ``ref_pos``, ``off``, ``dist`` (B,) int32,
+    ``failed`` (B,) bool, ``buf`` (B, budget + 1) uint8 (its last column
+    the drop slot) and ``levels`` (windows,) int32, whose entry `window`
+    becomes the max of the lanes' level counts (the kernel takes the max
+    into it: it must hold ``LEVELS_FLOOR``).  `read_len` (B,) int32.
+    The kernel runs the B lanes only; the plain version pads them to
+    ``cfg.lane_tile``, which changes no output."""
     device = reads.device
     B = reads.shape[0]
     _check("reads", reads, torch.uint8, (B, reads.shape[1]), device)
     _check("refs", refs, torch.uint8, (B, refs.shape[1]), device)
-    for name, t in (("read_pos", read_pos), ("ref_pos", ref_pos)):
-        _check(name, t, torch.int32, (B,), device)
-    if not _cuda(device):
-        genasm_dc._bump(PLAIN_CALLS, "window_prep")
-        return window_prep_plain(reads, refs, read_pos, ref_pos, cfg=cfg)
-    Bp = B + (-B) % cfg.lane_tile
-    pm = torch.empty((5, cfg.nw, Bp), dtype=torch.int32, device=device)
-    text = torch.empty((cfg.W, Bp), dtype=torch.int32, device=device)
-    _launch("window_prep", reads, refs, read_pos, ref_pos, pm, text,
-            reads.shape[1], refs.shape[1], B, Bp, cfg.W, cfg.nw)
-    return pm, text
-
-
-def window_commit(ops_k, meta, state: dict, read_len, *, cfg: AlignerConfig,
-                  window: int) -> None:
-    """Commit K1's outputs of main window `window` (ops (max_ops, Bp),
-    meta (META_ROWS, Bp) int32) into the pass's `state`, in place:
-    ``read_pos``, ``ref_pos``, ``off``, ``dist`` (B,) int32, ``failed``
-    (B,) bool, ``buf`` (B, budget + 1) uint8 (its last column the drop
-    slot) and ``levels`` (windows,) int32, whose entry `window` becomes
-    the max of the lanes' level counts (the kernel takes the max into it:
-    it must hold ``LEVELS_FLOOR``).  `read_len` (B,) int32."""
-    device = read_len.device
-    B = read_len.shape[0]
-    Bp = ops_k.shape[1]
-    _check("ops", ops_k, torch.int32, (ops_k.shape[0], Bp), device)
-    _check("meta", meta, torch.int32, (genasm_dc.META_ROWS, Bp), device)
     _check("read_len", read_len, torch.int32, (B,), device)
     for key in ("read_pos", "ref_pos", "off", "dist"):
         _check(key, state[key], torch.int32, (B,), device)
@@ -172,15 +147,35 @@ def window_commit(ops_k, meta, state: dict, read_len, *, cfg: AlignerConfig,
     buf, levels = state["buf"], state["levels"]
     _check("buf", buf, torch.uint8, (B, buf.shape[1]), device)
     _check("levels", levels, torch.int32, (levels.shape[0],), device)
-    if Bp < B or not 0 <= window < levels.shape[0]:
-        raise ValueError(f"{Bp} kernel lanes for {B} pairs, window {window} "
-                         f"of {levels.shape[0]}")
-    if not _cuda(device):
-        genasm_dc._bump(PLAIN_CALLS, "window_commit")
-        window_commit_plain(ops_k, meta, state, read_len, cfg=cfg,
-                            window=window)
+    if min(reads.shape[1], refs.shape[1]) < cfg.W or buf.shape[1] < 1 or \
+            not 0 <= window < levels.shape[0]:
+        raise ValueError(f"reads of {reads.shape[1]} and refs of "
+                         f"{refs.shape[1]} columns for W={cfg.W}, a buffer "
+                         f"of {buf.shape[1]}, window {window} of "
+                         f"{levels.shape[0]}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel and no plain version for device "
+                         f"{device}: pass CPU or CUDA tensors")
+    if device.type == "cpu":
+        genasm_dc._bump(genasm_dc.PLAIN_CALLS, "tb_fused")
+        tb_window_plain(reads, refs, read_len, state, cfg=cfg, window=window)
         return
-    _launch("window_commit", ops_k, meta, read_len, state["read_pos"],
-            state["ref_pos"], state["off"], state["dist"], state["failed"],
-            buf, levels[window:window + 1], B, Bp, cfg.W, cfg.k,
-            ops_k.shape[0], buf.shape[1])
+    if not B:
+        return
+    tensors = (reads, refs, read_len, state["read_pos"], state["ref_pos"],
+               state["off"], state["dist"], state["failed"], buf,
+               levels[window:window + 1])
+    ints = (B, reads.shape[1], refs.shape[1], buf.shape[1], cfg.W, cfg.nw,
+            cfg.k, cfg.nwb, cfg.ncols_band, int(cfg.early_term), cfg.stride,
+            cfg.tb_max_ops, cfg.tb_max_steps)
+    if cfg.nw > genasm_dc.TEMPLATE_NW:
+        genasm_dc._xwide_launch("tb_fused", cfg, tensors, ints, B=B,
+                                entry="tb_window_xwide")
+        return
+    geo = genasm_dc.tb_fused_geometry(cfg, window=True)
+    genasm_dc._launch(
+        "tb_fused", *tensors, genasm_dc._store(B, geo.store_words, device),
+        ints=ints, block=(geo.lanes, geo.threads,
+                          genasm_dc.PLACEMENTS.index(geo.placement),
+                          geo.shared_bytes),
+        entry="tb_window")

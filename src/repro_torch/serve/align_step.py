@@ -142,8 +142,8 @@ def _geometry(name: str, cfg: AlignerConfig):
     its template's."""
     if cfg.nw > genasm_dc.TEMPLATE_NW:
         return genasm_dc.xwide_geometry(cfg, name, self_tail_width(cfg))
-    if name == "tb_fused":
-        return genasm_dc.tb_fused_geometry(cfg)
+    if name == "tb_fused":                  # the main windows' form
+        return genasm_dc.tb_fused_geometry(cfg, window=True)
     if name == "dc_band":
         return genasm_dc.dc_band_geometry(cfg)
     wt = self_tail_width(cfg)

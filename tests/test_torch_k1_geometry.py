@@ -164,11 +164,11 @@ def test_tb_fused_geometry_at_nw_5_to_8(W, O):
 
 
 @pytest.mark.parametrize("W,O,k,regs,cap", [
-    (64, 24, 12, 40, 1024), (128, 48, 96, 96, 672), (192, 64, 100, 115, 544),
-    (256, 96, 120, 152, 416), (256, 96, 240, 215, 288)])
+    (64, 24, 12, 48, 1024), (128, 48, 96, 112, 576), (192, 64, 100, 118, 544),
+    (256, 96, 120, 150, 416), (256, 96, 240, 217, 288)])
 def test_k1_threads_are_capped_by_registers(W, O, k, regs, cap):
     """A warp's registers are allocated 8 a thread at a time, a block holds
-    65,536: 215 registers (K1 at NW = 8, KP = 256) allow 288 threads.  A
+    65,536: 217 registers (K1 at NW = 8, KP = 256) allow 288 threads.  A
     block past the cap is refused naming the registers; the default block
     (128 threads) is within it everywhere."""
     cfg = AlignerConfig(W=W, O=O, k=k)
@@ -180,3 +180,27 @@ def test_k1_threads_are_capped_by_registers(W, O, k, regs, cap):
     if cap < 1024:
         with pytest.raises(ValueError, match="registers"):
             genasm_dc.tb_fused_geometry(cfg, threads=cap + 32)
+
+
+@pytest.mark.parametrize("W,O", [(16, 6), (64, 24), (128, 48), (256, 96)])
+def test_k1_window_form_block(W, O):
+    """K1's window form (``window_step.genasm_tb_window``) adds each
+    lane's pattern masks and commit, ``k1_window_words(nw)`` = 4 nw + 2
+    words, to the standalone block's shared memory; its threads a lane,
+    band and store are the standalone form's, and at every k < W the block
+    still fits (halving its lanes where it must)."""
+    for k in range(1, W):
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        alone = genasm_dc.tb_fused_geometry(cfg)
+        win = genasm_dc.tb_fused_geometry(cfg, window=True)
+        assert genasm_dc.k1_window_words(cfg.nw) == 4 * cfg.nw + 2
+        assert (win.group, win.levels_per_thread, win.placement,
+                win.band_words, win.store_words) == (
+            alone.group, alone.levels_per_thread, alone.placement,
+            alone.band_words, alone.store_words)
+        assert win.shared_bytes == win.lanes * (
+            alone.shared_bytes // alone.lanes
+            + 4 * genasm_dc.k1_window_words(cfg.nw)) <= \
+            genasm_dc.MAX_SHARED_BYTES
+        assert win.lanes in (alone.lanes, alone.lanes // 2)
+        assert win.threads == win.lanes * win.group

@@ -284,20 +284,21 @@ def test_mesh_is_refused_by_name():
 
 
 def test_plan_lane_tile_hopper_model():
-    """132 SMs x K1 blocks per SM x lanes per block, the blocks from K1's
-    shared bytes (+ the 1 KB reserve) against 233,472 B and 2,048 threads
-    an SM: 7 / 4 / 2 blocks at k = 12 / 24 / 48, as the card's occupancy
-    query reports for K1."""
+    """132 SMs x K1 blocks per SM x lanes per block, the blocks from the
+    shared bytes of K1's window form (what the fused loop launches; + the
+    1 KB reserve) against 233,472 B and 2,048 threads an SM: 7 / 4 / 2
+    blocks at k = 12 / 24 / 48, as the card's occupancy query reports for
+    K1."""
     for k, blocks, lanes in ((12, 7, 8), (24, 4, 4), (48, 2, 4)):
         cfg = AlignerConfig(k=k)
-        geo = genasm_dc.tb_fused_geometry(cfg)
+        geo = genasm_dc.tb_fused_geometry(cfg, window=True)
         assert (geo.lanes, (233_472 // (geo.shared_bytes + 1024))) == \
             (lanes, blocks)
         assert windowing.plan_lane_tile(cfg) == 132 * blocks * lanes
     assert windowing.plan_lane_tile(CFG) == 132 * 16 * 8   # by threads
     assert resolve_config(AlignerConfig(), k=24,
                           lane_tile="auto").lane_tile == 2112
-    with pytest.raises(ValueError, match=r"W=64 k=12.*29,408 bytes"):
+    with pytest.raises(ValueError, match=r"W=64 k=12.*29,728 bytes"):
         windowing.plan_lane_tile(AlignerConfig(), sm_shared_bytes=20_000)
     for W in (288, 320):              # NW >= 9: the wide family's block
         cfg = AlignerConfig(W=W, O=24, k=12)
@@ -316,7 +317,7 @@ def test_launch_plan_on_the_cpu():
         ("tb_fused", 12), ("tail_banded", 12), ("tb_fused", 24),
         ("tail_full", 24), ("tb_fused", 48), ("tail_full", 48)]
     assert fused[0]["geometry"] == genasm_dc.tb_fused_geometry(
-        AlignerConfig())
+        AlignerConfig(), window=True)
     assert all(e["blocks_per_sm"] is None for e in fused)
     split = launch_plan(AlignerConfig(backend="split"), 10_000, None, "cpu")
     assert [(e["kernel"], e["k"]) for e in split] == [("dc_band", 12)]

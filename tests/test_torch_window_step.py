@@ -1,11 +1,14 @@
-"""The main-window loop's kernels around K1 (``kernels/window_step.py``)
-on the CPU: their plain versions against the reference's own pieces of
-its scan body (``_slice_rev``, the ops layer's ``_pad_to_tile`` /
-``_to_kernel_layout`` / ``_unpack_meta`` and ``_append_ops``, then the
-state's ``jnp.where`` updates of ``append_main``), the wrappers' checks
-and counts, and the fused pass calling each once a window.  The kernels
-themselves run only on the card (``chip_smoke.py``, phase ``kernel``).
-~5 s."""
+"""The main-window loop around K1 (``kernels/window_step.py``) on the
+CPU: the plain pieces of K1's window form against the reference's own
+pieces of its scan body (``_slice_rev``, the ops layer's
+``_pad_to_tile`` / ``_to_kernel_layout`` / ``_unpack_meta`` and
+``_append_ops``, then the state's ``jnp.where`` updates of
+``append_main``), the window entry's checks and counts (one K1 launch or
+plain call a window, through captures and replays), and the fused pass
+calling it once a window.  ``tests/test_torch_tb_window.py`` holds the
+whole window form to the reference over several windows; the kernel
+itself runs only on the card (``chip_smoke.py``, phases ``k1_grid`` and
+``kernel``).  ~25 s on one worker, most of it the reference's jit."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,7 +49,7 @@ def test_window_prep_plain_equals_reference(W, O, k, B, tile):
     txt = ref_win._slice_rev(jnp.asarray(refs), jnp.asarray(ref_pos), W, full)
     want_pm, want_text = ref_ops._to_kernel_layout(
         *ref_ops._pad_to_tile(pat, txt, tile), ref_cfg)
-    pm, text = window_step.window_prep(
+    pm, text = window_step.window_prep_plain(
         *map(torch.from_numpy, (reads, refs, read_pos, ref_pos)), cfg=cfg)
     assert pm.shape == (5, cfg.nw, B + (-B) % tile)
     np.testing.assert_array_equal(pm.numpy().view(np.uint32),
@@ -104,9 +107,10 @@ def test_window_commit_plain_equals_reference(W, O, k, B, tile):
     state["buf"] = torch.from_numpy(np.pad(st["buf"], ((0, 0), (0, 1))))
     state["levels"] = torch.full((3,), window_step.LEVELS_FLOOR,
                                  dtype=torch.int32)
-    window_step.window_commit(torch.from_numpy(ops_k), torch.from_numpy(meta),
-                              state, torch.from_numpy(read_len), cfg=cfg,
-                              window=1)
+    window_step.window_commit_plain(torch.from_numpy(ops_k),
+                                    torch.from_numpy(meta), state,
+                                    torch.from_numpy(read_len), cfg=cfg,
+                                    window=1)
     state["buf"] = state["buf"][:, :budget]
     for key, value in want.items():
         np.testing.assert_array_equal(state[key].numpy(), np.asarray(value),
@@ -116,50 +120,123 @@ def test_window_commit_plain_equals_reference(W, O, k, B, tile):
         window_step.LEVELS_FLOOR]
 
 
-def test_wrappers_check_their_inputs_and_count_plain_calls():
-    _, cfg = cfg_pair(W=16, O=6, k=4, lane_tile=4)
+def _window_args(W=16, O=6, k=4, B=6, seed=1):
+    """The window entry's arguments: a batch of `B` lanes at its first
+    window and a fresh pass state (two level counts)."""
+    _, cfg = cfg_pair(W=W, O=O, k=k, lane_tile=4)
     reads, refs, read_pos, ref_pos = map(torch.from_numpy, _inputs(
-        16, 6, np.random.default_rng(1)))
+        W, B, np.random.default_rng(seed)))
+    budget = 3 * cfg.tb_max_ops
+    state = {"read_pos": read_pos, "ref_pos": ref_pos,
+             "off": torch.zeros(B, dtype=torch.int32),
+             "dist": torch.zeros(B, dtype=torch.int32),
+             "failed": torch.zeros(B, dtype=torch.bool),
+             "buf": torch.full((B, budget + 1), 255, dtype=torch.uint8),
+             "levels": torch.full((2,), window_step.LEVELS_FLOOR,
+                                  dtype=torch.int32)}
+    read_len = torch.full((B,), reads.shape[1], dtype=torch.int32)
+    return cfg, reads, refs, read_len, state
+
+
+def test_wrappers_check_their_inputs_and_count_plain_calls():
+    """The window entry on CPU tensors: its plain version, counted as one
+    plain call of K1 (no launch, and no count of any other kernel); on
+    wrong dtypes, shapes, devices or windows it raises."""
+    cfg, reads, refs, read_len, state = _window_args()
     genasm_dc.reset_counts()
-    window_step.window_prep(reads, refs, read_pos, ref_pos, cfg=cfg)
-    assert window_step.PLAIN_CALLS == {"window_prep": 1, "window_commit": 0}
-    assert set(window_step.LAUNCHES.values()) == {0}
+    window_step.genasm_tb_window(reads, refs, read_len, state, cfg=cfg,
+                                 window=0)
+    assert genasm_dc.PLAIN_CALLS == {**dict.fromkeys(genasm_dc.KERNELS, 0),
+                                     "tb_fused": 1}
+    assert set(genasm_dc.LAUNCHES.values()) == {0}
+    assert int(state["levels"][0]) >= 1
+    call = window_step.genasm_tb_window
     with pytest.raises(ValueError, match="reads must be torch.uint8"):
-        window_step.window_prep(reads.long(), refs, read_pos, ref_pos,
-                                cfg=cfg)
-    with pytest.raises(ValueError, match="read_pos must be torch.int32"):
-        window_step.window_prep(reads, refs, read_pos.long(), ref_pos,
-                                cfg=cfg)
+        call(reads.long(), refs, read_len, state, cfg=cfg, window=1)
+    with pytest.raises(ValueError, match="read_len must be torch.int32"):
+        call(reads, refs, read_len.long(), state, cfg=cfg, window=1)
+    with pytest.raises(ValueError, match="failed must be torch.bool"):
+        call(reads, refs, read_len, {**state, "failed": state["failed"].int()},
+             cfg=cfg, window=1)
+    with pytest.raises(ValueError, match="off has shape"):
+        call(reads, refs, read_len, {**state, "off": state["off"][:-1]},
+             cfg=cfg, window=1)
+    with pytest.raises(ValueError, match="window 2 of 2"):
+        call(reads, refs, read_len, state, cfg=cfg, window=2)
+    with pytest.raises(ValueError, match="for W=16"):
+        call(reads[:, :15].contiguous(), refs, read_len, state, cfg=cfg,
+             window=1)
+    with pytest.raises(ValueError, match="must be contiguous"):
+        call(reads, refs, read_len, {**state, "buf": state["buf"].T.
+                                     contiguous().T}, cfg=cfg, window=1)
     with pytest.raises(ValueError, match="no kernel and no plain version"):
-        window_step.window_prep(*(t.to("meta") for t in (
-            reads, refs, read_pos, ref_pos)), cfg=cfg)
+        call(*(t.to("meta") for t in (reads, refs, read_len)),
+             {key: t.to("meta") for key, t in state.items()}, cfg=cfg,
+             window=1)
+    assert genasm_dc.PLAIN_CALLS["tb_fused"] == 1
     genasm_dc.reset_counts()
-    assert set(window_step.PLAIN_CALLS.values()) == {0}
+    assert set(genasm_dc.PLAIN_CALLS.values()) == {0}
 
 
-def test_counts_pass_through_captures_and_replays():
-    """A window kernel's launch inside ``recording_launches`` is recorded,
-    not counted; ``add_launches`` counts it in ``window_step.LAUNCHES``
-    and the template kernels' in ``genasm_dc.LAUNCHES``."""
+@pytest.mark.parametrize("W,O,k", [(16, 6, 4), (288, 96, 20)])
+def test_counts_pass_through_captures_and_replays(monkeypatch, W, O, k):
+    """The window entry's launch, on the card's branch (tensors that say
+    they are on the card, a stand-in for the library's launch and the
+    band store here), is one launch of K1's window entry point
+    counted under K1's name: inside ``recording_launches`` it is recorded,
+    not counted; ``add_launches`` counts it in ``genasm_dc.LAUNCHES``.  At
+    NW >= 9 the wide family's entry point.  No other kernel's count."""
+    cfg, reads, refs, read_len, state = _window_args(W, O, k, B=5)
+    called = []
+
+    def launch(name, *tensors, ints, block=(), entry=None):
+        genasm_dc._count_launch(name)
+        called.append((name, entry, tensors, ints, block))
+
+    def xwide_launch(name, cfg, tensors, ints, n_text=None, *, B=None,
+                     entry=None):
+        launch(name, *tensors, ints=ints, entry=entry)
+
+    monkeypatch.setattr(genasm_dc, "_launch", launch)
+    monkeypatch.setattr(genasm_dc, "_xwide_launch", xwide_launch)
+    monkeypatch.setattr(genasm_dc, "_store", lambda B, words, device:
+                        torch.empty((B, words), dtype=torch.int32))
+    cuda = torch.device("cuda")
+    monkeypatch.setattr(torch.Tensor, "device", property(lambda t: cuda))
     genasm_dc.reset_counts()
     with genasm_dc.recording_launches() as rec:
-        genasm_dc._count_launch("window_commit", window_step.LAUNCHES)
-        genasm_dc._count_launch("tb_fused")
-    assert rec["window_commit"] == rec["tb_fused"] == 1
-    assert set(window_step.LAUNCHES.values()) == {0}
+        window_step.genasm_tb_window(reads, refs, read_len, state, cfg=cfg,
+                                     window=1)
+    monkeypatch.undo()
+    assert rec == {**dict.fromkeys(genasm_dc.KERNELS, 0), "tb_fused": 1}
+    assert set(genasm_dc.LAUNCHES.values()) == {0}
+    [(name, entry, tensors, ints, block)] = called
+    wide = cfg.nw > genasm_dc.TEMPLATE_NW
+    assert (name, entry) == ("tb_fused", "tb_window_xwide" if wide
+                             else "tb_window")
+    assert tensors[9].data_ptr() == state["levels"][1:].data_ptr()
+    assert ints == (5, reads.shape[1], refs.shape[1], state["buf"].shape[1],
+                    W, cfg.nw, k, cfg.nwb, cfg.ncols_band, 1, cfg.stride,
+                    cfg.tb_max_ops, cfg.tb_max_steps)
+    if not wide:
+        geo = genasm_dc.tb_fused_geometry(cfg, window=True)
+        assert block[-1] == geo.shared_bytes == genasm_dc.tb_fused_geometry(
+            cfg).shared_bytes + 4 * geo.lanes * genasm_dc.k1_window_words(
+                cfg.nw)
     genasm_dc.add_launches(rec)
     genasm_dc.add_launches(rec)
-    assert window_step.LAUNCHES == {"window_prep": 0, "window_commit": 2}
-    assert genasm_dc.LAUNCHES["tb_fused"] == 2
+    assert genasm_dc.LAUNCHES == {**dict.fromkeys(genasm_dc.KERNELS, 0),
+                                  "tb_fused": 2}
+    assert set(genasm_dc.PLAIN_CALLS.values()) == {0}
     genasm_dc.reset_counts()
-    assert set(window_step.LAUNCHES.values()) == {0}
     assert set(genasm_dc.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("backend", ["fused", "split"])
 def test_pass_runs_each_window_kernel_once_a_window(backend):
-    """The fused pass calls the prep and the commit once a main window
-    (their plain versions here), beside K1; the split pass neither."""
+    """The fused pass calls K1's window form once a main window (its
+    plain version here) and no other kernel in the loop but the tail's;
+    the split pass never (K3 once a window instead)."""
     _, cfg = cfg_pair(W=16, O=6, k=4, lane_tile=4)
     cfg = cfg.replace(backend=backend)
     rng = np.random.default_rng(2)
@@ -174,10 +251,12 @@ def test_pass_runs_each_window_kernel_once_a_window(backend):
     out = windowing.shard_rung(torch.from_numpy(reads), lens,
                                torch.from_numpy(refs), lens, cfg, L)
     nm = windowing.n_main_windows(L, cfg)
-    per_window = nm if backend == "fused" else 0
-    assert window_step.PLAIN_CALLS == dict.fromkeys(window_step.KERNELS,
-                                                    per_window)
-    assert genasm_dc.PLAIN_CALLS["tb_fused"] == per_window
+    tail = "tail_banded" if cfg.tail_banded else "tail_full"
+    assert genasm_dc.PLAIN_CALLS == {
+        **dict.fromkeys(genasm_dc.KERNELS, 0),
+        **({"tb_fused": nm, tail: 1} if backend == "fused"
+           else {"dc_band": nm})}
+    assert set(genasm_dc.LAUNCHES.values()) == {0}
     assert out["levels"].shape == (nm,) and bool((out["levels"] >= 0).all())
     assert not out["failed"].any()
     genasm_dc.reset_counts()

@@ -9,7 +9,7 @@ instantiate it, ``tb_fused.cu`` and ``tb_fused_wide.cu``) three times into
 is (``full``); with the walk switched off (``no_walk``); and with the walk
 and the fill's band stores switched off (``no_walk_no_store``).  The
 switches are two preprocessor macros that this script writes into a copy
-of ``tb_fused.cuh``; it refuses to run if either line it patches has moved.
+of ``tb_fused.cuh``; it refuses to run if either place it patches has moved.
 Then it times each build's K1 on the inputs ``chip_smoke.py`` gives it,
 at 2,048 and 4,096 lanes for each W of ``--widths`` (O = 3W/8) and each k
 of ``--ks`` below W (device ms per launch,
@@ -38,8 +38,9 @@ import chip_smoke as cs                                          # noqa: E402
 from repro_torch.core.config import AlignerConfig               # noqa: E402
 from repro_torch.kernels import build, genasm_dc                # noqa: E402
 
-#: the two switches, as (line of the source, line with its macro)
-SWITCHES = [("  if (walker) {", "  if (walker && K1_WALK) {"),
+#: the two switches, as (lines of the source, lines with its macro)
+SWITCHES = [("  if (walker) {\n    const int w = threadIdx.x, wdist",
+             "  if (walker && K1_WALK) {\n    const int w = threadIdx.x, wdist"),
             ("    if (on && j >= col0) store(j);",
              "    if (K1_STORE && on && j >= col0) store(j);")]
 VARIANTS = {"full": (1, 1), "no_walk": (0, 1), "no_walk_no_store": (0, 0)}
