@@ -95,6 +95,7 @@ from repro_torch.baselines.dp import (INF,                      # noqa: E402
                                       banded_affine_dist)
 from repro_torch.baselines.myers import (banded_traceback,     # noqa: E402
                                          myers_distance)
+from repro_torch.analysis import roofline                      # noqa: E402
 from repro_torch.core import counting, transfer                # noqa: E402
 from repro_torch.core.aligner import (AlignResult,            # noqa: E402
                                       GenASMAligner)
@@ -175,16 +176,20 @@ SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
            "ladder_gate": _CSRC + "ladder_graph.cu"}
 #: each kernel's body, its instantiations at NW = 5..8 and its wide
-#: family at NW >= 9 (with the family's header)
+#: family at NW >= 9 (with the family's headers: K1 and K2/K4 run the
+#: register fill, K3 the shared ring)
 WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
                        SOURCES[name].replace(".cu", "_wide.cu"),
                        SOURCES[name].replace(".cu", "_xwide.cu"),
                        _CSRC + "genasm_xwide.cuh"]
+                + ([] if name == "dc_band" else
+                   [_CSRC + "genasm_xwide_reg.cuh"])
                 for name in ("tb_fused", "tail_banded", "tail_full",
                              "dc_band")}
 #: the wide family's kernels (NW >= 9), each one kernel, by its name in
 #: ptxas's report and in ``genasm_dc.REGISTERS``
 XWIDE_KERNELS = {"tb_fused_xwide_kernel": ("tb_fused_xwide", "tb_fused"),
+                 "tb_window_xwide_kernel": ("tb_window_xwide", "tb_fused"),
                  "tail_fused_xwide_kernel": ("tail_fused_xwide", "tail"),
                  "dc_band_xwide_kernel": ("dc_band_xwide", "dc_band")}
 #: what the device-mode ladder's gate kernel replaces (no Pallas kernel:
@@ -547,7 +552,7 @@ def _grid_of(blocks: int):
     """Within this context the wide family's persistent grid holds at most
     `blocks` blocks (the resident count ``genasm_dc._xwide_launch``
     reads), so that each block walks several lane groups and reuses its
-    scratch, masks and ring for each."""
+    scratch and shared memory for each."""
     resident = genasm_dc.xwide_resident
     genasm_dc.xwide_resident = lambda name, geo, device: blocks
     try:
@@ -577,8 +582,10 @@ def _loop_check(name: str, cfg: AlignerConfig, call, ref, lanes: int,
 
 def _block_row(cfg: AlignerConfig, geo) -> dict:
     """A block's fields in a row: a template's G threads a lane and L
-    levels a thread, or the wide family's word and level roles (WT, DG)
-    and where its ring lies; lanes, threads and shared bytes."""
+    levels a thread, or the wide family's word and level roles (WT, DG:
+    K3's, or the register fill's word threads and level groups a warp)
+    and where its state lies (K3's ring, or "registers"); lanes, threads
+    and shared bytes."""
     if _xwide(cfg):
         own = dict(family="xwide", WT=geo.words, DG=geo.depth, ring=geo.ring)
     else:
@@ -1060,7 +1067,11 @@ def _ladder_rows(device: torch.device, reps: int, usage, ladder,
     on those lanes alone, ``_later_lanes``), with block, store bytes a
     lane, ptxas registers and spills, blocks per SM, the peak of device
     memory the row allocated (``peak_bytes``) and its seconds (a rung's
-    first row with its inputs' making).  Each call's outputs are freed
+    first row with its inputs' making).  K1's and the tails' rows also
+    carry ``store_floor_ms``: their lanes' band or store written once over
+    HBM (``roofline.store_write_s``), scratch the bound leaves out but
+    which a kernel keeping the reference's store must write; K3's band is
+    its output, in its bound.  Each call's outputs are freed
     before the next (K3's band is 32 GB at W = 512, k = 480, K4's store
     in flight 20 GB)."""
     W, O, ks = ladder
@@ -1086,7 +1097,11 @@ def _ladder_rows(device: torch.device, reps: int, usage, ladder,
             bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
             later = _later_lanes(name, cfg, inputs, kw, got, device)
             del got
-            row = {**_geometry_row(name, cfg, usage),
+            geo_row = _geometry_row(name, cfg, usage)
+            store = geo_row.get("store_bytes_per_lane")
+            row = {**geo_row,
+                   "store_floor_ms": None if name == "dc_band" or not store
+                   else roofline.store_write_s(store, lanes) * 1e3,
                    **dict(name=name, W=W, k=k, lanes=lanes,
                           max_abs_err=None, plain_ms=None, plain_on=None,
                           checked_by="grids", distinct_lanes=drawn,
@@ -1195,15 +1210,18 @@ K1_WIDE_GRID = [(*WIDE_WIDTHS[nw], k, True, 37) for nw in WIDE_WIDTHS
 
 #: the wide family's grid (NW >= 9): (W, O, k, early_term, lanes) of K1
 #: and K3.  One kernel serves every (NW, KP, NWB) at run time, so one case
-#: a width class and ring placement: W = 288 (NW 9, KP 32, nwb 2), W = 320
-#: (NW 10, KP 256, the whole vector, no early termination) and W = 512 at
-#: KP 64 and 512 at 37 lanes, each also on a grid of fewer blocks than
-#: lane groups (``_loop_check``); at 1 lane W = 512, k = 511 and W = 1024,
-#: k = 700 (NW 32, KP 1,024, the ring in device memory).  The plain version
-#: takes ~1 s a case on the card: with the tails' about 25 s
+#: a width class and layout: W = 288 (NW 9, KP 32, nwb 2), W = 320 (NW 10,
+#: KP 256, the whole vector, no early termination) and W = 512 at KP 64
+#: and 512 at 37 lanes, each also on a grid of fewer blocks than lane
+#: groups (``_loop_check``); at 1 lane W = 512, k = 511 and W = 1024,
+#: k = 700 (NW 32, KP 1,024: K3's ring in device memory, K1's 101 level
+#: strips); at 2 lanes W = 1100, k = 40 (NW 35: K1's two word strips).
+#: The plain version takes ~1-2 s a case on the card: with the tails'
+#: about 30 s
 XWIDE_GRID = [(288, 96, 20, True, 37), (320, 96, 200, False, 37),
               (512, 192, 60, True, 37), (512, 192, 480, True, 37),
-              (512, 192, 511, True, 1), (1024, 300, 700, True, 1)]
+              (512, 192, 511, True, 1), (1024, 300, 700, True, 1),
+              (1100, 300, 40, True, 2)]
 
 
 def _k1_block(cfg: AlignerConfig):
@@ -1416,12 +1434,14 @@ TAIL_WIDE_ONE = [(256, 96, 240, "auto", "tail_full"),
 #: ('auto' where the band is narrower: W = 288, k = 20 and W = 512, k =
 #: 120) and K4 (W = 512, k = 480) at 37 lanes, each also on a grid of
 #: fewer blocks than lane groups (``_loop_check``); at 1 lane W = 1024,
-#: k = 700 (KP = 1,024)
+#: k = 700 (KP = 1,024) and W = 1100, k = 40 (two word strips), K2 and K4
 TAIL_XWIDE_GRID = [(W, O, k, store, "tail_banded" if AlignerConfig(
     W=W, O=O, k=k, tail_store=store).tail_banded else "tail_full")
     for W, O, k, store in ((288, 96, 20, "auto"), (512, 192, 120, "auto"),
                            (512, 192, 480, "auto"))]
-TAIL_XWIDE_ONE = [(1024, 300, 700, "auto", "tail_full")]
+TAIL_XWIDE_ONE = [(1024, 300, 700, "auto", "tail_full"),
+                  (1100, 300, 40, "auto", "tail_banded"),
+                  (1100, 300, 40, "full", "tail_full")]
 #: the main path's tails, timed at 2,048 lanes in both placements
 TAIL_TIMED = [(64, 24, 12, "auto", "tail_banded"),
               (64, 24, 24, "auto", "tail_full"),

@@ -34,19 +34,23 @@ reference's versions model its Triton path, a register model):
   * The fill: each of a lane's G threads carries L = KP / G levels from
     one wavefront step to the next, not k+1 (``gpu_lane_state_words``).
   * At NW >= 9 (W >= 257) the wide family (``xwide_geometry``): K1's band
-    (k+1) x ncols_band x nwb words a lane and the tails' store (k+1) x
-    n_text x nwb (K4: nw) in the scratch of a persistent block, reused
-    for each lane group it walks; a lane's fill state is a ring of three
-    wavefront steps, 3 x (k+1) x nw words, in the block's shared memory
-    or its scratch.  ``gpu_scratch_in_flight`` gives the scratch of the
-    blocks the card holds at once.
+    (k+1) x ncols_band x nwbr words a lane and the tails' store (k+1) x
+    n_text x nwbr (nwbr: the window's nwb words, plus one where it is
+    narrower than the vector, raw; K4: nw) in the scratch of a persistent
+    block, reused for each lane group it walks.  K1's and the tails' fill
+    state is in registers, one warp a lane, each thread one word of L =
+    ``XR_LEVELS`` levels for two steps; K3's is a ring of three wavefront
+    steps, 3 x (k+1) x nw words, in its block's shared memory or scratch.
+    ``gpu_scratch_in_flight`` gives the scratch of the blocks the card
+    holds at once.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from ..kernels.genasm_dc import (MEMORY_SHARE, TEMPLATE_NW, tail_geometry,
-                                 tb_fused_geometry, xwide_geometry)
+from ..kernels.genasm_dc import (MEMORY_SHARE, TEMPLATE_NW, XR_LEVELS,
+                                 tail_geometry, tb_fused_geometry,
+                                 xwide_geometry)
 from .config import AlignerConfig
 from .windowing import H100_SMS, sm_blocks
 
@@ -117,8 +121,8 @@ def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
     per lane k+1 rows of ncols_band x nwb words, with the row and bank
     pads; in device memory (KP >= 128, or W > 128) the skewed
     (ncols_band + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the
-    wide family's, (k+1) x ncols_band x nwb unpadded in its block's
-    scratch.  The reference's Triton path kept the same band unpadded in
+    wide family's, (k+1) x ncols_band x nwbr raw words unpadded in its
+    block's scratch.  The reference's Triton path kept the same band unpadded in
     device memory (``kernel_scratch_words``)."""
     if cfg.nw > TEMPLATE_NW:
         return xwide_geometry(cfg, "tb_fused").store_words * tile
@@ -135,7 +139,7 @@ def gpu_tail_store_words(cfg: AlignerConfig, tile: int,
     wherever ``tail_geometry`` places it: in shared memory k+1 padded rows
     of n_text x nwb words (K4: nw), in device memory the skewed
     (n_text + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the wide
-    family's (k+1) x n_text x nwb (K4: nw) in its block's scratch.  The
+    family's (k+1) x n_text x nwbr (K4: nw) in its block's scratch.  The
     reference's Triton path kept (k+1) x n_text x nwb (K4: (k+1) x
     (n_text+1) x nw) words in device memory (``tail_scratch_words``)."""
     if n_text is None:
@@ -163,14 +167,12 @@ def gpu_lane_state_words(cfg: AlignerConfig) -> int:
     the next: its L = KP / G levels of the current column and the column
     before of the level below its lowest (the word its neighbour shuffles
     up), nw words each.  A lane's G threads hold G times that.  At NW >= 9
-    no thread carries state: a lane's is the wide family's ring of three
-    wavefront steps, 3 x (k+1) x nw words in its block's shared memory
-    (or scratch), and that is what this returns.  The reference's
-    lane-per-thread model carried 2 x (k+1) columns of nw words in one
-    thread."""
+    (K1's and the tails' register fill) a thread holds one word of its
+    L = ``XR_LEVELS`` levels and of the level below, for the last two
+    steps.  The reference's lane-per-thread model carried 2 x (k+1)
+    columns of nw words in one thread."""
     if cfg.nw > TEMPLATE_NW:
-        geo = xwide_geometry(cfg, "tb_fused")
-        return geo.ring_words // geo.lanes
+        return 2 * (XR_LEVELS + 1)
     geo = tb_fused_geometry(cfg)
     return (geo.levels_per_thread + 1) * cfg.nw
 
@@ -181,8 +183,8 @@ def gpu_scratch_in_flight(cfg: AlignerConfig, kernel: str,
                           sms: int = H100_SMS) -> dict:
     """The wide family's scratch (NW >= 9) of `kernel` ("tb_fused",
     "tail_banded", "tail_full" or "dc_band"; tails at `n_text` columns,
-    default W + 4k): bytes a lane (its store, and its ring where the ring
-    lies in device memory), a block, and in flight: the blocks ``sms``
+    default W + 4k): bytes a lane (its store, and its ring where K3's
+    ring lies in device memory), a block, and in flight: the blocks ``sms``
     SMs hold at once (``windowing.sm_blocks`` of the block's shared
     bytes and threads), no more than fit ``MEMORY_SHARE`` of
     `free_bytes` where given.  K3's band is its output, sized by the

@@ -132,9 +132,9 @@ def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
     shared memory binds first, 7 blocks of 8 lanes, 7,392 lanes.  Plain
     arithmetic, the same on the CPU and the card.
 
-    At NW >= 9 the block is the wide family's (``xwide_geometry``: the
-    lanes' levels and words in shared memory, 1-16 lanes a block), whose
-    persistent grid holds the same wave.
+    At NW >= 9 the block is the wide family's (``xwide_geometry``: one
+    warp a lane, ``XR_LANES`` lanes a block), whose persistent grid holds
+    the same wave.
 
     ``plan(..., lane_tile='auto')`` resolves to this (``resolve_config``);
     in the port ``lane_tile`` is only the batch pad unit.  Raises

@@ -1,22 +1,16 @@
 // The wide family of the GenASM kernels, for windows of NW >= 9 words a
 // bitvector (W >= 257), for Hopper (sm_90a): K1 (tb_fused_xwide.cu), K2 /
 // K4 (tail_fused_xwide.cu) and K3 (dc_band_xwide.cu).  NW, k and the band
-// words NWB are runtime arguments: one instantiation a kernel serves every
-// width, and no width has a ceiling in the code.
+// words NWB are runtime arguments: one kernel each serves every width, and
+// no width has a ceiling in the code.
 //
-// Why not the NW <= 8 design.  There a lane's G = min(KP, 32) threads hold
-// L = KP / G levels of NW words each in registers; at W = 512, KP = 512
-// that is 16 x 16 = 256 words a thread, past a thread's 255 registers, and
-// every (NW, KP, NWB) would be one more instantiation.  Splitting a lane's
-// levels and words over more threads keeps them in registers, but a
-// thread's L levels then compute one column together, and level d's
-// insertion input R_j[d-1] comes out of the same step: one carry exchange
-// a level a step, through shared memory and a barrier once a lane spans
-// warps.  This family takes the simpler of the two designs: a lane's
-// levels and words live in shared memory (device memory where they do not
-// fit), and every thread of the block computes cells.
+// This header holds what the three share (the pattern masks' layout, the
+// grid text) and K3's fill, XwFill, a shared ring.  K1 and K2 / K4 run the
+// register fill of genasm_xwide_reg.cuh: one warp a lane, its levels and
+// words in registers over word and level threads, levels in strips.  K3
+// is queued to move onto it (ROADMAP).
 //
-// The fill.  Level d of column j is computed at step s = j + d - 1 (a
+// XwFill.  Level d of column j is computed at step s = j + d - 1 (a
 // wavefront skewed by one step a level, not a thread), so its three inputs,
 // R_{j-1}[d] (step s-1), R_j[d-1] (step s-1) and R_{j-1}[d-1] (step s-2),
 // all come from earlier steps, and so do the carries of their shifts: the
@@ -30,18 +24,18 @@
 // columns past its own last are not computed; the block runs as many steps
 // as its longest lane needs, last + k, plus one: the window words a store
 // keeps of the column computed at step s are written at step s+1, from the
-// ring slot that step leaves alone.
+// ring slot that step leaves alone.  Six shared loads a cell and one
+// barrier a step: K1 on this fill ran 27x-77x its bound at W = 512
+// (PERF.md section 6).
 //
 // Thread roles: thread x = (dg * WT + wt) * lanes + ll takes lane ll,
 // words wt, wt + WT, ... and levels dg, dg + DG, ... of the step's active
-// levels; the block is lanes x WT x DG threads (xw_layout).  The walk is
-// one thread a lane (the block's first `lanes` threads), tb_walk over the
-// kernel's store reader.
+// levels; the block is lanes x WT x DG threads (xw_layout).
 //
 // Persistent grid: a block walks lane groups blockIdx.x, blockIdx.x +
-// gridDim.x, ... and reuses its slice of the scratch (K1's band, the
-// tails' store, and the ring where it lies in device memory) for each, so
-// the scratch is sized by the blocks in flight, not by the batch.
+// gridDim.x, ... and reuses its slice of the scratch (the ring where it
+// lies in device memory) for each, so the scratch is sized by the blocks
+// in flight, not by the batch.
 
 #pragma once
 
@@ -97,17 +91,6 @@ struct XwMasks {
   }
 };
 
-// One lane's view of XwMasks, as tb_walk reads it.
-struct XwLaneMasks {
-  XwMasks m;
-  int ll;
-
-  __device__ __forceinline__ bool peq(int c, int ii) const {
-    const int iic = clampi(ii, 0, m.nw * WORD - 1);
-    return ((m.word(c, iic >> 5, ll) >> (iic & 31)) & 1u) == 0;
-  }
-};
-
 // Window word b (from bit base = 32 * w0 + sh) of a column vector whose
 // word w is get(w); words past the top read as ones (funnel_word).
 template <class Get>
@@ -119,25 +102,13 @@ __device__ __forceinline__ uint32_t xw_window_word(const Get& get, int nw,
   return (lo >> sh) | (hi << (WORD - sh));
 }
 
-// The text XwFill reads: code t of lane `lane` (the block's lane ll).
-// XwGridText: (n_text, B) int32 in device memory.  XwWindowText (K1's
-// window form, K1Window): the lane's reversed window slice of the refs
-// (B, cols) uint8, its start clamped into the row, kept in start[ll].
+// The text XwFill reads: code t of lane `lane` (the block's lane ll),
+// (n_text, B) int32 in device memory.
 struct XwGridText {
   const int32_t* p;
   __device__ __forceinline__ int operator()(int t, int B, int lane,
                                             int) const {
     return p[at(t, B, lane)];
-  }
-};
-
-struct XwWindowText {
-  const uint8_t* refs;
-  int cols, W;
-  const int* start;
-  __device__ __forceinline__ int operator()(int t, int, int lane,
-                                            int ll) const {
-    return refs[static_cast<size_t>(lane) * cols + start[ll] + W - 1 - t];
   }
 };
 
@@ -265,113 +236,6 @@ __device__ void xw_load_masks(const uint32_t* __restrict__ pm_g,
   }
 }
 
-// K1's window form (K1Window): the masks of the group's lanes, as
-// xw_load_masks lays them out, from their reversed window slices of the
-// reads, one thread a (lane, word): bit j of word w of symbol c clear where
-// base 32w + j of the slice is c, set past W; lanes past B all ones.
-__device__ void xw_window_masks(const K1Window& win, uint32_t* pm_s, int nw,
-                                int W, int lanes, int lane0, int B) {
-  for (int x = threadIdx.x; x < nw * lanes; x += blockDim.x) {
-    const int ll = x % lanes, w = x / lanes, lane = lane0 + ll;
-    uint32_t m[4] = {ONES, ONES, ONES, ONES};
-    if (lane < B) {
-      const uint8_t* p = window_end(win.reads, win.read_cols, lane,
-                                    win.read_pos[lane], W);
-      for (int c = 0; c < 4; ++c) m[c] = 0u;
-      for (int j = 0; j < WORD; ++j) {
-        const int i = w * WORD + j;
-        const int code = i < W ? p[-i] : SENTINEL_PAT;
-        for (int c = 0; c < 4; ++c)
-          m[c] |= static_cast<uint32_t>(code != c) << j;
-      }
-    }
-    for (int c = 0; c < 4; ++c) pm_s[(c * nw + w) * lanes + ll] = m[c];
-  }
-}
-
-// ops rows 0..max_ops-1 of the group's lanes to OP_NONE (tb_walk writes
-// its ops over them)
-__device__ void xw_clear_ops(int32_t* ops, int max_ops, int lanes, int lane0,
-                             int B) {
-  for (int x = threadIdx.x; x < max_ops * lanes; x += blockDim.x) {
-    const int ll = x % lanes, r = x / lanes;
-    if (lane0 + ll < B) ops[at(r, B, lane0 + ll)] = OP_NONE;
-  }
-}
-
-// K1's band of one lane in the block's scratch, as the walk reads it:
-// level d (0..k), band column q = jj - col0, word b at ((d * ncb + q) *
-// nwb + b) * lanes (the block's lanes innermost).  tests() is K1Band's.
-struct XwBand {
-  const uint32_t* band;   // the block's band + the lane's index
-  int k, ncb, col0, band_hi, nwb, lanes;
-
-  __device__ __forceinline__ long long word_at(int d, int q) const {
-    return (static_cast<long long>(d) * ncb + q) * nwb * lanes;
-  }
-
-  __device__ __forceinline__ bool bit(long long at_, int off, int ii,
-                                      bool first) const {
-    const int offc = clampi(off, 0, nwb * WORD - 1);
-    const bool zero =
-        ((band[at_ + static_cast<long long>(offc >> 5) * lanes] >>
-          (offc & 31)) & 1u) == 0;
-    return ((ii < 0) & first) | ((ii >= 0) & (off == offc) & zero);
-  }
-
-  __device__ __forceinline__ void tests(int d, int j, int i,
-                                        bool (&z)[4]) const {
-    const int dc = clampi(d, 0, k), dm = clampi(d - 1, 0, k);
-    const int q_l = clampi(j - 1 - col0, 0, ncb - 1);   // column j-1
-    const int q_j = clampi(j - col0, 0, ncb - 1);       // column j
-    const int base_l = clampi(j - 3 - k, 0, band_hi);
-    const int base_j = clampi(j - 2 - k, 0, band_hi);
-    z[0] = bit(word_at(dc, q_l), i - 1 - base_l, i - 1, j - 1 <= d);
-    z[1] = bit(word_at(dm, q_l), i - 1 - base_l, i - 1, j - 1 <= d - 1);
-    z[2] = bit(word_at(dm, q_l), i - base_l, i, j - 1 <= d - 1);
-    z[3] = bit(word_at(dm, q_j), i - 1 - base_j, i - 1, j <= d - 1);
-  }
-};
-
-// The tails' store of one lane in the block's scratch: level d (0..k),
-// column jc + 1 (jc 0..n_text-1), word b at ((d * n_text + jc) * nwb + b)
-// * lanes.  tests() is TailStore's (K2 `banded`, K4 not).
-struct XwTail {
-  const uint32_t* store;  // the block's store + the lane's index
-  int k, n_text, diag, band_hi, nwb, lanes;
-  bool banded;
-
-  __device__ __forceinline__ long long word_at(int d, int jc) const {
-    return (static_cast<long long>(d) * n_text + jc) * nwb * lanes;
-  }
-
-  __device__ __forceinline__ bool bit(long long at_, int off, int ii, int jj,
-                                      int dd) const {
-    const int offc = clampi(off, 0, nwb * WORD - 1);
-    const bool zero =
-        ((store[at_ + static_cast<long long>(offc >> 5) * lanes] >>
-          (offc & 31)) & 1u) == 0;
-    const bool in_window = !banded | (off == offc);
-    return ((ii < 0) & (jj <= dd)) | ((ii >= 0) & (jj <= 0) & (ii < dd)) |
-           ((ii >= 0) & (jj > 0) & in_window & zero);
-  }
-
-  __device__ __forceinline__ void tests(int d, int j, int i,
-                                        bool (&z)[4]) const {
-    const int dc = clampi(d, 0, k), dm = clampi(d - 1, 0, k);
-    const int jl = clampi(j - 2, 0, n_text - 1);     // column j-1
-    const int jr = clampi(j - 1, 0, n_text - 1);     // column j
-    const long long at_dl = word_at(dc, jl), at_ml = word_at(dm, jl),
-                    at_mj = word_at(dm, jr);
-    const int base_l = clampi(j - 1 + diag - (k + 1), 0, band_hi);
-    const int base_j = clampi(j + diag - (k + 1), 0, band_hi);
-    z[0] = bit(at_dl, i - 1 - base_l, i - 1, j - 1, d);
-    z[1] = bit(at_ml, i - 1 - base_l, i - 1, j - 1, d - 1);
-    z[2] = bit(at_ml, i - base_l, i, j - 1, d - 1);
-    z[3] = bit(at_mj, i - 1 - base_j, i - 1, j, d - 1);
-  }
-};
-
 // The block's role split: thread x = (dg * WT + wt) * lanes + ll.
 struct XwRole {
   int ll, wt, dg;
@@ -408,14 +272,6 @@ __device__ __forceinline__ uint32_t* xw_ring(const XwShared& sh,
                                              long long store_words,
                                              int lanes, int ring) {
   return ring == XW_RING_SHARED ? sh.ring : block + store_words * lanes;
-}
-
-// The longest last column of the block's lanes (every thread reads the
-// shared per-lane words after the barrier that follows their writes).
-__device__ __forceinline__ int xw_max_last(const int* last, int lanes) {
-  int m = 0;
-  for (int l = 0; l < lanes; ++l) m = max(m, last[l]);
-  return m;
 }
 
 }  // namespace

@@ -45,11 +45,13 @@ memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 k < W (level capacities KP = 16, 32, 64, 128, 256; NW = 1..8 words a
 bitvector, NW = 5..8 in translation units of their own,
 ``csrc/*_wide.cu``).  Wider windows (NW >= 9) run the wide family
-(``csrc/genasm_xwide.cuh``, ``xwide_geometry``): one kernel each for K1,
-K2/K4 and K3 with NW, k and NWB at run time, a lane's levels and words
-in shared memory (device memory where they do not fit), on a persistent
-grid whose scratch is sized by the blocks in flight; the one refusal is
-a block whose scratch exceeds the card's free memory (``check_scratch_fits``).
+(``csrc/genasm_xwide.cuh``, ``csrc/genasm_xwide_reg.cuh``,
+``xwide_geometry``): one kernel each for K1, K2/K4 and K3 with NW, k and
+NWB at run time on a persistent grid whose scratch is sized by the blocks
+in flight; K1 and K2/K4 hold a lane's levels in registers, one warp a
+lane (``xr_layout``), K3 in a shared ring of three wavefront steps (device
+memory where it does not fit); the one refusal is a lane whose scratch
+exceeds the card's free memory (``check_scratch_fits``).
 The wrappers choose the family (``cfg.nw > TEMPLATE_NW``); the templates'
 geometries (``tb_fused_geometry``, ...) and occupancy queries serve NW <=
 8 only, ``xwide_geometry`` and ``xwide_occupancy`` the wide family.
@@ -433,8 +435,10 @@ MAX_BLOCK_REGISTERS = 65_536
 #: and placement (CUDA 12.8, sm_90a; PERF.md section 6).  None spills; the
 #: most is 217 (K1 at NW = 8, KP = 256; K1's counts are those of its one
 #: build with the window form, ``window_step.genasm_tb_window``).
-#: "xwide": the wide family's one kernel each (NW >= 9; no spill, CUDA
-#: 12.8 on an H100).
+#: "xwide": the wide family's kernels (NW >= 9; no spill, CUDA 12.8 on an
+#: H100): K1's two (standalone and window form) bound by __launch_bounds__
+#: to four blocks of 128 threads an SM, 128 registers; the tails' to
+#: three; K3's shared ring unbound.
 #: A block's threads are capped so that they hold their registers
 #: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
 #: more than this table.
@@ -448,7 +452,7 @@ REGISTERS = {
                  (6, 128): 118, (6, 256): 160, (7, 16): 92, (7, 32): 92,
                  (7, 64): 108, (7, 128): 126, (7, 256): 199, (8, 16): 93,
                  (8, 32): 95, (8, 64): 114, (8, 128): 150, (8, 256): 217,
-                 "xwide": 48},
+                 "xwide": 128},
     "tail": {(1, 16): 42, (1, 32): 42, (2, 16): 48, (2, 32): 48,
              (2, 64): 47, (3, 16): 61, (3, 32): 61, (3, 64): 62,
              (3, 128): 72, (4, 16): 71, (4, 32): 74, (4, 64): 80,
@@ -458,7 +462,7 @@ REGISTERS = {
              (6, 128): 118, (6, 256): 154, (7, 16): 80, (7, 32): 80,
              (7, 64): 108, (7, 128): 123, (7, 256): 195, (8, 16): 93,
              (8, 32): 93, (8, 64): 114, (8, 128): 146, (8, 256): 212,
-             "xwide": 48},
+             "xwide": 146},
     "dc_band": {(1, 16): 37, (1, 32): 37, (2, 16): 37, (2, 32): 37,
                 (2, 64): 48, (3, 16): 52, (3, 32): 46, (3, 64): 56,
                 (3, 128): 64, (4, 16): 54, (4, 32): 57, (4, 64): 68,
@@ -543,10 +547,11 @@ class DcBandGeometry:
 def check_scratch_fits(cfg: AlignerConfig, free_bytes: int) -> None:
     """Raise ValueError where one block of a wide kernel (NW >= 9) cannot
     hold its scratch: every W and k < W has a kernel (templates at W <=
-    256, the wide family above), so the one refusal is a block of one lane
-    whose scratch (K1's band, the tail's store at the aligner's W + 4k
-    text columns in K4's and K2's width, and the ring where it lies in
-    device memory) exceeds ``MEMORY_SHARE`` of the card's `free_bytes`.
+    256, the wide family above), so the one refusal is one lane whose
+    scratch (K1's band, the tail's store at the aligner's W + 4k text
+    columns in K4's and K2's width, with the register fill's buffers; K3's
+    ring where it lies in device memory) exceeds ``MEMORY_SHARE`` of the
+    card's `free_bytes`.
     The error names W, k and the bytes (``xwide_geometry``).  Below NW = 9
     nothing is checked: the templates' stores are a lane's each."""
     if cfg.nw <= TEMPLATE_NW:
@@ -635,60 +640,115 @@ def _fit_registers(threads: int, cap: int, what: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# the wide family (NW >= 9: csrc/genasm_xwide.cuh and *_xwide.cu): one
-# kernel each for K1, K2/K4 and K3, NW, k and NWB at run time, on a
-# persistent grid; xw_layout in C computes the same sizes
+# the wide family (NW >= 9: csrc/genasm_xwide.cuh, genasm_xwide_reg.cuh and
+# *_xwide.cu): one kernel each for K1, K2/K4 and K3, NW, k and NWB at run
+# time, on a persistent grid.  K1 and K2/K4 run the register fill (one warp
+# a lane, xr_layout in C computes the same sizes); K3 the shared ring
+# (xw_layout)
 # --------------------------------------------------------------------------
 
-#: where a wide block keeps its ring of three wavefront steps (3 x (k+1) x
-#: NW words a lane), in C's numbering: its dynamic shared memory, or its
+#: where K3's wide block keeps its ring of three wavefront steps (3 x (k+1)
+#: x NW words a lane), in C's numbering: its dynamic shared memory, or its
 #: slice of the scratch in device memory where one lane's ring fits no
-#: block
+#: block; the register fill's geometries name "registers"
 XW_RINGS = ("shared", "global")
-#: most lanes a wide block holds (halved while its shared memory exceeds
+#: most lanes K3's wide block holds (halved while its shared memory exceeds
 #: half an SM's, so that two blocks share an SM), lanes a block where the
 #: ring lies in device memory, and the threads a block aims at
 XW_LANES = 16
 XW_GLOBAL_LANES = 4
 XW_THREADS = 512
-#: per-lane words of a wide block's shared memory besides masks and ring
-#: (dist, last column, m_len, n_len)
+#: per-lane words of K3's wide block's shared memory besides masks and
+#: ring (dist, last column, m_len, n_len)
 XW_LANE_WORDS = 4
 #: the share of the card's free memory the wide family's scratch may take
 #: (the rest is the batch's tensors and the other kernels')
 MEMORY_SHARE = 0.5
+#: the register fill (K1, K2/K4): levels a thread holds (C's XR_LEVELS),
+#: steps between two stagings of a warp's text (XR_TEXT_CHUNK), rows of its
+#: staged masks (the four symbols and all ones), lanes (warps) a block, and
+#: the SMs whose blocks the grid should fill where free memory caps it
+XR_LEVELS = 7
+XR_TEXT_CHUNK = 128
+XR_MASK_ROWS = 5
+XR_LANES = 4
+SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
 class XwideGeometry:
-    lanes: int                  #: lanes a block (a lane group)
-    words: int                  #: WT: word roles (a thread takes words
-                                #: wt, wt + WT, ...)
-    depth: int                  #: DG: level roles (levels dg, dg + DG, ...)
-    threads: int                #: lanes x WT x DG
-    ring: str                   #: where the ring lies (XW_RINGS)
-    ring_words: int             #: words of a block's ring, 3 x (k+1) x nw
-                                #: x lanes
+    lanes: int                  #: lanes a block (a lane group); the
+                                #: register fill: one warp each
+    words: int                  #: WT: word roles (K3: a thread takes
+                                #: words wt, wt + WT, ...; the register
+                                #: fill: one word each, 16 or 32)
+    depth: int                  #: K3: DG level roles (levels dg, dg + DG,
+                                #: ...); the register fill: GW level
+                                #: groups a warp
+    threads: int                #: K3: lanes x WT x DG; else 32 x lanes
+    ring: str                   #: K3: where the ring lies (XW_RINGS); the
+                                #: register fill: "registers"
+    ring_words: int             #: words of K3's ring, 3 x (k+1) x nw x
+                                #: lanes; else 0
     shared_bytes: int           #: dynamic shared memory per block
     store_words: int            #: int32 words of a lane's store in the
                                 #: block's scratch (K1's band, the tails'
                                 #: store; K3: 0, its band is the output)
     nwb: int                    #: words of a stored window
+    levels: int = 0             #: L, levels a thread (the register fill)
+    strips: int = 0             #: level strips of GW x L levels
+    word_strips: int = 0        #: word strips of WT words
+    lane_words: int = 0         #: scratch words a lane: its store, the
+                                #: level below a strip, the word strips'
+                                #: carries (the register fill)
 
     @property
     def block_words(self) -> int:
         """int32 words of one block's scratch in device memory: its lanes'
-        stores, then the ring where it lies there."""
+        stores (and the register fill's buffers), then K3's ring where it
+        lies there."""
+        if self.ring == "registers":
+            return self.lane_words * self.lanes
         return self.store_words * self.lanes + (
             self.ring_words if self.ring == "global" else 0)
 
 
 def _xw_shared(nw: int, k: int, lanes: int, ring: str) -> tuple[int, int]:
-    """(ring words, dynamic shared bytes) of a wide block: the masks (4 x
-    nw a lane), XW_LANE_WORDS a lane, and the ring where it is shared."""
+    """(ring words, dynamic shared bytes) of K3's wide block: the masks (4
+    x nw a lane), XW_LANE_WORDS a lane, and the ring where it is shared."""
     ring_words = 3 * (k + 1) * nw * lanes
     return ring_words, 4 * (4 * nw * lanes + XW_LANE_WORDS * lanes
                             + (ring_words if ring == "shared" else 0))
+
+
+def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
+              last_max: int) -> dict:
+    """The register fill's layout of one lane warp (C's ``xr_layout``):
+    WT word threads (16 where nw <= 16, else 32) a level group, GW = 32 /
+    WT groups a warp of ``XR_LEVELS`` levels, H = GW x L levels a strip;
+    shared bytes a warp (the staged masks, 5 x 32 words, and text, u16 a
+    step of a chunk plus H); a stored column's nwbr raw words (nwb, plus
+    one where the window is narrower than the vector); and the scratch
+    words of a lane: its store ((k+1) x `cols` rows of nwbr words), the
+    buffer of the level below a strip (`last_max` x nw, where there are
+    several strips and the store does not hold full columns from column 1:
+    nwb = nw and `jlo` <= 1) and the word strips' carries."""
+    wt = 16 if nw <= 16 else 32
+    gw = 32 // wt
+    height = gw * XR_LEVELS
+    strips = -(-(k + 1) // height)
+    word_strips = -(-nw // wt)
+    nwbr = nwb + (1 if nwb < nw else 0)
+    store = (k + 1) * cols * nwbr
+    below_in_store = nwb == nw and jlo <= 1
+    below = last_max * nw if strips > 1 and not below_in_store else 0
+    carry = 2 * (last_max + height - 1) if word_strips > 1 else 0
+    return dict(wt=wt, gw=gw, height=height, strips=strips,
+                word_strips=word_strips, below_in_store=below_in_store,
+                warp_bytes=4 * XR_MASK_ROWS * 32
+                + 2 * (XR_TEXT_CHUNK + height),
+                nwbr=nwbr, store_words=store, below_words=below,
+                carry_words=carry, lane_words=store + below + carry)
 
 
 #: the register family (``REGISTERS``) and the name in errors of each
@@ -699,34 +759,64 @@ _XW_LABEL = {"tb_fused": "K1", "tail_banded": "K2", "tail_full": "K4",
              "dc_band": "K3"}
 
 
+def _xw_refuse(cfg: AlignerConfig, name: str, need: int, free_bytes: int):
+    raise ValueError(
+        f"W={cfg.W} k={cfg.k}: one block of the wide {_XW_LABEL[name]} "
+        f"needs {need:,} B of scratch, more than {MEMORY_SHARE:g} of the "
+        f"card's {free_bytes:,} B free")
+
+
 def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
                    free_bytes: int | None = None) -> XwideGeometry:
     """The wide block (NW >= 9) of kernel `name` (``KERNELS``: its
-    registers cap the threads) for `cfg`.  A lane's store in the block's
-    scratch: K1's band, (k+1) x ncols_band x nwb words; the tail's, (k+1)
-    x `n_text` (default W + 4k) x nwb words (K4: nw); K3 none (its band
-    is the output).  Lanes: ``XW_LANES``, halved while the shared memory
-    with the ring in it exceeds half the card's 232,448 B a block (two
-    blocks an SM); where one lane's ring does not fit a block even alone,
-    the ring goes to the block's scratch in device memory with
-    ``XW_GLOBAL_LANES`` lanes.  With the card's `free_bytes`, the lanes
-    halve further while one block's scratch exceeds ``MEMORY_SHARE`` of
-    them, and a block of one lane that still does not fit raises
+    registers cap the threads) for `cfg`; tails at `n_text` columns
+    (default W + 4k).
+
+    K1, K2 and K4 (the register fill, ``xr_layout``): ``XR_LANES`` warps a
+    block, one lane each, within the registers' cap; a lane's scratch is
+    its store (K1's band, (k+1) x ncols_band rows; the tail's, (k+1) x
+    n_text rows; nwbr words a row) and its buffers.  With the card's
+    `free_bytes`, the lanes halve while the blocks that fit
+    ``MEMORY_SHARE`` of them are fewer than ``SMS`` (so the grid still
+    fills the card), and a lane whose scratch exceeds that share raises
     ValueError naming W, k and the bytes: the one refusal of the family.
-    Threads: every lane x WT = min(nw, cap / lanes) word roles x DG level
-    roles, DG = XW_THREADS / (lanes x WT) within the cap and k + 1."""
+
+    K3 (the shared ring): lanes ``XW_LANES``, halved while the shared
+    memory with the ring in it exceeds half the card's 232,448 B a block
+    (two blocks an SM); where one lane's ring does not fit a block even
+    alone, the ring goes to the block's scratch in device memory with
+    ``XW_GLOBAL_LANES`` lanes, halved further while one block's scratch
+    exceeds the share of `free_bytes`.  Threads: every lane x WT =
+    min(nw, cap / lanes) word roles x DG level roles, DG = XW_THREADS /
+    (lanes x WT) within the cap and k + 1."""
     if cfg.nw <= TEMPLATE_NW:
         raise ValueError(f"W={cfg.W}: the wide family runs NW >= "
                          f"{TEMPLATE_NW + 1}, not {cfg.nw}")
     nw, k = cfg.nw, cfg.k
     nwb = cfg.nw if name == "tail_full" else cfg.nwb
-    if name == "tb_fused":
-        store_words = (k + 1) * cfg.ncols_band * nwb
-    elif name == "dc_band":
-        store_words = 0
-    else:
-        store_words = (k + 1) * (cfg.W + 4 * k if n_text is None
-                                 else n_text) * nwb
+    cap = max_threads(_XW_FAMILY[name], cfg)
+    room = None if free_bytes is None else int(MEMORY_SHARE * free_bytes)
+    if name != "dc_band":
+        if name == "tb_fused":
+            cols = cfg.ncols_band
+            x = xr_layout(nw, k, nwb, cols, cfg.W + 1 - cols, cfg.W)
+        else:
+            cols = cfg.W + 4 * k if n_text is None else n_text
+            x = xr_layout(nw, k, nwb, cols, 1, cols)
+        lane_bytes = 4 * x["lane_words"]
+        lanes = max(1, min(XR_LANES, cap // 32))
+        if room is not None:
+            if lane_bytes > room:
+                _xw_refuse(cfg, name, lane_bytes, free_bytes)
+            while lanes > 1 and room // (lanes * lane_bytes) < SMS:
+                lanes //= 2
+        return XwideGeometry(
+            lanes=lanes, words=x["wt"], depth=x["gw"], threads=32 * lanes,
+            ring="registers", ring_words=0,
+            shared_bytes=lanes * x["warp_bytes"],
+            store_words=x["store_words"], nwb=nwb, levels=XR_LEVELS,
+            strips=x["strips"], word_strips=x["word_strips"],
+            lane_words=x["lane_words"])
     lanes, ring = XW_LANES, "shared"
     while lanes > 1 and _xw_shared(nw, k, lanes, ring)[1] > \
             MAX_SHARED_BYTES // 2:
@@ -736,17 +826,12 @@ def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
 
     def block_bytes(n):
         ring_words = _xw_shared(nw, k, n, ring)[0]
-        return 4 * (store_words * n + (ring_words if ring == "global" else 0))
-    if free_bytes is not None:
-        room = int(MEMORY_SHARE * free_bytes)
+        return 4 * (ring_words if ring == "global" else 0)
+    if room is not None:
         while lanes > 1 and block_bytes(lanes) > room:
             lanes //= 2
         if block_bytes(lanes) > room:
-            raise ValueError(
-                f"W={cfg.W} k={k}: one block of the wide {_XW_LABEL[name]} "
-                f"needs {block_bytes(lanes):,} B of scratch, more than "
-                f"{MEMORY_SHARE:g} of the card's {free_bytes:,} B free")
-    cap = max_threads(_XW_FAMILY[name], cfg)
+            _xw_refuse(cfg, name, block_bytes(lanes), free_bytes)
     words = min(nw, cap // lanes)
     depth = max(1, min(k + 1, XW_THREADS // (lanes * words),
                        cap // (lanes * words)))
@@ -754,7 +839,7 @@ def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
     return XwideGeometry(lanes=lanes, words=words, depth=depth,
                          threads=lanes * words * depth, ring=ring,
                          ring_words=ring_words, shared_bytes=shared,
-                         store_words=store_words, nwb=nwb)
+                         store_words=0, nwb=nwb)
 
 
 def xwide_occupancy(name: str, geo: XwideGeometry) -> tuple[int, int]:
@@ -1065,10 +1150,12 @@ def _xwide_launch(name: str, cfg: AlignerConfig, tensors, ints,
     geo = xwide_geometry(cfg, name, n_text, free)
     blocks = xwide_blocks(geo, B, xwide_resident(name, geo, device), free)
     scratch = _store(blocks, geo.block_words, device)
-    block = (geo.lanes, geo.words, geo.depth, geo.threads,
-             XW_RINGS.index(geo.ring), geo.shared_bytes, geo.ring_words)
-    if name != "dc_band":
-        block += (geo.store_words,)
+    if name == "dc_band":
+        block = (geo.lanes, geo.words, geo.depth, geo.threads,
+                 XW_RINGS.index(geo.ring), geo.shared_bytes, geo.ring_words)
+    else:
+        block = (geo.lanes, geo.threads, geo.shared_bytes, geo.store_words,
+                 geo.lane_words)
     _launch(name, *tensors, scratch, ints=ints, block=(*block, blocks),
             entry=entry or f"{name}_xwide")
 

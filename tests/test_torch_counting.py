@@ -216,19 +216,23 @@ def test_gpu_store_words_at_nw_5_to_8_are_k1_band_in_device_memory(W, O, k):
 def test_gpu_functions_refuse_configs_without_kernels():
     """Every W has kernels now: at NW >= 9 (W = 288, 320) the gpu_*
     models give the wide family's layout, unpadded stores a lane in its
-    blocks' scratch and a lane's fill state as its ring of three
-    wavefront steps."""
+    blocks' scratch (the register fill's raw window words: nwb + 1 where
+    the window is narrower than the vector) and a fill thread's state as
+    one word of its levels and the level below, for two steps."""
     for W in (288, 320):
         cfg = AlignerConfig(W=W, O=64, k=64)
         n_text = W + 4 * 64
+        assert cfg.nwb < cfg.nw
         assert port.gpu_store_words(cfg, 3) == \
-            3 * 65 * cfg.ncols_band * cfg.nwb
-        assert port.gpu_tail_store_words(cfg, 3) == 3 * 65 * n_text * cfg.nwb
+            3 * 65 * cfg.ncols_band * (cfg.nwb + 1)
+        assert port.gpu_tail_store_words(cfg, 3) == \
+            3 * 65 * n_text * (cfg.nwb + 1)
         assert port.gpu_tail_store_words(cfg, 3, banded=False) == \
             3 * 65 * n_text * cfg.nw
         assert port.gpu_split_store_words(cfg, 3) == \
             port.kernel_scratch_words(cfg, 3)
         cfg = AlignerConfig(W=W, O=48, k=12)
-        assert port.gpu_lane_state_words(cfg) == 3 * 13 * cfg.nw
+        assert port.gpu_lane_state_words(cfg) == \
+            2 * (genasm_dc.XR_LEVELS + 1)
     assert np.isfinite(port.reduction_report(
         AlignerConfig(W=160, O=48, k=70), 9.0)["access_reduction"])

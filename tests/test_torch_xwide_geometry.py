@@ -1,11 +1,19 @@
-"""The wide family's blocks (NW >= 9, W >= 257: ``csrc/genasm_xwide.cuh``)
-on the CPU: lanes, threads and shared bytes of a block, where its ring of
-three wavefront steps lies, the scratch a lane, a block and in flight,
-the persistent grid, the one refusal (a block's scratch over the card's
-free memory, naming W, k and the bytes), and what the session, the
-counting model, the dry run and the roofline report for it.  The kernels
-themselves run on the card (``chip_smoke.py``); their plain versions are
-held to the reference in ``test_torch_w512.py``."""
+"""The wide family's blocks (NW >= 9, W >= 257: ``csrc/genasm_xwide.cuh``,
+``csrc/genasm_xwide_reg.cuh``) on the CPU: K1's and the tails' register
+fill (one warp a lane, word threads and level groups, level strips and
+word strips, shared bytes and scratch words a lane, held to C's
+``xr_layout``) and K3's shared ring (lanes, threads, where the ring lies),
+the scratch a lane, a block and in flight, the persistent grid, the one
+refusal (a lane's scratch over the card's free memory, naming W, k and
+the bytes), and what the session, the counting model, the dry run and
+the roofline report for it.  The kernels themselves run on the card
+(``chip_smoke.py``); their plain versions are held to the reference in
+``test_torch_w512.py``, the register fill's schedule to the plain fill in
+``test_torch_xwide_schedule.py``."""
+import shutil
+import subprocess
+from pathlib import Path
+
 import pytest
 
 from repro_torch.analysis import roofline
@@ -17,7 +25,28 @@ from repro_torch.serve.align_step import launch_plan
 
 XW = genasm_dc.XwideGeometry
 CASES = [(288, 96, 20), (288, 96, 100), (320, 96, 40), (320, 96, 200),
-         (512, 192, 60), (512, 192, 480), (1024, 300, 40)]
+         (512, 192, 60), (512, 192, 480), (1024, 300, 40), (1024, 300, 700),
+         (1100, 300, 40)]
+CSRC = Path(genasm_dc.__file__).resolve().parent / "csrc"
+
+
+def _xr_mirror(nw, k, nwb, cols, jlo, last_max):
+    """C's xr_layout written out again: word threads, level groups of
+    XR_LEVELS, strips, shared bytes a warp (5 x 32 mask words, the text
+    chunk of XR_TEXT_CHUNK + H u16) and a lane's scratch words."""
+    wt = 16 if nw <= 16 else 32
+    height = 32 // wt * genasm_dc.XR_LEVELS
+    strips = -(-(k + 1) // height)
+    nwbr = nwb + (nwb < nw)
+    store = (k + 1) * cols * nwbr
+    below = last_max * nw if strips > 1 and not (nwb == nw and jlo <= 1) \
+        else 0
+    carry = 2 * (last_max + height - 1) if nw > wt else 0
+    return dict(wt=wt, gw=32 // wt, height=height, strips=strips,
+                word_strips=-(-nw // wt), nwbr=nwbr, store=store,
+                lane=store + below + carry,
+                warp_bytes=4 * 5 * 32 + 2 * (genasm_dc.XR_TEXT_CHUNK
+                                              + height))
 
 
 def _geometries(cfg):
@@ -27,18 +56,43 @@ def _geometries(cfg):
 
 @pytest.mark.parametrize("W,O,k", CASES)
 def test_wide_block_follows_the_layout(W, O, k):
-    """Lanes a power of two <= 16, halved while the block with its ring
-    exceeds half a block's shared memory; every lane x WT word roles x DG
-    level roles within the registers' cap; the shared bytes of the C
-    twin xw_layout (masks, four words a lane, the ring)."""
+    """K1, K2 and K4: XR_LANES warps a block within the registers' cap, one
+    lane a warp, WT word threads x GW level groups of XR_LEVELS levels,
+    threads <= 1,024 and within max_threads, the shared bytes and scratch
+    of C's xr_layout.  K3: lanes a power of two <= 16, halved while the
+    block with its ring exceeds half a block's shared memory; every lane
+    x WT word roles x DG level roles within the cap; the shared bytes of
+    the C twin xw_layout (masks, four words a lane, the ring)."""
     cfg = AlignerConfig(W=W, O=O, k=k)
     n_text = W + 4 * k
-    stores = {"tb_fused": (k + 1) * cfg.ncols_band * cfg.nwb,
-              "tail_banded": (k + 1) * n_text * cfg.nwb,
-              "tail_full": (k + 1) * n_text * cfg.nw, "dc_band": 0}
+    col0 = W + 1 - cfg.ncols_band
+    mirrors = {"tb_fused": _xr_mirror(cfg.nw, k, cfg.nwb, cfg.ncols_band,
+                                      col0, W),
+               "tail_banded": _xr_mirror(cfg.nw, k, cfg.nwb, n_text, 1,
+                                         n_text),
+               "tail_full": _xr_mirror(cfg.nw, k, cfg.nw, n_text, 1,
+                                       n_text)}
     for name, geo in _geometries(cfg).items():
         assert isinstance(geo, XW)
-        assert geo.lanes in (1, 2, 4, 8, 16) and geo.ring == "shared"
+        family = "tail" if name.startswith("tail") else name
+        cap = genasm_dc.max_threads(family, cfg)
+        if name != "dc_band":
+            x = mirrors[name]
+            assert geo.ring == "registers" and geo.ring_words == 0
+            assert geo.lanes == min(genasm_dc.XR_LANES, cap // 32)
+            assert geo.threads == 32 * geo.lanes <= min(cap, 1024)
+            assert (geo.words, geo.depth, geo.levels) == \
+                (x["wt"], x["gw"], genasm_dc.XR_LEVELS)
+            assert (geo.strips, geo.word_strips) == (x["strips"],
+                                                     x["word_strips"])
+            assert geo.shared_bytes == geo.lanes * x["warp_bytes"]
+            assert geo.store_words == x["store"]
+            assert geo.lane_words == x["lane"]
+            assert geo.block_words == x["lane"] * geo.lanes
+            continue
+        assert geo.lanes in (1, 2, 4, 8, 16)
+        if geo.ring == "global":
+            continue
         ring = 3 * (k + 1) * cfg.nw * geo.lanes
         assert geo.ring_words == ring
         assert geo.shared_bytes == 4 * (4 * cfg.nw * geo.lanes
@@ -49,53 +103,64 @@ def test_wide_block_follows_the_layout(W, O, k):
             assert genasm_dc._xw_shared(cfg.nw, k, 2 * geo.lanes,
                                         "shared")[1] > \
                 genasm_dc.MAX_SHARED_BYTES // 2
-        family = "tail" if name.startswith("tail") else name
-        cap = genasm_dc.max_threads(family, cfg)
         assert geo.words == min(cfg.nw, cap // geo.lanes)
         assert geo.threads == geo.lanes * geo.words * geo.depth <= cap
         assert geo.depth == max(1, min(k + 1, 512 // (geo.lanes * geo.words)))
-        assert geo.store_words == stores[name]
-        assert geo.block_words == geo.store_words * geo.lanes
+        assert geo.store_words == 0 and geo.block_words == 0
 
 
 def test_ring_goes_to_device_memory_where_one_lane_fits_no_block():
-    """W = 1024, k = 1000: one lane's ring, 3 x 1,001 x 32 words, is
+    """K3 at W = 1024, k = 1000: one lane's ring, 3 x 1,001 x 32 words, is
     384,384 B, past a block's 232,448: the ring goes to the block's
-    scratch, ``XW_GLOBAL_LANES`` lanes a block, its words in the block's
-    scratch after the lanes' stores."""
+    scratch, ``XW_GLOBAL_LANES`` lanes a block.  K1 at the same window
+    keeps its levels in registers: 143 strips of 7 levels, no ring, its
+    band and the buffer of the level below a strip its only scratch."""
     cfg = AlignerConfig(W=1024, O=300, k=1000)
-    geo = genasm_dc.xwide_geometry(cfg, "tb_fused")
-    assert geo.ring == "global" and geo.lanes == genasm_dc.XW_GLOBAL_LANES
-    assert geo.ring_words == 3 * 1001 * 32 * geo.lanes
-    assert geo.shared_bytes == 4 * (4 * 32 + 4) * geo.lanes
-    assert geo.block_words == geo.store_words * geo.lanes + geo.ring_words
-    assert genasm_dc.xwide_geometry(cfg, "dc_band").block_words == \
-        geo.ring_words
+    k3 = genasm_dc.xwide_geometry(cfg, "dc_band")
+    assert k3.ring == "global" and k3.lanes == genasm_dc.XW_GLOBAL_LANES
+    assert k3.ring_words == 3 * 1001 * 32 * k3.lanes
+    assert k3.shared_bytes == 4 * (4 * 32 + 4) * k3.lanes
+    assert k3.block_words == k3.ring_words
+    k1 = genasm_dc.xwide_geometry(cfg, "tb_fused")
+    assert (k1.ring, k1.ring_words, k1.strips) == ("registers", 0,
+                                                   -(-1001 // 7))
+    assert k1.store_words == 1001 * cfg.ncols_band * cfg.nwb
+    assert k1.block_words == k1.lane_words * k1.lanes
 
 
 def test_persistent_grid_is_sized_by_blocks_in_flight():
+    """K4 at W = 512, k = 480: a block of XR_LANES lanes of one 74.9 MB
+    store each; with 4 GB free the blocks that fit half of it are fewer
+    than the card's SMs at any width, so the lanes halve to one a block,
+    and 26 blocks fit."""
     cfg = AlignerConfig(W=512, O=192, k=480)
     geo = genasm_dc.xwide_geometry(cfg, "tail_full", 2432)
-    assert (geo.lanes, geo.store_words) == (1, 481 * 2432 * 16)
+    assert (geo.lanes, geo.store_words) == (genasm_dc.XR_LANES,
+                                            481 * 2432 * 16)
     assert genasm_dc.xwide_blocks(geo, 2048, 264) == 264
-    assert genasm_dc.xwide_blocks(geo, 37, 264) == 37
+    assert genasm_dc.xwide_blocks(geo, 37, 264) == -(-37 // geo.lanes)
+    tight = genasm_dc.xwide_geometry(cfg, "tail_full", 2432, 4 * 10 ** 9)
+    assert tight.lanes == 1
     # 4 GB free: half of it holds 26 blocks of one 74,866,688 B store
-    assert genasm_dc.xwide_blocks(geo, 2048, 264, 4 * 10 ** 9) == 26
+    assert genasm_dc.xwide_blocks(tight, 2048, 264, 4 * 10 ** 9) == 26
     k3 = genasm_dc.xwide_geometry(cfg, "dc_band")
     assert k3.block_words == 0
     assert genasm_dc.xwide_blocks(k3, 2048, 264, 1) == 264
 
 
 def test_one_refusal_names_w_k_and_the_bytes():
-    """Lanes halve while a block's scratch exceeds half the free memory;
-    a block of one lane that still does not fit raises, naming W, k and
-    the bytes."""
+    """Lanes halve while the blocks that fit half the free memory are fewer
+    than the SMs; a lane that does not fit raises, naming W, k and the
+    bytes."""
     cfg = AlignerConfig(W=512, O=192, k=120)
     full = genasm_dc.xwide_geometry(cfg, "tb_fused")
-    lane = 4 * full.store_words
-    assert full.lanes == 4
-    assert genasm_dc.xwide_geometry(cfg, "tb_fused",
-                                    free_bytes=5 * lane).lanes == 2
+    lane = 4 * full.lane_words
+    sms = genasm_dc.SMS
+    assert full.lanes == genasm_dc.XR_LANES == 4
+    assert genasm_dc.xwide_geometry(
+        cfg, "tb_fused", free_bytes=2 * sms * 4 * lane).lanes == 4
+    assert genasm_dc.xwide_geometry(
+        cfg, "tb_fused", free_bytes=2 * sms * 2 * lane).lanes == 2
     assert genasm_dc.xwide_geometry(cfg, "tb_fused",
                                     free_bytes=2 * lane).lanes == 1
     with pytest.raises(ValueError, match=rf"W=512 k=120: one block of the "
@@ -138,11 +203,18 @@ def test_levels_bucket_extends_to_powers_of_two(k, kp):
 
 
 def test_registers_of_the_wide_family_allow_its_blocks():
-    for family in ("tb_fused", "tail", "dc_band"):
+    """K3's block of XW_THREADS and the register fill's of XR_LANES warps
+    fit their registers; K1's kernels are bound to four blocks an SM (128
+    registers a thread), the tails' to three."""
+    cfg = AlignerConfig(W=512, O=192, k=60)
+    for family, want in (("tb_fused", 32 * genasm_dc.XR_LANES),
+                         ("tail", 32 * genasm_dc.XR_LANES),
+                         ("dc_band", genasm_dc.XW_THREADS)):
         regs = genasm_dc.REGISTERS[family]["xwide"]
-        cfg = AlignerConfig(W=512, O=192, k=60)
         assert genasm_dc.registers(family, cfg) == regs
-        assert genasm_dc.max_threads(family, cfg) >= genasm_dc.XW_THREADS
+        assert genasm_dc.max_threads(family, cfg) >= want
+    assert genasm_dc.REGISTERS["tb_fused"]["xwide"] <= 65_536 // (128 * 4)
+    assert genasm_dc.REGISTERS["tail"]["xwide"] <= 65_536 // (128 * 3)
 
 
 def test_occupancy_queries_the_wide_kernel(monkeypatch):
@@ -171,7 +243,10 @@ def test_launch_plan_of_the_w512_ladder():
         ("tail_banded", 120), ("tb_fused", 240), ("tail_full", 240),
         ("tb_fused", 480), ("tail_full", 480)]
     assert all(isinstance(e["geometry"], XW) for e in plan_)
-    assert windowing.plan_lane_tile(cfg) == 132 * 2 * 8
+    geo = genasm_dc.xwide_geometry(cfg, "tb_fused")     # 4 warps, 3,640 B
+    blocks = min(233_472 // (geo.shared_bytes + 1024), 2048 // geo.threads,
+                 32)
+    assert windowing.plan_lane_tile(cfg) == 132 * blocks * geo.lanes == 8448
 
 
 @pytest.mark.parametrize("k", [60, 480])
@@ -204,7 +279,8 @@ def test_dry_run_reports_the_wide_family_at_w512():
     assert k4["store_bytes_per_lane"] == 74_866_688
     assert k4["store_write_s"] == roofline.store_write_s(74_866_688, 64) \
         == 74_866_688 * 64 / roofline.HBM_BW
-    assert k4["scratch"]["lanes_in_flight"] == 264
+    # 133 blocks of 4 lanes, 299.5 MB each, fit half of 80 GB
+    assert k4["scratch"]["lanes_in_flight"] == 532
     narrow = dryrun_aligner.kernel_rows(64, 2000, AlignerConfig())
     assert all(r["scratch"] is None for r in narrow)
 
@@ -245,3 +321,103 @@ def test_free_bytes_counts_only_memory_the_launch_can_use(monkeypatch):
     assert genasm_dc.free_bytes("cuda:0") == 1_300
     capturing.append(True)
     assert genasm_dc.free_bytes("cuda:0") == 1_000
+
+
+#: a host stand-in for the CUDA header, enough to compile the wide
+#: family's headers with a C++ compiler
+HOST_CUDA_H = r"""
+#pragma once
+#include <algorithm>
+#include <cstddef>
+#include <cstdint>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+struct dim3 { unsigned x = 0, y = 0, z = 0; };
+inline dim3 threadIdx, blockIdx, blockDim, gridDim;
+using std::max;
+using std::min;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+typedef void* cudaStream_t;
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+struct cudaFuncAttributes { int maxDynamicSharedSizeBytes; };
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return 0; }
+template <class K> cudaError_t cudaFuncSetAttribute(K, cudaFuncAttribute,
+                                                    int) { return 0; }
+template <class K> cudaError_t cudaFuncGetAttributes(cudaFuncAttributes*,
+                                                     K) { return 0; }
+template <class K> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+    int*, K, int, size_t) { return 0; }
+inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0) {}
+template <class T> T __shfl_up_sync(unsigned, T v, unsigned, int = 32) {
+  return v;
+}
+inline unsigned __ballot_sync(unsigned, int) { return 0; }
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
+inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
+  return (hi << s) | (lo >> (32 - s));
+}
+inline int atomicMin(int* p, int v) { int o = *p; *p = min(o, v); return o; }
+inline int atomicMax(int* p, int v) { int o = *p; *p = max(o, v); return o; }
+"""
+LAYOUT_MAIN = r"""
+#include <cstdio>
+#include "genasm_xwide_reg.cuh"
+int main() {
+  int nw, k, nwb, cols, jlo, last_max, lanes, threads, smem;
+  long long store, lane;
+  while (std::scanf("%d %d %d %d %d %d %d %d %d %lld %lld", &nw, &k, &nwb,
+                    &cols, &jlo, &last_max, &lanes, &threads, &smem, &store,
+                    &lane) == 11) {
+    const XrLayout x = xr_layout(nw, k, nwb, cols, jlo, last_max, lanes);
+    std::printf("%d %d %d %d %d %d %d %lld %lld %lld %lld %lld %d\n", x.wt,
+                x.gw, x.height, x.strips, x.word_strips, x.warp_bytes,
+                x.smem, x.nwbr, x.store_words, x.below_words, x.carry_words,
+                x.lane_words, xr_block_ok(x, nw, k, nwb, lanes, threads, smem,
+                                          store, lane, 1) ? 1 : 0);
+  }
+}
+"""
+
+
+def test_c_layout_equals_the_python_layout(tmp_path):
+    """C's xr_layout and xr_block_ok (csrc/genasm_xwide_reg.cuh, compiled
+    for the host with a stand-in for the CUDA header) against
+    ``genasm_dc.xr_layout`` and the block ``xwide_geometry`` derives, at
+    every case's K1, K2 and K4: the same sizes, and a block the C
+    launchers accept."""
+    gxx = shutil.which("g++") or shutil.which("c++")
+    if gxx is None:
+        pytest.skip("no host C++ compiler")
+    (tmp_path / "cuda_runtime.h").write_text(HOST_CUDA_H)
+    (tmp_path / "layout.cpp").write_text(LAYOUT_MAIN)
+    subprocess.run([gxx, "-std=c++17", "-w", "-I", str(tmp_path), "-I",
+                    str(CSRC), "-o", str(tmp_path / "layout"),
+                    str(tmp_path / "layout.cpp")], check=True, timeout=120)
+    rows, want = [], []
+    for W, O, k in CASES:
+        cfg = AlignerConfig(W=W, O=O, k=k)
+        n_text = W + 4 * k
+        col0 = W + 1 - cfg.ncols_band
+        for name, args in (
+                ("tb_fused", (cfg.nwb, cfg.ncols_band, col0, W)),
+                ("tail_banded", (cfg.nwb, n_text, 1, n_text)),
+                ("tail_full", (cfg.nw, n_text, 1, n_text))):
+            geo = genasm_dc.xwide_geometry(cfg, name, n_text)
+            x = genasm_dc.xr_layout(cfg.nw, k, *args)
+            rows.append(" ".join(map(str, (
+                cfg.nw, k, *args, geo.lanes, geo.threads, geo.shared_bytes,
+                geo.store_words, geo.lane_words))))
+            want.append([x["wt"], x["gw"], x["height"], x["strips"],
+                         x["word_strips"], x["warp_bytes"],
+                         geo.shared_bytes, x["nwbr"], x["store_words"],
+                         x["below_words"], x["carry_words"],
+                         x["lane_words"], 1])
+    out = subprocess.run([str(tmp_path / "layout")], input="\n".join(rows),
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.split("\n")
+    assert [[int(v) for v in line.split()] for line in out if line] == want

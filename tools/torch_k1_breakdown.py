@@ -1,21 +1,35 @@
-"""Where a K1 launch's time goes: K1 built three ways and timed.
+"""Where a K1 launch's time goes: K1 built three ways and timed; at NW >= 9
+also the wide tail kernel (K2 / K4).
 
     python3 tools/torch_k1_breakdown.py [--reps 50] [--widths 64]
-                                        [--ks 12,24,48]
+                                        [--ks 12,24,48] [--tree PATH]
 
-Builds K1 (its body ``csrc/tb_fused.cuh`` and the two units that
-instantiate it, ``tb_fused.cu`` and ``tb_fused_wide.cu``) three times into
-``build/k1_breakdown/`` (one ``nvcc`` each, all started together): as it
-is (``full``); with the walk switched off (``no_walk``); and with the walk
-and the fill's band stores switched off (``no_walk_no_store``).  The
-switches are two preprocessor macros that this script writes into a copy
-of ``tb_fused.cuh``; it refuses to run if either place it patches has moved.
-Then it times each build's K1 on the inputs ``chip_smoke.py`` gives it,
-at 2,048 and 4,096 lanes for each W of ``--widths`` (O = 3W/8) and each k
-of ``--ks`` below W (device ms per launch,
-``chip_smoke._device_ms``).  ``full - no_walk`` is the walk's share, and
-``no_walk - no_walk_no_store`` the band stores'.  The variants' outputs
-are not checked: they compute less.  One JSON line per (k, lanes), and the
+Builds the kernel three times into ``build/k1_breakdown/`` (one ``nvcc``
+each, all started together): as it is (``full``); with the walk switched
+off (``no_walk``); and with the walk and the fill's stores switched off
+(``no_walk_no_store``).  The switches are preprocessor macros that this
+script writes into a copy of the sources; it refuses to run if a place it
+patches has moved.  ``full - no_walk`` is the walk's share, ``no_walk -
+no_walk_no_store`` the stores', ``no_walk_no_store`` the fill.  The
+variants' outputs are not checked: they compute less.
+
+Widths up to 256 (the templates): K1's body ``csrc/tb_fused.cuh`` and the
+units that instantiate it (``tb_fused.cu``, ``tb_fused_wide.cu``), at
+2,048 and 4,096 lanes.  Widths past 256 (the wide family, NW >= 9): the
+units ``tb_fused_xwide.cu`` and ``tail_fused_xwide.cu`` with their
+headers, K1 and the rung's tail (K2 where ``cfg.tail_banded``, else K4) at
+2,048 lanes (256 drawn, repeated, as ``chip_smoke._ladder_rows``), O =
+3W/8.  Two designs of the wide family are known: the register fill
+(``genasm_xwide_reg.cuh``; its no-store variant keeps each level group's
+top level, which the next strip may read back from the store: 1/16 of
+the stores) and the earlier shared ring of three steps.  ``--tree`` names
+another checkout (e.g. the parent unpacked with ``git archive`` under
+``build/``), whose ``chip_smoke`` and ``repro_torch`` are imported and
+whose sources are patched, so one tool measures both designs.
+
+The variants' kernels are called through the tree's own wrappers, with
+the tree's library for every other entry point.  Device ms per launch
+(``chip_smoke._device_ms``); one JSON line per (kernel, k, lanes), and the
 card's clocks before and after; needs a CUDA card.
 """
 from __future__ import annotations
@@ -32,48 +46,124 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-import chip_smoke as cs                                          # noqa: E402
-from repro_torch.core.config import AlignerConfig               # noqa: E402
-from repro_torch.kernels import build, genasm_dc                # noqa: E402
-
-#: the two switches, as (lines of the source, lines with its macro)
+#: the templates' switches in tb_fused.cuh, as (its lines, with the macros)
 SWITCHES = [("  if (walker) {\n    const int w = threadIdx.x, wdist",
              "  if (walker && K1_WALK) {\n    const int w = threadIdx.x, wdist"),
             ("    if (on && j >= col0) store(j);",
              "    if (K1_STORE && on && j >= col0) store(j);")]
+#: the wide family's switches by design, as {file: [(line, patched)]}
+WIDE_SWITCHES = {
+    "register fill": {
+        "tb_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
+                               "      const XrBand st{",
+                               "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
+                               "      const XrBand st{")],
+        "tail_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
+                                 "      // the lane's lengths",
+                                 "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
+                                 "      // the lane's lengths")],
+        "genasm_xwide_reg.cuh": [("      if (on && d0 + l <= k && j >= sm.jlo &&",
+                                  "      if (on && (K1_STORE || l == L - 1) &&\n"
+                                  "          d0 + l <= k && j >= sm.jlo &&")]},
+    "shared ring": {
+        "tb_fused_xwide.cu": [
+            ("    if (w >= lanes || lane >= B) return;",
+             "    if (w >= lanes || lane >= B || !K1_WALK) return;"),
+            ("      if (s >= 1) f.store(s - 1, W, nwb, col0, base_of, put);",
+             "      if (K1_STORE && s >= 1)\n"
+             "        f.store(s - 1, W, nwb, col0, base_of, put);")],
+        "tail_fused_xwide.cu": [
+            ("    if (w < lanes && lane < B) {",
+             "    if (K1_WALK && w < lanes && lane < B) {"),
+            ("      if (s >= 1) f.store(s - 1, max_last, nwb, 1, base_of, put);",
+             "      if (K1_STORE && s >= 1)\n"
+             "        f.store(s - 1, max_last, nwb, 1, base_of, put);")]}}
 VARIANTS = {"full": (1, 1), "no_walk": (0, 1), "no_walk_no_store": (0, 0)}
 
 
-def build_variants(out_dir: Path) -> dict:
-    """{variant: its genasm_tb_fused_launch}, built in parallel."""
-    src = (build.CSRC / "tb_fused.cuh").read_text()
-    for line, switched in SWITCHES:
-        if src.count(line) != 1:
-            raise RuntimeError(f"source line not found once: {line!r}")
-        src = src.replace(line, switched)
+def _patch(text: str, switches, name: str) -> str:
+    for line, switched in switches:
+        if text.count(line) != 1:
+            raise RuntimeError(f"{name}: source line not found once: "
+                               f"{line!r}")
+        text = text.replace(line, switched)
+    return text
+
+
+def _compile(build, out_dir: Path, units) -> dict:
+    """{variant: its library}, one nvcc each, started together."""
+    procs = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", f"-DK1_WALK={walk}",
+         f"-DK1_STORE={store}", "-I", str(out_dir),
+         "-o", str(out_dir / f"lib_{name}.so"),
+         *(str(out_dir / unit) for unit in units)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for name, (walk, store) in VARIANTS.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(out_dir / f"lib_{name}.so"))
+    return libs
+
+
+def build_variants(build, out_dir: Path) -> dict:
+    """The templates' K1: {variant: its genasm_tb_fused_launch}."""
+    src = _patch((build.CSRC / "tb_fused.cuh").read_text(), SWITCHES,
+                 "tb_fused.cuh")
     out_dir.mkdir(parents=True, exist_ok=True)
     (out_dir / "tb_fused.cuh").write_text(src)
     units = ("tb_fused.cu", "tb_fused_wide.cu")
     for name in (*units, "genasm_common.cuh"):   # beside the patched body
         shutil.copy(build.CSRC / name, out_dir / name)
-    procs = {name: subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-shared", f"-DK1_WALK={walk}",
-         f"-DK1_STORE={store}", "-o", str(out_dir / f"lib_{name}.so"),
-         *(str(out_dir / unit) for unit in units)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-        for name, (walk, store) in VARIANTS.items()}
     launches = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(out_dir / f"lib_{name}.so")).genasm_tb_fused_launch
+    for name, lib in _compile(build, out_dir, units).items():
+        fn = lib.genasm_tb_fused_launch
         fn.argtypes = build._SIGNATURES["genasm_tb_fused_launch"]
         fn.restype = ctypes.c_int
         launches[name] = fn
     return launches
+
+
+def build_wide_variants(build, out_dir: Path) -> tuple[str, dict]:
+    """The wide family's K1 and K2 / K4 of the tree's design: (design,
+    {variant: its library})."""
+    design = next((d for d, files in WIDE_SWITCHES.items()
+                   if all((build.CSRC / f).exists() and all(
+                       (build.CSRC / f).read_text().count(line) == 1
+                       for line, _ in sw) for f, sw in files.items())), None)
+    if design is None:
+        raise RuntimeError("the wide sources match no known design's "
+                           "switches: update WIDE_SWITCHES")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for path in build.CSRC.iterdir():
+        if path.suffix in (".cu", ".cuh"):
+            shutil.copy(path, out_dir / path.name)
+    for name, switches in WIDE_SWITCHES[design].items():
+        (out_dir / name).write_text(_patch((build.CSRC / name).read_text(),
+                                           switches, name))
+    libs = _compile(build, out_dir, ("tb_fused_xwide.cu",
+                                     "tail_fused_xwide.cu"))
+    return design, libs
+
+
+class _Mixed:
+    """A library whose wide entry points are a variant's, the rest the
+    tree's own."""
+
+    def __init__(self, build, main, variant):
+        self._main, self._variant = main, variant
+        self._build = build
+
+    def __getattr__(self, name):
+        if "xwide" in name:
+            fn = getattr(self._variant, name)
+            fn.argtypes = self._build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            return fn
+        return getattr(self._main, name)
 
 
 def clocks() -> str:
@@ -82,21 +172,9 @@ def clocks() -> str:
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=50)
-    ap.add_argument("--widths", default="64")
-    ap.add_argument("--ks", default="12,24,48")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_k1_breakdown: no CUDA card")
-    cs.phase_device()
-    launches = build_variants(ROOT / "build" / "k1_breakdown")
-    print(json.dumps(dict(clocks_before=clocks())), flush=True)
-    dev = torch.device("cuda")
-    cases = [(W, k) for W in (int(w) for w in args.widths.split(","))
-             for k in (int(k) for k in args.ks.split(",")) if k < W]
-    for W, k in cases:
+def template_rows(cs, genasm_dc, AlignerConfig, build, W, ks, reps, dev):
+    launches = build_variants(build, ROOT / "build" / "k1_breakdown")
+    for k in ks:
         cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
         geo = genasm_dc.tb_fused_geometry(cfg)
         for lanes in (2048, 4096):
@@ -124,8 +202,64 @@ def main() -> None:
                         raise RuntimeError(f"{name}: CUDA error {rc}")
                 for _ in range(3):
                     call()
-                row[name] = cs._device_ms(call, args.reps, dev)
+                row[name] = cs._device_ms(call, reps, dev)
             print(json.dumps(row), flush=True)
+
+
+def wide_rows(cs, genasm_dc, AlignerConfig, build, W, ks, reps, dev, label):
+    design, libs = build_wide_variants(
+        build, ROOT / "build" / "k1_breakdown_wide" / label)
+    main = build.load_library()
+    rng = np.random.default_rng(W)
+    for k in ks:
+        cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
+        tail = "tail_banded" if cfg.tail_banded else "tail_full"
+        for name in ("tb_fused", tail):
+            inputs, kw, _ = cs._repeated(cs._case(name, cfg, 256, rng, dev),
+                                         8)
+            wrapper = cs.KERNELS[name][0]
+            row = dict(label=label, design=design, name=name, W=W, k=k,
+                       lanes=2048)
+            for variant, lib in libs.items():
+                genasm_dc._library = lambda lib=lib: _Mixed(build, main, lib)
+                call = lambda: wrapper(*inputs, **kw)     # noqa: E731
+                call()
+                row[variant] = cs._device_ms(call, reps, dev)
+                torch.cuda.empty_cache()
+            row["walk"] = row["full"] - row["no_walk"]
+            row["stores"] = row["no_walk"] - row["no_walk_no_store"]
+            row["fill"] = row["no_walk_no_store"]
+            print(json.dumps(row), flush=True)
+            del inputs
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--widths", default="64")
+    ap.add_argument("--ks", default="12,24,48")
+    ap.add_argument("--tree", type=Path, default=ROOT)
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_k1_breakdown: no CUDA card")
+    tree = args.tree.resolve()
+    sys.path[:0] = [str(tree), str(tree / "src")]
+    import chip_smoke as cs
+    from repro_torch.core.config import AlignerConfig
+    from repro_torch.kernels import build, genasm_dc
+    cs.phase_device()
+    cs.phase_build()
+    print(json.dumps(dict(clocks_before=clocks())), flush=True)
+    dev = torch.device("cuda")
+    for W in (int(w) for w in args.widths.split(",")):
+        ks = [int(k) for k in args.ks.split(",") if int(k) < W]
+        if W > 32 * genasm_dc.TEMPLATE_NW:
+            wide_rows(cs, genasm_dc, AlignerConfig, build, W, ks, args.reps,
+                      dev, args.label or tree.name)
+        else:
+            template_rows(cs, genasm_dc, AlignerConfig, build, W, ks,
+                          args.reps, dev)
     print(json.dumps(dict(clocks_after=clocks())), flush=True)
 
 
