@@ -176,14 +176,11 @@ SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
            "ladder_gate": _CSRC + "ladder_graph.cu"}
 #: each kernel's body, its instantiations at NW = 5..8 and its wide
-#: family at NW >= 9 (with the family's headers: K1 and K2/K4 run the
-#: register fill, K3 the shared ring)
+#: family at NW >= 9 (with the family's header, the register fill)
 WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
                        SOURCES[name].replace(".cu", "_wide.cu"),
                        SOURCES[name].replace(".cu", "_xwide.cu"),
-                       _CSRC + "genasm_xwide.cuh"]
-                + ([] if name == "dc_band" else
-                   [_CSRC + "genasm_xwide_reg.cuh"])
+                       _CSRC + "genasm_xwide_reg.cuh"]
                 for name in ("tb_fused", "tail_banded", "tail_full",
                              "dc_band")}
 #: the wide family's kernels (NW >= 9), each one kernel, by its name in
@@ -582,12 +579,13 @@ def _loop_check(name: str, cfg: AlignerConfig, call, ref, lanes: int,
 
 def _block_row(cfg: AlignerConfig, geo) -> dict:
     """A block's fields in a row: a template's G threads a lane and L
-    levels a thread, or the wide family's word and level roles (WT, DG:
-    K3's, or the register fill's word threads and level groups a warp)
-    and where its state lies (K3's ring, or "registers"); lanes, threads
-    and shared bytes."""
+    levels a thread, or the wide family's register fill (WT word threads
+    and GW level groups a warp; K3's staged rows a buffer, its steps a
+    flush x GW x XR_LEVELS); lanes, threads and shared bytes."""
     if _xwide(cfg):
-        own = dict(family="xwide", WT=geo.words, DG=geo.depth, ring=geo.ring)
+        own = dict(family="xwide", WT=geo.words, GW=geo.depth)
+        if geo.chunk:
+            own.update(staging_rows=geo.chunk * geo.depth * geo.levels)
     else:
         own = dict(G=geo.group, L=geo.levels_per_thread)
     return dict(own, lanes_per_block=geo.lanes, threads=geo.threads,
@@ -697,12 +695,13 @@ def k3_launcher(cfg: AlignerConfig, geo, inputs):
 def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
                  threads=None):
     """K3's geometry for `cfg` in `placement` (default: the geometry's
-    own; the wide family's block at NW >= 9, placement "xwide", no
-    chunk), and a row of its block and (with ``usage``, on the card) the
-    shared bytes the card allows, blocks per SM and ptxas's report."""
+    own; the wide family's block at NW >= 9, placement "xwide", its chunk
+    the steps between two flushes of its staging buffer), and a row of its
+    block and (with ``usage``, on the card) the shared bytes the card
+    allows, blocks per SM and ptxas's report."""
     if _xwide(cfg):
         geo = genasm_dc.xwide_geometry(cfg, "dc_band")
-        placement, chunk = "xwide", None
+        placement, chunk = "xwide", geo.chunk
     else:
         geo = genasm_dc.dc_band_geometry(cfg, threads, placement=placement)
         placement, chunk = geo.placement, geo.chunk
@@ -1213,9 +1212,10 @@ K1_WIDE_GRID = [(*WIDE_WIDTHS[nw], k, True, 37) for nw in WIDE_WIDTHS
 #: a width class and layout: W = 288 (NW 9, KP 32, nwb 2), W = 320 (NW 10,
 #: KP 256, the whole vector, no early termination) and W = 512 at KP 64
 #: and 512 at 37 lanes, each also on a grid of fewer blocks than lane
-#: groups (``_loop_check``); at 1 lane W = 512, k = 511 and W = 1024,
-#: k = 700 (NW 32, KP 1,024: K3's ring in device memory, K1's 101 level
-#: strips); at 2 lanes W = 1100, k = 40 (NW 35: K1's two word strips).
+#: groups (``_loop_check``); at 1 lane W = 512, k = 511 (K3's analytic
+#: column 0) and W = 1024, k = 700 (NW 32, KP 1,024: 101 level strips); at
+#: 2 lanes W = 1100, k = 40 (NW 35: two word strips, K3's window words
+#: across their boundary).
 #: The plain version takes ~1-2 s a case on the card: with the tails'
 #: about 30 s
 XWIDE_GRID = [(288, 96, 20, True, 37), (320, 96, 200, False, 37),
@@ -5378,6 +5378,10 @@ def _phases(cuda, timed, phase_s, sim, batch, refs, split_profile,
                                           "store_bytes_per_lane"),
                                       blocks_per_sm=r.get("blocks_per_sm"),
                                       lanes=r["lanes"],
+                                      **{key: r[key] for key in (
+                                          "lanes_per_block", "threads",
+                                          "shared_bytes", "chunk",
+                                          "staging_rows") if key in r},
                                       ptxas=r.get("ptxas"),
                                       peak_bytes=r.get("peak_bytes"))
                                  for r in wide]

@@ -37,12 +37,12 @@ reference's versions model its Triton path, a register model):
     (k+1) x ncols_band x nwbr words a lane and the tails' store (k+1) x
     n_text x nwbr (nwbr: the window's nwb words, plus one where it is
     narrower than the vector, raw; K4: nw) in the scratch of a persistent
-    block, reused for each lane group it walks.  K1's and the tails' fill
-    state is in registers, one warp a lane, each thread one word of L =
-    ``XR_LEVELS`` levels for two steps; K3's is a ring of three wavefront
-    steps, 3 x (k+1) x nw words, in its block's shared memory or scratch.
-    ``gpu_scratch_in_flight`` gives the scratch of the blocks the card
-    holds at once.
+    block, reused for each lane group it walks.  The fill state of all
+    three is in registers, one warp a lane, each thread one word of L =
+    ``XR_LEVELS`` levels for two steps; K3's band leaves its block through
+    a staging buffer in shared memory (``xr_k3_layout``), and its scratch
+    is only the fill's buffers.  ``gpu_scratch_in_flight`` gives the
+    scratch of the blocks the card holds at once.
 """
 from __future__ import annotations
 
@@ -157,8 +157,9 @@ def gpu_split_store_words(cfg: AlignerConfig, tile: int) -> int:
     ncols_band x nwb words a lane in device memory
     (``kernel_scratch_words``).  It leaves the block through a ring of
     wavefront steps in shared memory (``dc_band_geometry``'s "staged") or
-    straight from the fill's registers ("direct"), at NW >= 9 straight
-    from the wide family's ring; the ring is staging, not store."""
+    straight from the fill's registers ("direct"), at NW >= 9 through the
+    wide block's staging buffer; the ring and the buffer are staging, not
+    store."""
     return kernel_scratch_words(cfg, tile)
 
 
@@ -183,8 +184,8 @@ def gpu_scratch_in_flight(cfg: AlignerConfig, kernel: str,
                           sms: int = H100_SMS) -> dict:
     """The wide family's scratch (NW >= 9) of `kernel` ("tb_fused",
     "tail_banded", "tail_full" or "dc_band"; tails at `n_text` columns,
-    default W + 4k): bytes a lane (its store, and its ring where K3's
-    ring lies in device memory), a block, and in flight: the blocks ``sms``
+    default W + 4k): bytes a lane (its store and the fill's buffers), a
+    block, and in flight: the blocks ``sms``
     SMs hold at once (``windowing.sm_blocks`` of the block's shared
     bytes and threads), no more than fit ``MEMORY_SHARE`` of
     `free_bytes` where given.  K3's band is its output, sized by the
@@ -198,7 +199,7 @@ def gpu_scratch_in_flight(cfg: AlignerConfig, kernel: str,
     if free_bytes is not None and block:
         blocks = min(blocks, int(MEMORY_SHARE * free_bytes) // block)
     return {"lanes_per_block": geo.lanes, "threads": geo.threads,
-            "ring": geo.ring, "shared_bytes": geo.shared_bytes,
+            "chunk": geo.chunk, "shared_bytes": geo.shared_bytes,
             "store_bytes_per_lane": 4 * geo.store_words,
             "scratch_bytes_per_block": block, "blocks_in_flight": blocks,
             "lanes_in_flight": blocks * geo.lanes,

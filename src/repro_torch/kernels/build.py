@@ -11,7 +11,7 @@ includes its kernel's body (``tb_fused.cuh``, ``tail_fused.cuh``,
 ``dc_band.cuh``, all three ``genasm_common.cuh``); ``tb_fused_xwide.cu``,
 ``tail_fused_xwide.cu`` and ``dc_band_xwide.cu``, the wide family at NW >=
 9 (one kernel each, with entry points of their own, over
-``genasm_xwide.cuh``; K1 and K2/K4 also ``genasm_xwide_reg.cuh``); ``ladder_graph.cu``, the rescue ladder's gate
+``genasm_xwide_reg.cuh``); ``ladder_graph.cu``, the rescue ladder's gate
 kernel and its conditional graph.  The objects
 are linked into one shared library with a plain C interface (no
 PyTorch headers, so the build takes seconds to a minute) under ``build/repro_torch_kernels/`` at the root
@@ -44,23 +44,23 @@ SOURCES = tuple(CSRC / f"{name}.cu"
                              "ladder_graph"))
 HEADERS = tuple(CSRC / f"{name}.cuh"
                 for name in ("genasm_common", "tb_fused", "tail_fused",
-                             "dc_band", "genasm_xwide", "genasm_xwide_reg"))
+                             "dc_band", "genasm_xwide_reg"))
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", str(CSRC))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _U64, _L = ctypes.c_ulonglong, ctypes.c_longlong
-#: the wide family's block: K3's lanes, word roles, level roles, threads,
-#: ring placement, shared bytes, ring words; the register fill's (K1,
-#: K2/K4) lanes, threads, shared bytes, store words and scratch words a
-#: lane (then the grid's blocks and the stream)
-_XW_BLOCK = [_I] * 6 + [_L]
+#: the wide family's block: K1's and K2/K4's lanes, threads, shared bytes,
+#: store words and scratch words a lane; K3's lanes, threads, shared bytes,
+#: steps a flush and scratch words a lane (then the grid's blocks and the
+#: stream)
 _XR_BLOCK = [_I] * 3 + [_L] * 2
+_XR_K3_BLOCK = [_I] * 4 + [_L]
 #: argument types of each C entry point: pointers, then ints, then the
 #: block geometry (K1, K2/K4: lanes, threads, placement, shared bytes; K3:
 #: lanes, threads, placement, chunk, shared bytes; the wide family's
-#: ``_XW_BLOCK``) and the stream; the
+#: ``_XR_BLOCK`` / ``_XR_K3_BLOCK``) and the stream; the
 #: occupancy queries: ints, then the results' pointers; the ladder graph's
 #: (``ladder_graph``): graphs, nodes, tensors and results as pointers, a
 #: conditional handle as an unsigned 64-bit integer
@@ -81,7 +81,7 @@ _SIGNATURES = {
     + [_I, _P],
     "genasm_tail_full_xwide_launch": [_P] * 7 + [_I] * 10 + _XR_BLOCK
     + [_I, _P],
-    "genasm_dc_band_xwide_launch": [_P] * 6 + [_I] * 7 + _XW_BLOCK
+    "genasm_dc_band_xwide_launch": [_P] * 6 + [_I] * 7 + _XR_K3_BLOCK
     + [_I, _P],
     "genasm_tb_fused_xwide_occupancy": [_I] * 2 + [_P] * 2,
     "genasm_tail_xwide_occupancy": [_I] * 2 + [_P] * 2,

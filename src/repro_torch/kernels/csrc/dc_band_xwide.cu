@@ -1,71 +1,65 @@
 // K3 at NW >= 9 (W >= 257): GenASM-DC of the square W x W window alone in
-// the wide family (genasm_xwide.cuh), for Hopper (sm_90a), the DENT band
-// its output for a separate traceback (backend 'split').  Replaces, at
-// these widths, the Pallas TPU kernel _kernel of repro/kernels/
-// genasm_dc.py; its plain PyTorch version is dc_band_plain in
-// repro_torch/kernels/genasm_dc.py, and the outputs must be equal bit for
-// bit: dist (B), the band (k+1, ncb, nwb, B), the level count (B).  NW, k
-// and NWB are runtime arguments.
+// the wide family, for Hopper (sm_90a), the DENT band its output for a
+// separate traceback (backend 'split').  Replaces, at these widths, the
+// Pallas TPU kernel _kernel of repro/kernels/genasm_dc.py; its plain
+// PyTorch version is dc_band_plain in repro_torch/kernels/genasm_dc.py,
+// and the outputs must be equal bit for bit: dist (B), the band (k+1, ncb,
+// nwb, B), the level count (B).  NW, k and NWB are runtime arguments.
 //
-// A persistent block walks its lane groups: the fill (XwFill), each band
-// window word written straight to the output, lane-innermost (the block's
-// lanes are the threads' fastest index, so a warp writes neighbouring
-// lanes of a row), then dist and the level count.  The band is an output
-// sized by B, as on the TPU; only the ring, where it fits no block's
-// shared memory, is scratch a block.
+// The register fill of genasm_xwide_reg.cuh (xr_fill<true>): one warp a
+// lane, a block of XR_K3_LANES lanes that run every level strip of their W
+// columns in lockstep.  The raw words of the windows of columns col0..W
+// are staged in the block's shared memory; every `chunk` steps the whole
+// block funnels the windows out of them and writes them to the band,
+// neighbouring lanes of one row word side by side (64 B at 16 lanes, 16 B
+// a thread where B is a multiple of 4; XrK3Out).  Column 0 (col0 = 0) is
+// analytic.
+// Then dist (the strip's ballot at bit W - 1) and the level count.  Lanes
+// past B fill the last lane's window and write nothing.  The scratch a
+// lane is the fill's: the level below a strip and the word strips'
+// carries and raw top words; the band is an output sized by B, as on the
+// TPU.
 //
 // The C entry points return cudaGetLastError() after the launch (or an
 // error code for a geometry the Python side did not derive); they never
 // synchronise and allocate nothing.
 
-#include "genasm_xwide.cuh"
+#include "genasm_xwide_reg.cuh"
 
 namespace {
 
-__global__ void dc_band_xwide_kernel(
+__global__ void __launch_bounds__(XR_K3_THREADS, XR_K3_BLOCKS)
+dc_band_xwide_kernel(
     const uint32_t* __restrict__ pm_g, const int32_t* __restrict__ text_g,
     uint32_t* __restrict__ band, int32_t* __restrict__ dist_g,
     int32_t* __restrict__ levels_g, uint32_t* scratch, int B, int W, int nw,
-    int k, int nwb, int ncb, int early_term, int lanes, int WT, int DG,
-    int ring_at, long long ring_words) {
+    int k, int nwb, int ncb, int early_term, int lanes, XrK3Layout y) {
   extern __shared__ uint32_t smem[];
-  const XwShared sh(smem, nw, lanes);
-  uint32_t* ring = xw_ring(sh, xw_scratch(scratch, ring_words), 0, lanes,
-                           ring_at);
-  const XwRole r = xw_role(lanes, WT);
+  const XrLayout& x = y.x;
+  uint32_t* masks_s = xr_warp_masks(smem, x);
+  uint16_t* text_s = xr_warp_text(masks_s);
   const int col0 = W + 1 - ncb, band_hi = nw * WORD - WORD * nwb;
+  uint32_t* stage = smem + lanes * (x.warp_bytes / 4);
+  XrK3Out out{stage, stage, band, nullptr, nullptr, y.buf_words, y.chunk,
+              y.lane_stride, y.row_stride, lanes, B, 0, W, k, nw, nwb, ncb,
+              col0, band_hi, x.word_strips, __ffs(lanes) - 1,
+              __ffs(x.wt) - 1};
+  const XrStoreMap sm{nullptr, ncb, col0, -2 - k, band_hi, nwb};
   const int groups = (B + lanes - 1) / lanes;
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
-    const int lane0 = grp * lanes;
-    xw_load_masks(pm_g, sh.pm, nw, lanes, lane0, B);
-    for (int x = threadIdx.x; x < lanes; x += blockDim.x) {
-      sh.dist[x] = k + 1;
-      sh.last[x] = lane0 + x < B ? W : 0;
+    out.lane0 = grp * lanes;
+    const int mine = out.lane0 + (threadIdx.x >> 5);
+    const int lane = min(mine, B - 1);
+    if (col0 == 0) xr_k3_column0(band, k, nwb, ncb, B, out.lane0, lanes);
+    uint32_t* lane_scratch = xr_lane_scratch(scratch, x, lanes);
+    const int dist = xr_fill<true>(
+        x, sm, lane_scratch, lane_scratch + x.below_words, masks_s, text_s,
+        XrGridText{text_g, B, lane}, XrGridMasks{pm_g, nw, B, lane}, nw, k, W,
+        W, W - 1, &out, lane_scratch + x.below_words + x.carry_words);
+    if ((threadIdx.x & 31) == 0 && mine < B) {
+      dist_g[mine] = dist;
+      levels_g[mine] = level_count(dist, k, early_term);
     }
-    __syncthreads();
-    const XwFill<XwGridText> f{ring, XwMasks{sh.pm, nw, lanes},
-                               XwGridText{text_g}, sh.last, nw, k, lanes, W,
-                               B, lane0, r.ll, r.wt, WT, r.dg, DG};
-    auto put = [&](int d, int j, int b, uint32_t v) {
-      band[((static_cast<long long>(d) * ncb + (j - col0)) * nwb + b) * B +
-           lane0 + r.ll] = v;
-    };
-    auto base_of = [&](int j) { return clampi(j - 2 - k, 0, band_hi); };
-    if (col0 == 0) f.store_column0(nwb, put);
-    const int steps = W + k;
-    for (int s = 0; s <= steps; ++s) {
-      if (s < steps) f.step(s, W);
-      if (s >= 1) f.store(s - 1, W, nwb, col0, base_of, put);
-      __syncthreads();
-    }
-    f.dist(W - 1, true, sh.dist);
-    __syncthreads();
-    const int x = threadIdx.x;
-    if (x < lanes && lane0 + x < B) {
-      dist_g[lane0 + x] = sh.dist[x];
-      levels_g[lane0 + x] = level_count(sh.dist[x], k, early_term);
-    }
-    __syncthreads();
   }
 }
 
@@ -73,20 +67,23 @@ __global__ void dc_band_xwide_kernel(
 
 extern "C" {
 
-// K3 at NW >= 9 on a persistent grid of `blocks` blocks; `scratch` holds
-// the ring (ring_words a block) where ring_at is XW_RING_GLOBAL, else
-// nothing is read from it.
+// K3 at NW >= 9 on a persistent grid of `blocks` blocks of `lanes` warps,
+// flushing the staged band every `chunk` steps; `scratch` holds lane_words
+// words a lane (xr_k3_layout) for every lane of the grid's blocks, or is
+// not read where that is 0.
 int genasm_dc_band_xwide_launch(const void* pm, const void* text, void* band,
                                 void* dist, void* levels, void* scratch,
                                 int B, int W, int nw, int k, int nwb,
-                                int ncb, int early_term, int lanes, int wt,
-                                int dg, int threads, int ring_at, int smem,
-                                long long ring_words, int blocks,
+                                int ncb, int early_term, int lanes,
+                                int threads, int smem, int chunk,
+                                long long lane_words, int blocks,
                                 void* stream) {
   if (B < 1 || W < 1 || W > nw * WORD || ncb < 1 || ncb > W + 1 ||
-      (ring_at == XW_RING_GLOBAL && scratch == nullptr) ||
-      !xw_block_ok(nw, k, nwb, lanes, wt, dg, threads, ring_at, smem,
-                   ring_words, blocks))
+      nwb < 1 || nwb > nw || k < 0 || (lane_words > 0 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const XrK3Layout y = xr_k3_layout(nw, k, nwb, W, ncb, lanes, chunk);
+  if (!xr_k3_block_ok(y, nw, k, nwb, lanes, threads, smem, chunk,
+                      lane_words, blocks))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = allow_shared(dc_band_xwide_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -95,7 +92,7 @@ int genasm_dc_band_xwide_launch(const void* pm, const void* text, void* band,
       static_cast<const uint32_t*>(pm), static_cast<const int32_t*>(text),
       static_cast<uint32_t*>(band), static_cast<int32_t*>(dist),
       static_cast<int32_t*>(levels), static_cast<uint32_t*>(scratch), B, W,
-      nw, k, nwb, ncb, early_term, lanes, wt, dg, ring_at, ring_words);
+      nw, k, nwb, ncb, early_term, lanes, y);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,8 @@
-// The wide family's register fill, for K1 (tb_fused_xwide.cu) and K2 / K4
-// (tail_fused_xwide.cu) at NW >= 9 (W >= 257), for Hopper (sm_90a).  K3
-// (dc_band_xwide.cu) keeps the shared ring of genasm_xwide.cuh.  NW, k and
-// NWB are runtime arguments; the levels a thread holds, XR_LEVELS, are the
-// one compile-time constant.  No width or k has a ceiling in the code.
+// The wide family's register fill, for K1 (tb_fused_xwide.cu), K2 / K4
+// (tail_fused_xwide.cu) and K3 (dc_band_xwide.cu) at NW >= 9 (W >= 257),
+// for Hopper (sm_90a).  NW, k and NWB are runtime arguments; the levels a
+// thread holds, XR_LEVELS, are the one compile-time constant.  No width or
+// k has a ceiling in the code.
 //
 // One warp a lane.  A lane's NW words are split over WT word threads (16
 // where NW <= 16, else 32), one word each; a warp holds GW = 32 / WT level
@@ -13,8 +13,8 @@
 // __syncwarp, and the block's warps take lanes blockIdx.x * lanes + warp,
 // then gridDim.x * lanes further, reusing their slice of the scratch.
 //
-// The fill is the skewed wavefront of the shared ring (genasm_xwide.cuh):
-// level d computes column j = s - d + 1 at step s, so every input of a cell
+// The fill is a wavefront skewed by one step a level: level d computes
+// column j = s - d + 1 at step s, so every input of a cell
 // (R_{j-1}[d], R_j[d-1], R_{j-1}[d-1] and the shifts' carries, the top bits
 // of word w-1 of each) comes from steps s-1 and s-2, and the L levels of a
 // thread have no dependency inside a step.  A thread keeps its levels'
@@ -52,18 +52,38 @@
 // the walk, which stays one thread a lane (tb_walk).
 //
 // Early exit: the walk reads no level above dist, so once a strip holds
-// the lane's dist no further strip runs.
+// the lane's dist no further strip runs (K1, K2 / K4).
+//
+// K3 keeps no store: its band is its output, (k+1, ncb, nwb, B) lanes
+// innermost, the windows themselves, and every level of it is written (no
+// early exit).  Its block is XR_K3_LANES lane warps (16: a row word of the
+// block's lanes is two 32 B sectors), which run the same tiles in
+// lockstep: every lane fills W columns and every strip.  A cell of a
+// stored column (j >= col0) puts its raw word into the block's staging
+// buffer where its window spans it (nwb + 1 words from w0 = base / 32, as
+// K1's rows), rows (step, level) of the block's lanes side by side
+// (XrK3Out).  Every `chunk` steps, after a barrier, the block funnels the
+// windows out of the raw words and writes them, its threads on
+// neighbouring lanes of one row word, four lanes a 16-byte store where B
+// allows (XrK3Out::flush), while the next steps fill the other of two
+// buffers.  A window word whose upper raw word lies in the next word strip
+// (NW > 32) is written with that strip, whose first word thread stages the
+// raw top words this strip's last word thread kept.  At W = 512 on 2,048
+// lanes the fill is 55-70 % of a launch, the staging and writes the rest
+// (PERF.md section 6).
 //
 // What bounds it on the H100: the fill's INT32 work (a shuffle, three
 // funnel shifts, two LOP3, the word-0 carry merge and two shared loads a
 // cell), then the band / store writes (~9 instructions a stored cell, a
-// warp's words of a row side by side): at W = 512 on 2,048 lanes the fill
+// warp's words of a row side by side): at W = 512 on 2,048 lanes K1's fill
 // is about half of a launch, the writes 37-40 %, the walk 6-16 % (PERF.md
 // section 6).
 
 #pragma once
 
-#include "genasm_xwide.cuh"
+#include <type_traits>
+
+#include "genasm_common.cuh"
 
 namespace {
 
@@ -79,6 +99,10 @@ constexpr unsigned XR_FULL = 0xFFFFFFFFu;
 constexpr int XR_BLOCK_THREADS = 128;
 constexpr int XR_K1_BLOCKS = 4;
 constexpr int XR_TAIL_BLOCKS = 3;
+// K3's block: at most 16 lane warps (genasm_dc.py XR_K3_LANES), 128
+// registers a thread at most (122 in its build).
+constexpr int XR_K3_THREADS = 512;
+constexpr int XR_K3_BLOCKS = 1;
 
 // The layout of a lane warp (genasm_dc.py xwide_geometry computes the same
 // sizes: change both together).  cols: stored columns a level (K1 ncb,
@@ -118,7 +142,7 @@ XrLayout xr_layout(int nw, int k, int nwb, int cols, int jlo, int last_max,
   x.last_max = last_max;
   x.nwbr = nwb + (nwb < nw ? 1 : 0);
   x.store_words = static_cast<long long>(k + 1) * cols * x.nwbr;
-  x.below_in_store = nwb == nw && jlo <= 1;
+  x.below_in_store = cols > 0 && nwb == nw && jlo <= 1;
   x.below_words = x.strips > 1 && !x.below_in_store
                       ? static_cast<long long>(last_max) * nw : 0;
   x.carry_words = x.word_strips > 1 ? 2LL * xr_carry_len(x) : 0;
@@ -135,6 +159,53 @@ bool xr_block_ok(const XrLayout& x, int nw, int k, int nwb, int lanes,
          smem == x.smem &&
          smem <= MAX_SHARED_BYTES && store_words == x.store_words &&
          lane_words == x.lane_words && blocks >= 1;
+}
+
+// K3's layout (genasm_dc.py xr_k3_layout computes the same sizes: change
+// both together): the fill's with no store (the level below a strip in the
+// lane's buffer), the raw top words of a word strip for the next (two
+// buffers, as the carries), and the block's two staging buffers of `chunk`
+// steps x H levels, a row the block's lanes of lane_stride words each (an
+// odd multiple of 32 / lanes, > nwb: a flush's warp reads 32 banks), the
+// row padded to 16 mod 32 words (the two level groups of a warp write
+// opposite halves of the banks).
+struct XrK3Layout {
+  XrLayout x;            // lane_words includes raw_words
+  int chunk;             // steps between two flushes
+  int lane_stride, row_stride;
+  long long buf_words;   // one staging buffer
+  long long raw_words;   // a lane's raw top words (word strips only)
+  int smem;              // shared bytes a block: warps', then staging
+};
+
+XrK3Layout xr_k3_layout(int nw, int k, int nwb, int W, int ncb, int lanes,
+                        int chunk) {
+  XrK3Layout y;
+  y.x = xr_layout(nw, k, nwb, 0, W + 1 - ncb, W, lanes);
+  y.chunk = chunk;
+  const int r = lanes >= 1 && lanes <= WORD ? WORD / lanes : 1;
+  y.lane_stride = ((nwb + r) / r | 1) * r;
+  y.row_stride = half_bank_pad(lanes * y.lane_stride);
+  y.buf_words = static_cast<long long>(chunk) * y.x.height * y.row_stride;
+  y.raw_words =
+      y.x.word_strips > 1 ? 2LL * xr_carry_len(y.x) * XR_LEVELS : 0;
+  y.x.lane_words += y.raw_words;
+  y.smem = y.x.smem + static_cast<int>(8 * y.buf_words);
+  return y;
+}
+
+// The block xwide_geometry derives for K3, and nothing else: lanes a power
+// of two (a flush's warp covers 32 / lanes row words), chunk an even power
+// of two no longer than a text chunk.
+bool xr_k3_block_ok(const XrK3Layout& y, int nw, int k, int nwb, int lanes,
+                    int threads, int smem, int chunk, long long lane_words,
+                    int blocks) {
+  return nw >= 1 && k >= 0 && nwb >= 1 && nwb <= nw && lanes >= 1 &&
+         lanes <= WORD && (lanes & (lanes - 1)) == 0 &&
+         threads == WORD * lanes && threads <= XR_K3_THREADS &&
+         chunk >= 2 && chunk <= XR_TEXT_CHUNK && (chunk & (chunk - 1)) == 0 &&
+         smem == y.smem && smem <= MAX_SHARED_BYTES &&
+         lane_words == y.x.lane_words && blocks >= 1;
 }
 
 // Where a lane's stored columns go: row (d, j) = d * cols + j - jlo, nwbr
@@ -204,6 +275,112 @@ struct XrReadMasks {
   }
 };
 
+// f(0), f(1), ..., f(N - 1), each index a compile-time constant
+// (std::integral_constant), whatever the compiler's unroller decides.
+template <int N, class F>
+__device__ __forceinline__ void xr_unroll(const F& f) {
+  if constexpr (N > 0) {
+    xr_unroll<N - 1>(f);
+    f(std::integral_constant<int, N - 1>{});
+  }
+}
+
+// K3's way out of a block's tiles: the staged windows and their flush.
+struct XrK3Out {
+  uint32_t* stage;        // two buffers of buf_words
+  uint32_t* cur;          // the one this chunk's steps fill
+  uint32_t* band;         // (k+1, ncb, nwb, B)
+  const uint32_t* raw_in;   // the word strip below's raw top words, or null
+  uint32_t* raw_out;        // this tile's for the word strip above, or null
+  long long buf_words;
+  int chunk, lane_stride, row_stride, lanes;
+  int B, lane0, W, k, nw, nwb, ncb, col0, band_hi, word_strips;
+  int lane_shift, wt_shift;   // log2 of lanes and of the word threads
+
+  // Steps [u0, u0 + n) of tile (a, bs) to the band, after a barrier: warp
+  // r of the block takes staged rows r, r + lanes, ... (step u0 + c,
+  // level a + h, row c H + h), its threads row words of `lanes`
+  // neighbouring lanes each, so that the stores write a row word of the
+  // block's lanes side by side.  Window word b is funnelled out of
+  // the row's raw words b and b + 1 (from word w0 = base / 32); it lies in
+  // the tile whose word strip holds its upper raw word w0 + b + 1 (its
+  // lower, w0 + b, at the vector's top word, where base is band_hi and
+  // the upper word is not read).  The buffers then swap.
+  __device__ __forceinline__ void flush(int u0, int n, int H, int a,
+                                        int bs) {
+    __syncthreads();
+    // a thread takes `span` neighbouring lanes of a row word (4: one
+    // 16-byte store, where B and the lanes allow it and the window words
+    // lie in one word strip), 32 / (lanes / span) row words a warp
+    const bool quad = word_strips == 1 && lanes >= 4 && (B & 3) == 0;
+    const int shift = quad ? lane_shift - 2 : lane_shift;
+    const int lid = threadIdx.x & 31, span = quad ? 4 : 1;
+    const int lr = (lid & ((lanes >> (lane_shift - shift)) - 1)) * span;
+    const int per = WORD >> shift, b0 = lid >> shift;
+    if (lane0 + lr >= B) {
+      swap();
+      return;
+    }
+    const long long row_words = static_cast<long long>(nwb) * B;
+    const long long hop = static_cast<long long>(per) * B;
+    uint32_t* const out = band + static_cast<long long>(b0) * B + lane0 + lr;
+    const uint32_t* const in = cur + lr * lane_stride + b0;
+    const int ls = lane_stride;
+    // row (c, h): level d = a + h, column j = u0 + c - h + 1, its band row
+    // (d ncb + j - col0) nwb = (r0 + h (ncb - 1) + c) nwb
+    const int r0 = a * ncb + u0 + 1 - col0, jmin = max(col0, 1);
+    int c = 0, h = threadIdx.x >> 5;      // rows c H + h, `lanes` apart
+    while (h >= H) h -= H, ++c;
+    while (c < n) {
+      const int j = u0 + c - h + 1;
+      if (a + h <= k && j >= jmin && j <= W) {
+        const int base = clampi(j - 2 - k, 0, band_hi);
+        const int sh = base & 31;
+        const uint32_t* src = in + (c * H + h) * row_stride;
+        uint32_t* dst = out + (r0 + h * (ncb - 1) + c) * row_words;
+        if (quad) {
+          for (int b = b0; b < nwb; b += per, src += per, dst += hop)
+            *reinterpret_cast<uint4*>(dst) = make_uint4(
+                __funnelshift_r(src[0], src[1], sh),
+                __funnelshift_r(src[ls], src[ls + 1], sh),
+                __funnelshift_r(src[2 * ls], src[2 * ls + 1], sh),
+                __funnelshift_r(src[3 * ls], src[3 * ls + 1], sh));
+        } else if (word_strips == 1) {
+#pragma unroll 2
+          for (int b = b0; b < nwb; b += per, src += per, dst += hop)
+            *dst = __funnelshift_r(src[0], src[1], sh);
+        } else {
+          for (int lw = (base >> 5) + b0; lw < (base >> 5) + nwb;
+               lw += per, src += per, dst += hop)
+            if ((lw + (lw + 1 < nw)) >> wt_shift == bs)
+              *dst = __funnelshift_r(src[0], src[1], sh);
+        }
+      }
+      h += lanes;
+      while (h >= H) h -= H, ++c;
+    }
+    swap();
+  }
+
+  __device__ __forceinline__ void swap() {
+    cur = cur == stage ? stage + buf_words : stage;
+  }
+};
+
+// K3's analytic column 0 (col0 = 0) of the block's lanes, by the whole
+// block, lanes side by side: window word b of level d is word b of ~0 << d
+// (base 0).
+__device__ void xr_k3_column0(uint32_t* band, int k, int nwb, int ncb, int B,
+                              int lane0, int lanes) {
+  const int n = (k + 1) * nwb * lanes;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int lr = e % lanes, row = e / lanes, b = row % nwb, d = row / nwb;
+    if (lane0 + lr < B)
+      band[(static_cast<long long>(d) * ncb * nwb + b) * B + lane0 + lr] =
+          ones_below_word(d, b);
+  }
+}
+
 // The carries of word 0 at step s of levels d0 .. d0 + L - 1 (bit l) and of
 // the level below (bit L): the virtual word -1's top bit, s > 2d.
 __device__ __forceinline__ uint32_t xr_virtual_carries(int s, int d0) {
@@ -212,8 +389,9 @@ __device__ __forceinline__ uint32_t xr_virtual_carries(int s, int d0) {
   return (n >= XR_LEVELS ? (1u << XR_LEVELS) - 1u : (1u << n) - 1u) | below;
 }
 
-// One tile (levels of strip a, words of word strip b) of a lane, one warp.
-template <int L, class Text>
+// One tile (levels of strip a, words of word strip b) of a lane, one warp;
+// K3: its windows staged (out), no store.
+template <int L, class Text, bool K3 = false>
 struct XrTile {
   static_assert(L == XR_LEVELS, "the carry words pack XR_LEVELS levels");
   const XrLayout& x;
@@ -229,6 +407,8 @@ struct XrTile {
 
   uint32_t A[L], Bv[L], SA[L], SB[L];
   uint32_t bwp, blp, pf0, pf1;
+  // K3: its way out, a copy in the tile's registers for its steps
+  std::conditional_t<K3, XrK3Out, uint8_t> out;
 
   // the level below's word w at column j (1 <= j), held past last
   __device__ __forceinline__ uint32_t below_at(int j) const {
@@ -302,26 +482,46 @@ struct XrTile {
     }
     const uint16_t* tp = text_s + (u - u0 + H - 1) - g * L;
     const int jt = u - g * L + 1;       // level l's column: jt - l
-    const StepRows r = rows(jt);
+    if constexpr (K3) {
+      // K3 stores nothing here; the levels by its template (as a plain
+      // loop its instance was not unrolled, and the tile's words went to
+      // local memory), then the step's windows staged
+      xr_unroll<L>([&](auto i) {
+        constexpr int l = L - 1 - decltype(i)::value;
+        const uint32_t p = cur[l], pl = spc[l];
+        const uint32_t bn = l ? cur[l - 1] : bwn, bnl = l ? spc[l - 1] : bln;
+        const uint32_t bo = l ? nxt[l - 1] : bwp, bol = l ? spp[l - 1] : blp;
+        const uint32_t v =
+            (__funnelshift_l(pl, p, 1) |
+             *reinterpret_cast<const uint32_t*>(
+                 reinterpret_cast<const char*>(masks) + tp[-l])) &
+            __funnelshift_l(bol, bo, 1) & bo & __funnelshift_l(bnl, bn, 1);
+        const int j = jt - l;
+        nxt[l] = ON || (j >= 1 && j <= last) ? v : p;
+      });
+      stage<ON>(u, jt, nxt);
+    } else {
+      const StepRows r = rows(jt);
 #pragma unroll
-    for (int l = L - 1; l >= 0; --l) {
-      const uint32_t p = cur[l], pl = spc[l];
-      const uint32_t bn = l ? cur[l - 1] : bwn, bnl = l ? spc[l - 1] : bln;
-      const uint32_t bo = l ? nxt[l - 1] : bwp, bol = l ? spp[l - 1] : blp;
-      const uint32_t M = __funnelshift_l(pl, p, 1);
-      const uint32_t S = __funnelshift_l(bol, bo, 1);
-      const uint32_t I = __funnelshift_l(bnl, bn, 1);
-      uint32_t v = (M | *reinterpret_cast<const uint32_t*>(
-                            reinterpret_cast<const char*>(masks) + tp[-l])) &
-                   S & bo & I;
-      const int j = jt - l;
-      const bool on = ON || (j >= 1 && j <= last);
-      if (!ON) v = on ? v : p;
-      nxt[l] = v;
-      const int slot = l <= r.lb ? r.slot_a : r.slot_b;
-      if (on && d0 + l <= k && j >= sm.jlo &&
-          static_cast<unsigned>(slot) < static_cast<unsigned>(sm.nwbr))
-        r.row0[l * r.step + slot] = v;
+      for (int l = L - 1; l >= 0; --l) {
+        const uint32_t p = cur[l], pl = spc[l];
+        const uint32_t bn = l ? cur[l - 1] : bwn, bnl = l ? spc[l - 1] : bln;
+        const uint32_t bo = l ? nxt[l - 1] : bwp, bol = l ? spp[l - 1] : blp;
+        const uint32_t M = __funnelshift_l(pl, p, 1);
+        const uint32_t S = __funnelshift_l(bol, bo, 1);
+        const uint32_t I = __funnelshift_l(bnl, bn, 1);
+        uint32_t v = (M | *reinterpret_cast<const uint32_t*>(
+                              reinterpret_cast<const char*>(masks) + tp[-l])) &
+                     S & bo & I;
+        const int j = jt - l;
+        const bool on = ON || (j >= 1 && j <= last);
+        if (!ON) v = on ? v : p;
+        nxt[l] = v;
+        const int slot = l <= r.lb ? r.slot_a : r.slot_b;
+        if (on && d0 + l <= k && j >= sm.jlo &&
+            static_cast<unsigned>(slot) < static_cast<unsigned>(sm.nwbr))
+          r.row0[l * r.step + slot] = v;
+      }
     }
     if (below_out != nullptr && g == x.gw - 1 && w < nw) {
       const int j = jt - (L - 1);
@@ -330,6 +530,48 @@ struct XrTile {
     }
     bwp = bwn;
     blp = bln;
+  }
+
+  // K3: the raw words of step u's stored cells (column jt - l of level
+  // d0 + l) that its window, from bit base = clamp(jt - l - 2 - k, 0,
+  // band_hi), spans (nwb + 1 words from w0 = base / 32, as K1's rows) into
+  // row (u mod chunk, g L + l) of the staging buffer, slot w - w0; the
+  // flush funnels the windows out of them.  With word strips, a strip's
+  // top word thread keeps its raw words (raw_out) and the next strip's
+  // first word thread stages them at slot w - 1 - w0: a window word lies
+  // in the strip of its upper raw word.  No stored column in the step
+  // (its newest, u + 1, before col0): nothing to stage.
+  template <bool ON>
+  __device__ __forceinline__ void stage(int u, int jt,
+                                        const uint32_t (&nv)[L]) const {
+    const XrK3Out& o = out;
+    if (u + 1 < sm.jlo) return;
+    uint32_t* row = o.cur +
+                    ((u & (o.chunk - 1)) * H + g * L) * o.row_stride +
+                    (threadIdx.x >> 5) * o.lane_stride;
+    const int q = jt + sm.boff, whi = sm.band_hi >> 5;
+    const int slot_a = w - clampi(q >> 5, 0, whi);
+    const int slot_b = w - clampi((q >> 5) - 1, 0, whi), lb = q & 31;
+    xr_unroll<L>([&](auto i) {
+      constexpr int l = decltype(i)::value;
+      const int j = jt - l, slot = l <= lb ? slot_a : slot_b;
+      if ((ON || (j >= 1 && j <= last)) && j >= sm.jlo &&
+          static_cast<unsigned>(slot) <= static_cast<unsigned>(o.nwb))
+        row[l * o.row_stride + slot] = nv[l];
+    });
+    if (o.raw_out != nullptr && wt == x.wt - 1)
+      xr_unroll<L>([&](auto i) {
+        o.raw_out[u * L + decltype(i)::value] = nv[decltype(i)::value];
+      });
+    if (o.raw_in != nullptr && wt == 0) {
+      xr_unroll<L>([&](auto i) {
+        constexpr int l = decltype(i)::value;
+        const int j = jt - l, slot = (l <= lb ? slot_a : slot_b) - 1;
+        if ((ON || (j >= 1 && j <= last)) && j >= sm.jlo &&
+            static_cast<unsigned>(slot) <= static_cast<unsigned>(o.nwb))
+          row[l * o.row_stride + slot] = o.raw_in[u * L + l];
+      });
+    }
   }
 
   // text codes of steps [u0, u0 + XR_TEXT_CHUNK) as mask-row offsets
@@ -344,7 +586,7 @@ struct XrTile {
   }
 
   // The tile's steps; returns with every level's last column in A.
-  __device__ void run(int lid) {
+  __device__ __forceinline__ void run(int lid) {
 #pragma unroll
     for (int l = 0; l < L; ++l) A[l] = Bv[l] = ones_below_word(d0 + l, w);
     bwp = ones_below_word(d0 - 1, w);
@@ -363,7 +605,7 @@ struct XrTile {
                         : v;
       }
     }
-    if (sm.jlo == 0) {          // K1's analytic column 0
+    if (!K3 && sm.jlo == 0) {   // K1's analytic column 0
 #pragma unroll
       for (int l = 0; l < L; ++l) put(d0 + l, 0, A[l]);
     }
@@ -383,6 +625,13 @@ struct XrTile {
           const bool on1 = u + 1 >= H - 1 && u + 2 <= last;
           if (on1) step<1, true>(u + 1); else step<1, false>(u + 1);
         }
+        if constexpr (K3) {     // every chunk steps, and the tile's last
+          const int done = min(u + 2, end);
+          if ((done & (out.chunk - 1)) == 0 || done == steps) {
+            const int first = (done - 1) & ~(out.chunk - 1);
+            out.flush(first, done - first, H, a, b);
+          }
+        }
       }
     }
     if (steps & 1) {
@@ -394,7 +643,7 @@ struct XrTile {
 
   // the lowest level of this strip <= k whose bit tgt of its last column
   // is 0, else k + 1 (the tile that holds word tgt >> 5)
-  __device__ int dist(int tgt) const {
+  __device__ __forceinline__ int dist(int tgt) const {
     int best = k + 1;
 #pragma unroll
     for (int l = 0; l < L; ++l) {
@@ -408,21 +657,23 @@ struct XrTile {
 };
 
 // A lane's fill, by one warp: every level strip up to the one that holds
-// the lane's dist, each word strip of it; the stored columns to sm, and
-// the lane's dist (lowest level whose bit tgt of its column `last` is 0,
-// else k + 1).  masks_s: the warp's 5 x 32 words; text_s: its text_slots.
-template <class Text, class Masks>
-__device__ int xr_fill(const XrLayout& x, const XrStoreMap& sm,
-                       uint32_t* below, uint32_t* carry, uint32_t* masks_s,
-                       uint16_t* text_s, const Text& text,
-                       const Masks& masks, int nw, int k, int last,
-                       int n_text, int tgt) {
+// the lane's dist (K3: every strip, its windows through `out`), each word
+// strip of it; the stored columns to sm, and the lane's dist (lowest
+// level whose bit tgt of its column `last` is 0, else k + 1).  masks_s:
+// the warp's 5 x 32 words; text_s: its text_slots; raw: K3's raw top
+// words (word strips only).
+template <bool K3 = false, class Text, class Masks>
+__device__ __forceinline__ int xr_fill(
+    const XrLayout& x, const XrStoreMap& sm, uint32_t* below, uint32_t* carry,
+    uint32_t* masks_s, uint16_t* text_s, const Text& text, const Masks& masks,
+    int nw, int k, int last, int n_text, int tgt, XrK3Out* out = nullptr,
+    uint32_t* raw = nullptr) {
   constexpr int L = XR_LEVELS;
   const int lid = threadIdx.x & 31;
   const int g = lid / x.wt, wt = lid % x.wt;
   const long long carry_len = xr_carry_len(x);
   int dist = k + 1;
-  for (int a = 0; a <= k && dist > k; a += x.height) {
+  for (int a = 0; a <= k && (K3 || dist > k); a += x.height) {
     for (int b = 0; b < x.word_strips; ++b) {
       const int w = b * x.wt + wt;
       uint32_t m[4] = {ONES, ONES, ONES, ONES};
@@ -433,14 +684,20 @@ __device__ int xr_fill(const XrLayout& x, const XrStoreMap& sm,
           a == 0 ? nullptr : x.below_in_store ? sm.store : below;
       uint32_t* below_out =
           a + x.height <= k && !x.below_in_store ? below : nullptr;
-      XrTile<L, Text> t{x, sm, masks_s + lid, text_s, text, below_in,
-                        below_out,
-                        b > 0 ? carry + ((b - 1) & 1) * carry_len : nullptr,
-                        b + 1 < x.word_strips ? carry + (b & 1) * carry_len
-                                              : nullptr,
-                        nw, k, last, n_text, a, b, g, wt, a + g * L, w,
-                        x.height, 0};
+      XrTile<L, Text, K3> t{
+          x, sm, masks_s + lid, text_s, text, below_in, below_out,
+          b > 0 ? carry + ((b - 1) & 1) * carry_len : nullptr,
+          b + 1 < x.word_strips ? carry + (b & 1) * carry_len : nullptr,
+          nw, k, last, n_text, a, b, g, wt, a + g * L, w, x.height, 0};
+      if constexpr (K3) {
+        const long long raw_len = carry_len * L;
+        t.out = *out;
+        t.out.raw_in = b > 0 ? raw + ((b - 1) & 1) * raw_len : nullptr;
+        t.out.raw_out = b + 1 < x.word_strips ? raw + (b & 1) * raw_len
+                                              : nullptr;
+      }
       t.run(lid);
+      if constexpr (K3) out->cur = t.out.cur;
       if ((tgt >> 5) / x.wt == b) dist = min(dist, t.dist(tgt));
     }
   }

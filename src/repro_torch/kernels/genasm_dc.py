@@ -45,13 +45,13 @@ memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 k < W (level capacities KP = 16, 32, 64, 128, 256; NW = 1..8 words a
 bitvector, NW = 5..8 in translation units of their own,
 ``csrc/*_wide.cu``).  Wider windows (NW >= 9) run the wide family
-(``csrc/genasm_xwide.cuh``, ``csrc/genasm_xwide_reg.cuh``,
-``xwide_geometry``): one kernel each for K1, K2/K4 and K3 with NW, k and
-NWB at run time on a persistent grid whose scratch is sized by the blocks
-in flight; K1 and K2/K4 hold a lane's levels in registers, one warp a
-lane (``xr_layout``), K3 in a shared ring of three wavefront steps (device
-memory where it does not fit); the one refusal is a lane whose scratch
-exceeds the card's free memory (``check_scratch_fits``).
+(``csrc/genasm_xwide_reg.cuh``, ``xwide_geometry``): one kernel each
+for K1, K2/K4 and K3 with NW, k and NWB at run time on a persistent grid
+whose scratch is sized by the blocks in flight; all three hold a lane's
+levels in registers, one warp a lane (``xr_layout``; K3 writes its band
+through a staging buffer in shared memory, ``xr_k3_layout``); the one
+refusal is a lane whose scratch exceeds the card's free memory
+(``check_scratch_fits``).
 The wrappers choose the family (``cfg.nw > TEMPLATE_NW``); the templates'
 geometries (``tb_fused_geometry``, ...) and occupancy queries serve NW <=
 8 only, ``xwide_geometry`` and ``xwide_occupancy`` the wide family.
@@ -438,7 +438,7 @@ MAX_BLOCK_REGISTERS = 65_536
 #: "xwide": the wide family's kernels (NW >= 9; no spill, CUDA 12.8 on an
 #: H100): K1's two (standalone and window form) bound by __launch_bounds__
 #: to four blocks of 128 threads an SM, 128 registers; the tails' to
-#: three; K3's shared ring unbound.
+#: three; K3's to one block of 512 threads (122 registers).
 #: A block's threads are capped so that they hold their registers
 #: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
 #: more than this table.
@@ -472,7 +472,7 @@ REGISTERS = {
                 (6, 128): 112, (6, 256): 168, (7, 16): 77, (7, 32): 86,
                 (7, 64): 110, (7, 128): 122, (7, 256): 195, (8, 16): 90,
                 (8, 32): 89, (8, 64): 112, (8, 128): 142, (8, 256): 213,
-                "xwide": 36},
+                "xwide": 122},
 }
 
 
@@ -550,8 +550,7 @@ def check_scratch_fits(cfg: AlignerConfig, free_bytes: int) -> None:
     256, the wide family above), so the one refusal is one lane whose
     scratch (K1's band, the tail's store at the aligner's W + 4k text
     columns in K4's and K2's width, with the register fill's buffers; K3's
-    ring where it lies in device memory) exceeds ``MEMORY_SHARE`` of the
-    card's `free_bytes`.
+    buffers) exceeds ``MEMORY_SHARE`` of the card's `free_bytes`.
     The error names W, k and the bytes (``xwide_geometry``).  Below NW = 9
     nothing is checked: the templates' stores are a lane's each."""
     if cfg.nw <= TEMPLATE_NW:
@@ -640,27 +639,12 @@ def _fit_registers(threads: int, cap: int, what: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# the wide family (NW >= 9: csrc/genasm_xwide.cuh, genasm_xwide_reg.cuh and
-# *_xwide.cu): one kernel each for K1, K2/K4 and K3, NW, k and NWB at run
-# time, on a persistent grid.  K1 and K2/K4 run the register fill (one warp
-# a lane, xr_layout in C computes the same sizes); K3 the shared ring
-# (xw_layout)
+# the wide family (NW >= 9: csrc/genasm_xwide_reg.cuh and *_xwide.cu): one
+# kernel each for K1, K2/K4 and K3, NW, k and NWB at run time, on a
+# persistent grid, all on the register fill (one warp a lane; xr_layout
+# and xr_k3_layout in C compute the same sizes)
 # --------------------------------------------------------------------------
 
-#: where K3's wide block keeps its ring of three wavefront steps (3 x (k+1)
-#: x NW words a lane), in C's numbering: its dynamic shared memory, or its
-#: slice of the scratch in device memory where one lane's ring fits no
-#: block; the register fill's geometries name "registers"
-XW_RINGS = ("shared", "global")
-#: most lanes K3's wide block holds (halved while its shared memory exceeds
-#: half an SM's, so that two blocks share an SM), lanes a block where the
-#: ring lies in device memory, and the threads a block aims at
-XW_LANES = 16
-XW_GLOBAL_LANES = 4
-XW_THREADS = 512
-#: per-lane words of K3's wide block's shared memory besides masks and
-#: ring (dist, last column, m_len, n_len)
-XW_LANE_WORDS = 4
 #: the share of the card's free memory the wide family's scratch may take
 #: (the rest is the batch's tensors and the other kernels')
 MEMORY_SHARE = 0.5
@@ -673,52 +657,42 @@ XR_TEXT_CHUNK = 128
 XR_MASK_ROWS = 5
 XR_LANES = 4
 SMS = 132
+#: K3's block: lane warps (16, a band row word of the block's lanes two 32 B
+#: sectors; 8, one sector, was 16-65 % slower at W = 512 on 2,048 lanes,
+#: PERF.md section 6; C's XR_K3_THREADS allows 16) and the steps between two
+#: flushes of its staging buffer (halved, down to 2, while the block's
+#: shared memory exceeds its share of an SM, ``_k3_shared_budget``)
+XR_K3_LANES = 16
+XR_K3_CHUNK = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class XwideGeometry:
-    lanes: int                  #: lanes a block (a lane group); the
-                                #: register fill: one warp each
-    words: int                  #: WT: word roles (K3: a thread takes
-                                #: words wt, wt + WT, ...; the register
-                                #: fill: one word each, 16 or 32)
-    depth: int                  #: K3: DG level roles (levels dg, dg + DG,
-                                #: ...); the register fill: GW level
-                                #: groups a warp
-    threads: int                #: K3: lanes x WT x DG; else 32 x lanes
-    ring: str                   #: K3: where the ring lies (XW_RINGS); the
-                                #: register fill: "registers"
-    ring_words: int             #: words of K3's ring, 3 x (k+1) x nw x
-                                #: lanes; else 0
+    lanes: int                  #: lanes a block (a lane group), one warp
+                                #: each
+    words: int                  #: WT: word threads a level group, one
+                                #: word each (16 or 32)
+    depth: int                  #: GW: level groups a warp
+    threads: int                #: 32 x lanes
     shared_bytes: int           #: dynamic shared memory per block
     store_words: int            #: int32 words of a lane's store in the
                                 #: block's scratch (K1's band, the tails'
                                 #: store; K3: 0, its band is the output)
     nwb: int                    #: words of a stored window
-    levels: int = 0             #: L, levels a thread (the register fill)
+    levels: int = 0             #: L, levels a thread
     strips: int = 0             #: level strips of GW x L levels
     word_strips: int = 0        #: word strips of WT words
     lane_words: int = 0         #: scratch words a lane: its store, the
                                 #: level below a strip, the word strips'
-                                #: carries (the register fill)
+                                #: carries (K3: and raw top words)
+    chunk: int = 0              #: K3: steps between two flushes of its
+                                #: staging buffer; else 0
 
     @property
     def block_words(self) -> int:
         """int32 words of one block's scratch in device memory: its lanes'
-        stores (and the register fill's buffers), then K3's ring where it
-        lies there."""
-        if self.ring == "registers":
-            return self.lane_words * self.lanes
-        return self.store_words * self.lanes + (
-            self.ring_words if self.ring == "global" else 0)
-
-
-def _xw_shared(nw: int, k: int, lanes: int, ring: str) -> tuple[int, int]:
-    """(ring words, dynamic shared bytes) of K3's wide block: the masks (4
-    x nw a lane), XW_LANE_WORDS a lane, and the ring where it is shared."""
-    ring_words = 3 * (k + 1) * nw * lanes
-    return ring_words, 4 * (4 * nw * lanes + XW_LANE_WORDS * lanes
-                            + (ring_words if ring == "shared" else 0))
+        stores and buffers."""
+        return self.lane_words * self.lanes
 
 
 def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
@@ -732,7 +706,7 @@ def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
     words of a lane: its store ((k+1) x `cols` rows of nwbr words), the
     buffer of the level below a strip (`last_max` x nw, where there are
     several strips and the store does not hold full columns from column 1:
-    nwb = nw and `jlo` <= 1) and the word strips' carries."""
+    a store, nwb = nw and `jlo` <= 1) and the word strips' carries."""
     wt = 16 if nw <= 16 else 32
     gw = 32 // wt
     height = gw * XR_LEVELS
@@ -740,7 +714,7 @@ def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
     word_strips = -(-nw // wt)
     nwbr = nwb + (1 if nwb < nw else 0)
     store = (k + 1) * cols * nwbr
-    below_in_store = nwb == nw and jlo <= 1
+    below_in_store = cols > 0 and nwb == nw and jlo <= 1
     below = last_max * nw if strips > 1 and not below_in_store else 0
     carry = 2 * (last_max + height - 1) if word_strips > 1 else 0
     return dict(wt=wt, gw=gw, height=height, strips=strips,
@@ -749,6 +723,30 @@ def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
                 + 2 * (XR_TEXT_CHUNK + height),
                 nwbr=nwbr, store_words=store, below_words=below,
                 carry_words=carry, lane_words=store + below + carry)
+
+
+def xr_k3_layout(nw: int, k: int, nwb: int, W: int, ncb: int, lanes: int,
+                 chunk: int) -> dict:
+    """K3's layout (C's ``xr_k3_layout``): the fill's (``xr_layout`` with
+    no store, so the level below a strip is in the lane's buffer), a
+    lane's raw top words of a word strip for the next (two buffers of
+    ``last + H - 1`` steps x ``XR_LEVELS``, where there are word strips),
+    and the block's two staging buffers of `chunk` steps x H levels, a row
+    the `lanes` lanes of ``lane_stride`` words each (the raw words a window
+    spans, nwb + 1, in the odd multiple of 32 / lanes above nwb: a flush's
+    warp reads 32 banks), padded to 16 mod 32 words (the two level groups
+    of a warp write opposite halves of the banks).  Shared bytes: the
+    warps' masks and text, then the buffers."""
+    x = xr_layout(nw, k, nwb, 0, W + 1 - ncb, W)
+    lane_stride = _odd_multiple(nwb + 1, 32 // lanes)
+    row_stride = _half_bank_pad(lanes * lane_stride)
+    buf = chunk * x["height"] * row_stride
+    raw = 2 * (W + x["height"] - 1) * XR_LEVELS if x["word_strips"] > 1 \
+        else 0
+    return dict(x, lane_stride=lane_stride, row_stride=row_stride,
+                buf_words=buf, raw_words=raw,
+                lane_words=x["lane_words"] + raw,
+                smem=lanes * x["warp_bytes"] + 8 * buf)
 
 
 #: the register family (``REGISTERS``) and the name in errors of each
@@ -766,29 +764,34 @@ def _xw_refuse(cfg: AlignerConfig, name: str, need: int, free_bytes: int):
         f"card's {free_bytes:,} B free")
 
 
+def _k3_shared_budget(cfg: AlignerConfig, lanes: int) -> int:
+    """Shared bytes a K3 block of `lanes` warps may take: the card's
+    232,448 over the blocks an SM's registers hold (65,536 over the
+    block's, at ``REGISTERS``' count rounded to 8 a thread)."""
+    per_warp = 32 * -(-registers("dc_band", cfg) // 8) * 8
+    return MAX_SHARED_BYTES // max(1, MAX_BLOCK_REGISTERS
+                                   // (per_warp * lanes))
+
+
 def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
                    free_bytes: int | None = None) -> XwideGeometry:
     """The wide block (NW >= 9) of kernel `name` (``KERNELS``: its
     registers cap the threads) for `cfg`; tails at `n_text` columns
-    (default W + 4k).
+    (default W + 4k).  One warp a lane, WT word threads x GW level groups
+    of ``XR_LEVELS`` levels (``xr_layout``).
 
-    K1, K2 and K4 (the register fill, ``xr_layout``): ``XR_LANES`` warps a
-    block, one lane each, within the registers' cap; a lane's scratch is
-    its store (K1's band, (k+1) x ncols_band rows; the tail's, (k+1) x
-    n_text rows; nwbr words a row) and its buffers.  With the card's
-    `free_bytes`, the lanes halve while the blocks that fit
+    K1, K2 and K4: ``XR_LANES`` warps a block within the registers' cap; a
+    lane's scratch is its store (K1's band, (k+1) x ncols_band rows; the
+    tail's, (k+1) x n_text rows; nwbr words a row) and its buffers.  K3
+    (``xr_k3_layout``): ``XR_K3_LANES`` warps a block, its staging buffer
+    flushed every ``XR_K3_CHUNK`` steps, the chunk halved (down to 2)
+    while the block's shared memory exceeds its share of an SM's
+    (``_k3_shared_budget``), then the lanes while it exceeds 232,448 B; a
+    lane's scratch is its buffers (the band is the output).  With the
+    card's `free_bytes`, the lanes halve while the blocks that fit
     ``MEMORY_SHARE`` of them are fewer than ``SMS`` (so the grid still
     fills the card), and a lane whose scratch exceeds that share raises
-    ValueError naming W, k and the bytes: the one refusal of the family.
-
-    K3 (the shared ring): lanes ``XW_LANES``, halved while the shared
-    memory with the ring in it exceeds half the card's 232,448 B a block
-    (two blocks an SM); where one lane's ring does not fit a block even
-    alone, the ring goes to the block's scratch in device memory with
-    ``XW_GLOBAL_LANES`` lanes, halved further while one block's scratch
-    exceeds the share of `free_bytes`.  Threads: every lane x WT =
-    min(nw, cap / lanes) word roles x DG level roles, DG = XW_THREADS /
-    (lanes x WT) within the cap and k + 1."""
+    ValueError naming W, k and the bytes: the one refusal of the family."""
     if cfg.nw <= TEMPLATE_NW:
         raise ValueError(f"W={cfg.W}: the wide family runs NW >= "
                          f"{TEMPLATE_NW + 1}, not {cfg.nw}")
@@ -796,50 +799,41 @@ def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
     nwb = cfg.nw if name == "tail_full" else cfg.nwb
     cap = max_threads(_XW_FAMILY[name], cfg)
     room = None if free_bytes is None else int(MEMORY_SHARE * free_bytes)
-    if name != "dc_band":
+    chunk = 0
+    if name == "dc_band":
+        def layout(lanes, chunk):
+            return xr_k3_layout(nw, k, nwb, cfg.W, cfg.ncols_band, lanes,
+                                chunk)
+        lanes = 1 << (min(XR_K3_LANES, cap // 32).bit_length() - 1)
+        chunk = XR_K3_CHUNK
+        while chunk > 2 and layout(lanes, chunk)["smem"] > \
+                _k3_shared_budget(cfg, lanes):
+            chunk //= 2
+        while lanes > 1 and layout(lanes, chunk)["smem"] > MAX_SHARED_BYTES:
+            lanes //= 2
+    else:
         if name == "tb_fused":
             cols = cfg.ncols_band
             x = xr_layout(nw, k, nwb, cols, cfg.W + 1 - cols, cfg.W)
         else:
             cols = cfg.W + 4 * k if n_text is None else n_text
             x = xr_layout(nw, k, nwb, cols, 1, cols)
-        lane_bytes = 4 * x["lane_words"]
         lanes = max(1, min(XR_LANES, cap // 32))
-        if room is not None:
-            if lane_bytes > room:
-                _xw_refuse(cfg, name, lane_bytes, free_bytes)
-            while lanes > 1 and room // (lanes * lane_bytes) < SMS:
-                lanes //= 2
-        return XwideGeometry(
-            lanes=lanes, words=x["wt"], depth=x["gw"], threads=32 * lanes,
-            ring="registers", ring_words=0,
-            shared_bytes=lanes * x["warp_bytes"],
-            store_words=x["store_words"], nwb=nwb, levels=XR_LEVELS,
-            strips=x["strips"], word_strips=x["word_strips"],
-            lane_words=x["lane_words"])
-    lanes, ring = XW_LANES, "shared"
-    while lanes > 1 and _xw_shared(nw, k, lanes, ring)[1] > \
-            MAX_SHARED_BYTES // 2:
-        lanes //= 2
-    if _xw_shared(nw, k, lanes, ring)[1] > MAX_SHARED_BYTES:
-        lanes, ring = XW_GLOBAL_LANES, "global"
-
-    def block_bytes(n):
-        ring_words = _xw_shared(nw, k, n, ring)[0]
-        return 4 * (ring_words if ring == "global" else 0)
+        layout = lambda lanes, chunk: dict(                 # noqa: E731
+            x, smem=lanes * x["warp_bytes"])
+    lane_bytes = 4 * layout(lanes, chunk)["lane_words"]
     if room is not None:
-        while lanes > 1 and block_bytes(lanes) > room:
+        if lane_bytes > room:
+            _xw_refuse(cfg, name, lane_bytes, free_bytes)
+        while lanes > 1 and lane_bytes and \
+                room // (lanes * lane_bytes) < SMS:
             lanes //= 2
-        if block_bytes(lanes) > room:
-            _xw_refuse(cfg, name, block_bytes(lanes), free_bytes)
-    words = min(nw, cap // lanes)
-    depth = max(1, min(k + 1, XW_THREADS // (lanes * words),
-                       cap // (lanes * words)))
-    ring_words, shared = _xw_shared(nw, k, lanes, ring)
-    return XwideGeometry(lanes=lanes, words=words, depth=depth,
-                         threads=lanes * words * depth, ring=ring,
-                         ring_words=ring_words, shared_bytes=shared,
-                         store_words=0, nwb=nwb)
+    x = layout(lanes, chunk)
+    return XwideGeometry(
+        lanes=lanes, words=x["wt"], depth=x["gw"], threads=32 * lanes,
+        shared_bytes=x["smem"], store_words=x["store_words"], nwb=nwb,
+        levels=XR_LEVELS, strips=x["strips"], word_strips=x["word_strips"],
+        lane_words=x["lane_words"], chunk=chunk)
 
 
 def xwide_occupancy(name: str, geo: XwideGeometry) -> tuple[int, int]:
@@ -1151,8 +1145,8 @@ def _xwide_launch(name: str, cfg: AlignerConfig, tensors, ints,
     blocks = xwide_blocks(geo, B, xwide_resident(name, geo, device), free)
     scratch = _store(blocks, geo.block_words, device)
     if name == "dc_band":
-        block = (geo.lanes, geo.words, geo.depth, geo.threads,
-                 XW_RINGS.index(geo.ring), geo.shared_bytes, geo.ring_words)
+        block = (geo.lanes, geo.threads, geo.shared_bytes, geo.chunk,
+                 geo.lane_words)
     else:
         block = (geo.lanes, geo.threads, geo.shared_bytes, geo.store_words,
                  geo.lane_words)

@@ -105,11 +105,11 @@ def test_dc_band_geometry_refuses_what_does_not_fit_or_exist():
     with pytest.raises(ValueError, match="shared memory"):
         genasm_dc.dc_band_geometry(AlignerConfig(W=128, O=48, k=48), 1024,
                                    placement="staged", chunk=16)
-    # the wide family (NW >= 9): one lane's ring in device memory, 384,384
-    # B, against half of 500,000 B free
-    with pytest.raises(ValueError, match="W=1024 k=1000: .* 384,384 B"):
+    # the wide family (NW >= 9): one lane's buffer of the level below a
+    # strip, 1,024 x 32 words = 131,072 B, against half of 200,000 B free
+    with pytest.raises(ValueError, match="W=1024 k=1000: .* 131,072 B"):
         genasm_dc.xwide_geometry(AlignerConfig(W=1024, O=300, k=1000),
-                                 "dc_band", free_bytes=500_000)
+                                 "dc_band", free_bytes=200_000)
     with pytest.raises(ValueError, match="placement"):
         genasm_dc.dc_band_geometry(AlignerConfig(), placement="shared")
 

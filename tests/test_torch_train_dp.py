@@ -181,7 +181,10 @@ def port_run(arch: str, grad_accum: int = 1):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """The worker's results in worlds of 2 (with grad_accum=2 and the
-    extra checks) and 4."""
+    extra checks) and 4, read into memory as soon as each world ends:
+    {n: {file name: its contents}} (``.pt`` loaded, ``.json`` parsed).
+    The tests then read nothing from the temporary directory, which the
+    module's later tests must not depend on."""
     out = {}
     for n in (2, 4):
         d = tmp_path_factory.mktemp(f"dp{n}")
@@ -192,12 +195,18 @@ def worlds(tmp_path_factory):
             archs=ARCHS, grad_accum=[1, 2] if n == 2 else [1], opt=OPT,
             batch=B, seq=16, steps=STEPS, extra=n == 2)))
         run_ranks(_WORKER, n, d)
-        out[n] = d
+        out[n] = {f"n{n}_{arch}_ga{ga}.pt": torch.load(
+            d / f"n{n}_{arch}_ga{ga}.pt") for arch in ARCHS
+            for ga in ((1, 2) if n == 2 else (1,))}
+        if n == 2:
+            out[n].update({name: json.loads((d / name).read_text())
+                           for name in ("extra.json", "straight.json",
+                                        "failed.json")})
     return out
 
 
 def _result(worlds, n, arch, ga=1):
-    return torch.load(worlds[n] / f"n{n}_{arch}_ga{ga}.pt")
+    return worlds[n][f"n{n}_{arch}_ga{ga}.pt"]
 
 
 CASES = [(n, arch) for n in (2, 4) for arch in ARCHS]
@@ -302,7 +311,7 @@ def test_dp_gradients_average_once(worlds, n):
 def test_moe_aux_is_the_global_batch(worlds):
     """Under ``global_batch(group)`` every rank's router loss is the
     global batch's; the mean of per-rank losses is not."""
-    extra = json.loads((worlds[2] / "extra.json").read_text())
+    extra = worlds[2]["extra.json"]
     cfg, _, params = _init_params("olmoe-1b-7b")
     model = params_from_reference(port_model(cfg), params)
     x = torch.randn((8, 16, model.cfg.d_model),
@@ -320,7 +329,7 @@ def test_supervised_restart_equals_the_straight_run(worlds):
     """``launch.train`` in a world of 2 with a failure injected at step 7:
     one restart from rank 0's checkpoint, and the final state bit-equal
     to the straight run's on both ranks."""
-    runs = {name: json.loads((worlds[2] / f"{name}.json").read_text())
+    runs = {name: worlds[2][f"{name}.json"]
             for name in ("straight", "failed")}
     assert runs["straight"]["restarts"] == 0
     assert runs["failed"]["restarts"] == 1

@@ -1,8 +1,8 @@
-"""The wide family's blocks (NW >= 9, W >= 257: ``csrc/genasm_xwide.cuh``,
-``csrc/genasm_xwide_reg.cuh``) on the CPU: K1's and the tails' register
-fill (one warp a lane, word threads and level groups, level strips and
-word strips, shared bytes and scratch words a lane, held to C's
-``xr_layout``) and K3's shared ring (lanes, threads, where the ring lies),
+"""The wide family's blocks (NW >= 9, W >= 257:
+``csrc/genasm_xwide_reg.cuh``) on the CPU: the register fill of K1, the
+tails and K3 (one warp a lane, word threads and level groups, level strips
+and word strips, shared bytes and scratch words a lane, held to C's
+``xr_layout`` / ``xr_k3_layout``; K3's lanes, staging buffer and chunk),
 the scratch a lane, a block and in flight, the persistent grid, the one
 refusal (a lane's scratch over the card's free memory, naming W, k and
 the bytes), and what the session, the counting model, the dry run and
@@ -39,14 +39,32 @@ def _xr_mirror(nw, k, nwb, cols, jlo, last_max):
     strips = -(-(k + 1) // height)
     nwbr = nwb + (nwb < nw)
     store = (k + 1) * cols * nwbr
-    below = last_max * nw if strips > 1 and not (nwb == nw and jlo <= 1) \
-        else 0
+    below = last_max * nw if strips > 1 and not (
+        cols and nwb == nw and jlo <= 1) else 0
     carry = 2 * (last_max + height - 1) if nw > wt else 0
     return dict(wt=wt, gw=32 // wt, height=height, strips=strips,
                 word_strips=-(-nw // wt), nwbr=nwbr, store=store,
                 lane=store + below + carry,
                 warp_bytes=4 * 5 * 32 + 2 * (genasm_dc.XR_TEXT_CHUNK
                                               + height))
+
+
+def _k3_mirror(cfg, lanes, chunk):
+    """C's xr_k3_layout written out again: the fill with no store (the
+    level below a strip always in the lane's buffer), two buffers of raw
+    top words where there are word strips, and two staging buffers of
+    chunk x H rows of `lanes` lane strides (the odd multiple of 32 / lanes
+    above nwb: a window's nwb + 1 raw words), a row padded to 16 mod 32
+    words."""
+    x = _xr_mirror(cfg.nw, cfg.k, cfg.nwb, 0, cfg.W + 1 - cfg.ncols_band,
+                   cfg.W)
+    r = 32 // lanes
+    stride = (-(-(cfg.nwb + 1) // r) | 1) * r
+    row = lanes * stride + (16 - lanes * stride % 32) % 32
+    raw = 2 * (cfg.W + x["height"] - 1) * genasm_dc.XR_LEVELS \
+        if x["word_strips"] > 1 else 0
+    return dict(x, stride=stride, row=row, raw=raw, lane=x["lane"] + raw,
+                smem=lanes * x["warp_bytes"] + 8 * chunk * x["height"] * row)
 
 
 def _geometries(cfg):
@@ -59,10 +77,11 @@ def test_wide_block_follows_the_layout(W, O, k):
     """K1, K2 and K4: XR_LANES warps a block within the registers' cap, one
     lane a warp, WT word threads x GW level groups of XR_LEVELS levels,
     threads <= 1,024 and within max_threads, the shared bytes and scratch
-    of C's xr_layout.  K3: lanes a power of two <= 16, halved while the
-    block with its ring exceeds half a block's shared memory; every lane
-    x WT word roles x DG level roles within the cap; the shared bytes of
-    the C twin xw_layout (masks, four words a lane, the ring)."""
+    of C's xr_layout.  K3: XR_K3_LANES warps (16: a band row word of the
+    block's lanes is two 32 B sectors), its staging buffer flushed every
+    XR_K3_CHUNK steps, halved (down to 2) while the block exceeds its
+    share of an SM (one block: its registers); the shared bytes and
+    scratch of C's xr_k3_layout, no store."""
     cfg = AlignerConfig(W=W, O=O, k=k)
     n_text = W + 4 * k
     col0 = W + 1 - cfg.ncols_band
@@ -76,9 +95,12 @@ def test_wide_block_follows_the_layout(W, O, k):
         assert isinstance(geo, XW)
         family = "tail" if name.startswith("tail") else name
         cap = genasm_dc.max_threads(family, cfg)
+        assert (geo.words, geo.depth, geo.levels) == \
+            (16 if cfg.nw <= 16 else 32, 2 if cfg.nw <= 16 else 1,
+             genasm_dc.XR_LEVELS)
         if name != "dc_band":
             x = mirrors[name]
-            assert geo.ring == "registers" and geo.ring_words == 0
+            assert geo.chunk == 0
             assert geo.lanes == min(genasm_dc.XR_LANES, cap // 32)
             assert geo.threads == 32 * geo.lanes <= min(cap, 1024)
             assert (geo.words, geo.depth, geo.levels) == \
@@ -90,42 +112,71 @@ def test_wide_block_follows_the_layout(W, O, k):
             assert geo.lane_words == x["lane"]
             assert geo.block_words == x["lane"] * geo.lanes
             continue
-        assert geo.lanes in (1, 2, 4, 8, 16)
-        if geo.ring == "global":
-            continue
-        ring = 3 * (k + 1) * cfg.nw * geo.lanes
-        assert geo.ring_words == ring
-        assert geo.shared_bytes == 4 * (4 * cfg.nw * geo.lanes
-                                        + 4 * geo.lanes + ring)
-        assert geo.shared_bytes <= genasm_dc.MAX_SHARED_BYTES // 2 \
-            or geo.lanes == 1
-        if geo.lanes < 16:
-            assert genasm_dc._xw_shared(cfg.nw, k, 2 * geo.lanes,
-                                        "shared")[1] > \
-                genasm_dc.MAX_SHARED_BYTES // 2
-        assert geo.words == min(cfg.nw, cap // geo.lanes)
-        assert geo.threads == geo.lanes * geo.words * geo.depth <= cap
-        assert geo.depth == max(1, min(k + 1, 512 // (geo.lanes * geo.words)))
-        assert geo.store_words == 0 and geo.block_words == 0
+        assert geo.lanes == genasm_dc.XR_K3_LANES == 16
+        assert geo.threads == 32 * geo.lanes <= cap
+        assert geo.chunk in (2, 4, 8) and (
+            geo.chunk == genasm_dc.XR_K3_CHUNK
+            or _k3_mirror(cfg, 16, 2 * geo.chunk)["smem"]
+            > genasm_dc.MAX_SHARED_BYTES)
+        y = _k3_mirror(cfg, geo.lanes, geo.chunk)
+        assert geo.shared_bytes == y["smem"] <= genasm_dc.MAX_SHARED_BYTES
+        assert (geo.strips, geo.word_strips) == (y["strips"],
+                                                 y["word_strips"])
+        assert geo.store_words == 0
+        assert geo.lane_words == y["lane"]
+        assert geo.block_words == y["lane"] * geo.lanes
 
 
-def test_ring_goes_to_device_memory_where_one_lane_fits_no_block():
-    """K3 at W = 1024, k = 1000: one lane's ring, 3 x 1,001 x 32 words, is
-    384,384 B, past a block's 232,448: the ring goes to the block's
-    scratch, ``XW_GLOBAL_LANES`` lanes a block.  K1 at the same window
-    keeps its levels in registers: 143 strips of 7 levels, no ring, its
-    band and the buffer of the level below a strip its only scratch."""
-    cfg = AlignerConfig(W=1024, O=300, k=1000)
-    k3 = genasm_dc.xwide_geometry(cfg, "dc_band")
-    assert k3.ring == "global" and k3.lanes == genasm_dc.XW_GLOBAL_LANES
-    assert k3.ring_words == 3 * 1001 * 32 * k3.lanes
-    assert k3.shared_bytes == 4 * (4 * 32 + 4) * k3.lanes
-    assert k3.block_words == k3.ring_words
-    k1 = genasm_dc.xwide_geometry(cfg, "tb_fused")
-    assert (k1.ring, k1.ring_words, k1.strips) == ("registers", 0,
-                                                   -(-1001 // 7))
-    assert k1.store_words == 1001 * cfg.ncols_band * cfg.nwb
-    assert k1.block_words == k1.lane_words * k1.lanes
+@pytest.mark.parametrize("W,O,k,stride,chunk", [
+    (288, 96, 20, 6, 8), (512, 192, 60, 6, 8), (512, 192, 480, 18, 4),
+    (1024, 300, 700, 34, 4), (1100, 300, 40, 6, 8)])
+def test_k3_block_stages_its_band_a_sector_a_row_word(W, O, k, stride,
+                                                      chunk):
+    """K3's block: 16 lane warps, so a flush writes a row word of the
+    block's lanes as two whole 32 B sectors (8 lanes, one sector, is the
+    floor); a lane's staged row holds the nwb + 1 raw words a window
+    spans, in the odd multiple of 2 words above nwb (a flush's warp, 16
+    lanes x 2 words, reads 32 banks), the chunk the most steps (of 8)
+    whose two buffers fit the one block an SM's registers hold.  No
+    store: the scratch a lane is the level below a strip (W x NW words
+    past one strip) and, past 32 words, the word strips' carries and raw
+    top words."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    geo = genasm_dc.xwide_geometry(cfg, "dc_band")
+    y = genasm_dc.xr_k3_layout(cfg.nw, k, cfg.nwb, W, cfg.ncols_band,
+                               geo.lanes, geo.chunk)
+    assert (geo.lanes, geo.threads) == (16, 512)
+    assert 4 * geo.lanes >= 32
+    assert (y["lane_stride"], geo.chunk) == (stride, chunk)
+    assert y["lane_stride"] > cfg.nwb and (y["lane_stride"] // 2) % 2 == 1
+    assert y["row_stride"] % 32 == 16
+    assert geo.shared_bytes <= genasm_dc.MAX_SHARED_BYTES
+    height = y["height"]
+    below = W * cfg.nw if -(-(k + 1) // height) > 1 else 0
+    words = -(-cfg.nw // 32) if cfg.nw > 16 else 1
+    extra = (2 * (W + height - 1) * (1 + genasm_dc.XR_LEVELS)
+             if words > 1 else 0)
+    assert geo.store_words == 0
+    assert geo.lane_words == below + extra
+
+
+def test_k3_lanes_and_chunk_give_way_to_shared_memory():
+    """The chunk halves (to 2) while the block exceeds its share of an SM,
+    then the lanes while it exceeds 232,448 B: W = 4096 (NW 128, k =
+    2000, nwb 126) at 16 lanes stages 7 rows of 2,128 words a step, past
+    a block at any chunk, so the lanes halve to 8 (rows of 1,072 words,
+    chunk 2, 127,344 B: two blocks' registers fit an SM, not their shared
+    memory); at W = 8192 (NW 256) two steps of 8 lanes exceed a block and
+    the lanes halve to 4."""
+    big = genasm_dc.xwide_geometry(AlignerConfig(W=4096, O=1536, k=2000),
+                                   "dc_band")
+    assert (big.lanes, big.chunk) == (8, 2)
+    assert genasm_dc.MAX_SHARED_BYTES // 2 < big.shared_bytes \
+        <= genasm_dc.MAX_SHARED_BYTES
+    huge = genasm_dc.xwide_geometry(AlignerConfig(W=8192, O=3072, k=4000),
+                                    "dc_band")
+    assert (huge.lanes, huge.chunk) == (4, 2)
+    assert huge.shared_bytes <= genasm_dc.MAX_SHARED_BYTES
 
 
 def test_persistent_grid_is_sized_by_blocks_in_flight():
@@ -144,8 +195,11 @@ def test_persistent_grid_is_sized_by_blocks_in_flight():
     # 4 GB free: half of it holds 26 blocks of one 74,866,688 B store
     assert genasm_dc.xwide_blocks(tight, 2048, 264, 4 * 10 ** 9) == 26
     k3 = genasm_dc.xwide_geometry(cfg, "dc_band")
-    assert k3.block_words == 0
-    assert genasm_dc.xwide_blocks(k3, 2048, 264, 1) == 264
+    # K3's scratch is the level below a strip, 512 x 16 words a lane: 8
+    # blocks of 16 lanes fit half of 8 MB
+    assert k3.block_words == 512 * 16 * 16
+    assert genasm_dc.xwide_blocks(k3, 2048, 264) == 128
+    assert genasm_dc.xwide_blocks(k3, 2048, 264, 8 * 2 ** 20) == 8
 
 
 def test_one_refusal_names_w_k_and_the_bytes():
@@ -170,6 +224,13 @@ def test_one_refusal_names_w_k_and_the_bytes():
     with pytest.raises(ValueError, match=r"W=512 k=480: .* wide K4 needs "
                        r"74,866,688 B .* 100,000,000 B free"):
         genasm_dc.check_scratch_fits(big, 10 ** 8)
+    # K3: a lane's 32,768 B buffer of the level below a strip
+    assert genasm_dc.xwide_geometry(big, "dc_band",
+                                    free_bytes=2 * 32_768).lanes == 1
+    with pytest.raises(ValueError, match=r"W=512 k=480: one block of the "
+                       r"wide K3 needs 32,768 B of scratch, more than 0.5 "
+                       r"of the card's 65,535 B free"):
+        genasm_dc.xwide_geometry(big, "dc_band", free_bytes=65_535)
     genasm_dc.check_scratch_fits(big, 80 * 10 ** 9)
     genasm_dc.check_scratch_fits(AlignerConfig(W=256, O=96, k=240), 1)
 
@@ -203,18 +264,20 @@ def test_levels_bucket_extends_to_powers_of_two(k, kp):
 
 
 def test_registers_of_the_wide_family_allow_its_blocks():
-    """K3's block of XW_THREADS and the register fill's of XR_LANES warps
-    fit their registers; K1's kernels are bound to four blocks an SM (128
-    registers a thread), the tails' to three."""
+    """The register fill's blocks of XR_LANES warps (K1, the tails) and of
+    XR_K3_LANES (K3) fit their registers; K1's kernels are bound to four
+    blocks an SM (128 registers a thread), the tails' to three, K3's to
+    one of 512 threads."""
     cfg = AlignerConfig(W=512, O=192, k=60)
     for family, want in (("tb_fused", 32 * genasm_dc.XR_LANES),
                          ("tail", 32 * genasm_dc.XR_LANES),
-                         ("dc_band", genasm_dc.XW_THREADS)):
+                         ("dc_band", 32 * genasm_dc.XR_K3_LANES)):
         regs = genasm_dc.REGISTERS[family]["xwide"]
         assert genasm_dc.registers(family, cfg) == regs
         assert genasm_dc.max_threads(family, cfg) >= want
     assert genasm_dc.REGISTERS["tb_fused"]["xwide"] <= 65_536 // (128 * 4)
     assert genasm_dc.REGISTERS["tail"]["xwide"] <= 65_536 // (128 * 3)
+    assert genasm_dc.REGISTERS["dc_band"]["xwide"] <= 65_536 // 512
 
 
 def test_occupancy_queries_the_wide_kernel(monkeypatch):
@@ -264,8 +327,12 @@ def test_counting_scratch_in_flight(k):
     tight = counting.gpu_scratch_in_flight(cfg, "tail_full",
                                            free_bytes=10 ** 10)
     assert tight["scratch_bytes_in_flight"] <= 5 * 10 ** 9
-    assert counting.gpu_scratch_in_flight(cfg, "dc_band")[
-        "scratch_bytes_in_flight"] == 0
+    k3 = counting.gpu_scratch_in_flight(cfg, "dc_band")
+    k3_geo = genasm_dc.xwide_geometry(cfg, "dc_band")
+    assert k3["store_bytes_per_lane"] == 0 and k3["chunk"] == k3_geo.chunk
+    assert k3["scratch_bytes_per_block"] == 4 * 512 * 16 * 16
+    assert k3["blocks_in_flight"] == 132 * windowing.sm_blocks(
+        k3_geo.shared_bytes, 512)
     assert counting.gpu_scratch_in_flight(AlignerConfig(), "tb_fused") \
         is None
 
@@ -339,6 +406,10 @@ struct dim3 { unsigned x = 0, y = 0, z = 0; };
 inline dim3 threadIdx, blockIdx, blockDim, gridDim;
 using std::max;
 using std::min;
+struct uint4 { uint32_t x, y, z, w; };
+inline uint4 make_uint4(uint32_t x, uint32_t y, uint32_t z, uint32_t w) {
+  return uint4{x, y, z, w};
+}
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
@@ -356,10 +427,16 @@ inline void __syncwarp(unsigned = 0) {}
 template <class T> T __shfl_up_sync(unsigned, T v, unsigned, int = 32) {
   return v;
 }
+template <class T> T __shfl_down_sync(unsigned, T v, unsigned, int = 32) {
+  return v;
+}
 inline unsigned __ballot_sync(unsigned, int) { return 0; }
 inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, unsigned s) {
   return (hi << s) | (lo >> (32 - s));
+}
+inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, unsigned s) {
+  return (lo >> s) | (hi << (32 - s));
 }
 inline int atomicMin(int* p, int v) { int o = *p; *p = min(o, v); return o; }
 inline int atomicMax(int* p, int v) { int o = *p; *p = max(o, v); return o; }
@@ -368,11 +445,23 @@ LAYOUT_MAIN = r"""
 #include <cstdio>
 #include "genasm_xwide_reg.cuh"
 int main() {
-  int nw, k, nwb, cols, jlo, last_max, lanes, threads, smem;
+  int kind, nw, k, nwb, cols, jlo, last_max, lanes, threads, smem;
   long long store, lane;
-  while (std::scanf("%d %d %d %d %d %d %d %d %d %lld %lld", &nw, &k, &nwb,
-                    &cols, &jlo, &last_max, &lanes, &threads, &smem, &store,
-                    &lane) == 11) {
+  // kind 0: K1 / the tails (cols jlo last_max ... store lane); kind 1: K3
+  // (W ncb chunk ... 0 lane)
+  while (std::scanf("%d %d %d %d %d %d %d %d %d %d %lld %lld", &kind, &nw,
+                    &k, &nwb, &cols, &jlo, &last_max, &lanes, &threads,
+                    &smem, &store, &lane) == 12) {
+    if (kind == 1) {
+      const XrK3Layout y =
+          xr_k3_layout(nw, k, nwb, cols, jlo, lanes, last_max);
+      std::printf("%d %d %d %d %d %lld %lld %lld %d %d\n", y.x.strips,
+                  y.x.word_strips, y.lane_stride, y.row_stride, y.chunk,
+                  y.buf_words, y.raw_words, y.x.lane_words, y.smem,
+                  xr_k3_block_ok(y, nw, k, nwb, lanes, threads, smem,
+                                 last_max, lane, 1) ? 1 : 0);
+      continue;
+    }
     const XrLayout x = xr_layout(nw, k, nwb, cols, jlo, last_max, lanes);
     std::printf("%d %d %d %d %d %d %d %lld %lld %lld %lld %lld %d\n", x.wt,
                 x.gw, x.height, x.strips, x.word_strips, x.warp_bytes,
@@ -385,11 +474,12 @@ int main() {
 
 
 def test_c_layout_equals_the_python_layout(tmp_path):
-    """C's xr_layout and xr_block_ok (csrc/genasm_xwide_reg.cuh, compiled
-    for the host with a stand-in for the CUDA header) against
-    ``genasm_dc.xr_layout`` and the block ``xwide_geometry`` derives, at
-    every case's K1, K2 and K4: the same sizes, and a block the C
-    launchers accept."""
+    """C's xr_layout and xr_block_ok, and K3's xr_k3_layout and
+    xr_k3_block_ok (csrc/genasm_xwide_reg.cuh, compiled for the host with
+    a stand-in for the CUDA header) against ``genasm_dc.xr_layout`` /
+    ``xr_k3_layout`` and the block ``xwide_geometry`` derives, at every
+    case's K1, K2, K4 and K3 (and K3 at 16 lanes and a chunk of 2): the
+    same sizes, and a block the C launchers accept."""
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
@@ -410,13 +500,27 @@ def test_c_layout_equals_the_python_layout(tmp_path):
             geo = genasm_dc.xwide_geometry(cfg, name, n_text)
             x = genasm_dc.xr_layout(cfg.nw, k, *args)
             rows.append(" ".join(map(str, (
-                cfg.nw, k, *args, geo.lanes, geo.threads, geo.shared_bytes,
-                geo.store_words, geo.lane_words))))
+                0, cfg.nw, k, *args, geo.lanes, geo.threads,
+                geo.shared_bytes, geo.store_words, geo.lane_words))))
             want.append([x["wt"], x["gw"], x["height"], x["strips"],
                          x["word_strips"], x["warp_bytes"],
                          geo.shared_bytes, x["nwbr"], x["store_words"],
                          x["below_words"], x["carry_words"],
                          x["lane_words"], 1])
+        geo = genasm_dc.xwide_geometry(cfg, "dc_band")
+        for lanes, chunk in ((geo.lanes, geo.chunk), (16, 2)):
+            y = genasm_dc.xr_k3_layout(cfg.nw, k, cfg.nwb, W,
+                                       cfg.ncols_band, lanes, chunk)
+            rows.append(" ".join(map(str, (
+                1, cfg.nw, k, cfg.nwb, W, cfg.ncols_band, chunk, lanes,
+                32 * lanes, y["smem"], 0, y["lane_words"]))))
+            want.append([y["strips"], y["word_strips"], y["lane_stride"],
+                         y["row_stride"], chunk, y["buf_words"],
+                         y["raw_words"], y["lane_words"], y["smem"], 1])
+        assert (geo.shared_bytes, geo.lane_words) == \
+            (genasm_dc.xr_k3_layout(cfg.nw, k, cfg.nwb, W, cfg.ncols_band,
+                                    geo.lanes, geo.chunk)["smem"],
+             geo.lane_words)
     out = subprocess.run([str(tmp_path / "layout")], input="\n".join(rows),
                          capture_output=True, text=True, check=True,
                          timeout=60).stdout.split("\n")

@@ -1,4 +1,4 @@
-"""The wide family's register fill (K1 and K2 / K4 at NW >= 9,
+"""The wide family's register fill (K1, K2 / K4 and K3 at NW >= 9,
 ``csrc/genasm_xwide_reg.cuh``) as a numpy model that runs the kernel's
 schedule step by step: one warp a lane, WT word threads x GW level groups
 of L = ``XR_LEVELS`` levels each holding one word of its levels for steps
@@ -12,9 +12,14 @@ column) word the model computes equals the plain fill's
 (``genasm_dc._fill``), its dist the plain dist, and the raw window words
 it stores (``xr_layout``'s rows of nwbr words) equal the plain K1 band
 (``dc_band_plain``, the windows funnelled out of the raw words as
-``XrBand`` reads them) and the plain K2 / K4 stores.  W = 288 (NW 9),
-320 and 512 at k = 20, 60 and 200 (strips at k >= 32), and W = 1100 (two
-word strips).  About 10 s on one CPU."""
+``XrBand`` reads them) and the plain K2 / K4 stores.  K3's schedule runs
+every strip and puts each stored cell's raw word into the block's staging
+buffer where its window spans it (and, past a word strip's bottom, the
+raw top words the strip below kept), flushed every chunk steps, each
+window word funnelled out of two raw words: its band and dist equal
+``dc_band_plain``'s.  W = 288 (NW 9), 320 and 512 at k = 20, 60 and 200
+(strips at k >= 32), and W = 1100 (two word strips).  About 25 s on one
+CPU."""
 import numpy as np
 import pytest
 import torch
@@ -45,11 +50,13 @@ def funnel(lo, hi):
 
 
 def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
-               tgt):
+               tgt, k3=None):
     """One lane through the register fill.  masks (4, nw) uint32, text
     (n_text,) codes.  Returns (computed, store, dist): every word the
     model computed, (words, where set) of shape (k+1, last+1, nw), the
-    raw store rows (words, where written) and the lane's dist."""
+    raw store rows (words, where written) and the lane's dist.  With `k3`
+    (``K3Out``: K3's staging and band; `cols` 0, no store) every strip
+    runs and the stored columns' windows go out through it."""
     x = genasm_dc.xr_layout(nw, k, nwb, cols, jlo, last_max)
     WT, GW, H, nwbr = x["wt"], x["gw"], x["height"], x["nwbr"]
     band_hi = 32 * (nw - nwb)
@@ -70,7 +77,7 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
     steps = last + H - 1 if last > 0 else 0
     dist = k + 1
     for a in range(0, k + 1, H):
-        if dist <= k:
+        if dist <= k and k3 is None:
             break
         below_in = None if a == 0 else "store" if x["below_in_store"] \
             else "buf"
@@ -125,7 +132,9 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
             else:
                 spp[:, :, 0] = ones_below_word(dd[:, :, 0], w[:, :, 0] - 1)
                 blp[:, 0] = ones_below_word(d0 - 1, w1[:, 0] - 1)
-            if jlo == 0:                                 # K1's column 0
+            if k3 is not None:
+                k3.tile(b, WT, GW)
+            elif jlo == 0:                               # K1's column 0
                 put(store, written, dd, 0, cur, w, k, nw, cols, jlo,
                     boff, band_hi, nwbr, np.ones(cur.shape, bool))
             for u in range(steps):
@@ -157,11 +166,18 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
                 j = t + 1
                 on = (j >= 1) & (j <= last)
                 new = np.where(on, v, cur)
-                keep = on & (dd <= k)
-                computed[dd[keep], j[keep], w[keep]] = new[keep]
-                done[dd[keep], j[keep], w[keep]] = True
-                put(store, written, dd, j, new, w, k, nw, cols, jlo, boff,
-                    band_hi, nwbr, on)
+                if k3 is None:
+                    keep = on & (dd <= k)
+                    computed[dd[keep], j[keep], w[keep]] = new[keep]
+                    done[dd[keep], j[keep], w[keep]] = True
+                if k3 is None:
+                    put(store, written, dd, j, new, w, k, nw, cols, jlo,
+                        boff, band_hi, nwbr, on)
+                else:
+                    k3.stage(u, j, new, w, on)
+                    if (u + 1) % k3.chunk == 0 or u + 1 == steps:
+                        k3.flush(u - u % k3.chunk, u % k3.chunk + 1, a, b,
+                                 H)
                 if below_out:
                     jt = u - H + 2
                     if 1 <= jt <= last:
@@ -175,6 +191,88 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
                 if hit.any():
                     dist = min(dist, int(dd[hit].min()))
     return (computed[..., :nw], done[..., :nw]), (store, written), dist
+
+
+class K3Out:
+    """K3's way out of a lane's tiles (``XrK3Out``): the block's two
+    staging buffers, rows (step of the chunk, level of the strip) x lanes
+    x lane_stride raw words (``xr_k3_layout``), this lane at `ll`; the raw
+    top words a word strip keeps for the next; the flush of a chunk's rows
+    to the lane's band (k+1, ncb, nwb), each window word b funnelled out of
+    raw words b and b + 1 by the tile whose word strip holds its upper raw
+    word (its lower at the vector's top, where the upper is not read)."""
+
+    def __init__(self, W, k, nw, nwb, ncb, lanes, ll, chunk):
+        y = genasm_dc.xr_k3_layout(nw, k, nwb, W, ncb, lanes, chunk)
+        self.W, self.k, self.nw, self.nwb, self.ncb = W, k, nw, nwb, ncb
+        self.col0, self.band_hi = W + 1 - ncb, 32 * (nw - nwb)
+        self.chunk, self.ll, self.stride = chunk, ll, y["lane_stride"]
+        self.buf = np.full((2, chunk, y["height"], lanes, y["lane_stride"]),
+                           0xDEADBEEF, np.uint32)
+        self.par = 0
+        self.raw = np.zeros((2, W + y["height"] - 1, L), np.uint32)
+        self.band = np.full((k + 1, ncb, nwb), 0x5A5A5A5A, np.uint32)
+        self.flushed = np.zeros(self.band.shape, np.int64)
+        if self.col0 == 0:                       # the analytic column 0
+            d = np.arange(k + 1)[:, None]
+            self.band[:, 0] = ones_below_word(d, np.arange(nwb)[None])
+            self.flushed[:, 0] = 1
+
+    def tile(self, b, WT, GW):
+        """Word strip b's raw top words in and out (GW is 1 past 16
+        words: one level group), and the tile's word threads."""
+        self.bs, self.WT = b, WT
+        strips = -(-self.nw // WT)
+        assert strips == 1 or GW == 1
+        self.raw_in = self.raw[(b - 1) & 1] if b > 0 else None
+        self.raw_out = self.raw[b & 1] if b + 1 < strips else None
+        self.h = (np.arange(GW)[:, None, None] * L +
+                  np.arange(L)[None, :, None])           # g L + l
+
+    def stage(self, u, j, new, w, on):
+        """Step u's cells (GW, L, WT) into row (u mod chunk, g L + l): the
+        raw word w at slot w - w0 where the window from w0 = base / 32
+        spans it (nwb + 1 words); at a strip's bottom the first word
+        thread also stages the raw word below, kept by the strip below's
+        top word thread (raw_out), at slot w - 1 - w0.  A step whose newest
+        column (u + 1) is before col0 stages nothing."""
+        if u + 1 < self.col0:
+            return
+        on = on & (j >= self.col0)
+        slot = w - (np.clip(j - 2 - self.k, 0, self.band_hi) >> 5)
+        row = self.buf[self.par, u % self.chunk, :, self.ll]   # (H, S)
+        ok = on & (slot >= 0) & (slot <= self.nwb)
+        row[np.broadcast_to(self.h, slot.shape)[ok], slot[ok]] = new[ok]
+        if self.raw_out is not None:
+            self.raw_out[u] = new[0, :, self.WT - 1]
+        if self.raw_in is not None:
+            s0 = slot[0, :, 0] - 1
+            ok = on[0, :, 0] & (s0 >= 0) & (s0 <= self.nwb)
+            row[np.arange(L)[ok], s0[ok]] = self.raw_in[u][ok]
+
+    def flush(self, u0, n, a, bs, H):
+        """Rows of steps [u0, u0 + n) to the band; the buffers swap."""
+        c, h = np.divmod(np.arange(n * H), H)
+        d, j = a + h, u0 + c - h + 1
+        ok = (d <= self.k) & (j >= max(self.col0, 1)) & (j <= self.W)
+        base = np.clip(j - 2 - self.k, 0, self.band_hi)
+        lw = (base >> 5)[:, None] + np.arange(self.nwb)
+        own = ok[:, None] & ((lw + (lw + 1 < self.nw)) // self.WT == bs)
+        r_, b_ = np.nonzero(own)
+        raw = self.buf[self.par, c[r_], h[r_], self.ll]         # (n, S)
+        at = (d[r_], j[r_] - self.col0, b_)
+        self.band[at] = funnel_r(raw[np.arange(len(r_)), b_],
+                                 raw[np.arange(len(r_)), b_ + 1],
+                                 (base[r_] & 31).astype(np.uint64))
+        np.add.at(self.flushed, at, 1)
+        self.par ^= 1
+
+
+def funnel_r(lo, hi, sh):
+    """__funnelshift_r(lo, hi, sh): (hi:lo) >> sh, its low word."""
+    both = (np.asarray(hi).astype(np.uint64) << np.uint64(32)) | \
+        np.asarray(lo).astype(np.uint64)
+    return ((both >> sh) & np.uint64(0xFFFFFFFF)).astype(np.uint32)
 
 
 def put(store, written, dd, j, v, w, k, nw, cols, jlo, boff, band_hi, nwbr,
@@ -249,6 +347,30 @@ def test_k1_schedule_equals_the_plain_fill_and_band(W, O, k):
         assert written.reshape(k + 1, ncb, x["nwbr"])[:top + 1][:, real].all()
         np.testing.assert_array_equal(windows(rows, bases, nwb),
                                       band[:top + 1, :, :, lane])
+
+
+@pytest.mark.parametrize("W,O,k", SQUARE)
+def test_k3_schedule_equals_the_plain_band(W, O, k):
+    """K3's schedule: every strip, each stored cell's window word staged
+    at its row, lane and word of the block's buffer (lanes 0 and 3 of the
+    block) and flushed every chunk steps; the band's every level, each
+    word written once, and the dist equal ``dc_band_plain``'s."""
+    cfg = AlignerConfig(W=W, O=O, k=k)
+    pats, txts = _square(np.random.default_rng(W + k), W, k)
+    lanes = (0, 3) if W < 1100 else (0,)
+    pats, txts = pats[list(lanes)], txts[list(lanes)]
+    pm, text, masks = _inputs(pats, txts, cfg)
+    dist_p, band_p, _ = genasm_dc.dc_band_plain(pm, text, cfg=cfg)
+    geo = genasm_dc.xwide_geometry(cfg, "dc_band")
+    ncb, nwb, nw = cfg.ncols_band, cfg.nwb, cfg.nw
+    for i, ll in enumerate(lanes):
+        out = K3Out(W, k, nw, nwb, ncb, geo.lanes, ll, geo.chunk)
+        _, _, dist = model_lane(masks[i], text[:, i].numpy(), W, k, nw, nwb,
+                                0, W + 1 - ncb, -2 - k, W, W - 1, k3=out)
+        assert dist == int(dist_p[i])
+        assert (out.flushed == 1).all()
+        np.testing.assert_array_equal(
+            out.band, band_p[..., i].numpy().astype(np.uint32))
 
 
 TAILS = [(W, O, k, store) for W, O in ((288, 96), (320, 96), (512, 192))

@@ -1,5 +1,5 @@
 """Where a K1 launch's time goes: K1 built three ways and timed; at NW >= 9
-also the wide tail kernel (K2 / K4).
+also the wide tail kernel (K2 / K4) and K3.
 
     python3 tools/torch_k1_breakdown.py [--reps 50] [--widths 64]
                                         [--ks 12,24,48] [--tree PATH]
@@ -16,14 +16,18 @@ variants' outputs are not checked: they compute less.
 Widths up to 256 (the templates): K1's body ``csrc/tb_fused.cuh`` and the
 units that instantiate it (``tb_fused.cu``, ``tb_fused_wide.cu``), at
 2,048 and 4,096 lanes.  Widths past 256 (the wide family, NW >= 9): the
-units ``tb_fused_xwide.cu`` and ``tail_fused_xwide.cu`` with their
-headers, K1 and the rung's tail (K2 where ``cfg.tail_banded``, else K4) at
-2,048 lanes (256 drawn, repeated, as ``chip_smoke._ladder_rows``), O =
-3W/8.  Two designs of the wide family are known: the register fill
-(``genasm_xwide_reg.cuh``; its no-store variant keeps each level group's
-top level, which the next strip may read back from the store: 1/16 of
-the stores) and the earlier shared ring of three steps.  ``--tree`` names
-another checkout (e.g. the parent unpacked with ``git archive`` under
+units ``tb_fused_xwide.cu``, ``tail_fused_xwide.cu`` and
+``dc_band_xwide.cu`` with their headers, K1, the rung's tail (K2 where
+``cfg.tail_banded``, else K4) and K3 at 2,048 lanes (256 drawn, repeated,
+as ``chip_smoke._ladder_rows``), O = 3W/8.  K3 walks nothing: its
+``stores`` are the band's writes (staging and flush, or the ring's
+stores), its ``fill`` the rest.  Two designs of the wide family are
+known: the register fill for all three kernels (``genasm_xwide_reg.cuh``;
+the no-store variant keeps each level group's top level, which the next
+strip may read back from the store: 1/16 of K1's stores, and K3 stages
+and writes nothing), and the register fill for K1 and the tails with K3
+on the earlier shared ring of three steps.  ``--tree`` names another
+checkout (e.g. the parent unpacked with ``git archive`` under
 ``build/``), whose ``chip_smoke`` and ``repro_torch`` are imported and
 whose sources are patched, so one tool measures both designs.
 
@@ -53,32 +57,41 @@ SWITCHES = [("  if (walker) {\n    const int w = threadIdx.x, wdist",
             ("    if (on && j >= col0) store(j);",
              "    if (K1_STORE && on && j >= col0) store(j);")]
 #: the wide family's switches by design, as {file: [(line, patched)]}
+_WALK_SWITCHES = {
+    "tb_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
+                           "      const XrBand st{",
+                           "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
+                           "      const XrBand st{")],
+    "tail_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
+                             "      // the lane's lengths",
+                             "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
+                             "      // the lane's lengths")]}
 WIDE_SWITCHES = {
-    "register fill": {
-        "tb_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
-                               "      const XrBand st{",
-                               "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
-                               "      const XrBand st{")],
-        "tail_fused_xwide.cu": [("    if ((threadIdx.x & 31) == 0) {\n"
-                                 "      // the lane's lengths",
-                                 "    if (K1_WALK && (threadIdx.x & 31) == 0) {\n"
-                                 "      // the lane's lengths")],
+    "register fill, K3 staged": {
+        **_WALK_SWITCHES,
+        "genasm_xwide_reg.cuh": [
+            ("        if (on && d0 + l <= k && j >= sm.jlo &&",
+             "        if (on && (K1_STORE || l == L - 1) &&\n"
+             "            d0 + l <= k && j >= sm.jlo &&"),
+            ("      stage<ON>(u, jt, nxt);",
+             "      if (K1_STORE) stage<ON>(u, jt, nxt);"),
+            ("            *reinterpret_cast<uint4*>(dst) = make_uint4(",
+             "            if (K1_STORE) *reinterpret_cast<uint4*>(dst) = "
+             "make_uint4("),
+            ("          for (int b = b0; b < nwb; b += per, src += per, "
+             "dst += hop)\n            *dst = __funnelshift_r(",
+             "          for (int b = b0; b < nwb; b += per, src += per, "
+             "dst += hop)\n            if (K1_STORE) *dst = "
+             "__funnelshift_r(")]},
+    "register fill, K3 ring": {
+        **_WALK_SWITCHES,
         "genasm_xwide_reg.cuh": [("      if (on && d0 + l <= k && j >= sm.jlo &&",
                                   "      if (on && (K1_STORE || l == L - 1) &&\n"
-                                  "          d0 + l <= k && j >= sm.jlo &&")]},
-    "shared ring": {
-        "tb_fused_xwide.cu": [
-            ("    if (w >= lanes || lane >= B) return;",
-             "    if (w >= lanes || lane >= B || !K1_WALK) return;"),
+                                  "          d0 + l <= k && j >= sm.jlo &&")],
+        "dc_band_xwide.cu": [
             ("      if (s >= 1) f.store(s - 1, W, nwb, col0, base_of, put);",
              "      if (K1_STORE && s >= 1)\n"
-             "        f.store(s - 1, W, nwb, col0, base_of, put);")],
-        "tail_fused_xwide.cu": [
-            ("    if (w < lanes && lane < B) {",
-             "    if (K1_WALK && w < lanes && lane < B) {"),
-            ("      if (s >= 1) f.store(s - 1, max_last, nwb, 1, base_of, put);",
-             "      if (K1_STORE && s >= 1)\n"
-             "        f.store(s - 1, max_last, nwb, 1, base_of, put);")]}}
+             "        f.store(s - 1, W, nwb, col0, base_of, put);")]}}
 VARIANTS = {"full": (1, 1), "no_walk": (0, 1), "no_walk_no_store": (0, 0)}
 
 
@@ -145,7 +158,8 @@ def build_wide_variants(build, out_dir: Path) -> tuple[str, dict]:
         (out_dir / name).write_text(_patch((build.CSRC / name).read_text(),
                                            switches, name))
     libs = _compile(build, out_dir, ("tb_fused_xwide.cu",
-                                     "tail_fused_xwide.cu"))
+                                     "tail_fused_xwide.cu",
+                                     "dc_band_xwide.cu"))
     return design, libs
 
 
@@ -214,7 +228,7 @@ def wide_rows(cs, genasm_dc, AlignerConfig, build, W, ks, reps, dev, label):
     for k in ks:
         cfg = AlignerConfig(W=W, O=3 * W // 8, k=k)
         tail = "tail_banded" if cfg.tail_banded else "tail_full"
-        for name in ("tb_fused", tail):
+        for name in ("tb_fused", tail, "dc_band"):
             inputs, kw, _ = cs._repeated(cs._case(name, cfg, 256, rng, dev),
                                          8)
             wrapper = cs.KERNELS[name][0]
@@ -225,6 +239,7 @@ def wide_rows(cs, genasm_dc, AlignerConfig, build, W, ks, reps, dev, label):
                 call = lambda: wrapper(*inputs, **kw)     # noqa: E731
                 call()
                 row[variant] = cs._device_ms(call, reps, dev)
+                del call
                 torch.cuda.empty_cache()
             row["walk"] = row["full"] - row["no_walk"]
             row["stores"] = row["no_walk"] - row["no_walk_no_store"]
