@@ -3,14 +3,16 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc
-(one process a unit, the NW = 5..8 instantiations and the wide family at
-NW >= 9 in units of their own), holds each kernel against its plain
-PyTorch version on the card (K1 also over a grid of its instantiations
-and block geometries, with its occupancy; K2 and K4 over every tail
-instantiation in both store placements; K3 over every instantiation in
-both band placements, with its occupancy; at W = 129..256 every
-instantiation in its one placement; at W = 288, 320, 512 and 1024 the
-wide family over every level capacity to 1,024), times K1, K2 / K4 and
+(one process a unit, the NW = 5..8 instantiations and the wide family in
+units of their own), holds each kernel against its plain PyTorch version
+on the card (K1 also over a grid of its instantiations and block
+geometries, with its occupancy; K2 and K4 over every tail instantiation
+in both store placements; K3 over every instantiation in both band
+placements, with its occupancy; at W = 129..256 every (NW, KP, NWB) on
+its route, ``genasm_dc.kernel_family``: K1's and the tails' register fill
+or the template kept there, K3's instantiations in their one placement;
+at W = 288, 320, 512 and 1024 the wide family over every level capacity
+to 1,024), times K1, K2 / K4 and
 K3 on each rung of the W = 256 and W = 512 ladders at 2,048 lanes (with
 the peak of device memory each takes), drives the aligner's main path (``GenASMAligner.align``) on
 PBSIM2-like long reads through the fused backend (K1, K2, K4) and the
@@ -176,15 +178,15 @@ SOURCES = {"tb_fused": _CSRC + "tb_fused.cu",
            "dc_band": _CSRC + "dc_band.cu",
            "ladder_gate": _CSRC + "ladder_graph.cu"}
 #: each kernel's body, its instantiations at NW = 5..8 and its wide
-#: family at NW >= 9 (with the family's header, the register fill)
+#: family (with the family's header, the register fill)
 WIDE_SOURCES = {name: [SOURCES[name], SOURCES[name].replace(".cu", ".cuh"),
                        SOURCES[name].replace(".cu", "_wide.cu"),
                        SOURCES[name].replace(".cu", "_xwide.cu"),
                        _CSRC + "genasm_xwide_reg.cuh"]
                 for name in ("tb_fused", "tail_banded", "tail_full",
                              "dc_band")}
-#: the wide family's kernels (NW >= 9), each one kernel, by its name in
-#: ptxas's report and in ``genasm_dc.REGISTERS``
+#: the wide family's kernels (``genasm_dc.kernel_family``), each one
+#: kernel, by its name in ptxas's report and in ``genasm_dc.REGISTERS``
 XWIDE_KERNELS = {"tb_fused_xwide_kernel": ("tb_fused_xwide", "tb_fused"),
                  "tb_window_xwide_kernel": ("tb_window_xwide", "tb_fused"),
                  "tail_fused_xwide_kernel": ("tail_fused_xwide", "tail"),
@@ -250,14 +252,32 @@ def phase_build() -> dict:
     per_source = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^== (\S+): ([\d.]+) s$", report, re.M)}
     over = _registers_over_table(usage)
+    unreached = _unreached(usage)
     emit("build", seconds=seconds, nvcc_seconds=per_source,
          library=lib.name, instantiations=len(usage),
-         registers_over_table=over, ptxas=usage)
+         registers_over_table=over, unreached=unreached, ptxas=usage)
     if over:
         raise AssertionError(f"ptxas counts more registers than "
                              f"genasm_dc.REGISTERS, which caps the blocks: "
                              f"{over}")
+    if unreached:
+        raise AssertionError(f"instantiations no route reaches "
+                             f"(genasm_dc.kernel_family): {unreached}")
     return usage
+
+
+def _unreached(usage: dict) -> list:
+    """K1's and the tails' template instantiations at NW = 5..8 whose (NW,
+    KP) ``genasm_dc.kernel_family`` routes to the wide family
+    (``TEMPLATE_KEPT`` does not name it): built, and never launched."""
+    out = []
+    for name in usage:
+        m = re.match(r"(tb_fused|tail_fused)<NW=(\d+),KP=(\d+),", name)
+        if m and int(m.group(2)) > genasm_dc.NARROW_NW and (
+                int(m.group(2)), int(m.group(3))) not in \
+                genasm_dc.TEMPLATE_KEPT[REGISTER_FAMILY[m.group(1)]]:
+            out.append(name)
+    return out
 
 
 #: each kernel template's family in ``genasm_dc.REGISTERS``
@@ -301,8 +321,9 @@ def _kernel_name(template: str, args) -> str:
 
 def _instantiation(name: str, cfg: AlignerConfig, placement=None) -> str:
     """The usage key of the instantiation kernel `name` runs for `cfg`
-    (at NW >= 9 the wide family's one kernel)."""
-    if cfg.nw > genasm_dc.TEMPLATE_NW:
+    (the wide family's one kernel where ``genasm_dc.kernel_family`` names
+    it)."""
+    if _xwide(cfg, name):
         return {"tb_fused": "tb_fused_xwide", "dc_band": "dc_band_xwide"}.get(
             name, "tail_fused_xwide")
     kp = genasm_dc.levels_bucket(cfg.k)
@@ -531,7 +552,7 @@ def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
     row = dict(name=name, W=cfg.W, k=cfg.k, lanes=n_pairs, max_abs_err=err,
                plain_ms=plain_ms, plain_on=plain_on,
                solved=int((dist <= cfg.k).sum()))
-    if loop and _xwide(cfg):
+    if loop and _xwide(cfg, name):
         row.update(_loop_check(name, cfg, call, ref, n_pairs,
                                _k1_block(cfg).lanes, device, what))
     if reps:
@@ -539,9 +560,10 @@ def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
     return row
 
 
-def _xwide(cfg: AlignerConfig) -> bool:
-    """Whether `cfg` runs the wide family (NW >= 9)."""
-    return cfg.nw > genasm_dc.TEMPLATE_NW
+def _xwide(cfg: AlignerConfig, name: str) -> bool:
+    """Whether kernel `name` runs the wide family at `cfg`
+    (``genasm_dc.kernel_family``)."""
+    return genasm_dc.kernel_family(cfg, name) == "xwide"
 
 
 @contextlib.contextmanager
@@ -567,7 +589,7 @@ def _loop_check(name: str, cfg: AlignerConfig, call, ref, lanes: int,
     groups than the card's resident blocks) do not run.  {} where the
     case is not wide or has one group, or off the card."""
     groups = -(-lanes // block_lanes)
-    if not _xwide(cfg) or groups < 2 or device.type != "cuda":
+    if not _xwide(cfg, name) or groups < 2 or device.type != "cuda":
         return {}
     blocks = max(1, groups // 8)
     with _grid_of(blocks):
@@ -582,7 +604,7 @@ def _block_row(cfg: AlignerConfig, geo) -> dict:
     levels a thread, or the wide family's register fill (WT word threads
     and GW level groups a warp; K3's staged rows a buffer, its steps a
     flush x GW x XR_LEVELS); lanes, threads and shared bytes."""
-    if _xwide(cfg):
+    if isinstance(geo, genasm_dc.XwideGeometry):
         own = dict(family="xwide", WT=geo.words, GW=geo.depth)
         if geo.chunk:
             own.update(staging_rows=geo.chunk * geo.depth * geo.levels)
@@ -600,7 +622,7 @@ def tail_launcher(name: str, cfg: AlignerConfig, geo, inputs, kw):
     CPU inputs, and for the wide family (one block, the wrapper's): the
     wrapper."""
     pm, text, m_len, n_len = inputs
-    if pm.device.type != "cuda" or _xwide(cfg):
+    if pm.device.type != "cuda" or _xwide(cfg, name):
         return lambda: KERNELS[name][0](*inputs, **kw)
     lanes, dev = pm.shape[-1], pm.device
     ops = torch.empty((kw["max_ops"], lanes), dtype=torch.int32, device=dev)
@@ -629,13 +651,14 @@ def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
                    usage=None):
     """The geometry of the tail kernel `name` for `cfg` at its main-path
     shapes, in `placement` (default: the geometry's own choice; the wide
-    family's block at NW >= 9, placement "xwide"), and a row of its
+    family's block where it runs the tails, placement "xwide"), and a row
+    of its
     block, store and (with ``usage``, on the card) occupancy and ptxas
     report."""
     n_text = cfg.W + 4 * cfg.k
     banded = name == "tail_banded"
     nwb = cfg.nwb if banded else cfg.nw
-    if _xwide(cfg):
+    if _xwide(cfg, name):
         geo = genasm_dc.xwide_geometry(cfg, name, n_text)
         placement = "xwide"
     else:
@@ -648,7 +671,8 @@ def _tail_geometry(name: str, cfg: AlignerConfig, placement=None,
                                          if placement == "shared"
                                          else geo.store_words))
     if usage is not None:
-        blocks, limit = (genasm_dc.xwide_occupancy(name, geo) if _xwide(cfg)
+        blocks, limit = (genasm_dc.xwide_occupancy(name, geo)
+                         if _xwide(cfg, name)
                          else genasm_dc.tail_occupancy(cfg, geo, banded))
         if limit < geo.shared_bytes:
             raise AssertionError(f"{name} W={cfg.W} k={cfg.k}: the card "
@@ -670,7 +694,7 @@ def k3_launcher(cfg: AlignerConfig, geo, inputs):
     default.  On CPU inputs, and for the wide family (one block, the
     wrapper's): the wrapper."""
     pm, text = inputs
-    if pm.device.type != "cuda" or _xwide(cfg):
+    if pm.device.type != "cuda" or _xwide(cfg, "dc_band"):
         return lambda: genasm_dc.genasm_dc(pm, text, cfg=cfg)
     lanes, dev = pm.shape[-1], pm.device
     dist, levels = (torch.empty(lanes, dtype=torch.int32, device=dev)
@@ -699,7 +723,7 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
     the steps between two flushes of its staging buffer), and a row of its
     block and (with ``usage``, on the card) the shared bytes the card
     allows, blocks per SM and ptxas's report."""
-    if _xwide(cfg):
+    if _xwide(cfg, "dc_band"):
         geo = genasm_dc.xwide_geometry(cfg, "dc_band")
         placement, chunk = "xwide", geo.chunk
     else:
@@ -709,7 +733,7 @@ def _k3_geometry(cfg: AlignerConfig, placement=None, usage=None,
                **_block_row(cfg, geo), placement=placement, chunk=chunk)
     if usage is not None:
         blocks, limit = (genasm_dc.xwide_occupancy("dc_band", geo)
-                         if _xwide(cfg)
+                         if _xwide(cfg, "dc_band")
                          else genasm_dc.dc_band_occupancy(cfg, geo))
         if limit < geo.shared_bytes:
             raise AssertionError(f"K3 W={cfg.W} k={cfg.k}: the card allows "
@@ -800,7 +824,8 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
 #: K1's window form (``window_step.genasm_tb_window``) is held to its
 #: plain version (``tb_window_plain``) and timed at these (W, O, ks): the
 #: main path's rungs, W = 128 at KP = 128, and the first and last rungs of
-#: the W = 256 and W = 512 ladders (NW = 8, and the wide family); checked
+#: the W = 256 and W = 512 ladders (NW = 8: the template at k = 30, the
+#: register fill at 240; NW = 16); checked
 #: on ``TB_WINDOW_LANES`` lanes over ``TB_WINDOW_WINDOWS`` windows in a row
 #: (phase k1_grid), timed at ``TB_WINDOW_TIMED`` lanes beside K1's
 #: standalone form on the same slices (phase kernel)
@@ -884,7 +909,7 @@ def _tb_window_check(device, cfg: AlignerConfig, lanes: int, seed: int,
     groups = -(-lanes // _k1_block(cfg).lanes)
     for w in range(windows):
         # a wide case's window 1 on one block, which walks every lane group
-        one = _xwide(cfg) and w == 1
+        one = _xwide(cfg, "tb_fused") and w == 1
         with _grid_of(1) if one else contextlib.nullcontext():
             window_step.genasm_tb_window(reads, refs, read_len, state,
                                          cfg=cfg, window=w)
@@ -900,7 +925,8 @@ def _tb_window_check(device, cfg: AlignerConfig, lanes: int, seed: int,
     return dict(name="tb_window", W=cfg.W, k=cfg.k, lanes=lanes,
                 windows=windows, max_abs_err=err, plain_ms=plain_ms[0],
                 plain_on=device.type, **kinds, groups=groups,
-                loop_window=1 if _xwide(cfg) and groups > 1 else None,
+                loop_window=1 if _xwide(cfg, "tb_fused") and groups > 1
+                else None,
                 failed_after=int(state["failed"].sum()),
                 levels=state["levels"][:windows].tolist())
 
@@ -950,7 +976,9 @@ def _tb_window_rows(device: torch.device, reps: int,
     for W, O, ks in cases:
         for k in ks:
             cfg = AlignerConfig(W=W, O=O, k=k)
-            n = W512_REPS if _xwide(cfg) else reps
+            # one call a timing where a call takes 8-580 ms (W > 256)
+            slow = cfg.nw > genasm_dc.TEMPLATE_NW
+            n = W512_REPS if slow else reps
             for lanes in lane_counts:
                 reads, refs, read_len, state = _window_batch(
                     device, cfg, lanes, _window_read_len(W), seed=W + k)
@@ -990,9 +1018,9 @@ def _tb_window_rows(device: torch.device, reps: int,
                 alone = _timing("tb_fused", cfg,
                                 lambda: genasm_dc.genasm_tb_fused(pm, text,
                                                                   **kw),
-                                n, device, warm=0 if _xwide(cfg) else 2)
+                                n, device, warm=0 if slow else 2)
                 row.update(_timing("tb_window", cfg, window_call, n, device,
-                                   warm=0 if _xwide(cfg) else 2),
+                                   warm=0 if slow else 2),
                            standalone_ms=alone["ms"],
                            standalone_event_ms=alone["event_ms"])
                 del reads, refs, read_len, state, pm, text
@@ -1017,12 +1045,14 @@ def _geometry_row(name: str, cfg: AlignerConfig, usage) -> dict:
         return {}
     geo = _k1_block(cfg)
     row = dict(_k1_geometry(cfg),
-               placement="xwide" if _xwide(cfg) else geo.placement,
+               placement="xwide" if _xwide(cfg, "tb_fused")
+               else geo.placement,
                store_bytes_per_lane=4 * geo.store_words,
                ptxas=(usage or {}).get(_instantiation("tb_fused", cfg)))
     if usage is not None:
         row["blocks_per_sm"] = (
-            genasm_dc.xwide_occupancy("tb_fused", geo) if _xwide(cfg)
+            genasm_dc.xwide_occupancy("tb_fused", geo)
+            if _xwide(cfg, "tb_fused")
             else genasm_dc.tb_fused_occupancy(cfg, geo))[0]
     return row
 
@@ -1042,7 +1072,7 @@ def _later_lanes(name: str, cfg: AlignerConfig, inputs, kw, got,
     later ones fall to a block's later lane groups) against the kernel
     run on those lanes alone (each in a block's first group): max abs
     err 0 or raise.  {} below NW = 9 or off the card."""
-    if not _xwide(cfg) or device.type != "cuda":
+    if not _xwide(cfg, name) or device.type != "cuda":
         return {}
     B = inputs[0].shape[-1]
     lanes = sorted({0, 1, B // 2, B - 1})
@@ -1198,9 +1228,12 @@ def _wide_ks(nw: int):
             or -(-(2 * k + 3) // 32) <= nw]
 
 
-#: K1's grid at NW = 5..8: every (NW, KP, NWB) instantiation of
-#: tb_fused_wide.cu at 37 lanes, and a few at 1 lane (W = 256, k = 240 and
-#: 255; no early termination at W = 192, k = 100)
+#: K1's grid at NW = 5..8: every (NW, KP, NWB) these widths reach, each on
+#: its route (``genasm_dc.kernel_family``: the register fill, or the
+#: template ``TEMPLATE_KEPT`` keeps), at 37 lanes (a register-fill case
+#: also on a grid of fewer blocks than its 10 lane groups, ``_loop_check``:
+#: W = 256 at k = 40..128), and a few at 1 lane (W = 256, k = 240 and 255;
+#: no early termination at W = 192, k = 100)
 K1_WIDE_GRID = [(*WIDE_WIDTHS[nw], k, True, 37) for nw in WIDE_WIDTHS
                 for k in _wide_ks(nw)] + [
     (256, 96, 240, True, 1), (256, 96, 255, True, 1), (144, 48, 12, True, 1),
@@ -1226,7 +1259,7 @@ XWIDE_GRID = [(288, 96, 20, True, 37), (320, 96, 200, False, 37),
 
 def _k1_block(cfg: AlignerConfig):
     """K1's block for `cfg`: its template's, or the wide family's."""
-    if _xwide(cfg):
+    if _xwide(cfg, "tb_fused"):
         return genasm_dc.xwide_geometry(cfg, "tb_fused")
     return genasm_dc.tb_fused_geometry(cfg)
 
@@ -1269,7 +1302,7 @@ def phase_k1_grid(device: torch.device, reps: int = 20,
     for W, O, ks in TB_WINDOW_CASES:
         for k in ks:
             cfg = AlignerConfig(W=W, O=O, k=k)
-            geo = (_k1_block(cfg) if _xwide(cfg)
+            geo = (_k1_block(cfg) if _xwide(cfg, "tb_fused")
                    else genasm_dc.tb_fused_geometry(cfg, window=True))
             row = _tb_window_check(device, cfg, TB_WINDOW_LANES,
                                    seed=GRID_SEEDS["k1"] + W + k)
@@ -1284,8 +1317,9 @@ def phase_k1_occupancy(usage: dict) -> dict:
     """Per K1 instantiation of the default ladder, of W = 96 and 128 at
     k = 48 (fewer lanes a block), of KP = 128 (W = 96, k = 64; W = 128,
     k = 96: the band in device memory) and of NW = 5..8 (``K1_WIDE_GRID``'s
-    37-lane cases, one a (NW, KP, NWB)): its block, the dynamic shared bytes a
-    block asks for and the instantiation's limit as the card reports it,
+    37-lane cases, one a (NW, KP, NWB); the wide family's kernel where
+    ``genasm_dc.kernel_family`` names it): its block, the dynamic shared
+    bytes a block asks for and the kernel's limit as the card reports it,
     active blocks per SM on this card, and ptxas's registers and spills.
     Returns the rows of the default ladder's k (12, 24, 48)."""
     out = {}
@@ -1295,8 +1329,10 @@ def phase_k1_occupancy(usage: dict) -> dict:
                     (128, 48, 48), (96, 36, 64), (128, 48, 96), *wide):
         cfg = AlignerConfig(W=W, O=O, k=k)
         row = _k1_geometry(cfg)
-        blocks, limit = genasm_dc.tb_fused_occupancy(
-            cfg, genasm_dc.tb_fused_geometry(cfg))
+        blocks, limit = (
+            genasm_dc.xwide_occupancy("tb_fused", _k1_block(cfg))
+            if _xwide(cfg, "tb_fused") else genasm_dc.tb_fused_occupancy(
+                cfg, genasm_dc.tb_fused_geometry(cfg)))
         if limit < row["shared_bytes"]:
             raise AssertionError(f"K1 W={W} k={k}: the card allows {limit} "
                                  f"B of dynamic shared memory, a block asks "
@@ -1333,7 +1369,7 @@ def _k3_placements(cfg: AlignerConfig) -> tuple:
     """K3's band placements instantiated for `cfg`: both at NW <= 4, the
     one ``K3_PLACEMENT`` names at NW = 5..8, the wide family's own at NW
     >= 9."""
-    if cfg.nw > genasm_dc.TEMPLATE_NW:
+    if _xwide(cfg, "dc_band"):
         return ("xwide",)
     if cfg.nw <= genasm_dc.NARROW_NW:
         return K3_PLACEMENTS
@@ -1413,11 +1449,13 @@ TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (96, 36, 64, "auto", "tail_full"),
              (128, 48, 64, "band", "tail_banded"),
              (128, 48, 96, "full", "tail_full")]
-#: the tails' grid at NW = 5..8: every (NW, KP, NWB) instantiation of
-#: tail_fused_wide.cu (device memory only): 'auto' at K1's ks (K2 where the
-#: band is narrower than the vector, else K4), 'full' for K4 at KP = 16,
-#: 32 and 64, and K2 with the whole vector as its band ('band', W = 144,
-#: k = 128); at 37 lanes, and a few at 1 lane
+#: the tails' grid at NW = 5..8: every (NW, KP, NWB) these widths reach,
+#: each on its route (the register fill, or the template kept there,
+#: device memory only): 'auto' at K1's ks (K2 where the band is narrower
+#: than the vector, else K4), 'full' for K4 at KP = 16, 32 and 64, and K2
+#: with the whole vector as its band ('band', W = 144, k = 128); at 37
+#: lanes (the register fill's also on fewer blocks than lane groups,
+#: ``_loop_check``), and a few at 1 lane
 TAIL_WIDE_GRID = [
     (*WIDE_WIDTHS[nw], k, "auto") for nw in WIDE_WIDTHS
     for k in _wide_ks(nw)] + [
@@ -1482,8 +1520,8 @@ def phase_tail_grid(device: torch.device, reps: int = 20,
         inputs, kw, cols = _case(name, cfg, lanes, rng, device)
         ref, plain_ms, plain_on = _reference(name, inputs, kw, device,
                                              refs, cfg, lanes)
-        places = (PLACEMENTS if cfg.nw <= genasm_dc.NARROW_NW else
-                  ("xwide",) if cfg.nw > genasm_dc.TEMPLATE_NW else
+        places = (("xwide",) if _xwide(cfg, name) else
+                  PLACEMENTS if cfg.nw <= genasm_dc.NARROW_NW else
                   (genasm_dc.TAIL_PLACEMENT[(cfg.nw,
                                              genasm_dc.levels_bucket(k))],))
         for placement in places:
@@ -5272,9 +5310,11 @@ def main() -> None:
 def _families(usage: dict, name: str) -> dict:
     """Kernel `name`'s instantiations in the build, by family: "NW 1-4"
     (W <= 128, the source in ``SOURCES``), "NW 5-8" (W = 129..256, its
-    ``*_wide.cu``) and "NW 9+" (the wide family's one kernel, its
-    ``*_xwide.cu``), as ptxas reports them (K2 and K4 share one
-    template, and one wide kernel)."""
+    ``*_wide.cu``: K3's, and K1's / the tails' at ``TEMPLATE_KEPT``) and
+    "NW 9+" (the wide family's one kernel, its ``*_xwide.cu``, which K1
+    and the tails also run at the other NW = 5..8 configurations), as
+    ptxas reports them (K2 and K4 share one template, and one wide
+    kernel)."""
     template = {"tb_fused": "tb_fused", "dc_band": "dc_band"}.get(
         name, "tail_fused")
     out = {"NW 1-4": 0, "NW 5-8": 0,

@@ -33,7 +33,8 @@ reference's versions model its Triton path, a register model):
     (``gpu_split_store_words``).
   * The fill: each of a lane's G threads carries L = KP / G levels from
     one wavefront step to the next, not k+1 (``gpu_lane_state_words``).
-  * At NW >= 9 (W >= 257) the wide family (``xwide_geometry``): K1's band
+  * Where ``kernel_family`` names the wide family (K1 and the tails from
+    W = 129, K3 from W = 257; ``xwide_geometry``): K1's band
     (k+1) x ncols_band x nwbr words a lane and the tails' store (k+1) x
     n_text x nwbr (nwbr: the window's nwb words, plus one where it is
     narrower than the vector, raw; K4: nw) in the scratch of a persistent
@@ -48,7 +49,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..kernels.genasm_dc import (MEMORY_SHARE, TEMPLATE_NW, XR_LEVELS,
+from ..kernels.genasm_dc import (MEMORY_SHARE, XR_LEVELS, kernel_family,
                                  tail_geometry, tb_fused_geometry,
                                  xwide_geometry)
 from .config import AlignerConfig
@@ -119,12 +120,13 @@ def gpu_store_words(cfg: AlignerConfig, tile: int) -> int:
     """Words of K1's DENT band for `tile` lanes, wherever
     ``tb_fused_geometry`` places it: in the block's dynamic shared memory
     per lane k+1 rows of ncols_band x nwb words, with the row and bank
-    pads; in device memory (KP >= 128, or W > 128) the skewed
-    (ncols_band + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the
-    wide family's, (k+1) x ncols_band x nwbr raw words unpadded in its
-    block's scratch.  The reference's Triton path kept the same band unpadded in
-    device memory (``kernel_scratch_words``)."""
-    if cfg.nw > TEMPLATE_NW:
+    pads; in device memory (KP >= 128) the skewed
+    (ncols_band + rows0 - 1) x L x nwb x rows0 layout; where K1 runs the
+    wide family (``kernel_family``: W >= 129) that family's, (k+1) x
+    ncols_band rows of nwbs words (nwbr raw words, and at NW <= 8 pads to
+    a sector) in its block's scratch.  The reference's Triton path kept
+    the same band unpadded in device memory (``kernel_scratch_words``)."""
+    if kernel_family(cfg, "tb_fused") == "xwide":
         return xwide_geometry(cfg, "tb_fused").store_words * tile
     geo = tb_fused_geometry(cfg)
     return (geo.band_words or geo.store_words) * tile
@@ -138,13 +140,15 @@ def gpu_tail_store_words(cfg: AlignerConfig, tile: int,
     columns, default W + 4k, with the aligner's op budget W + n_text),
     wherever ``tail_geometry`` places it: in shared memory k+1 padded rows
     of n_text x nwb words (K4: nw), in device memory the skewed
-    (n_text + rows0 - 1) x L x nwb x rows0 layout; at NW >= 9 the wide
-    family's (k+1) x n_text x nwbr (K4: nw) in its block's scratch.  The
-    reference's Triton path kept (k+1) x n_text x nwb (K4: (k+1) x
-    (n_text+1) x nw) words in device memory (``tail_scratch_words``)."""
+    (n_text + rows0 - 1) x L x nwb x rows0 layout; where the tails run
+    the wide family (``kernel_family``: W >= 129) that family's (k+1) x
+    n_text rows of nwbs words (nwbr raw words, K4: nw; and at NW <= 8
+    pads to a sector) in its block's scratch.  The reference's Triton path
+    kept (k+1) x n_text x nwb (K4: (k+1) x (n_text+1) x nw) words in
+    device memory (``tail_scratch_words``)."""
     if n_text is None:
         n_text = cfg.W + 4 * cfg.k
-    if cfg.nw > TEMPLATE_NW:
+    if kernel_family(cfg, "tail") == "xwide":
         banded = cfg.tail_banded if banded is None else banded
         return xwide_geometry(cfg, "tail_banded" if banded else "tail_full",
                               n_text).store_words * tile
@@ -167,12 +171,12 @@ def gpu_lane_state_words(cfg: AlignerConfig) -> int:
     """Live DP words one fill thread carries from one wavefront step to
     the next: its L = KP / G levels of the current column and the column
     before of the level below its lowest (the word its neighbour shuffles
-    up), nw words each.  A lane's G threads hold G times that.  At NW >= 9
-    (K1's and the tails' register fill) a thread holds one word of its
-    L = ``XR_LEVELS`` levels and of the level below, for the last two
-    steps.  The reference's lane-per-thread model carried 2 x (k+1)
-    columns of nw words in one thread."""
-    if cfg.nw > TEMPLATE_NW:
+    up), nw words each.  A lane's G threads hold G times that.  Where K1
+    runs the wide family (``kernel_family``: W >= 129; the register fill)
+    a thread holds one word of its L = ``XR_LEVELS`` levels and of the
+    level below, for the last two steps.  The reference's lane-per-thread
+    model carried 2 x (k+1) columns of nw words in one thread."""
+    if kernel_family(cfg, "tb_fused") == "xwide":
         return 2 * (XR_LEVELS + 1)
     geo = tb_fused_geometry(cfg)
     return (geo.levels_per_thread + 1) * cfg.nw
@@ -182,16 +186,17 @@ def gpu_scratch_in_flight(cfg: AlignerConfig, kernel: str,
                           n_text: int | None = None,
                           free_bytes: int | None = None,
                           sms: int = H100_SMS) -> dict:
-    """The wide family's scratch (NW >= 9) of `kernel` ("tb_fused",
+    """The wide family's scratch of `kernel` ("tb_fused",
     "tail_banded", "tail_full" or "dc_band"; tails at `n_text` columns,
     default W + 4k): bytes a lane (its store and the fill's buffers), a
     block, and in flight: the blocks ``sms``
     SMs hold at once (``windowing.sm_blocks`` of the block's shared
     bytes and threads), no more than fit ``MEMORY_SHARE`` of
     `free_bytes` where given.  K3's band is its output, sized by the
-    batch, not scratch.  Below NW = 9 the templates' stores are a
-    lane's each (``gpu_store_words``, ``gpu_tail_store_words``): None."""
-    if cfg.nw <= TEMPLATE_NW:
+    batch, not scratch.  Where `kernel` runs its template
+    (``kernel_family``) its stores are a lane's each
+    (``gpu_store_words``, ``gpu_tail_store_words``): None."""
+    if kernel_family(cfg, kernel) != "xwide":
         return None
     geo = xwide_geometry(cfg, kernel, n_text, free_bytes)
     block = 4 * geo.block_words

@@ -33,7 +33,7 @@ import dataclasses
 import torch
 
 from ..distributed.sharding import check_shards
-from ..kernels.genasm_dc import (TEMPLATE_NW, tb_fused_geometry,
+from ..kernels.genasm_dc import (kernel_family, tb_fused_geometry,
                                  xwide_geometry)
 from ..kernels.ops import genasm_tail_fused_op
 from ..kernels.window_step import LEVELS_FLOOR, advance, genasm_tb_window
@@ -132,14 +132,15 @@ def plan_lane_tile(cfg: AlignerConfig, sms: int = H100_SMS,
     shared memory binds first, 7 blocks of 8 lanes, 7,392 lanes.  Plain
     arithmetic, the same on the CPU and the card.
 
-    At NW >= 9 the block is the wide family's (``xwide_geometry``: one
-    warp a lane, ``XR_LANES`` lanes a block), whose persistent grid holds
-    the same wave.
+    Where K1 runs the wide family (``kernel_family``: W >= 129) the block
+    is that family's (``xwide_geometry``: one warp a lane, ``XR_LANES``
+    lanes a block), whose persistent grid holds the same wave.
 
     ``plan(..., lane_tile='auto')`` resolves to this (``resolve_config``);
     in the port ``lane_tile`` is only the batch pad unit.  Raises
     ValueError, naming W, k and the bytes, where K1 fits no block."""
-    geo = (xwide_geometry(cfg, "tb_fused") if cfg.nw > TEMPLATE_NW
+    geo = (xwide_geometry(cfg, "tb_fused")
+           if kernel_family(cfg, "tb_fused") == "xwide"
            else tb_fused_geometry(cfg, window=True))
     blocks = sm_blocks(geo.shared_bytes, geo.threads, sm_shared_bytes,
                        sm_threads)

@@ -44,7 +44,7 @@ dc_band_xwide_kernel(
               y.lane_stride, y.row_stride, lanes, B, 0, W, k, nw, nwb, ncb,
               col0, band_hi, x.word_strips, __ffs(lanes) - 1,
               __ffs(x.wt) - 1};
-  const XrStoreMap sm{nullptr, ncb, col0, -2 - k, band_hi, nwb};
+  const XrStoreMap sm{nullptr, ncb, col0, -2 - k, band_hi, nwb, -1};
   const int groups = (B + lanes - 1) / lanes;
   for (int grp = blockIdx.x; grp < groups; grp += gridDim.x) {
     out.lane0 = grp * lanes;

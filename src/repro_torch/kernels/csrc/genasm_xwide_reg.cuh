@@ -1,14 +1,17 @@
 // The wide family's register fill, for K1 (tb_fused_xwide.cu), K2 / K4
-// (tail_fused_xwide.cu) and K3 (dc_band_xwide.cu) at NW >= 9 (W >= 257),
-// for Hopper (sm_90a).  NW, k and NWB are runtime arguments; the levels a
-// thread holds, XR_LEVELS, are the one compile-time constant.  No width or
-// k has a ceiling in the code.
+// (tail_fused_xwide.cu) at NW >= 5 (W >= 129) and K3 (dc_band_xwide.cu) at
+// NW >= 9 (W >= 257), for Hopper (sm_90a); K1 and the tails at NW = 5..8
+// where genasm_dc.kernel_family names it (K3 keeps its templates there).
+// NW, k and NWB are runtime arguments; the levels a thread holds,
+// XR_LEVELS, are the one compile-time constant.  No width or k has a
+// ceiling in the code.
 //
-// One warp a lane.  A lane's NW words are split over WT word threads (16
-// where NW <= 16, else 32), one word each; a warp holds GW = 32 / WT level
-// groups of L = XR_LEVELS levels, H = GW x L levels a strip.  The lane's
-// k+1 levels run as strips [a, a+H) one after another, and past 32 words
-// its words as word strips of 32 (tiles (a, b) in the order a, then b).
+// One warp a lane.  A lane's NW words are split over WT word threads (8
+// where NW <= 8, 16 where NW <= 16, else 32), one word each; a warp holds
+// GW = 32 / WT level groups of L = XR_LEVELS levels, H = GW x L levels a
+// strip.  The lane's k+1 levels run as strips [a, a+H) one after another,
+// and past 32 words its words as word strips of 32 (tiles (a, b) in the
+// order a, then b).
 // A warp shares nothing with the other warps of its block: no barrier but
 // __syncwarp, and the block's warps take lanes blockIdx.x * lanes + warp,
 // then gridDim.x * lanes further, reusing their slice of the scratch.
@@ -45,11 +48,17 @@
 //
 // Stores.  A cell (d, j) of a stored column writes its word from registers
 // where it lies in the column's window [w0, w0 + nwb] (w0 = base(j) / 32):
-// the raw words, nwb + 1 of them where nwb < NW (the reader funnels the
-// window out of two words), NW where the window is the vector.  A lane's
-// store is its own contiguous region, row (d, j) of nwbr words, so a group
-// writes its row's words side by side.  XrBand / XrTail read it back for
-// the walk, which stays one thread a lane (tb_walk).
+// the raw words, nwbr = nwb + 1 of them where nwb < NW (the reader funnels
+// the window out of two words), NW where the window is the vector.  A
+// lane's store is its own contiguous region, row (d, j) of nwbs words, so a
+// group writes its row's words side by side.  At NW <= 8 a row is 8 words,
+// one 32 B sector (a lane's scratch whole sectors), and each of a group's
+// 8 word threads writes one slot of it, (w - w0) mod 8: its word's, or a
+// pad no reader reads.  So every stored row leaves as one whole sector:
+// rows of nwbr < 8 words, partly written sectors, made K1's stores 3.5-4.5x
+// dearer at W = 160..256 (PERF.md section 6).
+// XrBand / XrTail read it back for the walk, which stays one thread a lane
+// (tb_walk).
 //
 // Early exit: the walk reads no level above dist, so once a strip holds
 // the lane's dist no further strip runs (K1, K2 / K4).
@@ -120,6 +129,8 @@ struct XrLayout {
   int last_max;
   bool below_in_store;   // the level below a strip read from the store
   long long nwbr;        // words of a stored column
+  long long nwbs;        // a stored row's slots and stride (nwbr; 8 at
+                         // NW <= 8, one sector)
   long long store_words, below_words, carry_words, lane_words;
 };
 
@@ -131,7 +142,7 @@ __host__ __device__ __forceinline__ long long xr_carry_len(const XrLayout& x) {
 XrLayout xr_layout(int nw, int k, int nwb, int cols, int jlo, int last_max,
                    int lanes) {
   XrLayout x;
-  x.wt = nw <= 16 ? 16 : WORD;
+  x.wt = nw <= 8 ? 8 : nw <= 16 ? 16 : WORD;
   x.gw = WORD / x.wt;
   x.height = x.gw * XR_LEVELS;
   x.strips = (k + x.height) / x.height;
@@ -141,12 +152,14 @@ XrLayout xr_layout(int nw, int k, int nwb, int cols, int jlo, int last_max,
   x.smem = lanes * x.warp_bytes;
   x.last_max = last_max;
   x.nwbr = nwb + (nwb < nw ? 1 : 0);
-  x.store_words = static_cast<long long>(k + 1) * cols * x.nwbr;
+  x.nwbs = nw <= 8 ? 8 : x.nwbr;
+  x.store_words = static_cast<long long>(k + 1) * cols * x.nwbs;
   x.below_in_store = cols > 0 && nwb == nw && jlo <= 1;
   x.below_words = x.strips > 1 && !x.below_in_store
                       ? static_cast<long long>(last_max) * nw : 0;
   x.carry_words = x.word_strips > 1 ? 2LL * xr_carry_len(x) : 0;
   x.lane_words = x.store_words + x.below_words + x.carry_words;
+  if (nw <= 8) x.lane_words = (x.lane_words + 7) & ~7LL;
   return x;
 }
 
@@ -208,12 +221,16 @@ bool xr_k3_block_ok(const XrK3Layout& y, int nw, int k, int nwb, int lanes,
          lane_words == y.x.lane_words && blocks >= 1;
 }
 
-// Where a lane's stored columns go: row (d, j) = d * cols + j - jlo, nwbr
-// raw words from word base(j) / 32, base(j) = clamp(j + boff, 0, band_hi).
+// Where a lane's stored columns go: row (d, j) = d * cols + j - jlo of
+// nwbs slots, slot s the raw word base(j) / 32 + s, base(j) = clamp(j +
+// boff, 0, band_hi); a step's slot is taken mod nwbs where `wrap` is nwbs -
+// 1 (NW <= 8: a group's 8 word threads write the row's 8 slots), else
+// slots past nwbs are not written (wrap ~0).
 struct XrStoreMap {
   uint32_t* store;
   int cols, jlo, boff, band_hi;
-  long long nwbr;
+  long long nwbs;
+  int wrap;
 
   __device__ __forceinline__ long long row(int d, int j) const {
     return static_cast<long long>(d) * cols + (j - jlo);
@@ -415,7 +432,7 @@ struct XrTile {
     if (below_in == nullptr || w >= nw) return ONES;
     const int jj = min(j, last);
     return x.below_in_store
-               ? below_in[sm.row(a - 1, jj) * sm.nwbr + w]
+               ? below_in[sm.row(a - 1, jj) * sm.nwbs + w]
                : below_in[static_cast<long long>(jj - 1) * nw + w];
   }
 
@@ -423,28 +440,30 @@ struct XrTile {
   __device__ __forceinline__ void put(int d, int j, uint32_t v) const {
     if (d > k || j < sm.jlo || w >= nw) return;
     const int slot = w - (sm.base(j) >> 5);
-    if (slot < 0 || slot >= sm.nwbr) return;
-    sm.store[sm.row(d, j) * sm.nwbr + slot] = v;
+    if (slot < 0 || slot >= sm.nwbs) return;
+    sm.store[sm.row(d, j) * sm.nwbs + slot] = v;
   }
 
   // The stored cells of a step: level l's column jt - l keeps the raw
   // words from word clamp(jt - l + boff, 0, band_hi) >> 5, which for the
   // L <= 32 levels of a thread is one of two words (l <= lb or not); its
   // row is level 0's plus l rows of a level less one column.  Threads past
-  // nw write only slots of words past the vector, which no reader reads.
+  // nw, and at NW <= 8 threads below the window (their slot taken mod 8),
+  // write only slots of words past the vector or pads, which no reader
+  // reads.
   struct StepRows {
     uint32_t* row0;       // level 0's row (outside the store when unused)
-    long long step;       // (cols - 1) x nwbr words: one level up, one
+    long long step;       // (cols - 1) x nwbs words: one level up, one
                           // column back
     int slot_a, slot_b, lb;
   };
 
   __device__ __forceinline__ StepRows rows(int jt) const {
     const int q = jt + sm.boff, whi = sm.band_hi >> 5;
-    return StepRows{sm.store + sm.row(d0, jt) * sm.nwbr,
-                static_cast<long long>(sm.cols - 1) * sm.nwbr,
-                w - clampi(q >> 5, 0, whi), w - clampi((q >> 5) - 1, 0, whi),
-                q & 31};
+    return StepRows{sm.store + sm.row(d0, jt) * sm.nwbs,
+                static_cast<long long>(sm.cols - 1) * sm.nwbs,
+                (w - clampi(q >> 5, 0, whi)) & sm.wrap,
+                (w - clampi((q >> 5) - 1, 0, whi)) & sm.wrap, q & 31};
   }
 
   // Step u (s = a + u) of the tile: P the roles of the arrays, ON every
@@ -519,7 +538,7 @@ struct XrTile {
         nxt[l] = v;
         const int slot = l <= r.lb ? r.slot_a : r.slot_b;
         if (on && d0 + l <= k && j >= sm.jlo &&
-            static_cast<unsigned>(slot) < static_cast<unsigned>(sm.nwbr))
+            static_cast<unsigned>(slot) < static_cast<unsigned>(sm.nwbs))
           r.row0[l * r.step + slot] = v;
       }
     }
@@ -705,17 +724,17 @@ __device__ __forceinline__ int xr_fill(
 }
 
 // K1's band of one lane as the walk reads it: row (d, q = j - col0) of
-// nwbr raw words from word base(j) / 32; tests() is K1Band's.
+// raw words from word base(j) / 32, nwbs words a row; tests() is K1Band's.
 struct XrBand {
   const uint32_t* band;   // the lane's band
   int k, ncb, col0, band_hi, nwb;
-  long long nwbr;
+  long long nwbs;
 
   // bit `off` of the window from `base` in row `row`: its raw word
   __device__ __forceinline__ bool zero(long long row, int base,
                                        int offc) const {
     const int pos = base + offc;
-    const uint32_t v = band[row * nwbr + ((pos >> 5) - (base >> 5))];
+    const uint32_t v = band[row * nwbs + ((pos >> 5) - (base >> 5))];
     return ((v >> (pos & 31)) & 1u) == 0;
   }
 
@@ -743,20 +762,20 @@ struct XrBand {
   }
 };
 
-// The tails' store of one lane: row (d, jc = j - 1) of nwbr raw words from
-// word base / 32, base = clamp(j + diag - (k+1), 0, band_hi) (K4: 0);
-// tests() is TailStore's (K2 `banded`, K4 not).
+// The tails' store of one lane: row (d, jc = j - 1) of raw words from word
+// base / 32, base = clamp(j + diag - (k+1), 0, band_hi) (K4: 0), nwbs
+// words a row; tests() is TailStore's (K2 `banded`, K4 not).
 struct XrTail {
   const uint32_t* store;  // the lane's store
   int k, n_text, diag, band_hi, nwb;
-  long long nwbr;
+  long long nwbs;
   bool banded;
 
   __device__ __forceinline__ bool bit(long long row, int base, int off,
                                       int ii, int jj, int dd) const {
     const int offc = clampi(off, 0, nwb * WORD - 1);
     const int pos = base + offc;
-    const uint32_t v = store[row * nwbr + ((pos >> 5) - (base >> 5))];
+    const uint32_t v = store[row * nwbs + ((pos >> 5) - (base >> 5))];
     const bool zero = ((v >> (pos & 31)) & 1u) == 0;
     const bool in_window = !banded | (off == offc);
     return ((ii < 0) & (jj <= dd)) | ((ii >= 0) & (jj <= 0) & (ii < dd)) |

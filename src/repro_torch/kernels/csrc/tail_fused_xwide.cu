@@ -1,5 +1,6 @@
-// K2 and K4 at NW >= 9 (W >= 257): the fused GenASM-DC+TB kernel of the
-// ragged rectangular tail in the wide family, for Hopper (sm_90a).
+// K2 and K4 in the wide family (from NW = 5, W = 129, where
+// genasm_dc.kernel_family names it): the fused GenASM-DC+TB kernel of the
+// ragged rectangular tail, for Hopper (sm_90a).
 // Replaces, at these widths, the Pallas TPU kernels _kernel_tail_banded
 // (K2, `banded`: nwb < nw words around the lane's diagonal) and
 // _kernel_tail_fused (K4: the full vector, nwb = nw) of
@@ -12,9 +13,9 @@
 // the lane's columns 1..min(n_len, n_text), each column's window (base
 // clamp(j + diag - (k+1), 0, band_hi), diag = m_len - 1 - n_len; 0 for K4)
 // written raw to the lane's store in its block's scratch ((k+1) x n_text
-// x nwbr words), dist at bit m_len - 1, then one thread of the warp walks
-// the store (tb_walk over XrTail).  A lane with m_len = 0 has no dist and
-// no fill.  At W = 512, k = 480 a K4 lane's store is 74.9 MB: the grid
+// rows of nwbs words), dist at bit m_len - 1, then one thread of the warp
+// walks the store (tb_walk over XrTail).  A lane with m_len = 0 has no dist
+// and no fill.  At W = 512, k = 480 a K4 lane's store is 74.9 MB: the grid
 // holds as many blocks as fit the share of free memory the wrapper gives
 // it.
 //
@@ -47,7 +48,7 @@ tail_fused_xwide_kernel(
       const int m_len = m_len_g[lane], n_len = n_len_g[lane];
       uint32_t* store = xr_lane_scratch(scratch, x, lanes);
       const XrStoreMap sm{store, n_text, 1, m_len - 1 - n_len - (k + 1),
-                          band_hi, x.nwbr};
+                          band_hi, x.nwbs, nw <= 8 ? 7 : -1};
       if (m_len >= 1)
         dist = xr_fill(x, sm, store + x.store_words,
                        store + x.store_words + x.below_words, masks_s, text_s,
@@ -62,7 +63,7 @@ tail_fused_xwide_kernel(
       // through the fill
       const int m_len = m_len_g[lane], n_len = n_len_g[lane];
       const XrTail st{xr_lane_scratch(scratch, x, lanes), k, n_text,
-                      m_len - 1 - n_len, band_hi, nwb, x.nwbr, banded != 0};
+                      m_len - 1 - n_len, band_hi, nwb, x.nwbs, banded != 0};
       tb_walk(st, XrGridMasks{pm_g, nw, B, lane},
               Rows<const int32_t>{text_g + lane, B}, n_text, k, dist,
               level_count(dist, k, early_term), m_len - 1, n_len,
@@ -103,7 +104,7 @@ int tail_xwide_launch(int banded, const void* pm, const void* text,
 
 extern "C" {
 
-// K2 at NW >= 9 on a persistent grid of `blocks` blocks of `lanes` warps;
+// The wide K2 on a persistent grid of `blocks` blocks of `lanes` warps;
 // `scratch` holds lane_words words a lane (xr_layout: its store of
 // store_words words first) for every lane of the grid's blocks.
 int genasm_tail_banded_xwide_launch(
@@ -118,7 +119,7 @@ int genasm_tail_banded_xwide_launch(
                            store_words, lane_words, blocks, stream);
 }
 
-// K4 at NW >= 9: nwb must be nw (the full vector).
+// The wide K4: nwb must be nw (the full vector).
 int genasm_tail_full_xwide_launch(
     const void* pm, const void* text, const void* m_len, const void* n_len,
     void* ops, void* meta, void* scratch, int B, int n_text, int W, int nw,

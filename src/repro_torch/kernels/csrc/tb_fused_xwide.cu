@@ -1,15 +1,16 @@
-// K1 at NW >= 9 (W >= 257): the fused GenASM-DC+TB kernel of the square
-// W x W window in the wide family, for Hopper (sm_90a).  Replaces, at
-// these widths, the Pallas TPU kernel _kernel_fused of
-// repro/kernels/genasm_dc.py; its plain PyTorch version is tb_fused_plain
-// in repro_torch/kernels/genasm_dc.py, and the outputs must be equal bit
-// for bit.  NW, k and NWB are runtime arguments.
+// K1 in the wide family (from NW = 5, W = 129, where
+// genasm_dc.kernel_family names it): the fused GenASM-DC+TB kernel of the
+// square W x W window, for Hopper (sm_90a).  Replaces, at these widths,
+// the Pallas TPU kernel _kernel_fused of repro/kernels/genasm_dc.py; its
+// plain PyTorch version is tb_fused_plain in repro_torch/kernels/
+// genasm_dc.py, and the outputs must be equal bit for bit.  NW, k and NWB
+// are runtime arguments.
 //
 // One warp a lane (genasm_xwide_reg.cuh): the lane's masks and text staged
 // in the warp's shared memory, the register fill (xr_fill) with the band
 // windows of columns col0..W written raw to the lane's band in its block's
-// scratch ((k+1) x ncb x nwbr words), dist by ballot, then one thread of
-// the warp walks the band (tb_walk over XrBand), ops straight to device
+// scratch ((k+1) x ncb rows of nwbs words), dist by ballot, then one thread
+// of the warp walks the band (tb_walk over XrBand), ops straight to device
 // memory over the OP_NONE the warp wrote first.
 //
 // K1's window form (K1Window, one main window of the fused loop in this
@@ -48,7 +49,8 @@ __device__ __forceinline__ void tb_fused_xwide_body(
     const int lane = grp * lanes + (threadIdx.x >> 5);
     if (lane >= B) continue;
     uint32_t* band = xr_lane_scratch(scratch, x, lanes);
-    const XrStoreMap sm{band, ncb, col0, -2 - k, band_hi, x.nwbr};
+    const XrStoreMap sm{band, ncb, col0, -2 - k, band_hi, x.nwbs,
+                        nw <= 8 ? 7 : -1};
     int dist;
     if (!WINDOW) {
       xr_clear_ops(ops, max_ops, B, lane);
@@ -69,7 +71,7 @@ __device__ __forceinline__ void tb_fused_xwide_body(
     __syncwarp();
     if ((threadIdx.x & 31) == 0) {
       const XrBand st{xr_lane_scratch(scratch, x, lanes), k, ncb, col0,
-                      band_hi, nwb, x.nwbr};
+                      band_hi, nwb, x.nwbs};
       const int d_end = level_count(dist, k, early_term);
       if (!WINDOW) {
         tb_walk(st, XrGridMasks{pm_g, nw, B, lane},
@@ -128,7 +130,7 @@ tb_window_xwide_kernel(uint32_t* scratch, int B, int W, int nw, int k,
                             max_ops, max_steps, lanes, x, win);
 }
 
-// K1 at NW >= 9 in either form (win.reads null: the standalone form).
+// The wide K1 in either form (win.reads null: the standalone form).
 int launch_xwide(const void* pm, const void* text, void* ops, void* meta,
                  void* scratch, const K1Window& win, int B, int W, int nw,
                  int k, int nwb, int ncb, int early_term, int commit_limit,
@@ -166,7 +168,7 @@ int launch_xwide(const void* pm, const void* text, void* ops, void* meta,
 
 extern "C" {
 
-// K1 at NW >= 9 on a persistent grid of `blocks` blocks of `lanes` warps;
+// The wide K1 on a persistent grid of `blocks` blocks of `lanes` warps;
 // `scratch` holds lane_words words a lane (xr_layout: its band of
 // store_words words first) for every lane of the grid's blocks.
 int genasm_tb_fused_xwide_launch(const void* pm, const void* text, void* ops,

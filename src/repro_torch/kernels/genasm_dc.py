@@ -2,8 +2,8 @@
 
 Four kernels, each a port of a Pallas TPU kernel of
 ``repro/kernels/genasm_dc.py`` and written by hand in CUDA C++ in
-``csrc/`` (``tb_fused.cu``, ``tail_fused.cu``, ``dc_band.cu``; at NW >= 9
-the wide family ``*_xwide.cu``):
+``csrc/`` (``tb_fused.cu``, ``tail_fused.cu``, ``dc_band.cu``; the wide
+family ``*_xwide.cu`` where ``kernel_family`` names it):
 
   * K1 ``genasm_tb_fused``    <- ``_kernel_fused``: improved GenASM-DC
     (SENE + DENT + ET) of a square W x W window, then the traceback walked
@@ -41,20 +41,25 @@ tails keep their store in shared or device memory, whichever
 ``TAIL_PLACEMENT`` names; K3 writes its band out through a ring in shared
 memory or straight from registers, whichever ``K3_PLACEMENT`` names).
 ``cfg.lane_tile`` sets no block: it is only the batch pad unit
-(``kernels.ops``).  Templates are instantiated for W <= 256 and every
-k < W (level capacities KP = 16, 32, 64, 128, 256; NW = 1..8 words a
-bitvector, NW = 5..8 in translation units of their own,
-``csrc/*_wide.cu``).  Wider windows (NW >= 9) run the wide family
-(``csrc/genasm_xwide_reg.cuh``, ``xwide_geometry``): one kernel each
-for K1, K2/K4 and K3 with NW, k and NWB at run time on a persistent grid
-whose scratch is sized by the blocks in flight; all three hold a lane's
-levels in registers, one warp a lane (``xr_layout``; K3 writes its band
-through a staging buffer in shared memory, ``xr_k3_layout``); the one
-refusal is a lane whose scratch exceeds the card's free memory
-(``check_scratch_fits``).
-The wrappers choose the family (``cfg.nw > TEMPLATE_NW``); the templates'
-geometries (``tb_fused_geometry``, ...) and occupancy queries serve NW <=
-8 only, ``xwide_geometry`` and ``xwide_occupancy`` the wide family.
+(``kernels.ops``).  Which family runs a kernel at a configuration is
+``kernel_family``'s answer, and nothing else's:
+
+  * the templates, instantiated per (NW, KP, NWB): all four kernels at
+    NW = 1..4 (W <= 128; level capacities KP = 16, 32, 64, 128) and K3 at
+    NW = 5..8 (W = 129..256, KP up to 256, ``csrc/dc_band_wide.cu``);
+  * the wide family (``csrc/genasm_xwide_reg.cuh``, ``xwide_geometry``):
+    K1 and K2/K4 at NW >= 5 (W >= 129), K3 at NW >= 9 (W >= 257); one
+    kernel each, NW, k and NWB at run time, on a persistent grid whose
+    scratch is sized by the blocks in flight.  All three hold a lane's
+    levels in registers, one warp a lane (``xr_layout``: 8 word threads
+    a level group at NW <= 8, 16 at NW <= 16, else 32; K3 writes its band
+    through a staging buffer in shared memory, ``xr_k3_layout``); the one
+    refusal is a lane whose scratch exceeds the card's free memory
+    (``check_scratch_fits``).
+
+The templates' geometries (``tb_fused_geometry``, ...) and occupancy
+queries serve the templates' configurations only, ``xwide_geometry`` and
+``xwide_occupancy`` the wide family's.
 A block's threads are capped by its kernel's registers (``REGISTERS``:
 ptxas's count, 65,536 a block).
 
@@ -389,6 +394,23 @@ TAIL_THREADS = 128              #: threads per K2/K4 block (the same)
 MAX_SHARED_BYTES = 232_448      #: dynamic shared memory of one H100 block
 PLACEMENTS = ("shared", "global")   #: K1's band and the tails' store, in
                                     #: C's numbering
+#: K1 and the tails (K2 / K4) at NW = 5..8 (W = 129..256) run the wide
+#: family's register fill (8 word threads a level group, 4 level groups a
+#: warp, a stored row one 32 B sector) at every (NW, KP) but those named
+#: here, whose templates stay: where the template was faster, or the fill
+#: more than 3 % slower, in tools/torch_xwide_ab.py's A/B in turns (2,048
+#: lanes; W = 160 / 192 / 224 / 256 at k = 15, 30, 60, 120 and 140 / 150
+#: / 200 / 240; K1 in both forms; NVIDIA H100 80GB HBM3, 700 W; PERF.md
+#: section 6): KP <= 32 at every NW (the fill 1.5-2.6x slower: one
+#: strip of 28 levels for 16, or a second strip for 3); KP = 64 at NW = 5,
+#: 6 (K1 9-33 %, K2 19-53 % slower); KP = 256 at NW = 5, 6 (K1's window
+#: form 6-9 %, K4 5-9 % slower); and the tails at NW = 5, KP = 128 (K4 16 %
+#: slower).  Only these templates are instantiated at NW = 5..8.
+TEMPLATE_KEPT = {
+    "tb_fused": frozenset({(nw, kp) for nw in range(5, 9) for kp in (16, 32)}
+                          | {(5, 64), (6, 64), (5, 256), (6, 256)}),
+    "tail": frozenset({(nw, kp) for nw in range(5, 9) for kp in (16, 32)}
+                      | {(5, 64), (6, 64), (5, 128), (5, 256), (6, 256)})}
 #: where the tails keep a lane's store, by (NW, KP): the placement that
 #: tools/torch_tail_sweep.py measured faster (the sum of its device ms at
 #: 2,048 and 4,096 lanes, 128 threads a block, W = 32 / 64 / 96 / 128 at
@@ -396,15 +418,15 @@ PLACEMENTS = ("shared", "global")   #: K1's band and the tails' store, in
 #: and K4 share it.  Shared memory wins only where a lane's store is small
 #: (KP = 16 at NW <= 2, and NW = 1); global wherever one lane's store does
 #: not fit a block.
-#: At NW = 5..8 (W = 129..256) only "global" is instantiated: it won at
-#: every NW >= 3 of the sweep, and a lane's store there is 0.1-10 MB.
+#: At NW = 5..8 (W = 129..256) only "global" is instantiated, at the
+#: (NW, KP) ``TEMPLATE_KEPT`` names: it won at every NW >= 3 of the sweep,
+#: and a lane's store there is 0.1-10 MB.
 TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
                   (2, 16): "shared", (2, 32): "global", (2, 64): "global",
                   (3, 16): "global", (3, 32): "global", (3, 64): "global",
                   (4, 16): "global", (4, 32): "global", (4, 64): "global",
                   (3, 128): "global", (4, 128): "global",
-                  **{(nw, kp): "global" for nw in range(5, 9)
-                     for kp in (16, 32, 64, 128, 256)}}
+                  **dict.fromkeys(sorted(TEMPLATE_KEPT["tail"]), "global")}
 #: where K1 keeps a lane's DENT band, by (NW, KP): in shared memory up to
 #: KP = 64 at NW <= 4; at KP = 128 (k >= 64, W = 96 or 128) one lane's
 #: band, (k+1) x ncols_band x nwb words, is 134,160 B at W = 128, k = 64
@@ -414,31 +436,35 @@ TAIL_PLACEMENT = {(1, 16): "shared", (1, 32): "shared",
 #: W = 256, O = 96, k = 63); at KP = 16 and 32 a shared band (22.8-74.5 KB
 #: a lane) would leave 2-8 lanes an SM in one block of 149-191 KB, where
 #: the tails' sweep found device memory faster at every NW >= 3 (PERF.md
-#: section 6); only "global" is instantiated there.
+#: section 6); only "global" is instantiated there, at the (NW, KP)
+#: ``TEMPLATE_KEPT`` names.
 K1_PLACEMENT = {**{(nw, kp): "shared" if kp <= 64 else "global"
                    for nw in range(1, 5) for kp in (16, 32, 64, 128)},
-                **{(nw, kp): "global" for nw in range(5, 9)
-                   for kp in (16, 32, 64, 128, 256)}}
+                **dict.fromkeys(sorted(TEMPLATE_KEPT["tb_fused"]),
+                                "global")}
 #: the widest NW whose instantiations cover every placement (W <= 128);
 #: at NW = 5..8 only the placement the tables name is built
 NARROW_NW = 4
-#: the widest NW of the templates (W <= 256).  A fill thread there holds
-#: L x NW words of its levels (L = KP / 32 at KP >= 32) plus the pattern
-#: masks' 4 x NW; at W = 512 that would be 16 x 16 = 256 words, past a
-#: thread's 255 registers, so NW > TEMPLATE_NW runs the wide family
+#: the widest NW of the templates (W <= 256: K3 at NW = 5..8, K1 and the
+#: tails there only at ``TEMPLATE_KEPT``).  A fill thread there holds L x NW
+#: words of its levels (L = KP / 32 at KP >= 32) plus the pattern masks'
+#: 4 x NW; at W = 512 that would be 16 x 16 = 256 words, past a thread's
+#: 255 registers, so NW > TEMPLATE_NW runs the wide family everywhere
 TEMPLATE_NW = 8
 
 #: registers of one block (and of one SM) on an H100
 MAX_BLOCK_REGISTERS = 65_536
 #: registers a thread of each kernel's instantiations takes, by (NW, KP):
 #: ptxas's count (``-Xptxas -v``, the build's report), the most over NWB
-#: and placement (CUDA 12.8, sm_90a; PERF.md section 6).  None spills; the
-#: most is 217 (K1 at NW = 8, KP = 256; K1's counts are those of its one
-#: build with the window form, ``window_step.genasm_tb_window``).
-#: "xwide": the wide family's kernels (NW >= 9; no spill, CUDA 12.8 on an
-#: H100): K1's two (standalone and window form) bound by __launch_bounds__
-#: to four blocks of 128 threads an SM, 128 registers; the tails' to
-#: three; K3's to one block of 512 threads (122 registers).
+#: and placement (CUDA 12.8, sm_90a; PERF.md section 6), at the (NW, KP)
+#: instantiated (NW = 5..8: ``TEMPLATE_KEPT``).  None spills; the most is
+#: 160 (K1 at NW = 6, KP = 256; K1's counts are those of its one build with
+#: the window form, ``window_step.genasm_tb_window``).
+#: "xwide": the wide family's kernels (``kernel_family``; no spill, CUDA
+#: 12.8 on an H100, the same at every NW: WT is a run-time field): K1's
+#: two (standalone and window form) bound by __launch_bounds__ to four
+#: blocks of 128 threads an SM, 128 registers; the tails' to three; K3's
+#: to one block of 512 threads (122 registers).
 #: A block's threads are capped so that they hold their registers
 #: (``max_threads``); chip_smoke.py's build phase fails where ptxas counts
 #: more than this table.
@@ -447,11 +473,9 @@ REGISTERS = {
                  (2, 64): 48, (3, 16): 56, (3, 32): 56, (3, 64): 55,
                  (3, 128): 72, (4, 16): 71, (4, 32): 71, (4, 64): 77,
                  (4, 128): 112,
-                 (5, 16): 71, (5, 32): 72, (5, 64): 96, (5, 128): 109,
-                 (5, 256): 157, (6, 16): 72, (6, 32): 72, (6, 64): 115,
-                 (6, 128): 118, (6, 256): 160, (7, 16): 92, (7, 32): 92,
-                 (7, 64): 108, (7, 128): 126, (7, 256): 199, (8, 16): 93,
-                 (8, 32): 95, (8, 64): 114, (8, 128): 150, (8, 256): 217,
+                 (5, 16): 71, (5, 32): 72, (5, 64): 96, (5, 256): 157,
+                 (6, 16): 72, (6, 32): 72, (6, 64): 115, (6, 256): 160,
+                 (7, 16): 92, (7, 32): 92, (8, 16): 93, (8, 32): 95,
                  "xwide": 128},
     "tail": {(1, 16): 42, (1, 32): 42, (2, 16): 48, (2, 32): 48,
              (2, 64): 47, (3, 16): 61, (3, 32): 61, (3, 64): 62,
@@ -459,9 +483,8 @@ REGISTERS = {
              (4, 128): 96,
              (5, 16): 68, (5, 32): 68, (5, 64): 78, (5, 128): 95,
              (5, 256): 149, (6, 16): 72, (6, 32): 72, (6, 64): 98,
-             (6, 128): 118, (6, 256): 154, (7, 16): 80, (7, 32): 80,
-             (7, 64): 108, (7, 128): 123, (7, 256): 195, (8, 16): 93,
-             (8, 32): 93, (8, 64): 114, (8, 128): 146, (8, 256): 212,
+             (6, 256): 154, (7, 16): 80, (7, 32): 80, (8, 16): 93,
+             (8, 32): 93,
              "xwide": 146},
     "dc_band": {(1, 16): 37, (1, 32): 37, (2, 16): 37, (2, 32): 37,
                 (2, 64): 48, (3, 16): 52, (3, 32): 46, (3, 64): 56,
@@ -501,6 +524,25 @@ K3_LANES = 16
 K3_PLACEMENT = {16: "direct", 32: "staged", 64: "staged", 128: "staged",
                 256: "staged"}
 K3_CHUNK = {16: 8, 32: 8, 64: 4, 128: 2, 256: 1}
+
+
+def kernel_family(cfg: AlignerConfig, name: str) -> str:
+    """Which family runs kernel `name` (one of ``KERNELS``, or "tail" for
+    K2 and K4, which share their route) at `cfg`: "xwide", the wide
+    family's one kernel (``xwide_geometry``), or "template", the
+    instantiation of `cfg`'s (NW, KP, NWB) (``tb_fused_geometry``,
+    ``tail_geometry``, ``dc_band_geometry``).  The wide family runs all
+    four at NW >= 9, and K1 and the tails at NW = 5..8 except at the (NW,
+    KP) ``TEMPLATE_KEPT`` names; the templates run the rest."""
+    family = _XW_FAMILY.get(name, name)
+    if family not in ("tb_fused", "tail", "dc_band"):
+        raise ValueError(f"no kernel {name!r}: one of {KERNELS} or 'tail'")
+    if cfg.nw > TEMPLATE_NW:
+        return "xwide"
+    if cfg.nw <= NARROW_NW or family == "dc_band" or \
+            (cfg.nw, levels_bucket(cfg.k)) in TEMPLATE_KEPT[family]:
+        return "template"
+    return "xwide"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -545,18 +587,18 @@ class DcBandGeometry:
 
 
 def check_scratch_fits(cfg: AlignerConfig, free_bytes: int) -> None:
-    """Raise ValueError where one block of a wide kernel (NW >= 9) cannot
-    hold its scratch: every W and k < W has a kernel (templates at W <=
-    256, the wide family above), so the one refusal is one lane whose
-    scratch (K1's band, the tail's store at the aligner's W + 4k text
-    columns in K4's and K2's width, with the register fill's buffers; K3's
-    buffers) exceeds ``MEMORY_SHARE`` of the card's `free_bytes`.
-    The error names W, k and the bytes (``xwide_geometry``).  Below NW = 9
-    nothing is checked: the templates' stores are a lane's each."""
-    if cfg.nw <= TEMPLATE_NW:
-        return
+    """Raise ValueError where one block of a wide kernel (each kernel that
+    ``kernel_family`` gives the wide family at `cfg`) cannot hold its
+    scratch: every W and k < W has a kernel, so the one refusal is one
+    lane whose scratch (K1's band, the tail's store at the aligner's W +
+    4k text columns in K4's and K2's width, with the register fill's
+    buffers; K3's buffers) exceeds ``MEMORY_SHARE`` of the card's
+    `free_bytes`.  The error names W, k and the bytes
+    (``xwide_geometry``).  A template's kernel is not checked: its store
+    is a lane's each."""
     for name in ("tb_fused", "dc_band", "tail_full", "tail_banded"):
-        xwide_geometry(cfg, name, free_bytes=free_bytes)
+        if kernel_family(cfg, name) == "xwide":
+            xwide_geometry(cfg, name, free_bytes=free_bytes)
 
 
 def levels_bucket(k: int) -> int:
@@ -571,8 +613,8 @@ def levels_bucket(k: int) -> int:
 def registers(kernel: str, cfg: AlignerConfig) -> int:
     """The registers a thread of `kernel`'s ("tb_fused", "tail" or
     "dc_band") instantiation for `cfg` takes (``REGISTERS``; the wide
-    family's one kernel at NW >= 9)."""
-    if cfg.nw > TEMPLATE_NW:
+    family's one kernel where ``kernel_family`` names it)."""
+    if kernel_family(cfg, kernel) == "xwide":
         return REGISTERS[kernel]["xwide"]
     return REGISTERS[kernel][(cfg.nw, levels_bucket(cfg.k))]
 
@@ -639,10 +681,11 @@ def _fit_registers(threads: int, cap: int, what: str) -> None:
 
 
 # --------------------------------------------------------------------------
-# the wide family (NW >= 9: csrc/genasm_xwide_reg.cuh and *_xwide.cu): one
-# kernel each for K1, K2/K4 and K3, NW, k and NWB at run time, on a
-# persistent grid, all on the register fill (one warp a lane; xr_layout
-# and xr_k3_layout in C compute the same sizes)
+# the wide family (csrc/genasm_xwide_reg.cuh and *_xwide.cu; K1 and the
+# tails from NW = 5, K3 from NW = 9, ``kernel_family``): one kernel each for
+# K1, K2/K4 and K3, NW, k and NWB at run time, on a persistent grid, all on
+# the register fill (one warp a lane; xr_layout and xr_k3_layout in C
+# compute the same sizes)
 # --------------------------------------------------------------------------
 
 #: the share of the card's free memory the wide family's scratch may take
@@ -698,31 +741,38 @@ class XwideGeometry:
 def xr_layout(nw: int, k: int, nwb: int, cols: int, jlo: int,
               last_max: int) -> dict:
     """The register fill's layout of one lane warp (C's ``xr_layout``):
-    WT word threads (16 where nw <= 16, else 32) a level group, GW = 32 /
-    WT groups a warp of ``XR_LEVELS`` levels, H = GW x L levels a strip;
+    WT word threads (8 where nw <= 8, 16 where nw <= 16, else 32) a level
+    group, GW = 32 / WT groups a warp of ``XR_LEVELS`` levels, H = GW x L
+    levels a strip;
     shared bytes a warp (the staged masks, 5 x 32 words, and text, u16 a
     step of a chunk plus H); a stored column's nwbr raw words (nwb, plus
-    one where the window is narrower than the vector); and the scratch
-    words of a lane: its store ((k+1) x `cols` rows of nwbr words), the
-    buffer of the level below a strip (`last_max` x nw, where there are
-    several strips and the store does not hold full columns from column 1:
-    a store, nwb = nw and `jlo` <= 1) and the word strips' carries."""
-    wt = 16 if nw <= 16 else 32
+    one where the window is narrower than the vector) and a stored row's
+    slots nwbs (nwbr; at nw <= 8 eight, one 32 B sector, which the group's
+    8 word threads write whole); and the scratch words of a lane: its store
+    ((k+1) x `cols` rows of nwbs words), the buffer of the level below a
+    strip (`last_max` x nw, where there are several strips and the store
+    does not hold full columns from column 1: a store, nwb = nw and `jlo`
+    <= 1) and the word strips' carries, at nw <= 8 rounded up to a
+    multiple of 8 words (each lane's scratch starts on a sector)."""
+    wt = 8 if nw <= 8 else 16 if nw <= 16 else 32
     gw = 32 // wt
     height = gw * XR_LEVELS
     strips = -(-(k + 1) // height)
     word_strips = -(-nw // wt)
     nwbr = nwb + (1 if nwb < nw else 0)
-    store = (k + 1) * cols * nwbr
+    nwbs = 8 if nw <= 8 else nwbr
+    store = (k + 1) * cols * nwbs
     below_in_store = cols > 0 and nwb == nw and jlo <= 1
     below = last_max * nw if strips > 1 and not below_in_store else 0
     carry = 2 * (last_max + height - 1) if word_strips > 1 else 0
+    lane = store + below + carry
     return dict(wt=wt, gw=gw, height=height, strips=strips,
                 word_strips=word_strips, below_in_store=below_in_store,
                 warp_bytes=4 * XR_MASK_ROWS * 32
                 + 2 * (XR_TEXT_CHUNK + height),
-                nwbr=nwbr, store_words=store, below_words=below,
-                carry_words=carry, lane_words=store + below + carry)
+                nwbr=nwbr, nwbs=nwbs, store_words=store, below_words=below,
+                carry_words=carry,
+                lane_words=-(-lane // 8) * 8 if nw <= 8 else lane)
 
 
 def xr_k3_layout(nw: int, k: int, nwb: int, W: int, ncb: int, lanes: int,
@@ -775,14 +825,14 @@ def _k3_shared_budget(cfg: AlignerConfig, lanes: int) -> int:
 
 def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
                    free_bytes: int | None = None) -> XwideGeometry:
-    """The wide block (NW >= 9) of kernel `name` (``KERNELS``: its
+    """The wide block of kernel `name` (``KERNELS``: its
     registers cap the threads) for `cfg`; tails at `n_text` columns
     (default W + 4k).  One warp a lane, WT word threads x GW level groups
     of ``XR_LEVELS`` levels (``xr_layout``).
 
     K1, K2 and K4: ``XR_LANES`` warps a block within the registers' cap; a
     lane's scratch is its store (K1's band, (k+1) x ncols_band rows; the
-    tail's, (k+1) x n_text rows; nwbr words a row) and its buffers.  K3
+    tail's, (k+1) x n_text rows; nwbs words a row) and its buffers.  K3
     (``xr_k3_layout``): ``XR_K3_LANES`` warps a block, its staging buffer
     flushed every ``XR_K3_CHUNK`` steps, the chunk halved (down to 2)
     while the block's shared memory exceeds its share of an SM's
@@ -791,10 +841,13 @@ def xwide_geometry(cfg: AlignerConfig, name: str, n_text: int | None = None,
     card's `free_bytes`, the lanes halve while the blocks that fit
     ``MEMORY_SHARE`` of them are fewer than ``SMS`` (so the grid still
     fills the card), and a lane whose scratch exceeds that share raises
-    ValueError naming W, k and the bytes: the one refusal of the family."""
-    if cfg.nw <= TEMPLATE_NW:
-        raise ValueError(f"W={cfg.W}: the wide family runs NW >= "
-                         f"{TEMPLATE_NW + 1}, not {cfg.nw}")
+    ValueError naming W, k and the bytes: the one refusal of the family.
+    A configuration whose `name` runs its template (``kernel_family``)
+    raises ValueError."""
+    if kernel_family(cfg, name) != "xwide":
+        raise ValueError(f"W={cfg.W} k={cfg.k}: {_XW_LABEL[name]} runs its "
+                         f"template at NW = {cfg.nw}, KP = "
+                         f"{levels_bucket(cfg.k)}, not the wide family")
     nw, k = cfg.nw, cfg.k
     nwb = cfg.nw if name == "tail_full" else cfg.nwb
     cap = max_threads(_XW_FAMILY[name], cfg)
@@ -856,13 +909,18 @@ def xwide_blocks(geo: XwideGeometry, B: int, resident: int,
     return max(blocks, 1)
 
 
-def _templates_only(cfg: AlignerConfig, what: str) -> None:
-    """Raise ValueError for NW >= 9, which no template covers: the wide
-    family derives its own block (``xwide_geometry``)."""
+def _templates_only(cfg: AlignerConfig, name: str, what: str) -> None:
+    """Raise ValueError where kernel `name` runs the wide family at `cfg`
+    (``kernel_family``; no template covers NW >= 9): that family derives
+    its own block (``xwide_geometry``)."""
     if cfg.nw > TEMPLATE_NW:
         raise ValueError(f"W={cfg.W} k={cfg.k}: {what}'s templates stop at "
                          f"NW = {TEMPLATE_NW}; NW = {cfg.nw} runs the wide "
                          f"family (xwide_geometry)")
+    if kernel_family(cfg, name) == "xwide":
+        raise ValueError(f"W={cfg.W} k={cfg.k}: {what} runs the wide "
+                         f"family at NW = {cfg.nw}, KP = "
+                         f"{levels_bucket(cfg.k)} (xwide_geometry)")
 
 
 def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
@@ -884,8 +942,9 @@ def tb_fused_geometry(cfg: AlignerConfig, max_ops: int | None = None,
     rows0`` words a lane, rows0 = ceil((k+1)/L) (the skewed layout of
     ``tb_fused.cu``).  Raises ValueError where one warp's lanes do not
     fit.  The block's threads are capped by the instantiation's registers
-    (``max_threads``).  NW <= 8 only (``_templates_only``)."""
-    _templates_only(cfg, "K1")
+    (``max_threads``).  The template's configurations only
+    (``_templates_only``)."""
+    _templates_only(cfg, "tb_fused", "K1")
     max_ops = cfg.tb_max_ops if max_ops is None else max_ops
     group, levels = _group(cfg.k)
     placement = K1_PLACEMENT[(cfg.nw, levels_bucket(cfg.k))]
@@ -943,9 +1002,9 @@ def dc_band_geometry(cfg: AlignerConfig, threads: int | None = None, *,
     nwb rounded up to an odd multiple of 32 / min(lanes, 32) (the
     write-out's reads then fall in distinct banks).  "staged" needs 8 lanes a block
     or more, so that a band row leaves the block as a 32 B sector at
-    least.  Raises ValueError for a block that does not fit.  NW <= 8
-    only (``_templates_only``)."""
-    _templates_only(cfg, "K3")
+    least.  Raises ValueError for a block that does not fit.  The
+    template's configurations only (``_templates_only``)."""
+    _templates_only(cfg, "dc_band", "K3")
     if placement not in (None, *K3_PLACEMENTS):
         raise ValueError(f"placement={placement!r} is not one of "
                          f"{K3_PLACEMENTS}")
@@ -1003,8 +1062,9 @@ def tail_geometry(cfg: AlignerConfig, n_text: int, max_ops: int, *,
     dist, and one word for the block.  At W > 128 only "global" is
     instantiated.  The block's threads are capped by the instantiation's
     registers (``max_threads``).  `threads` (whole warps) is for the
-    sweep tool.  NW <= 8 only (``_templates_only``)."""
-    _templates_only(cfg, "the tail")
+    sweep tool.  The template's configurations only
+    (``_templates_only``)."""
+    _templates_only(cfg, "tail", "the tail")
     banded = cfg.tail_banded if banded is None else banded
     k, nwb = cfg.k, cfg.nwb if banded else cfg.nw
     if placement not in (None, *PLACEMENTS):
@@ -1166,7 +1226,7 @@ def genasm_tb_fused(pm, text, *, cfg: AlignerConfig, commit_limit: int,
     ops, meta = _outputs(max_ops, B, pm.device)
     ints = (B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
             int(cfg.early_term), commit_limit, max_ops, max_steps)
-    if B and cfg.nw > TEMPLATE_NW:
+    if B and kernel_family(cfg, "tb_fused") == "xwide":
         _xwide_launch("tb_fused", cfg, (pm, text, ops, meta), ints)
     elif B:
         geo = tb_fused_geometry(cfg, max_ops)
@@ -1189,7 +1249,7 @@ def genasm_dc(pm, text, *, cfg: AlignerConfig):
                     for _ in range(2))
     band = torch.empty((cfg.k + 1, cfg.ncols_band, cfg.nwb, B),
                        dtype=torch.int32, device=pm.device)
-    if B and cfg.nw > TEMPLATE_NW:
+    if B and kernel_family(cfg, "dc_band") == "xwide":
         _xwide_launch("dc_band", cfg, (pm, text, band, dist, levels),
                       (B, cfg.W, cfg.nw, cfg.k, cfg.nwb, cfg.ncols_band,
                        int(cfg.early_term)))
@@ -1216,7 +1276,7 @@ def _tail(name, plain, banded, pm, text, m_len, n_len, *, cfg, n_text,
     ops, meta = _outputs(max_ops, B, pm.device)
     ints = (B, n_text, cfg.W, cfg.nw, cfg.k, cfg.nwb if banded else cfg.nw,
             int(cfg.early_term), commit_limit, max_ops, max_steps)
-    if B and cfg.nw > TEMPLATE_NW:
+    if B and kernel_family(cfg, name) == "xwide":
         _xwide_launch(name, cfg, (pm, text, m_len, n_len, ops, meta), ints,
                       n_text)
     elif B:

@@ -2,7 +2,8 @@
 
 ``genasm_tb_window`` runs the body of the reference's main-window scan
 (``append_main`` in ``repro/core/windowing.py``) as one launch of K1
-(``csrc/tb_fused.cuh``; at NW >= 9 ``csrc/tb_fused_xwide.cu``): K1 reads
+(``csrc/tb_fused.cuh``; where ``genasm_dc.kernel_family`` names the wide
+family, W >= 129, ``csrc/tb_fused_xwide.cu``): K1 reads
 each lane's reversed W-base slices of the reads and references at its
 positions (the reference's ``_slice_rev``), builds the pattern masks and
 text in shared memory (the ops layer's ``_pad_to_tile`` /
@@ -168,7 +169,7 @@ def genasm_tb_window(reads, refs, read_len, state: dict, *,
     ints = (B, reads.shape[1], refs.shape[1], buf.shape[1], cfg.W, cfg.nw,
             cfg.k, cfg.nwb, cfg.ncols_band, int(cfg.early_term), cfg.stride,
             cfg.tb_max_ops, cfg.tb_max_steps)
-    if cfg.nw > genasm_dc.TEMPLATE_NW:
+    if genasm_dc.kernel_family(cfg, "tb_fused") == "xwide":
         genasm_dc._xwide_launch("tb_fused", cfg, tensors, ints, B=B,
                                 entry="tb_window_xwide")
         return

@@ -26,8 +26,9 @@ It reports
   has no PyTorch counterpart); and ``collective_s`` = 0 on one card;
 * ``kernels``: each kernel the step's first rung launches, its block,
   its store's bytes a lane and the least time to write the batch's
-  stores (``roofline.store_write_s``), and at NW >= 9 (``--W`` > 256)
-  the wide family's scratch a block and in flight
+  stores (``roofline.store_write_s``), and for each kernel that runs the
+  wide family (``genasm_dc.kernel_family``: K1 and the tails from ``--W``
+  129, K3 from 257) that family's scratch a block and in flight
   (``counting.gpu_scratch_in_flight``).
 
 The production mesh (``make_production_mesh``, multi-pod) has no
@@ -46,7 +47,7 @@ from ..analysis.roofline import HBM_BW, INT32_OPS, store_write_s
 from ..core import counting
 from ..core.config import AlignerConfig
 from ..core.windowing import n_main_windows, total_op_budget
-from ..kernels.genasm_dc import TEMPLATE_NW
+from ..kernels.genasm_dc import kernel_family
 from ..serve.align_step import align_input_specs, launch_plan
 
 OPS_PER_CELL = 14      # shifts/ands/ors/selects per (level, column, word)
@@ -92,7 +93,7 @@ def kernel_rows(batch: int, read_len: int, cfg: AlignerConfig,
     """Each kernel of the step's first rung (``launch_plan`` on the CPU,
     which derives the blocks the card launches): its block, its store's
     bytes a lane and the least seconds to write `batch` lanes' stores,
-    and at NW >= 9 the wide family's scratch
+    and each wide kernel's scratch
     (``counting.gpu_scratch_in_flight``, at `free_bytes`)."""
     rows = []
     for entry in launch_plan(cfg, read_len, None, "cpu"):
@@ -107,8 +108,9 @@ def kernel_rows(batch: int, read_len: int, cfg: AlignerConfig,
         rows.append({"kernel": name, "k": entry["k"],
                      "block": {"lanes": geo.lanes, "threads": geo.threads,
                                "shared_bytes": geo.shared_bytes,
-                               "placement": ("xwide" if cfg.nw > TEMPLATE_NW
-                                             else geo.placement)},
+                               "placement": (
+                                   "xwide" if kernel_family(cfg, name)
+                                   == "xwide" else geo.placement)},
                      "store_bytes_per_lane": lane_bytes,
                      "store_write_s": store_write_s(lane_bytes, batch),
                      "scratch": counting.gpu_scratch_in_flight(

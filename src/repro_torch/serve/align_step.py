@@ -138,9 +138,9 @@ def _rung_kernels(cfg: AlignerConfig, windows: bool) -> list:
 
 
 def _geometry(name: str, cfg: AlignerConfig):
-    """Kernel `name`'s block at `cfg`: the wide family's at NW >= 9, else
-    its template's."""
-    if cfg.nw > genasm_dc.TEMPLATE_NW:
+    """Kernel `name`'s block at `cfg`: the wide family's where
+    ``genasm_dc.kernel_family`` names it, else its template's."""
+    if genasm_dc.kernel_family(cfg, name) == "xwide":
         return genasm_dc.xwide_geometry(cfg, name, self_tail_width(cfg))
     if name == "tb_fused":                  # the main windows' form
         return genasm_dc.tb_fused_geometry(cfg, window=True)
@@ -157,7 +157,7 @@ _OCCUPANCY = {"tb_fused": genasm_dc.tb_fused_occupancy,
 
 
 def _occupancy(name: str, cfg: AlignerConfig, geo) -> tuple:
-    if cfg.nw > genasm_dc.TEMPLATE_NW:
+    if genasm_dc.kernel_family(cfg, name) == "xwide":
         return genasm_dc.xwide_occupancy(name, geo)
     return _OCCUPANCY[name](cfg, geo)
 
@@ -167,8 +167,9 @@ def launch_plan(cfg: AlignerConfig, max_read_len: int,
     """The kernel launches of one step, shard by shard and rung by rung: a
     dict per (shard, rung, kernel) with the shard's index and device, the
     kernel's name, the rung's k, its block (``genasm_dc``'s geometry: a
-    template's, or at NW >= 9 the wide family's) and, on CUDA, the blocks
-    one SM holds and the kernel's dynamic shared-memory limit
+    template's, or the wide family's, ``genasm_dc.kernel_family``) and,
+    on CUDA, the blocks one SM holds and the kernel's dynamic
+    shared-memory limit
     (``genasm_dc.*_occupancy``; the query also allows the block's shared
     memory, once per kernel and device, so the first launch pays no
     setup).  Without a mesh the one shard is `device`.  On CUDA it raises
@@ -182,7 +183,9 @@ def launch_plan(cfg: AlignerConfig, max_read_len: int,
     cuda = devices[0].type == "cuda"
     rungs = rescue_schedule(cfg, rescue_rounds or 0)
     if cuda:
-        if cfg.nw > genasm_dc.TEMPLATE_NW:     # the wide family's scratch
+        if any(genasm_dc.kernel_family(c, name) == "xwide"
+               for c in rungs for name in genasm_dc.KERNELS):
+            # the wide family's scratch
             for dev in devices:
                 free = genasm_dc.free_bytes(dev)
                 for c in rungs:

@@ -133,17 +133,29 @@ WIDE = [(144, 48, 12), (160, 48, 63), (192, 64, 100), (256, 96, 240)]
 def test_gpu_tail_store_words_follow_the_placement(W, O, k, banded):
     """K2 / K4: in shared memory padded rows of n_text x nwb words (K4:
     nw); in device memory the skewed (n_text + rows0 - 1) x L x nwb x
-    rows0 layout, where the reference's model keeps (k+1) x n_text x nwb
-    (K4: (k+1) x (n_text+1) x nw) words."""
+    rows0 layout; where the tails run the wide family (``WIDE``,
+    ``genasm_dc.kernel_family``) (k+1) x n_text rows of 8 slots (one
+    sector: nwbr raw words and pads)
+    (nwb, plus one where the window is narrower than the vector) in its
+    block's scratch; where the reference's model keeps (k+1) x n_text x
+    nwb (K4: (k+1) x (n_text+1) x nw) words."""
     rc, pc = _cfgs(W, O, k)
+    wide = genasm_dc.kernel_family(pc, "tail") == "xwide"
     for n_text in (None, W + 2 * k):
         nt = W + 4 * k if n_text is None else n_text
         is_banded = pc.tail_banded if banded is None else banded
         nwb = pc.nwb if is_banded else pc.nw
-        geo = genasm_dc.tail_geometry(pc, nt, W + nt, banded=banded)
         lane = port.gpu_tail_store_words(pc, 1, n_text, banded)
         assert port.gpu_tail_store_words(pc, 512, n_text, banded) == \
             512 * lane
+        if wide:
+            geo = genasm_dc.xwide_geometry(
+                pc, "tail_banded" if is_banded else "tail_full", nt)
+            assert lane == geo.store_words == (k + 1) * nt * 8
+            assert ref.gpu_tail_store_words(rc, 1, n_text, banded) == \
+                (k + 1) * (nt if is_banded else nt + 1) * nwb
+            continue
+        geo = genasm_dc.tail_geometry(pc, nt, W + nt, banded=banded)
         common = _half_bank_pad(nt) + W + nt + 1   # text, ops, dist
         if geo.placement == "shared":
             row = nt * nwb + (1 if nwb * (nt - 1) % 2 == 0 else 0)
@@ -158,8 +170,8 @@ def test_gpu_tail_store_words_follow_the_placement(W, O, k, banded):
         assert ref.gpu_tail_store_words(rc, 1, n_text, banded) == \
             ref.tail_scratch_words(rc, 1, n_text, banded) == \
             (k + 1) * (nt if is_banded else nt + 1) * nwb
-    assert genasm_dc.TAIL_PLACEMENT[(pc.nw, genasm_dc.levels_bucket(k))] \
-        in ("shared", "global")
+    assert wide or genasm_dc.TAIL_PLACEMENT[
+        (pc.nw, genasm_dc.levels_bucket(k))] in ("shared", "global")
 
 
 @pytest.mark.parametrize("W,O,k", CONFIGS)
@@ -185,28 +197,41 @@ def test_gpu_split_store_words_is_k3_band_output(W, O, k):
                                              (128, 48, 127)] + WIDE)
 def test_gpu_lane_state_words_are_a_threads_levels(W, O, k):
     """A fill thread carries L = KP / G levels and the shuffled level below
-    (nw words each); the reference's model carried 2 x (k+1) levels."""
+    (nw words each); where K1 runs the wide family (``WIDE``), one word of
+    ``XR_LEVELS`` levels and of the level below for two steps; the
+    reference's model carried 2 x (k+1) levels."""
     rc, pc = _cfgs(W, O, k)
     kp = genasm_dc.levels_bucket(k)
     L = kp // min(kp, 32)
-    assert port.gpu_lane_state_words(pc) == (L + 1) * pc.nw
+    assert port.gpu_lane_state_words(pc) == (
+        2 * (genasm_dc.XR_LEVELS + 1)
+        if genasm_dc.kernel_family(pc, "tb_fused") == "xwide"
+        else (L + 1) * pc.nw)
     assert ref.gpu_lane_state_words(rc) == 2 * (k + 1) * rc.nw
     assert port.gpu_lane_state_words(pc) < ref.gpu_lane_state_words(rc)
 
 
 @pytest.mark.parametrize("W,O,k", WIDE)
 def test_gpu_store_words_at_nw_5_to_8_are_k1_band_in_device_memory(W, O, k):
-    """At NW = 5..8 K1's band is in device memory at every KP, the skewed
-    (ncb + rows0 - 1) x L x nwb x rows0 layout; K3's band output equals
-    the reference's scratch model."""
+    """At NW = 5..8 K1's band is in device memory at every KP: where K1
+    runs the wide family (``genasm_dc.kernel_family``), (k+1) x ncb rows
+    of 8 slots (one sector: nwbr raw words and pads) a lane in its
+    block's scratch; a template's, the
+    skewed (ncb + rows0 - 1) x L x nwb x rows0 layout; either at least
+    the reference's unpadded band.  K3's band output equals the
+    reference's scratch model."""
     rc, pc = _cfgs(W, O, k)
-    geo = genasm_dc.tb_fused_geometry(pc)
-    L = geo.levels_per_thread
-    rows0 = -(-(k + 1) // L)
     lane = port.gpu_store_words(pc, 1)
-    assert geo.placement == "global" and geo.store_words == lane
-    assert lane == (pc.ncols_band + rows0 - 1) * L * pc.nwb * rows0 >= \
-        ref.kernel_scratch_words(rc, 1)
+    if genasm_dc.kernel_family(pc, "tb_fused") == "xwide":
+        geo = genasm_dc.xwide_geometry(pc, "tb_fused")
+        assert lane == geo.store_words == (k + 1) * pc.ncols_band * 8
+    else:
+        geo = genasm_dc.tb_fused_geometry(pc)
+        L = geo.levels_per_thread
+        rows0 = -(-(k + 1) // L)
+        assert geo.placement == "global" and geo.store_words == lane
+        assert lane == (pc.ncols_band + rows0 - 1) * L * pc.nwb * rows0
+    assert lane >= ref.kernel_scratch_words(rc, 1)
     for tile in TILES:
         assert port.gpu_store_words(pc, tile) == lane * tile
         assert port.gpu_split_store_words(pc, tile) == \

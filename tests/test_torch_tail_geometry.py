@@ -171,15 +171,44 @@ WIDE_WIDTHS = [(144, 48), (160, 48), (192, 64), (208, 72), (224, 80),
                (256, 96)]
 
 
+def _xr_tail(cfg, banded):
+    """The wide tail's block at the aligner's n_text = W + 4k: one lane
+    warp of 8 word threads x 4 level groups, ``XR_LANES`` a block within
+    the registers' cap, its store (k+1) x n_text rows of nwbr raw words
+    (nwb, plus one where the window is narrower than the vector; K4: nw)
+    in rows of 8 slots (one sector) in the block's scratch (device
+    memory), whole sectors a lane; the templates' geometry refuses the
+    configuration, naming the wide family."""
+    n_text = cfg.W + 4 * cfg.k
+    nwb = cfg.nwb if banded else cfg.nw
+    geo = genasm_dc.xwide_geometry(
+        cfg, "tail_banded" if banded else "tail_full", n_text)
+    assert (geo.words, geo.depth, geo.nwb) == (8, 4, nwb)
+    assert geo.lanes == genasm_dc.XR_LANES and geo.threads == \
+        32 * geo.lanes <= genasm_dc.max_threads("tail", cfg)
+    assert geo.shared_bytes <= MAX
+    assert geo.store_words == (cfg.k + 1) * n_text * 8
+    assert geo.lane_words % 8 == 0
+    with pytest.raises(ValueError, match=f"W={cfg.W} k={cfg.k}: the tail "
+                       f"runs the wide family"):
+        _tail(cfg, banded)
+    return geo
+
+
 @pytest.mark.parametrize("W,O", WIDE_WIDTHS)
 @pytest.mark.parametrize("banded", [True, False])
 def test_tail_store_at_nw_5_to_8_is_global_only(W, O, banded):
-    """Every k < W at NW = 5..8: the store in device memory (the only
-    placement instantiated there; asked for shared memory, a ValueError
-    naming W and k), whole warps within the registers' cap and the shared
-    memory, the skewed layout's words a lane."""
+    """Every k < W at NW = 5..8: the store in device memory, in the family
+    ``kernel_family`` names: the wide family's block scratch
+    (``_xr_tail``), or a template's (``TEMPLATE_KEPT``; the only placement
+    instantiated there, asked for shared memory a ValueError naming W and
+    k), whole warps within the registers' cap and the shared memory, the
+    skewed layout's words a lane."""
     for k in range(1, W):
         cfg = AlignerConfig(W=W, O=O, k=k)
+        if genasm_dc.kernel_family(cfg, "tail") == "xwide":
+            _xr_tail(cfg, banded)
+            continue
         geo = _tail(cfg, banded)
         kp = genasm_dc.levels_bucket(k)
         assert geo.placement == "global" == \
@@ -197,18 +226,27 @@ def test_tail_store_at_nw_5_to_8_is_global_only(W, O, banded):
 @pytest.mark.parametrize("W,O,k", [(144, 48, 128), (256, 96, 240)])
 def test_tail_store_at_kp_256(W, O, k):
     """KP = 256 (k >= 128): the band (2k+3 bits) is the whole vector, so
-    'auto' and 'full' take K4 and 'band' K2 with nwb = nw, one
-    instantiation; G = 32 threads of L = 8 levels; 9.9 MB a lane at
-    W = 256, k = 240 (n_text = 1,216)."""
+    'auto' and 'full' take K4 and 'band' K2 with nwb = nw, one kernel and
+    one block.  At W = 144 (NW 5) the template (``TEMPLATE_KEPT``): G = 32
+    threads of L = 8 levels, the skewed layout in device memory.  At W =
+    256 the wide family (``_xr_tail``): a lane's store (k+1) x n_text x
+    nw words, 9.4 MB at k = 240 (n_text = 1,216; the template's skewed
+    layout took 9.9 MB), in nine strips of 28 levels."""
     for tail_store, banded in (("auto", False), ("full", False),
                                ("band", True)):
         cfg = AlignerConfig(W=W, O=O, k=k, tail_store=tail_store)
         assert cfg.tail_banded == banded and cfg.nwb == cfg.nw
-        geo = _tail(cfg, None)
-        assert (geo.group, geo.levels_per_thread) == (32, 8)
-        rows0 = -(-(k + 1) // 8)
-        assert geo.store_words == (W + 4 * k + rows0 - 1) * 8 * cfg.nw * \
-            rows0
-        assert geo == _tail(cfg, not banded)
-    if W == 256:
-        assert 4 * geo.store_words == 9_888_256
+        if W == 144:
+            assert genasm_dc.kernel_family(cfg, "tail") == "template"
+            geo = _tail(cfg, None)
+            assert (geo.group, geo.levels_per_thread) == (32, 8)
+            rows0 = -(-(k + 1) // 8)
+            assert geo.store_words == (W + 4 * k + rows0 - 1) * 8 * \
+                cfg.nw * rows0
+            assert geo == _tail(cfg, not banded)
+            continue
+        assert genasm_dc.kernel_family(cfg, "tail") == "xwide"
+        geo = _xr_tail(cfg, banded)
+        assert geo == _xr_tail(cfg, not banded)
+        assert geo.strips == -(-(k + 1) // 28) == 9
+        assert 4 * geo.store_words == 9_377_792

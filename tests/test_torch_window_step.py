@@ -184,8 +184,9 @@ def test_counts_pass_through_captures_and_replays(monkeypatch, W, O, k):
     they are on the card, a stand-in for the library's launch and the
     band store here), is one launch of K1's window entry point
     counted under K1's name: inside ``recording_launches`` it is recorded,
-    not counted; ``add_launches`` counts it in ``genasm_dc.LAUNCHES``.  At
-    NW >= 9 the wide family's entry point.  No other kernel's count."""
+    not counted; ``add_launches`` counts it in ``genasm_dc.LAUNCHES``.
+    Where K1 runs the wide family (``genasm_dc.kernel_family``) its entry
+    point.  No other kernel's count."""
     cfg, reads, refs, read_len, state = _window_args(W, O, k, B=5)
     called = []
 
@@ -211,7 +212,7 @@ def test_counts_pass_through_captures_and_replays(monkeypatch, W, O, k):
     assert rec == {**dict.fromkeys(genasm_dc.KERNELS, 0), "tb_fused": 1}
     assert set(genasm_dc.LAUNCHES.values()) == {0}
     [(name, entry, tensors, ints, block)] = called
-    wide = cfg.nw > genasm_dc.TEMPLATE_NW
+    wide = genasm_dc.kernel_family(cfg, "tb_fused") == "xwide"
     assert (name, entry) == ("tb_fused", "tb_window_xwide" if wide
                              else "tb_window")
     assert tensors[9].data_ptr() == state["levels"][1:].data_ptr()

@@ -1,7 +1,8 @@
-"""The wide family's blocks (NW >= 9, W >= 257:
-``csrc/genasm_xwide_reg.cuh``) on the CPU: the register fill of K1, the
-tails and K3 (one warp a lane, word threads and level groups, level strips
-and word strips, shared bytes and scratch words a lane, held to C's
+"""The wide family's blocks (``csrc/genasm_xwide_reg.cuh``: K1 and the
+tails at W >= 129, K3 at W >= 257, ``genasm_dc.kernel_family``) on the
+CPU: the register fill of K1, the tails and K3 (one warp a lane, word
+threads and level groups, level strips and word strips, shared bytes and
+scratch words a lane, held to C's
 ``xr_layout`` / ``xr_k3_layout``; K3's lanes, staging buffer and chunk),
 the scratch a lane, a block and in flight, the persistent grid, the one
 refusal (a lane's scratch over the card's free memory, naming W, k and
@@ -10,6 +11,7 @@ the roofline report for it.  The kernels themselves run on the card
 (``chip_smoke.py``); their plain versions are held to the reference in
 ``test_torch_w512.py``, the register fill's schedule to the plain fill in
 ``test_torch_xwide_schedule.py``."""
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,24 +29,32 @@ XW = genasm_dc.XwideGeometry
 CASES = [(288, 96, 20), (288, 96, 100), (320, 96, 40), (320, 96, 200),
          (512, 192, 60), (512, 192, 480), (1024, 300, 40), (1024, 300, 700),
          (1100, 300, 40)]
+#: NW = 5, 6 and 8, where K1 and the tails run the register fill (8 word
+#: threads a level group; at W = 160, k = 120 K1 only: the tails keep
+#: their template there, ``TEMPLATE_KEPT``) and K3 its templates
+NARROW = [(160, 48, 120), (192, 64, 100), (256, 96, 60), (256, 96, 240)]
 CSRC = Path(genasm_dc.__file__).resolve().parent / "csrc"
 
 
 def _xr_mirror(nw, k, nwb, cols, jlo, last_max):
     """C's xr_layout written out again: word threads, level groups of
     XR_LEVELS, strips, shared bytes a warp (5 x 32 mask words, the text
-    chunk of XR_TEXT_CHUNK + H u16) and a lane's scratch words."""
-    wt = 16 if nw <= 16 else 32
+    chunk of XR_TEXT_CHUNK + H u16), a stored row's words and slots (at
+    nw <= 8 eight: one sector) and a lane's scratch words (at nw <= 8
+    whole sectors)."""
+    wt = 8 if nw <= 8 else 16 if nw <= 16 else 32
     height = 32 // wt * genasm_dc.XR_LEVELS
     strips = -(-(k + 1) // height)
     nwbr = nwb + (nwb < nw)
-    store = (k + 1) * cols * nwbr
+    nwbs = 8 if nw <= 8 else nwbr
+    store = (k + 1) * cols * nwbs
     below = last_max * nw if strips > 1 and not (
         cols and nwb == nw and jlo <= 1) else 0
     carry = 2 * (last_max + height - 1) if nw > wt else 0
+    lane = store + below + carry
     return dict(wt=wt, gw=32 // wt, height=height, strips=strips,
-                word_strips=-(-nw // wt), nwbr=nwbr, store=store,
-                lane=store + below + carry,
+                word_strips=-(-nw // wt), nwbr=nwbr, nwbs=nwbs, store=store,
+                lane=lane + (-lane % 8 if nw <= 8 else 0),
                 warp_bytes=4 * 5 * 32 + 2 * (genasm_dc.XR_TEXT_CHUNK
                                               + height))
 
@@ -232,29 +242,85 @@ def test_one_refusal_names_w_k_and_the_bytes():
                        r"of the card's 65,535 B free"):
         genasm_dc.xwide_geometry(big, "dc_band", free_bytes=65_535)
     genasm_dc.check_scratch_fits(big, 80 * 10 ** 9)
-    genasm_dc.check_scratch_fits(AlignerConfig(W=256, O=96, k=240), 1)
+    # W = 256: K1 and the tails run the wide family, K3 its templates (a
+    # lane's band each, not checked); W = 128 runs only templates
+    w256 = AlignerConfig(W=256, O=96, k=240)
+    k1 = 4 * genasm_dc.xwide_geometry(w256, "tb_fused").lane_words
+    with pytest.raises(ValueError, match=rf"W=256 k=240: one block of the "
+                       rf"wide K1 needs {k1:,} B of scratch"):
+        genasm_dc.check_scratch_fits(w256, 2 * k1 - 1)
+    genasm_dc.check_scratch_fits(AlignerConfig(W=128, O=48, k=120), 1)
 
 
 @pytest.mark.parametrize("name", ["tb_fused", "tail_banded", "tail_full",
                                   "dc_band"])
 def test_templates_and_wide_family_split_at_nw_8(name):
-    """Each family has its own geometry: the templates' refuse NW >= 9,
-    naming the wide family, and the wide family's refuses NW <= 8."""
-    wide, narrow = AlignerConfig(W=288, O=96, k=40), \
-        AlignerConfig(W=256, O=96, k=40)
+    """One family runs a kernel at a configuration
+    (``genasm_dc.kernel_family``), and only its geometry serves it: K3
+    splits at NW 8 (its templates to W = 256, the wide family from 288),
+    K1 and the tails at NW 4 but where ``TEMPLATE_KEPT`` names the (NW, KP)
+    (W = 160, NW 5 at KP = 64 here: a template; W = 256: the wide family).
+    A template's geometry refuses a wide configuration, naming the wide
+    family (past NW = 8: that the templates stop there), and
+    ``xwide_geometry`` a template's."""
     template = {"tb_fused": lambda c: genasm_dc.tb_fused_geometry(c),
                 "tail_banded": lambda c: genasm_dc.tail_geometry(
                     c, c.W + 4 * c.k, 2 * c.W + 4 * c.k, banded=True),
                 "tail_full": lambda c: genasm_dc.tail_geometry(
                     c, c.W + 4 * c.k, 2 * c.W + 4 * c.k, banded=False),
                 "dc_band": lambda c: genasm_dc.dc_band_geometry(c)}[name]
-    with pytest.raises(ValueError, match=r"W=288 k=40: .* templates stop "
-                       r"at NW = 8; NW = 9 runs the wide family"):
-        template(wide)
-    assert not isinstance(template(narrow), XW)
-    assert isinstance(genasm_dc.xwide_geometry(wide, name), XW)
-    with pytest.raises(ValueError, match="wide family runs NW >= 9, not 8"):
-        genasm_dc.xwide_geometry(narrow, name)
+    split = 256 if name == "dc_band" else 128
+    kept = genasm_dc.TEMPLATE_KEPT.get(genasm_dc._XW_FAMILY[name], ())
+    for W, O in ((128, 48), (160, 48), (256, 96), (288, 96)):
+        cfg = AlignerConfig(W=W, O=O, k=40)
+        family = genasm_dc.kernel_family(cfg, name)
+        assert family == ("template" if W <= split or (cfg.nw, 64) in kept
+                          else "xwide")
+        if family == "template":
+            assert not isinstance(template(cfg), XW)
+            with pytest.raises(ValueError, match=rf"W={W} k=40: .* runs its "
+                               rf"template at NW = {cfg.nw}, KP = 64, not "
+                               rf"the wide family"):
+                genasm_dc.xwide_geometry(cfg, name)
+            continue
+        assert isinstance(genasm_dc.xwide_geometry(cfg, name), XW)
+        want = (r"templates stop at NW = 8; NW = 9 runs the wide family"
+                if W == 288 else rf"runs the wide family at NW = {cfg.nw}, "
+                rf"KP = 64 \(xwide_geometry\)")
+        with pytest.raises(ValueError, match=rf"W={W} k=40: .*{want}"):
+            template(cfg)
+    with pytest.raises(ValueError, match="no kernel 'k5'"):
+        genasm_dc.kernel_family(AlignerConfig(), "k5")
+
+
+@pytest.mark.parametrize("unit,family,macro", [
+    ("tb_fused_wide.cu", "tb_fused", "K1_WIDE"),
+    ("tail_fused_wide.cu", "tail", "TAIL_WIDE")])
+def test_nw_5_to_8_instantiations_are_the_template_routes(unit, family,
+                                                          macro):
+    """K1's and the tails' instantiations at NW = 5..8 are exactly the
+    (NW, KP, NWB) that some W = 129..256 and k < W route to a template
+    (``kernel_family``: the (NW, KP) of ``TEMPLATE_KEPT``; NWB = nwb, and
+    for the tails also NW: K4, and K2 whose band is the whole vector): no
+    route lacks its kernel, and no kernel is built that no route
+    reaches."""
+    built = {tuple(map(int, m)) for m in re.findall(
+        rf"{macro}\((\d+), (\d+), (\d+)\)", (CSRC / unit).read_text())}
+    reached = set()
+    for W in range(129, 257):
+        for k in range(1, W):
+            cfg = AlignerConfig(W=W, O=W // 3, k=k)
+            if genasm_dc.kernel_family(cfg, family) == "template":
+                kp = genasm_dc.levels_bucket(k)
+                reached.add((cfg.nw, kp, cfg.nwb))
+                if family == "tail":
+                    reached.add((cfg.nw, kp, cfg.nw))
+    assert built == reached
+    assert {(nw, kp) for nw, kp, _ in built} == \
+        genasm_dc.TEMPLATE_KEPT[family]
+    registers = genasm_dc.REGISTERS[family]
+    assert {key for key in registers if key != "xwide" and key[0] > 4} == \
+        genasm_dc.TEMPLATE_KEPT[family]
 
 
 @pytest.mark.parametrize("k,kp", [(480, 512), (511, 512), (512, 1024),
@@ -463,10 +529,10 @@ int main() {
       continue;
     }
     const XrLayout x = xr_layout(nw, k, nwb, cols, jlo, last_max, lanes);
-    std::printf("%d %d %d %d %d %d %d %lld %lld %lld %lld %lld %d\n", x.wt,
-                x.gw, x.height, x.strips, x.word_strips, x.warp_bytes,
-                x.smem, x.nwbr, x.store_words, x.below_words, x.carry_words,
-                x.lane_words, xr_block_ok(x, nw, k, nwb, lanes, threads, smem,
+    std::printf("%d %d %d %d %d %d %d %lld %lld %lld %lld %lld %lld %d\n",
+                x.wt, x.gw, x.height, x.strips, x.word_strips, x.warp_bytes,
+                x.smem, x.nwbr, x.nwbs, x.store_words, x.below_words,
+                x.carry_words, x.lane_words, xr_block_ok(x, nw, k, nwb, lanes, threads, smem,
                                           store, lane, 1) ? 1 : 0);
   }
 }
@@ -478,8 +544,10 @@ def test_c_layout_equals_the_python_layout(tmp_path):
     xr_k3_block_ok (csrc/genasm_xwide_reg.cuh, compiled for the host with
     a stand-in for the CUDA header) against ``genasm_dc.xr_layout`` /
     ``xr_k3_layout`` and the block ``xwide_geometry`` derives, at every
-    case's K1, K2, K4 and K3 (and K3 at 16 lanes and a chunk of 2): the
-    same sizes, and a block the C launchers accept."""
+    case's K1, K2, K4 and K3 (and K3 at 16 lanes and a chunk of 2), and
+    at NW = 5, 6 and 8 (``NARROW``, 8 word threads a level group) those
+    of K1, K2 and K4 that run the wide family: the same sizes, and a block
+    the C launchers accept."""
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
@@ -489,7 +557,7 @@ def test_c_layout_equals_the_python_layout(tmp_path):
                     str(CSRC), "-o", str(tmp_path / "layout"),
                     str(tmp_path / "layout.cpp")], check=True, timeout=120)
     rows, want = [], []
-    for W, O, k in CASES:
+    for W, O, k in CASES + NARROW:
         cfg = AlignerConfig(W=W, O=O, k=k)
         n_text = W + 4 * k
         col0 = W + 1 - cfg.ncols_band
@@ -497,6 +565,9 @@ def test_c_layout_equals_the_python_layout(tmp_path):
                 ("tb_fused", (cfg.nwb, cfg.ncols_band, col0, W)),
                 ("tail_banded", (cfg.nwb, n_text, 1, n_text)),
                 ("tail_full", (cfg.nw, n_text, 1, n_text))):
+            if genasm_dc.kernel_family(cfg, name) != "xwide":
+                assert cfg.nw == 5 and name != "tb_fused"
+                continue
             geo = genasm_dc.xwide_geometry(cfg, name, n_text)
             x = genasm_dc.xr_layout(cfg.nw, k, *args)
             rows.append(" ".join(map(str, (
@@ -504,9 +575,13 @@ def test_c_layout_equals_the_python_layout(tmp_path):
                 geo.shared_bytes, geo.store_words, geo.lane_words))))
             want.append([x["wt"], x["gw"], x["height"], x["strips"],
                          x["word_strips"], x["warp_bytes"],
-                         geo.shared_bytes, x["nwbr"], x["store_words"],
+                         geo.shared_bytes, x["nwbr"], x["nwbs"],
+                         x["store_words"],
                          x["below_words"], x["carry_words"],
                          x["lane_words"], 1])
+        if cfg.nw <= genasm_dc.TEMPLATE_NW:
+            assert (x["wt"], x["gw"], x["height"]) == (8, 4, 28)
+            continue
         geo = genasm_dc.xwide_geometry(cfg, "dc_band")
         for lanes, chunk in ((geo.lanes, geo.chunk), (16, 2)):
             y = genasm_dc.xr_k3_layout(cfg.nw, k, cfg.nwb, W,

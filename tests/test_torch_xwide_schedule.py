@@ -1,5 +1,5 @@
-"""The wide family's register fill (K1, K2 / K4 and K3 at NW >= 9,
-``csrc/genasm_xwide_reg.cuh``) as a numpy model that runs the kernel's
+"""The wide family's register fill (K1, K2 / K4 at NW >= 5 and K3 at NW
+>= 9, ``csrc/genasm_xwide_reg.cuh``) as a numpy model that runs the kernel's
 schedule step by step: one warp a lane, WT word threads x GW level groups
 of L = ``XR_LEVELS`` levels each holding one word of its levels for steps
 s-1 and s-2, the level skew (level d at column s - d + 1), word w-1's
@@ -10,7 +10,8 @@ below a group from the group below and a strip's from the strip before
 the lane's dist and word strips of 32 words past NW = 32.  Every (level,
 column) word the model computes equals the plain fill's
 (``genasm_dc._fill``), its dist the plain dist, and the raw window words
-it stores (``xr_layout``'s rows of nwbr words) equal the plain K1 band
+it stores (``xr_layout``'s rows of nwbr raw words, nwbs apart) equal the
+plain K1 band
 (``dc_band_plain``, the windows funnelled out of the raw words as
 ``XrBand`` reads them) and the plain K2 / K4 stores.  K3's schedule runs
 every strip and puts each stored cell's raw word into the block's staging
@@ -18,7 +19,10 @@ buffer where its window spans it (and, past a word strip's bottom, the
 raw top words the strip below kept), flushed every chunk steps, each
 window word funnelled out of two raw words: its band and dist equal
 ``dc_band_plain``'s.  W = 288 (NW 9), 320 and 512 at k = 20, 60 and 200
-(strips at k >= 32), and W = 1100 (two word strips).  About 25 s on one
+(WT = 16, GW = 2: strips at k >= 14), and W = 1100 (two word strips);
+K1 and the tails also at W = 144 (NW 5), 192 and 256 (NW 8) at k = 20,
+60 and 140 / 188 / 200 (WT = 8, GW = 4: strips at k >= 28, a lane's
+level below a strip in its buffer where nwb < NW).  About 40 s on one
 CPU."""
 import numpy as np
 import pytest
@@ -59,12 +63,13 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
     runs and the stored columns' windows go out through it."""
     x = genasm_dc.xr_layout(nw, k, nwb, cols, jlo, last_max)
     WT, GW, H, nwbr = x["wt"], x["gw"], x["height"], x["nwbr"]
+    nwbs = x["nwbs"]
     band_hi = 32 * (nw - nwb)
     text = np.asarray(text)
     n_text = len(text)
     table = np.full((5, x["word_strips"] * WT), ONES, np.uint32)
     table[:4, :nw] = masks
-    store = np.zeros((k + 1) * cols * nwbr, np.uint32)
+    store = np.zeros((k + 1) * cols * nwbs, np.uint32)
     written = np.zeros(store.shape, bool)
     below_buf = np.zeros((max(last_max, 1), nw), np.uint32)
     carry = [np.zeros(last_max + H - 1, np.uint32) for _ in range(2)]
@@ -112,7 +117,7 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
                 ok = w1[0] < nw
                 if below_in == "store":
                     row = (a - 1) * cols + jj - jlo
-                    out[ok] = store[row * nwbr + w1[0][ok]]
+                    out[ok] = store[row * nwbs + w1[0][ok]]
                 else:
                     out[ok] = below_buf[jj - 1, w1[0][ok]]
                 return out
@@ -136,7 +141,7 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
                 k3.tile(b, WT, GW)
             elif jlo == 0:                               # K1's column 0
                 put(store, written, dd, 0, cur, w, k, nw, cols, jlo,
-                    boff, band_hi, nwbr, np.ones(cur.shape, bool))
+                    boff, band_hi, nwbr, nwbs, np.ones(cur.shape, bool))
             for u in range(steps):
                 s = a + u
                 bwn = np.empty((GW, WT), np.uint32)
@@ -172,7 +177,7 @@ def model_lane(masks, text, last, k, nw, nwb, cols, jlo, boff, last_max,
                     done[dd[keep], j[keep], w[keep]] = True
                 if k3 is None:
                     put(store, written, dd, j, new, w, k, nw, cols, jlo,
-                        boff, band_hi, nwbr, on)
+                        boff, band_hi, nwbr, nwbs, on, wrap=nw <= 8)
                 else:
                     k3.stage(u, j, new, w, on)
                     if (u + 1) % k3.chunk == 0 or u + 1 == steps:
@@ -276,14 +281,20 @@ def funnel_r(lo, hi, sh):
 
 
 def put(store, written, dd, j, v, w, k, nw, cols, jlo, boff, band_hi, nwbr,
-        on):
-    """The cells' raw window words into their rows (XrTile::put)."""
+        nwbs, on, wrap=False):
+    """The cells' raw window words into their rows, nwbr slots of rows
+    nwbs words apart (XrTile::put); with `wrap` (a step's stores at NW <=
+    8, ``XrTile::step``) every word thread of a group writes slot (w - w0)
+    mod 8 of its row's 8, its word's or a pad, so the row leaves whole."""
     j = np.broadcast_to(j, dd.shape)
     base = np.clip(j + boff, 0, band_hi)
     slot = w - (base >> 5)
-    ok = on & (dd <= k) & (j >= jlo) & (w < nw) & (slot >= 0) & \
-        (slot < nwbr)
-    idx = ((dd * cols + j - jlo) * nwbr + slot)[ok]
+    if wrap:
+        slot, ok = slot & 7, on & (dd <= k) & (j >= jlo)
+    else:
+        ok = on & (dd <= k) & (j >= jlo) & (w < nw) & (slot >= 0) & \
+            (slot < nwbr)
+    idx = ((dd * cols + j - jlo) * nwbs + slot)[ok]
     store[idx] = v[ok]
     written[idx] = True
 
@@ -310,9 +321,13 @@ def _inputs(pats, txts, cfg):
 
 SQUARE = [(W, O, k) for W, O in ((288, 96), (320, 96), (512, 192))
           for k in (20, 60, 200)] + [(1100, 300, 40)]
+#: NW = 5..8, where K1 and the tails run the register fill at 8 word
+#: threads a level group (4 level groups, H = 28 levels a strip); k < W
+NARROW = [(W, O, k) for W, O in ((144, 48), (192, 64), (256, 96))
+          for k in (20, 60, min(200, W - 4))]
 
 
-@pytest.mark.parametrize("W,O,k", SQUARE)
+@pytest.mark.parametrize("W,O,k", SQUARE + NARROW)
 def test_k1_schedule_equals_the_plain_fill_and_band(W, O, k):
     cfg = AlignerConfig(W=W, O=O, k=k)
     pats, txts = _square(np.random.default_rng(W + k), W, k)
@@ -341,10 +356,15 @@ def test_k1_schedule_equals_the_plain_fill_and_band(W, O, k):
             words[:top + 1, 1:],
             R[1:, lane, :top + 1].numpy().astype(np.uint32).transpose(1, 0, 2))
         bases = np.array([cfg.band_base(col0 + q) for q in range(ncb)])
-        rows = store.reshape(k + 1, ncb, x["nwbr"])[:top + 1]
+        rows = store.reshape(k + 1, ncb, x["nwbs"])[:top + 1, :, :x["nwbr"]]
         real = np.arange(x["nwbr"])[None, :] < \
             (nw - (bases >> 5))[:, None]                 # words < nw
-        assert written.reshape(k + 1, ncb, x["nwbr"])[:top + 1][:, real].all()
+        assert written.reshape(k + 1, ncb, x["nwbs"])[
+            :top + 1, :, :x["nwbr"]][:, real].all()
+        # at NW <= 8 every row a step stores leaves as one whole sector:
+        # its 8 slots written
+        assert nw > 8 or written.reshape(k + 1, ncb, 8)[
+            :top + 1, max(1 - col0, 0):].all()
         np.testing.assert_array_equal(windows(rows, bases, nwb),
                                       band[:top + 1, :, :, lane])
 
@@ -375,7 +395,8 @@ def test_k3_schedule_equals_the_plain_band(W, O, k):
 
 TAILS = [(W, O, k, store) for W, O in ((288, 96), (320, 96), (512, 192))
          for k in (20, 60, 200) for store in ("auto",)] + \
-    [(320, 96, 60, "full"), (1100, 300, 40, "auto")]
+    [(320, 96, 60, "full"), (1100, 300, 40, "auto")] + \
+    [(W, O, k, "auto") for W, O, k in NARROW]
 
 
 @pytest.mark.parametrize("W,O,k,tail_store", TAILS)
@@ -413,9 +434,12 @@ def test_tail_schedule_equals_the_plain_fill_and_store(W, O, k, tail_store):
         w0 = np.clip(j + diag - (k + 1), 0, band_hi) >> 5
         idx = w0[:, None] + np.arange(x["nwbr"])[None, :]    # (last, nwbr)
         real = idx < nw
-        rows = store.reshape(k + 1, n_text, x["nwbr"])[:top + 1, :last]
-        assert written.reshape(k + 1, n_text, x["nwbr"])[
-            :top + 1, :last][:, real].all()
+        rows = store.reshape(k + 1, n_text, x["nwbs"])[
+            :top + 1, :last, :x["nwbr"]]
+        assert written.reshape(k + 1, n_text, x["nwbs"])[
+            :top + 1, :last, :x["nwbr"]][:, real].all()
+        assert nw > 8 or written.reshape(k + 1, n_text, 8)[
+            :top + 1, :last].all()
         want = R[1:last + 1, lane, :top + 1].numpy().astype(np.uint32)
         want = np.take_along_axis(want.transpose(1, 0, 2),
                                   np.minimum(idx, nw - 1)[None], 2)

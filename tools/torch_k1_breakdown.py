@@ -13,13 +13,15 @@ patches has moved.  ``full - no_walk`` is the walk's share, ``no_walk -
 no_walk_no_store`` the stores', ``no_walk_no_store`` the fill.  The
 variants' outputs are not checked: they compute less.
 
-Widths up to 256 (the templates): K1's body ``csrc/tb_fused.cuh`` and the
-units that instantiate it (``tb_fused.cu``, ``tb_fused_wide.cu``), at
-2,048 and 4,096 lanes.  Widths past 256 (the wide family, NW >= 9): the
-units ``tb_fused_xwide.cu``, ``tail_fused_xwide.cu`` and
-``dc_band_xwide.cu`` with their headers, K1, the rung's tail (K2 where
-``cfg.tail_banded``, else K4) and K3 at 2,048 lanes (256 drawn, repeated,
-as ``chip_smoke._ladder_rows``), O = 3W/8.  K3 walks nothing: its
+Widths where K1 runs a template (``genasm_dc.kernel_family`` at the
+first k): K1's body ``csrc/tb_fused.cuh`` and the units that instantiate
+it (``tb_fused.cu``, ``tb_fused_wide.cu``), at 2,048 and 4,096 lanes.
+Widths where it runs the wide family (from W = 129): the units
+``tb_fused_xwide.cu``, ``tail_fused_xwide.cu`` and ``dc_band_xwide.cu``
+with their headers, K1, the rung's tail (K2 where ``cfg.tail_banded``,
+else K4) and K3 at 2,048 lanes (256 drawn, repeated, as
+``chip_smoke._ladder_rows``; K3 at W <= 256 is a template, whose
+variants are the full build's), O = 3W/8.  K3 walks nothing: its
 ``stores`` are the band's writes (staging and flush, or the ring's
 stores), its ``fill`` the rest.  Two designs of the wide family are
 known: the register fill for all three kernels (``genasm_xwide_reg.cuh``;
@@ -269,7 +271,9 @@ def main() -> None:
     dev = torch.device("cuda")
     for W in (int(w) for w in args.widths.split(",")):
         ks = [int(k) for k in args.ks.split(",") if int(k) < W]
-        if W > 32 * genasm_dc.TEMPLATE_NW:
+        if genasm_dc.kernel_family(AlignerConfig(W=W, O=3 * W // 8,
+                                                 k=ks[0]),
+                                   "tb_fused") == "xwide":
             wide_rows(cs, genasm_dc, AlignerConfig, build, W, ks, args.reps,
                       dev, args.label or tree.name)
         else:
