@@ -97,7 +97,6 @@ from repro_torch.baselines.dp import (INF,                      # noqa: E402
                                       banded_affine_dist)
 from repro_torch.baselines.myers import (banded_traceback,     # noqa: E402
                                          myers_distance)
-from repro_torch.analysis import roofline                      # noqa: E402
 from repro_torch.core import counting, transfer                # noqa: E402
 from repro_torch.core.aligner import (AlignResult,            # noqa: E402
                                       GenASMAligner)
@@ -535,12 +534,13 @@ def _timing(name: str, cfg, call, reps: int, device, inputs=None,
 
 
 def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
-                reps: int, what: str, refs=None, loop: bool = False) -> dict:
+                reps: int, what: str, refs=None, loop: bool = False,
+                floor: bool = False) -> dict:
     """One kernel call against its plain version on the same inputs (max
     abs err 0 or raise; the plain outputs from `refs` where they hold
     them, ``_reference``); with reps > 0 also its times and bound; with
     `loop`, a wide case also on a grid of fewer blocks than its lane
-    groups (``_loop_check``)."""
+    groups (``_loop_check``); with `floor`, its ``_store_floor_ms``."""
     wrapper = KERNELS[name][0]
     inputs, kw, cols = _case(name, cfg, n_pairs, rng, device)
     call = lambda: wrapper(*inputs, **kw)               # noqa: E731
@@ -552,12 +552,32 @@ def _check_case(name: str, cfg: AlignerConfig, n_pairs: int, rng, device,
     row = dict(name=name, W=cfg.W, k=cfg.k, lanes=n_pairs, max_abs_err=err,
                plain_ms=plain_ms, plain_on=plain_on,
                solved=int((dist <= cfg.k).sum()))
+    if floor:
+        row["store_floor_ms"] = _store_floor_ms(name, cfg, cols, dist)
     if loop and _xwide(cfg, name):
         row.update(_loop_check(name, cfg, call, ref, n_pairs,
                                _k1_block(cfg).lanes, device, what))
     if reps:
         row.update(_timing(name, cfg, call, reps, device, inputs, got, cols))
     return row
+
+
+def _store_floor_ms(name: str, cfg: AlignerConfig, cols, dist):
+    """Least ms to write once over HBM the part of K1's band or a tail's
+    store that its walk can read: each lane's levels 0..min(dist, k) (a
+    fill that stops at a lane's dist stores no level above it, and one
+    that fails stores every level before it knows) in each column it
+    keeps (K1: the band's ncols_band; a tail: the columns it fills), nwb
+    words each (K4: nw), without the layouts' pads, skew rows or levels
+    above dist.  Scratch the bound leaves out; None for K3, whose band
+    is its output and in its bound."""
+    if name == "dc_band":
+        return None
+    levels = torch.clamp(dist, max=cfg.k) + 1
+    kept = (torch.full_like(levels, cfg.ncols_band) if name == "tb_fused"
+            else torch.as_tensor(cols, dtype=torch.long))
+    nwb = cfg.nw if name == "tail_full" else cfg.nwb
+    return int((levels * kept).sum()) * nwb * 4 / HBM_BYTES_PER_S * 1e3
 
 
 def _xwide(cfg: AlignerConfig, name: str) -> bool:
@@ -788,7 +808,9 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
     The tail rows carry their block, store placement and (with ``usage``,
     ptxas's) registers, spills and blocks per SM; the K3 rows their block,
     band placement and occupancy; the K1 rows at KP = 128 their band's
-    placement, bytes a lane and ptxas.  Then each rung of the W = 256 and
+    placement, bytes a lane and ptxas, and with K4's the least time to
+    write the part of the band or store that the walk can read
+    (``store_floor_ms``, ``_store_floor_ms``).  Then each rung of the W = 256 and
     W = 512 ladders (``_ladder_rows``), the ladder's gate kernel
     (``_gate_row``), last K1's window form beside its standalone form
     (``_tb_window_rows``)."""
@@ -806,7 +828,7 @@ def phase_kernels(device: torch.device, n_pairs: int = 4096,
         if name.startswith("tail") and (name == "tail_banded") != cfg.tail_banded:
             raise AssertionError(f"k={cfg.k} does not select {name}")
         row = _check_case(name, cfg, n_pairs, rng, device, reps,
-                          f"W={cfg.W} k={cfg.k}")
+                          f"W={cfg.W} k={cfg.k}", floor=cfg is wide)
         if name == "tb_fused" and cfg.W == 64:
             row["one_thread_ms"] = K1_ONE_THREAD_MS[cfg.k]
         row = {**_geometry_row(name, cfg, usage), **row}
@@ -1097,10 +1119,7 @@ def _ladder_rows(device: torch.device, reps: int, usage, ladder,
     lane, ptxas registers and spills, blocks per SM, the peak of device
     memory the row allocated (``peak_bytes``) and its seconds (a rung's
     first row with its inputs' making).  K1's and the tails' rows also
-    carry ``store_floor_ms``: their lanes' band or store written once over
-    HBM (``roofline.store_write_s``), scratch the bound leaves out but
-    which a kernel keeping the reference's store must write; K3's band is
-    its output, in its bound.  Each call's outputs are freed
+    carry ``store_floor_ms`` (``_store_floor_ms``).  Each call's outputs are freed
     before the next (K3's band is 32 GB at W = 512, k = 480, K4's store
     in flight 20 GB)."""
     W, O, ks = ladder
@@ -1126,11 +1145,8 @@ def _ladder_rows(device: torch.device, reps: int, usage, ladder,
             bound_ms, bound_by = _bound(cfg, inputs, got, cols, dist, steps)
             later = _later_lanes(name, cfg, inputs, kw, got, device)
             del got
-            geo_row = _geometry_row(name, cfg, usage)
-            store = geo_row.get("store_bytes_per_lane")
-            row = {**geo_row,
-                   "store_floor_ms": None if name == "dc_band" or not store
-                   else roofline.store_write_s(store, lanes) * 1e3,
+            row = {**_geometry_row(name, cfg, usage),
+                   "store_floor_ms": _store_floor_ms(name, cfg, cols, dist),
                    **dict(name=name, W=W, k=k, lanes=lanes,
                           max_abs_err=None, plain_ms=None, plain_on=None,
                           checked_by="grids", distinct_lanes=drawn,
@@ -1190,8 +1206,8 @@ def _gate_row(device: torch.device, lanes: int, reps: int,
 #: instantiation, W = 40 and 48 (m_pad > W), idle levels above k (k=40),
 #: no early termination, lane counts that are no multiple of a block's
 #: lanes, blocks of fewer lanes (W = 96 and 128 at k = 48), the band in
-#: device memory (KP = 128: k = 64 .. W - 1 at W = 96 and 128), and the
-#: main path's own batch width (2,048, timed)
+#: device memory (KP = 128: k = 64 .. W - 1 at W = 65, 96 and 128), and
+#: the main path's own batch width (2,048, timed)
 K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
            (32, 12, 20, True, 37), (40, 16, 12, True, 37),
            (48, 16, 12, True, 37), (64, 24, 12, True, 37),
@@ -1210,6 +1226,7 @@ K1_GRID = [(16, 6, 4, True, 37), (32, 12, 5, True, 37),
            (96, 36, 64, True, 37), (96, 36, 95, True, 1),
            (128, 48, 64, True, 37), (128, 48, 127, True, 37),
            (128, 48, 96, False, 37), (128, 48, 127, True, 1),
+           (65, 24, 64, True, 37), (65, 24, 64, True, 1),
            (64, 24, 12, True, 2048), (64, 24, 24, True, 2048),
            (64, 24, 48, True, 2048)]
 #: one width of each NW = 5..8 (W = 144 and 208 with m_pad > W), (W, O)
@@ -1421,8 +1438,8 @@ def phase_k3_grid(device: torch.device, reps: int = 20,
 #: base k), K2 where the band is the whole vector (tail_store='band'),
 #: W = 40 and 48 (m_pad > W), W = 96 and 128; W=128, k=48, whose lane
 #: fits no block's shared memory (global only); and KP = 128 (global only)
-#: as 'auto' and 'full' resolve it (K4) and as 'band' does (K2, its band
-#: the whole vector)
+#: as 'auto' and 'full' resolve it (K4, W = 65 to 128) and as 'band' does
+#: (K2, its band the whole vector)
 TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (32, 12, 5, "band", "tail_banded"),
              (40, 16, 12, "auto", "tail_banded"),
@@ -1448,7 +1465,9 @@ TAIL_GRID = [(16, 6, 4, "auto", "tail_full"), (32, 12, 20, "auto", "tail_full"),
              (128, 48, 48, "auto", "tail_full"),
              (96, 36, 64, "auto", "tail_full"),
              (128, 48, 64, "band", "tail_banded"),
-             (128, 48, 96, "full", "tail_full")]
+             (128, 48, 96, "full", "tail_full"),
+             (128, 48, 127, "auto", "tail_full"),
+             (65, 24, 64, "auto", "tail_full")]
 #: the tails' grid at NW = 5..8: every (NW, KP, NWB) these widths reach,
 #: each on its route (the register fill, or the template kept there,
 #: device memory only): 'auto' at K1's ks (K2 where the band is narrower
@@ -1954,7 +1973,7 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
     ``three_rungs`` takes k = 48 (``rounds_run == 3``), that of the W =
     128 cases k = 120 (``rounds_run == 4``), that of the W = 256 cases
     k = 240 and of the W = 512 cases k = 480 (``rounds_run == 4``, on the
-    card K1 and K4, or K3, launched at KP = 256 and 512:
+    card K1 and K4, or K3, launched at KP = 128, 256 and 512:
     ``_launched_kps``).  After ``w256_fused`` the same pairs pass through
     a bucket-mode session (``plan(W256_CFG, rescue_rounds=3)``), after
     ``w512_fused`` through a bucket-mode and a device-mode session, every
@@ -1971,8 +1990,11 @@ def phase_end_to_end(device: torch.device, n_pairs: int = 8,
               "w256_split": (W256_BATCH[2], 240, 4),
               "w512_fused": (W512_BATCH[2], 480, 4),
               "w512_split": (W512_BATCH[2], 480, 4)}
-    #: the kernels each W = 256 / 512 case must launch at KP = 256 / 512
-    want_kp = {"w256_fused": (256, ("tb_fused", "tail_full")),
+    #: the kernels each W = 128 / 256 / 512 case must launch at KP = 128 /
+    #: 256 / 512
+    want_kp = {"w128_fused": (128, ("tb_fused", "tail_full")),
+               "w128_split": (128, ("dc_band",)),
+               "w256_fused": (256, ("tb_fused", "tail_full")),
                "w256_split": (256, ("dc_band",)),
                "w512_fused": (512, ("tb_fused", "tail_full")),
                "w512_split": (512, ("dc_band",))}

@@ -443,7 +443,14 @@ K1_PLACEMENT = {**{(nw, kp): "shared" if kp <= 64 else "global"
                 **dict.fromkeys(sorted(TEMPLATE_KEPT["tb_fused"]),
                                 "global")}
 #: the widest NW whose instantiations cover every placement (W <= 128);
-#: at NW = 5..8 only the placement the tables name is built
+#: at NW = 5..8 only the placement the tables name is built.  K1 and the
+#: tails run their templates at every KP up to NW = NARROW_NW
+#: (``kernel_family``): at KP = 128, NW = 3, 4 the register fill lost the
+#: A/B in turns (tools/torch_xwide_ab.py, 2,048 lanes, W = 65 / 96 / 128,
+#: k = 64..127; NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6): 1.4-2.5x
+#: slower with 4 word threads a level group and rows of 4 slots, and with
+#: rows of two columns K1 spilled, its window form 8-54 % slower, K4
+#: 1.17-2.2x
 NARROW_NW = 4
 #: the widest NW of the templates (W <= 256: K3 at NW = 5..8, K1 and the
 #: tails there only at ``TEMPLATE_KEPT``).  A fill thread there holds L x NW

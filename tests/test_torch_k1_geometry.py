@@ -224,12 +224,13 @@ def test_tb_fused_geometry_at_nw_5_to_8(W, O):
 
 
 @pytest.mark.parametrize("W,O,k,regs,cap", [
-    (64, 24, 12, 48, 1024), (128, 48, 96, 112, 576), (192, 64, 100, 128, 512),
-    (256, 96, 120, 128, 512), (256, 96, 240, 128, 512)])
+    (64, 24, 12, 48, 1024), (128, 48, 48, 77, 800), (128, 48, 96, 112, 576),
+    (192, 64, 100, 128, 512), (256, 96, 120, 128, 512),
+    (256, 96, 240, 128, 512)])
 def test_k1_threads_are_capped_by_registers(W, O, k, regs, cap):
     """A warp's registers are allocated 8 a thread at a time, a block holds
-    65,536: 112 registers (K1 at NW = 4, KP = 128) allow 576 threads, the
-    wide family's 128 (K1 from W = 129) 512.  A block past the cap is
+    65,536: 77 registers (K1 at NW = 4, KP = 64) allow 800 threads, 112
+    (NW = 4, KP = 128) 576, the wide family's 128 (K1 from W = 129) 512.  A block past the cap is
     refused naming the registers; the default block (128 threads) is
     within it everywhere."""
     cfg = AlignerConfig(W=W, O=O, k=k)

@@ -33,6 +33,9 @@ CASES = [(288, 96, 20), (288, 96, 100), (320, 96, 40), (320, 96, 200),
 #: threads a level group; at W = 160, k = 120 K1 only: the tails keep
 #: their template there, ``TEMPLATE_KEPT``) and K3 its templates
 NARROW = [(160, 48, 120), (192, 64, 100), (256, 96, 60), (256, 96, 240)]
+#: NW = 3 and 4 at KP = 128, where K1 and the tails run their templates
+#: (``TEMPLATE_NW``): the fill's layout there held to C's all the same
+KP128 = [(65, 24, 64), (96, 36, 95), (128, 48, 96)]
 CSRC = Path(genasm_dc.__file__).resolve().parent / "csrc"
 
 
@@ -323,6 +326,35 @@ def test_nw_5_to_8_instantiations_are_the_template_routes(unit, family,
         genasm_dc.TEMPLATE_KEPT[family]
 
 
+@pytest.mark.parametrize("unit,family,macro", [
+    ("tb_fused.cu", "tb_fused", "K1_(?:SHARED|CASE)"),
+    ("tail_fused.cu", "tail", "TAIL_CASE")])
+def test_nw_1_to_4_instantiations_are_the_template_routes(unit, family,
+                                                          macro):
+    """K1's and the tails' instantiations at NW = 1..4 are exactly the
+    (NW, KP, NWB) that W = 8..128 and k < W route to (``kernel_family``:
+    a template at every NW <= ``NARROW_NW``; NWB = nwb, and for the tails
+    also NW: K4, and K2 whose band is the whole vector), and
+    ``REGISTERS`` counts those (NW, KP) and no other at NW <= 4."""
+    text = (CSRC / unit).read_text()
+    built = {tuple(map(int, m)) for m in re.findall(
+        rf"{macro}\((\d+), (\d+), (\d+)[,)]", text) + re.findall(
+        r"_kernel<(\d+), (\d+), (\d+), PLACE_GLOBAL>", text)}
+    reached = set()
+    for W in range(8, 129):
+        for k in range(1, W):
+            cfg = AlignerConfig(W=W, O=W // 3, k=k)
+            assert genasm_dc.kernel_family(cfg, family) == "template"
+            kp = genasm_dc.levels_bucket(k)
+            reached.add((cfg.nw, kp, cfg.nwb))
+            if family == "tail":
+                reached.add((cfg.nw, kp, cfg.nw))
+    assert built == reached
+    registers = genasm_dc.REGISTERS[family]
+    assert {key for key in registers if key != "xwide" and key[0] <= 4} == \
+        {(nw, kp) for nw, kp, _ in built}
+
+
 @pytest.mark.parametrize("k,kp", [(480, 512), (511, 512), (512, 1024),
                                   (700, 1024), (1500, 2048)])
 def test_levels_bucket_extends_to_powers_of_two(k, kp):
@@ -547,7 +579,8 @@ def test_c_layout_equals_the_python_layout(tmp_path):
     case's K1, K2, K4 and K3 (and K3 at 16 lanes and a chunk of 2), and
     at NW = 5, 6 and 8 (``NARROW``, 8 word threads a level group) those
     of K1, K2 and K4 that run the wide family: the same sizes, and a block
-    the C launchers accept."""
+    the C launchers accept.  At NW = 3, 4 (``KP128``, templates only) the
+    same for K1's, K2's and K4's layout with a block of ``XR_LANES``."""
     gxx = shutil.which("g++") or shutil.which("c++")
     if gxx is None:
         pytest.skip("no host C++ compiler")
@@ -557,7 +590,7 @@ def test_c_layout_equals_the_python_layout(tmp_path):
                     str(CSRC), "-o", str(tmp_path / "layout"),
                     str(tmp_path / "layout.cpp")], check=True, timeout=120)
     rows, want = [], []
-    for W, O, k in CASES + NARROW:
+    for W, O, k in CASES + NARROW + KP128:
         cfg = AlignerConfig(W=W, O=O, k=k)
         n_text = W + 4 * k
         col0 = W + 1 - cfg.ncols_band
@@ -565,18 +598,22 @@ def test_c_layout_equals_the_python_layout(tmp_path):
                 ("tb_fused", (cfg.nwb, cfg.ncols_band, col0, W)),
                 ("tail_banded", (cfg.nwb, n_text, 1, n_text)),
                 ("tail_full", (cfg.nw, n_text, 1, n_text))):
-            if genasm_dc.kernel_family(cfg, name) != "xwide":
+            x = genasm_dc.xr_layout(cfg.nw, k, *args)
+            if genasm_dc.kernel_family(cfg, name) == "xwide":
+                geo = genasm_dc.xwide_geometry(cfg, name, n_text)
+                block = (geo.lanes, geo.threads, geo.shared_bytes,
+                         geo.store_words, geo.lane_words)
+            elif cfg.nw <= genasm_dc.NARROW_NW:
+                lanes = genasm_dc.XR_LANES
+                block = (lanes, 32 * lanes, lanes * x["warp_bytes"],
+                         x["store_words"], x["lane_words"])
+            else:
                 assert cfg.nw == 5 and name != "tb_fused"
                 continue
-            geo = genasm_dc.xwide_geometry(cfg, name, n_text)
-            x = genasm_dc.xr_layout(cfg.nw, k, *args)
-            rows.append(" ".join(map(str, (
-                0, cfg.nw, k, *args, geo.lanes, geo.threads,
-                geo.shared_bytes, geo.store_words, geo.lane_words))))
+            rows.append(" ".join(map(str, (0, cfg.nw, k, *args, *block))))
             want.append([x["wt"], x["gw"], x["height"], x["strips"],
-                         x["word_strips"], x["warp_bytes"],
-                         geo.shared_bytes, x["nwbr"], x["nwbs"],
-                         x["store_words"],
+                         x["word_strips"], x["warp_bytes"], block[2],
+                         x["nwbr"], x["nwbs"], x["store_words"],
                          x["below_words"], x["carry_words"],
                          x["lane_words"], 1])
         if cfg.nw <= genasm_dc.TEMPLATE_NW:
